@@ -1,0 +1,764 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (loongx_tpu_torch), one GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line with the card, its power limit and seconds):
+  1. require CUDA, build every kernel from ``loongx_tpu_torch/csrc``;
+  2. every kernel against its plain PyTorch version at the shapes the edit
+     path gives it, with its error, tolerance and times (kernel, plain,
+     bound, one library call as a yardstick);
+  3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
+     gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
+     the plain versions: relative L2 of the velocities after the first
+     double and single block (weight-only and W8A8) and after all 57
+     (W8A8), each beside its rounding floor, the launch count of each
+     kernel and a device profile;
+  4. serve: ``neural_edit`` at 512x512 for two requests (28 steps, W8A8),
+     stage times, ms/step, edits/s, finite outputs of the right shape
+     within loose range limits (the random VAE weights decode a little
+     past [-1, 1]; the share outside is printed), and the card's SM clock
+     and power draw sampled while it serves.
+
+Before the last line come the kernel table as JSON ({"kernels": [...]},
+launch counts from phase 4, the served requests) and the card's name and
+power limit.  The last line is {"ok": true, "device": {...}}.  Any failure
+exits non-zero with no result line.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"]
+
+
+class Failure(Exception):
+    pass
+
+
+def card_line() -> str:
+    out = subprocess.run(SMI_QUERY, capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Phase:
+    def __init__(self, name, card):
+        self.name, self.card = name, card
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        import torch
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - self.t0
+        status = "ok" if exc_type is None else f"FAILED ({exc_type.__name__})"
+        print(f"[phase] {self.name}: {status} | {self.card} | {dt:.1f} s",
+              flush=True)
+        return False
+
+
+@contextlib.contextmanager
+def smi_samples(samples):
+    """Append (SM clock MHz, power draw W) of the card every 200 ms while
+    the block runs; a card below its power limit's draw runs at full clock."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        for line in out.splitlines():
+            try:
+                samples.append(tuple(float(f) for f in line.split(",")))
+            except ValueError:  # "[N/A]" where the card does not report
+                continue
+
+
+def cuda_time_ms(fn, iters=None, budget_ms=300.0):
+    """Mean ms of fn() by CUDA events after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    if iters is None:
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        once = max(start.elapsed_time(end), 1e-3)
+        iters = int(min(50, max(2, budget_ms / once)))
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float, kind: str):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS[kind]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                       "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+# relative L2 of flash against its plain version: a few times the rounding
+# of a bf16 output (2^-9 relative at most per element)
+FLASH_REL_L2 = 1e-2
+
+
+def flash_cases():
+    # (label, S, cond_len, mode, c_factor)
+    return [
+        ("S2560 union", 2560, 1024, "union", None),
+        ("S2560 no_union", 2560, 1024, "no_union", None),
+        ("S2560 independent", 2560, 1024, "independent", None),
+        ("S2560 cfactor0.5", 2560, 1024, "union", 0.5),
+        ("S8704 union", 8704, 4096, "union", None),
+        ("S2000 independent", 2000, 700, "independent", None),
+    ]
+
+
+def check_flash(torch, gen, records):
+    import torch.nn.functional as F
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops.rope import apply_rope, rope_embed
+
+    h, d = 24, 128
+    for label, s, c, mode, cf in flash_cases():
+        q, k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
+        cos, sin = rope_embed(ids.floor())
+        kw = dict(cond_start=s - c, mode=mode, c_factor=cf, rope=(cos, sin),
+                  layout="bshd")
+        out = fa.flash_attention(q, k, v, **kw).float()
+        ref = fa.flash_attention_plain(q, k, v, **kw).float()
+        err = (out - ref).abs().max().item()
+        rel = ((out - ref).norm() / ref.norm()).item()
+        # a few bf16 steps (2^-8 relative each) at the output's largest value
+        tol = 2.0 ** -5 * ref.abs().max().item()
+        ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                                iters=2)
+        # yardstick: SDPA on pre-rotated head-major tensors (rope and the
+        # layout transposes not timed), the same mask or bias
+        qr, kr = (apply_rope(t.transpose(1, 2), cos, sin) for t in (q, k))
+        vr = v.transpose(1, 2).contiguous()
+        row = torch.arange(s, device="cuda") >= s - c
+        if cf is not None:
+            mask = torch.where(row[:, None] != row[None, :],
+                               math.log(cf), 0.0).to(torch.bfloat16)
+        elif mode == "no_union":
+            mask = row[:, None] == row[None, :]
+        elif mode == "independent":
+            mask = ~(row[:, None] & ~row[None, :])
+        else:
+            mask = None
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=mask))
+        pairs = {"union": s * s, "no_union": (s - c) ** 2 + c * c,
+                 "independent": s * s - c * (s - c)}[mode]
+        ops = 4.0 * h * d * pairs
+        nbytes = 4 * s * h * d * 2 + 2 * s * d * 4
+        bms, by = bound_ms(nbytes, ops, "bf16")
+        records.append(dict(kernel="flash_attention", case=label, err=err,
+                            tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bms, bound_by=by))
+        print(f"  flash {label:22s} err {err:.3e} (tol {tol:.2e}) rel L2 "
+              f"{rel:.3e} (bound {FLASH_REL_L2:.0e}) kernel {ms:.3f} ms plain "
+              f"{plain_ms:.3f} sdpa {lib_ms:.3f} bound {bms:.3f} ({by})",
+              flush=True)
+        if not (err <= tol and rel <= FLASH_REL_L2):
+            raise Failure(f"flash {label}: err {err} (tol {tol}), rel L2 "
+                          f"{rel} (bound {FLASH_REL_L2})")
+
+
+def qmm_cases():
+    # (kernel, label, M, K, N, NB, activation)
+    stacked = [
+        ("attn/ff-out", 2048, 3072, 3072, 19, None),
+        ("ff-in gelu", 2048, 3072, 12288, 19, "gelu_tanh"),
+        ("mod 6h", 2048, 3072, 18432, 19, None),
+        ("ff-out K12288", 2048, 12288, 3072, 19, None),
+        ("single mlp gelu", 2560, 3072, 12288, 38, "gelu_tanh"),
+        ("single proj K12288", 2560, 12288, 3072, 38, None),
+        ("mod matvec", 2, 3072, 18432, 19, None),
+    ]
+    flat = [
+        ("x_embedder", 1024, 64, 3072),
+        ("context_embedder", 512, 4096, 3072),
+        ("time in_layer", 1, 256, 3072),
+        ("time out_layer", 1, 3072, 3072),
+        ("vector in_layer", 1, 768, 3072),
+        ("norm_out", 1, 3072, 6144),
+        ("proj_out", 1024, 3072, 64),
+    ]
+    qkv = [("txt", 512, 19), ("img+cond", 2048, 19), ("single", 2560, 38)]
+    return stacked, flat, qkv
+
+
+def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
+                m, k, n):
+    import torch
+    if isinstance(out, tuple):
+        out, ref = torch.stack(out), torch.stack(ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    # one bf16 rounding at the output's scale
+    tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
+    kind = "int8" if w8a8 else "bf16"
+    bms, by = bound_ms(m * k * 2 + k * n + 2 * n * 4 + m * n * 2,
+                       2.0 * m * k * n, kind)
+    mode = "w8a8" if w8a8 else "wonly"
+    records.append(dict(kernel=kernel, case=f"{label} {mode}", m=m, k=k, n=n,
+                        err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bms, bound_by=by))
+    print(f"  {kernel:15s} {label:20s} {mode:5s} M{m} K{k} N{n} err {err:.3e} "
+          f"(tol {tol:.2e}) kernel {ms:.3f} ms plain {plain_ms:.3f} lib "
+          f"{lib_ms:.3f} bound {bms:.3f} ({by})", flush=True)
+    if not err <= tol:
+        raise Failure(f"{kernel} {label} {mode}: err {err} > {tol}")
+
+
+def _check_act_quant(qmm, records, label, x, group, k_pad):
+    """The W8A8 activation pass against its plain version: int8 values and
+    scales must be equal (tolerance 0)."""
+    q, xs = qmm.act_quant(x, group, k_pad)
+    q_ref, xs_ref = qmm.act_quant_plain(x, group, k_pad)
+    err = max((q.float() - q_ref).abs().max().item(),
+              (xs - xs_ref).abs().max().item())
+    ms = cuda_time_ms(lambda: qmm.act_quant(x, group, k_pad))
+    plain_ms = cuda_time_ms(lambda: qmm.act_quant_plain(x, group, k_pad),
+                            iters=2)
+    m, k = x.shape
+    # read bf16 x, write int8 q and fp32 scales; abs, max, divide, round
+    bms, by = bound_ms(m * k * 2 + m * k_pad + m * (k_pad // group) * 4,
+                       4.0 * m * k, "fp32")
+    records.append(dict(kernel="qmm_act_quant", case=label, m=m, k=k,
+                        err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
+                        library_ms=None, bound_ms=bms, bound_by=by))
+    print(f"  {'qmm_act_quant':15s} {label:20s} M{m} K{k} group {group} err "
+          f"{err:.3e} (tol 0) kernel {ms:.3f} ms plain {plain_ms:.3f} bound "
+          f"{bms:.3f} ({by})", flush=True)
+    if err != 0.0:
+        raise Failure(f"qmm_act_quant {label}: err {err} != 0")
+
+
+def _library_call(torch, x, wq, w8a8):
+    """One PyTorch call on the same operands: torch._int_mm on int8
+    activations (W8A8, M > 16) or a cuBLAS bf16 matmul on the dequantized
+    weight.  Returns a no-argument callable."""
+    if w8a8 and x.shape[0] > 16:
+        xq = torch.randint(-127, 128, x.shape, dtype=torch.int8, device="cuda")
+        return lambda: torch._int_mm(xq, wq)
+    wb = wq.to(torch.bfloat16)
+    return lambda: torch.matmul(x, wb)
+
+
+def check_qmm(torch, gen, records):
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    stacked, flat, qkv = qmm_cases()
+    stacks = {}
+
+    def stack(nb, k, n):
+        if (nb, k, n) not in stacks:
+            stacks[(nb, k, n)] = (
+                torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
+                              device="cuda", generator=gen),
+                torch.rand(nb, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5,
+                torch.randn(nb, 1, n, generator=gen, device="cuda") * 0.02)
+        return stacks[(nb, k, n)]
+
+    for w8a8 in (True, False):
+        for label, m, k, n, nb, act in stacked:
+            wq, sc, bi = stack(nb, k, n)
+            blk = nb - 2
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            kw = dict(bias3=bi, activation=act, w8a8=w8a8)
+            run = lambda: qmm.quant_matmul_stacked(x, wq, sc, blk, **kw)
+            group, k_pad = qmm.stacked_w8a8_group(k, n)
+            if w8a8:
+                _check_act_quant(qmm, records, label, x, group, k_pad)
+            plain = lambda: qmm.qmm_plain(x, wq[blk], sc[blk], bi[blk], act,
+                                          w8a8, group, k_pad)
+            out, ref = run(), plain()
+            _qmm_record(records, "qmm_stacked", label, w8a8, out, ref,
+                        cuda_time_ms(run), cuda_time_ms(plain, iters=2),
+                        cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
+                        m, k, n)
+        for label, m, nb in qkv:
+            k, n3 = 3072, 9216
+            wq, sc, bi = stack(nb, k, n3)
+            norm_w = torch.rand(3, n3 // 3, generator=gen, device="cuda") + 0.5
+            norm_w[2] = 1.0
+            blk = nb - 2
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            run = lambda: qmm.quant_qkv_stacked(x, wq, sc, bi, norm_w, blk, 128,
+                                                w8a8=w8a8)
+            group, k_pad = qmm.stacked_w8a8_group(k, n3)
+            plain = lambda: qmm.quant_qkv_plain(x, wq[blk], sc[blk], bi[blk],
+                                                norm_w, 128, w8a8, group, k_pad)
+            out, ref = run(), plain()
+            _qmm_record(records, "qmm_qkv_stacked", label, w8a8, out, ref,
+                        cuda_time_ms(run), cuda_time_ms(plain, iters=2),
+                        cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
+                        m, k, n3)
+        for label, m, k, n in flat:
+            wq = torch.randint(-128, 128, (k, n), dtype=torch.int8,
+                               device="cuda", generator=gen)
+            sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+            bi = torch.randn(1, n, generator=gen, device="cuda") * 0.02
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            run = lambda: qmm.quant_matmul(x, wq, sc, bias=bi, w8a8=w8a8)
+            group, k_pad = qmm.flat_w8a8_group(k, n)
+            if w8a8:
+                _check_act_quant(qmm, records, label, x, group, k_pad)
+            plain = lambda: qmm.qmm_plain(x, wq, sc, bi, None, w8a8, group,
+                                          k_pad)
+            out, ref = run(), plain()
+            _qmm_record(records, "qmm_flat", label, w8a8, out, ref,
+                        cuda_time_ms(run), cuda_time_ms(plain, iters=2),
+                        cuda_time_ms(_library_call(torch, x, wq, w8a8)),
+                        m, k, n)
+    stacks.clear()
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 4
+# ---------------------------------------------------------------------------
+
+
+def attention_fp32_probs(q, k, v, *, cond_start, mode="union", c_factor=None,
+                         rope=None, layout="bhsd"):
+    """The plain attention with float32 probabilities in the PV product (the
+    plain version rounds them to bf16 first): an equally valid rounding,
+    used to measure how far such a choice moves a whole forward."""
+    import torch
+    from loongx_tpu_torch.ops.attention import _block_bias
+    from loongx_tpu_torch.ops.rope import apply_rope
+
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    s = q.shape[2]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    logits = logits / math.sqrt(q.shape[-1])
+    if cond_start < s:
+        bias = _block_bias(s, cond_start, mode, c_factor, q.device)
+        if bias is not None:
+            logits = logits + bias
+    out = torch.matmul(torch.softmax(logits, -1), v.float()).to(q.dtype)
+    return out.transpose(1, 2) if layout == "bshd" else out
+
+
+@contextlib.contextmanager
+def plain_versions(attention=None):
+    """Swap the four kernel wrappers for their plain versions (the model
+    calls them through their modules), for the reference forward;
+    ``attention`` replaces the plain attention."""
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    def flat(x, w_q, scale, *, bias=None, activation=None, w8a8=False):
+        group, k_pad = qmm.flat_w8a8_group(*w_q.shape)
+        return qmm.qmm_plain(x, w_q, scale, bias, activation, w8a8, group,
+                             k_pad)
+
+    def stacked(x, w_q3, scale3, blk, *, bias3=None, activation=None,
+                w8a8=False):
+        group, k_pad = qmm.stacked_w8a8_group(*w_q3.shape[1:])
+        return qmm.qmm_plain(x, w_q3[blk], scale3[blk],
+                             None if bias3 is None else bias3[blk], activation,
+                             w8a8, group, k_pad)
+
+    def qkv(x, w_q3, scale3, bias3, norm_w, blk, head_dim, *, w8a8=False):
+        group, k_pad = qmm.stacked_w8a8_group(*w_q3.shape[1:])
+        return qmm.quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk],
+                                   norm_w, head_dim, w8a8, group, k_pad)
+
+    swaps = [(fa, "flash_attention", attention or fa.flash_attention_plain),
+             (qmm, "quant_matmul", flat), (qmm, "quant_matmul_stacked", stacked),
+             (qmm, "quant_qkv_stacked", qkv)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+KERNELS = ("flash_attention", "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
+           "qmm_act_quant")
+
+
+def device_profile(torch, run):
+    """Device time of one ``run()`` from torch.profiler's CUDA activity:
+    kernel milliseconds by group, the five largest other kernels, and the
+    device's idle share over the span from the first kernel start to the
+    last kernel end.  None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    groups, other = {}, {}
+    for e in events:
+        us = e.time_range.end - e.time_range.start
+        group = next((g for g in ("flash_fwd_kernel", "qmm_kernel",
+                                  "act_quant_kernel") if g in e.name), None)
+        if group is None:
+            group = "other"
+            other[e.name] = other.get(e.name, 0.0) + us
+        groups[group] = groups.get(group, 0.0) + us
+    busy = sum(groups.values())
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
+    return dict(busy_ms=busy / 1e3, span_ms=span / 1e3,
+                idle_share=1.0 - busy / span,
+                by_group_ms={k: v / 1e3 for k, v in groups.items()},
+                top_other_ms={k[:80]: v / 1e3 for k, v in top})
+
+
+INT8_STD = math.sqrt((256 ** 2 - 1) / 12.0)  # uniform int8 bits -128..127
+
+
+def unit_gain(torch, tree):
+    """The same int8 stacks with kernel_scale = 1 / (sqrt(K) * INT8_STD), so
+    that every linear keeps its input's variance.  With the serving scales
+    (0.02 / sqrt(K) / 127) each branch of a block is far below the bf16
+    resolution of the residual stream, the blocks leave it unchanged, and a
+    comparison of whole forwards could not see the kernels at all."""
+    if isinstance(tree, dict):
+        if "kernel_q" in tree:
+            out = dict(tree)
+            out["kernel_scale"] = torch.full_like(
+                tree["kernel_scale"],
+                1.0 / (math.sqrt(tree["kernel_q"].shape[-2]) * INT8_STD))
+            return out
+        return {k: unit_gain(torch, v) for k, v in tree.items()}
+    return tree
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def full_forward(torch, pipe, gen):
+    from loongx_tpu_torch.models.flux.model import flux_forward
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.ops.latents import latent_image_ids
+
+    cfg = pipe.flux_cfg
+    shallow = dataclasses.replace(cfg, num_double_blocks=1,
+                                  num_single_blocks=1)
+    no_blocks = dataclasses.replace(cfg, num_double_blocks=0,
+                                    num_single_blocks=0)
+    # (depth, w8a8, bound on the rel L2 of the velocity kernels vs plain,
+    # largest share of the bound the rounding floor may take).  Any valid
+    # change of bf16 rounding moves a unit-gain velocity by the floor
+    # printed beside each comparison.  After the first double and single
+    # block in weight-only mode the floor is small and the bound stands
+    # well above it.  W8A8 turns every such change into flips of int8
+    # activations and 57 blocks carry them on, so the W8A8 comparisons
+    # read several times their weight-only floor and catch only gross
+    # faults; the W8A8 GEMMs equal their plain versions exactly (phase 2).
+    comparisons = [(shallow, False, 1e-2, 0.5), (shallow, True, 5e-2, None),
+                   (cfg, True, 5e-2, None)]
+    params = unit_gain(torch, pipe.params["flux"])
+    s_txt, s_img = 512, 1024
+    bf = torch.bfloat16
+    kw = dict(
+        img=torch.randn(1, s_img, cfg.in_channels, generator=gen,
+                        device="cuda").to(bf),
+        txt=torch.randn(1, s_txt, cfg.joint_dim, generator=gen,
+                        device="cuda").to(bf),
+        pooled=torch.randn(1, cfg.pooled_dim, generator=gen,
+                           device="cuda").to(bf),
+        cond=torch.randn(1, s_img, cfg.in_channels, generator=gen,
+                         device="cuda").to(bf),
+        timestep=torch.full((1,), 0.7, device="cuda"),
+        guidance=torch.full((1,), 3.5, device="cuda"),
+        img_ids=latent_image_ids(64, 64), cond_ids=latent_image_ids(64, 64),
+        txt_ids=torch.zeros(s_txt, 3, device="cuda"))
+    with torch.inference_mode():
+        flux_forward(params, cfg, w8a8=True, **kw)  # warm
+        torch.cuda.synchronize()
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        flux_forward(params, cfg, w8a8=True, **kw)
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
+        prof = device_profile(torch, lambda: flux_forward(
+            params, cfg, w8a8=True, **kw))
+        with plain_versions():
+            t0 = time.perf_counter()
+            flux_forward(params, cfg, w8a8=True, **kw)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+        print(f"  forward S{s_txt + 2 * s_img}: kernels {t_kernel * 1e3:.1f} "
+              f"ms, plain {t_plain * 1e3:.1f} ms, launches {counts}",
+              flush=True)
+        for depth, w8a8, bound, floor_share in comparisons:
+            def run(depth=depth, w8a8=w8a8):
+                return flux_forward(params, depth, w8a8=w8a8, **kw)
+            v_k = run()
+            with plain_versions():
+                v_p = run()
+            with plain_versions(attention_fp32_probs):
+                v_floor = run()
+            rel = rel_l2(v_k, v_p)
+            # the same comparison between two plain forwards that differ
+            # only in the rounding of the attention probabilities
+            floor = rel_l2(v_floor, v_p)
+            # the comparison sees the blocks only if they move the velocity
+            blocks = rel_l2(run(no_blocks), v_k)
+            finite = bool(torch.isfinite(v_k).all())
+            label = (f"{depth.num_double_blocks}+{depth.num_single_blocks} "
+                     f"blocks {'W8A8' if w8a8 else 'weight-only'}")
+            print(f"  forward {label}: rel L2 {rel:.3e} (bound {bound:.0e}; "
+                  f"plain with float32 probabilities vs plain: {floor:.3e}), "
+                  f"the blocks move the velocity by {blocks:.3f} (rel L2), "
+                  f"finite {finite}", flush=True)
+            if not finite or not rel <= bound:
+                raise Failure(f"forward {label}: rel L2 {rel} (bound {bound}),"
+                              f" finite {finite}")
+            if not blocks >= 0.1:
+                raise Failure(f"forward {label}: the blocks move the velocity "
+                              f"by only {blocks} (rel L2), so the comparison "
+                              f"cannot see them")
+            if floor_share is not None and not floor <= floor_share * bound:
+                raise Failure(f"forward {label}: the rounding floor {floor} "
+                              f"is not small against the bound {bound}")
+    if prof is None:
+        print("  forward device profile: not measured (no device activity "
+              "in the profiler)", flush=True)
+    else:
+        print("  forward device profile: busy {busy_ms:.1f} ms over a span of "
+              "{span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
+              "{by_group_ms}; largest other {top_other_ms}".format(**prof),
+              flush=True)
+    if counts["flash_attention"] != cfg.num_double_blocks + cfg.num_single_blocks:
+        raise Failure(f"flash launches {counts['flash_attention']} != "
+                      f"{cfg.num_double_blocks + cfg.num_single_blocks}")
+    if not all(counts.values()):
+        raise Failure(f"a kernel was not launched: {counts}")
+
+
+STEPS = 28
+# the random VAE weights decode a little past [-1, 1] and the decoder does
+# not clamp; a decoder that blows up leaves these loose limits
+MAX_SHARE_OUTSIDE_UNIT, MAX_ABS_OUT = 0.05, 10.0
+
+
+def serve(torch, pipe):
+    import numpy as np
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.sampling import generate
+
+    stage_names = {"brain_encode": "brain_encode_s", "vae_encode":
+                   "cond_vae_encode_s", "denoise": "denoise_s",
+                   "vae_decode": "decode_s"}
+    times = {}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    requests = []
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        requests.append(dict(
+            cond_image=(rng.random((512, 512, 3)) * 255).astype(np.uint8),
+            eeg=rng.standard_normal((1, 4, 4096)).astype(np.float32),
+            ppg=rng.standard_normal((1, 4, 256)).astype(np.float32),
+            fnirs=rng.standard_normal((1, 6, 512)).astype(np.float32),
+            motion=rng.standard_normal((1, 6, 128)).astype(np.float32),
+            seed=seed))
+    saved = {name: getattr(generate, name) for name in stage_names}
+    served, card_samples = 0, []
+    try:
+        for name, key in stage_names.items():
+            setattr(generate, name, timed(saved[name], key))
+        with smi_samples(card_samples):
+            cuda_build.LAUNCHES.clear()
+            for req in requests:
+                times.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = generate.neural_edit(
+                    pipe, req.pop("cond_image"), **req,
+                    num_inference_steps=STEPS, w8a8=True)
+                dt = time.perf_counter() - t0
+                finite = bool(np.isfinite(img).all())
+                outside = float(np.mean(np.abs(img) > 1.0))
+                peak = float(np.abs(img).max())
+                print(f"  request seed {req['seed']}: edit {dt:.2f} s "
+                      f"({1.0 / dt:.4f} edits/s), "
+                      f"{times['denoise_s'] / STEPS * 1e3:.1f} ms/step x "
+                      f"{STEPS}, stages " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in times.items())
+                      + f", output [{img.min():.3f}, {img.max():.3f}] "
+                      f"({outside:.2e} outside [-1, 1]) finite {finite}",
+                      flush=True)
+                if not (finite and img.shape == (1, 512, 512, 3)
+                        and outside <= MAX_SHARE_OUTSIDE_UNIT
+                        and peak <= MAX_ABS_OUT):
+                    raise Failure(
+                        f"request {req['seed']}: output of shape {img.shape},"
+                        f" finite {finite}, {outside} outside [-1, 1] (limit "
+                        f"{MAX_SHARE_OUTSIDE_UNIT}), max |x| {peak} (limit "
+                        f"{MAX_ABS_OUT})")
+                served += 1
+    finally:
+        for name, fn in saved.items():
+            setattr(generate, name, fn)
+    counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
+    print(f"  launches over {served} requests: {counts}", flush=True)
+    if not all(counts.values()):
+        raise Failure(f"a kernel was not launched while serving: {counts}")
+    if card_samples:
+        clocks = sorted(s[0] for s in card_samples)
+        watts = sorted(s[1] for s in card_samples)
+        print(f"  card while serving ({len(card_samples)} samples): SM clock "
+              f"min {clocks[0]:.0f} MHz, median {clocks[len(clocks) // 2]:.0f}"
+              f" MHz; power draw median {watts[len(watts) // 2]:.1f} W, max "
+              f"{watts[-1]:.1f} W", flush=True)
+    else:
+        print("  card while serving: clocks and power not measured (no "
+              "nvidia-smi samples)", flush=True)
+    return counts
+
+
+def kernel_table(records, launches):
+    """One entry per kernel: the worst error over its cases and the times
+    at its main shape."""
+    meta = {
+        "flash_attention": ("cuda", "loongx_tpu_torch/csrc/flash_attention.cu",
+                            "loongx_tpu/ops/flash_attention.py:193",
+                            "S2560 union"),
+        "qmm_stacked": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
+                        "loongx_tpu/ops/quant_matmul.py:422",
+                        "single mlp gelu w8a8"),
+        "qmm_qkv_stacked": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
+                            "loongx_tpu/ops/quant_matmul.py:1067",
+                            "single w8a8"),
+        "qmm_flat": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
+                     "loongx_tpu/ops/quant_matmul.py:75",
+                     "context_embedder w8a8"),
+        # the activation quantization inside the TPU kernels' W8A8 MAC
+        "qmm_act_quant": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
+                          "loongx_tpu/ops/quant_matmul.py:39",
+                          "single mlp gelu"),
+    }
+    table = []
+    for name, (route, src, replaces, main_case) in meta.items():
+        cases = [r for r in records if r["kernel"] == name]
+        main = next(r for r in cases if r["case"] == main_case)
+        table.append({
+            "name": name, "route": route, "source": src, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shape": main_case,
+        })
+    return table
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from loongx_tpu_torch.ops import cuda_build
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here ({exc})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(f"device: {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}", flush=True)
+    records = []
+    try:
+        with Phase("1 build", card):
+            t0 = time.perf_counter()
+            cuda_build.build()
+            print(f"  built {', '.join(cuda_build.SOURCES)} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with Phase("2 kernels vs plain", card):
+            check_flash(torch, gen, records)
+            check_qmm(torch, gen, records)
+        from loongx_tpu_torch.models.pipeline import LoongXPipeline
+        with Phase("weights", card):
+            pipe = LoongXPipeline.init_serving(seed=0)
+        with Phase("3 full-width forward", card):
+            full_forward(torch, pipe, gen)
+        with Phase("4 serve", card):
+            launches = serve(torch, pipe)
+    except Failure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+
+    print(json.dumps({"kernels": kernel_table(records, launches)}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

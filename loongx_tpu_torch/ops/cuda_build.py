@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels in ``loongx_tpu_torch/csrc``.
+
+Each ``.cu`` source has a plain C interface and is compiled on first use by
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
+``loongx_tpu_torch/_build/<name>-<hash>.so`` (the hash covers the source
+and flags, so an edited source is rebuilt), then loaded with ``ctypes``.
+Every C entry point returns ``cudaGetLastError()`` after its launch; the
+wrappers raise on a non-zero code.
+
+``LAUNCHES`` counts kernel launches by name: each wrapper adds one exactly
+where it launches its kernel.  Callers that want the count of one run reset
+it with ``LAUNCHES.clear()``.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("flash_attention", "quant_matmul")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build with the "
+                       "CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def _nvcc_cmd(name: str, out: Path) -> Sequence[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            str(CSRC_DIR / f"{name}.cu")]
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+    """Compile the named sources that are not built yet, one ``nvcc`` per
+    source, all started together.  Raises with the compiler's output on a
+    failed build.  Returns the library paths."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n) for n in names}
+    procs = {}
+    try:
+        for n, out in paths.items():
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[n] = (subprocess.Popen(
+                _nvcc_cmd(n, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp)
+        errors = []
+        for n, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, paths[n])
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for source ``name`` (built at first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {code}")
