@@ -6,30 +6,41 @@
 Phases (each prints one line with the card, its power limit and seconds):
   1. require CUDA, build every kernel from ``loongx_tpu_torch/csrc``;
   2. every kernel against its plain PyTorch version at the shapes the edit
-     path gives it, with its error, tolerance and times (kernel, plain,
-     bound, one library call as a yardstick);
+     and training paths give it, with its error, tolerance and times
+     (kernel, plain, bound, one library call as a yardstick);
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
      double and single block (weight-only and W8A8) and after all 57
      (W8A8), each beside its rounding floor, the launch count of each
-     kernel and a device profile;
+     kernel and a device profile; then the gradients of every LoRA factor
+     of the training tree's first double and single block (unit gain, LoRA
+     on), kernels vs plain, beside their rounding floor;
   4. serve: ``neural_edit`` at 512x512 for two requests (28 steps, W8A8),
      stage times, ms/step, edits/s, finite outputs of the right shape
      within loose range limits (the random VAE weights decode a little
      past [-1, 1]; the share outside is printed), and the card's SM clock
-     and power draw sampled while it serves.
+     and power draw sampled while it serves;
+  5. train: the serving bundle is freed, the seed_512 QLoRA configuration
+     is built on the card (int8 FLUX.1-dev, LoRA r 4, CS3 + DGF frozen with
+     dropout on, Prodigy, clip 0.5, remat, bf16, batch 1 at 512 px) and
+     takes 4 steps: s/step, loss, grad norm and Prodigy's d per step, peak
+     memory, launches per step; every LoRA B factor must move, int8 and
+     frozen leaves must not; then a fifth step under the profiler gives
+     the step's device time by kernel group.
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
-launch counts from phase 4, the served requests) and the card's name and
-power limit.  The last line is {"ok": true, "device": {...}}.  Any failure
-exits non-zero with no result line.
+launch counts from phase 4 for the forward kernels and from phase 5 for
+the backward ones) and the card's name and power limit.  The last line is
+{"ok": true, "device": {...}}.  Any failure exits non-zero with no result
+line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -351,8 +362,171 @@ def check_qmm(torch, gen, records):
     stacks.clear()
 
 
+def qmm_t_cases():
+    # (kernel, label, M, K, N, NB): dy [M, N] -> dx [M, K] through the
+    # training path's int8 linears (weight [K, N])
+    stacked = [
+        ("dbl qkv/out", 2048, 3072, 3072, 19),
+        ("dbl ff-in", 2048, 3072, 12288, 19),
+        ("dbl ff-out", 2048, 12288, 3072, 19),
+        ("txt qkv/out", 512, 3072, 3072, 19),
+        ("txt ff-in", 512, 3072, 12288, 19),
+        ("txt ff-out", 512, 12288, 3072, 19),
+        ("sgl qkv", 2560, 3072, 3072, 38),
+        ("sgl proj_out", 2560, 15360, 3072, 38),
+        ("sgl proj_mlp", 2560, 3072, 12288, 38),
+    ]
+    flat = [("proj_out", 1024, 3072, 64),
+            ("context_embedder", 512, 4096, 3072)]
+    return stacked, flat
+
+
+def check_qmm_t(torch, gen, records):
+    """Kernels 5 and 6 against their plain version; the yardstick is a
+    cuBLAS bf16 matmul of the pre-scaled dy with the pre-widened weight."""
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    stacked, flat = qmm_t_cases()
+    stacks = {}
+    for kernel, cases in (("qmm_t_stacked", stacked),
+                          ("qmm_t", [(*c, None) for c in flat])):
+        for label, m, k, n, nb in cases:
+            if nb is None:
+                wq = torch.randint(-128, 128, (k, n), dtype=torch.int8,
+                                   device="cuda", generator=gen)
+                sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+                w2, s2 = wq, sc
+                run = lambda: qmm.quant_matmul_t(dy, wq, sc)
+            else:
+                if (nb, k, n) not in stacks:
+                    stacks.clear()
+                    stacks[(nb, k, n)] = (
+                        torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
+                                      device="cuda", generator=gen),
+                        torch.rand(nb, 1, n, generator=gen, device="cuda")
+                        * 2e-5 + 1e-5)
+                wq, sc = stacks[(nb, k, n)]
+                blk = nb - 2
+                w2, s2 = wq[blk], sc[blk]
+                run = lambda: qmm.quant_matmul_t_stacked(dy, wq, sc, blk)
+            dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+            plain = lambda: qmm.qmm_t_plain(dy, w2, s2)
+            out, ref = run(), plain()
+            a = (dy.float() * s2.reshape(-1)).to(torch.bfloat16)
+            wb = w2.to(torch.bfloat16)
+            lib_ms = cuda_time_ms(lambda: torch.matmul(a, wb.t()))
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
+            bms, by = bound_ms(m * n * 2 + k * n + n * 4 + m * k * 2,
+                               2.0 * m * k * n, "bf16")
+            ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=2)
+            records.append(dict(kernel=kernel, case=label, m=m, k=k, n=n,
+                                err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bms, bound_by=by))
+            print(f"  {kernel:15s} {label:20s} dy [{m}, {n}] -> dx [{m}, {k}] "
+                  f"err {err:.3e} (tol {tol:.2e}) kernel {ms:.3f} ms plain "
+                  f"{plain_ms:.3f} cublas {lib_ms:.3f} bound {bms:.3f} ({by})",
+                  flush=True)
+            if not err <= tol:
+                raise Failure(f"{kernel} {label}: err {err} > {tol}")
+    stacks.clear()
+
+
+def flash_bwd_cases():
+    # (label, S, cond_len, mode, layout)
+    return [
+        ("S2560 union", 2560, 1024, "union", "bshd"),
+        ("S2000 independent", 2000, 700, "independent", "bshd"),
+        ("S300 no_union", 300, 77, "no_union", "bshd"),
+        ("S300 independent bhsd", 300, 77, "independent", "bhsd"),
+    ]
+
+
+def check_flash_bwd(torch, gen, records):
+    """The dK/dV and dQ kernels against the plain backward, fed the forward
+    kernel's own residuals; the yardstick is SDPA forward + backward minus
+    its forward, at the same shape without RoPE (union cases)."""
+    import torch.nn.functional as F
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops.rope import rope_embed
+
+    h, d = 24, 128
+    for label, s, c, mode, layout in flash_bwd_cases():
+        shape = (1, s, h, d) if layout == "bshd" else (1, h, s, d)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
+        rope = rope_embed(ids.floor())
+        kw = dict(cond_start=s - c, mode=mode, rope=rope, layout=layout)
+        o, m2, l = fa._forward(q, k, v, s - c, mode, None, rope, layout,
+                               save_residuals=True)
+        di = fa._row_dot(o, do, layout)
+        args = (q, k, v, do, m2, l, di)
+        got = fa.flash_attention_bwd(*args, **kw)
+        ref = fa.flash_attention_bwd_plain(*args, **kw)
+        # the residuals the forward kernel wrote, against the plain ones
+        pm2, pl = fa.flash_residuals_plain(q, k, cond_start=s - c, mode=mode,
+                                           rope=rope, layout=layout)
+        res_err = max((m2 - pm2).abs().max().item(),
+                      ((l - pl).abs() / pl).max().item())
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            err = (a.float() - b.float()).abs().max().item()
+            rel = rel_l2(a, b)
+            tol = 2.0 ** -5 * b.float().abs().max().item()
+            errs[name] = (err, tol, rel)
+            if not (err <= tol and rel <= FLASH_REL_L2):
+                raise Failure(f"flash backward {label} {name}: err {err} "
+                              f"(tol {tol}), rel L2 {rel} (bound {FLASH_REL_L2})")
+        if not res_err <= 1e-4:
+            raise Failure(f"flash residuals {label}: err {res_err} > 1e-4")
+        t_dkv = cuda_time_ms(lambda: fa.flash_attention_bwd(
+            *args, **kw, need_dq=False))
+        t_dq = cuda_time_ms(lambda: fa.flash_attention_bwd(
+            *args, **kw, need_dkv=False))
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(*args, **kw),
+                                iters=2)
+        lib_ms = None
+        if mode == "union":
+            qs, ks_, vs = (t.transpose(1, 2).detach().clone().requires_grad_()
+                           if layout == "bshd" else t.detach().clone().requires_grad_()
+                           for t in (q, k, v))
+            dos = do.transpose(1, 2) if layout == "bshd" else do
+
+            def fwd_bwd():
+                F.scaled_dot_product_attention(qs, ks_, vs).backward(dos)
+
+            lib_ms = cuda_time_ms(fwd_bwd) - cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks_, vs))
+        pairs = {"union": s * s, "no_union": (s - c) ** 2 + c * c,
+                 "independent": s * s - c * (s - c)}[mode]
+        # the backward's work is 5 matmuls of 2*D flops per (query, key)
+        # pair: S, dP, dV, dK in the dK/dV pass, dQ in the dQ pass (the dQ
+        # pass's recompute of S and dP is the two-pass design's overhead)
+        in_bytes = 4 * s * h * d * 2 + 3 * h * s * 4 + 2 * s * d * 4
+        b_dkv = bound_ms(in_bytes + 2 * s * h * d * 2, 8.0 * h * d * pairs, "bf16")
+        b_dq = bound_ms(in_bytes + s * h * d * 2, 2.0 * h * d * pairs, "bf16")
+        for kernel, ms, (bms, by), names in (
+                ("flash_bwd_dkv", t_dkv, b_dkv, ("dk", "dv")),
+                ("flash_bwd_dq", t_dq, b_dq, ("dq",))):
+            records.append(dict(
+                kernel=kernel, case=label, err=max(errs[n][0] for n in names),
+                tol=min(errs[n][1] for n in names), ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by))
+        print(f"  flash bwd {label:22s} "
+              + " ".join(f"{n} err {e:.3e} (tol {t:.2e}) rel L2 {r:.3e}"
+                         for n, (e, t, r) in errs.items())
+              + f" (bound {FLASH_REL_L2:.0e}); residuals err {res_err:.1e}; "
+              f"dK/dV {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}) dQ {t_dq:.3f} ms "
+              f"(bound {b_dq[0]:.3f}); both {t_dkv + t_dq:.3f} ms vs the "
+              f"5-matmul bound {b_dkv[0] + b_dq[0]:.3f}; plain {plain_ms:.3f}; "
+              f"sdpa backward "
+              + ("not timed (masked mode)" if lib_ms is None else f"{lib_ms:.3f}"),
+              flush=True)
+
+
 # ---------------------------------------------------------------------------
-# Phases 3 and 4
+# Phases 3, 4 and 5
 # ---------------------------------------------------------------------------
 
 
@@ -382,9 +556,10 @@ def attention_fp32_probs(q, k, v, *, cond_start, mode="union", c_factor=None,
 
 @contextlib.contextmanager
 def plain_versions(attention=None):
-    """Swap the four kernel wrappers for their plain versions (the model
-    calls them through their modules), for the reference forward;
-    ``attention`` replaces the plain attention."""
+    """Swap the kernel wrappers for their plain versions (the model calls
+    them through their modules), for the reference forward and, under
+    autograd, the reference backward; ``attention`` replaces the plain
+    attention."""
     from loongx_tpu_torch.ops import flash_attention as fa
     from loongx_tpu_torch.ops import quant_matmul as qmm
 
@@ -405,9 +580,26 @@ def plain_versions(attention=None):
         return qmm.quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk],
                                    norm_w, head_dim, w8a8, group, k_pad)
 
+    def flat_vjp(x, w_q, scale, *, w8a8=False):
+        return flat(x, w_q, scale, w8a8=w8a8)
+
+    def stacked_vjp(x, w_q3, scale3, blk, *, w8a8=False):
+        return stacked(x, w_q3, scale3, blk, w8a8=w8a8)
+
+    def gelu_stacked(x, w_q3, scale3, bias3, blk, *, w8a8=False):
+        return stacked(x, w_q3, scale3, blk, bias3=bias3,
+                       activation="gelu_tanh", w8a8=w8a8)
+
+    def gelu_flat(x, w_q, scale, bias, *, w8a8=False):
+        return flat(x, w_q, scale, bias=bias, activation="gelu_tanh", w8a8=w8a8)
+
+    # the differentiable wrappers become autograd through the plain versions
     swaps = [(fa, "flash_attention", attention or fa.flash_attention_plain),
              (qmm, "quant_matmul", flat), (qmm, "quant_matmul_stacked", stacked),
-             (qmm, "quant_qkv_stacked", qkv)]
+             (qmm, "quant_qkv_stacked", qkv), (qmm, "quant_matmul_vjp", flat_vjp),
+             (qmm, "quant_matmul_stacked_vjp", stacked_vjp),
+             (qmm, "quant_linear_gelu_stacked", gelu_stacked),
+             (qmm, "quant_linear_gelu", gelu_flat)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -420,6 +612,8 @@ def plain_versions(attention=None):
 
 KERNELS = ("flash_attention", "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
            "qmm_act_quant")
+TRAIN_KERNELS = ("flash_attention", "qmm_stacked", "qmm_flat", "qmm_t",
+                 "qmm_t_stacked", "flash_bwd_dkv", "flash_bwd_dq")
 
 
 def device_profile(torch, run):
@@ -439,8 +633,10 @@ def device_profile(torch, run):
     groups, other = {}, {}
     for e in events:
         us = e.time_range.end - e.time_range.start
-        group = next((g for g in ("flash_fwd_kernel", "qmm_kernel",
-                                  "act_quant_kernel") if g in e.name), None)
+        group = next((g for g in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                  "flash_bwd_dq_kernel", "qmm_t_kernel",
+                                  "qmm_kernel", "act_quant_kernel")
+                      if g in e.name), None)
         if group is None:
             group = "other"
             other[e.name] = other.get(e.name, 0.0) + us
@@ -579,6 +775,90 @@ def full_forward(torch, pipe, gen):
                       f"{cfg.num_double_blocks + cfg.num_single_blocks}")
     if not all(counts.values()):
         raise Failure(f"a kernel was not launched: {counts}")
+    return kw
+
+
+# bound on the relative L2 of a LoRA factor's gradient, kernels vs plain
+# (full width, first double and single block, unit gain): about 6x the
+# rounding floor, which must stay under half of it
+GRAD_REL_L2 = 5e-2
+
+
+def _unit_gain_lora(torch, tree, gen):
+    """LoRA factors at unit gain (A ~ N(0, 1/in), B ~ N(0, 1/r)), so that
+    both factors have gradients and each delta keeps its input's variance."""
+    if isinstance(tree, dict):
+        if "lora_a" in tree:
+            out = dict(tree)
+            for name in ("lora_a", "lora_b"):
+                t = tree[name]
+                out[name] = (torch.randn(t.shape, generator=gen, device="cuda")
+                             / math.sqrt(t.shape[-2])).to(t.dtype)
+            return out
+        return {k: _unit_gain_lora(torch, v, gen) for k, v in tree.items()}
+    return tree
+
+
+def lora_grads(torch, gen, kw):
+    """Gradients of every LoRA leaf of the training tree's first double and
+    single block (full width, the int8 stacks and LoRA at unit gain, remat
+    on, weight-only) through the kernels and through the plain versions,
+    beside the floor: the same comparison between two plain runs that
+    differ only in the rounding of the attention probabilities."""
+    from loongx_tpu_torch.models.flux.model import FluxConfig, flux_forward
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.train.lora import lora_state_dict
+
+    shallow = dataclasses.replace(FluxConfig.flux_dev(), num_double_blocks=1,
+                                  num_single_blocks=1)
+    pipe = LoongXPipeline.init_training(shallow, seed=1)
+    params = _unit_gain_lora(torch, unit_gain(torch, pipe.params["flux"]), gen)
+    # the trainable factors (lora_scale is frozen in the step)
+    leaves = {k: v for k, v in lora_state_dict(params).items()
+              if not k.endswith("lora_scale")}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    cot = torch.randn(kw["img"].shape, generator=gen, device="cuda")
+
+    def grads(remat):
+        v = flux_forward(params, shallow, remat=remat, **kw)
+        return torch.autograd.grad((v.float() * cot).sum(), list(leaves.values()))
+
+    cuda_build.LAUNCHES.clear()
+    g_k = grads(True)
+    counts = {n: cuda_build.LAUNCHES[n] for n in TRAIN_KERNELS}
+    with plain_versions():
+        g_p = grads(False)
+    with plain_versions(attention_fp32_probs):
+        g_f = grads(False)
+    worst, worst_floor, zero = (0.0, ""), (0.0, ""), []
+    for name, a, b, f in zip(leaves, g_k, g_p, g_f):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise Failure(f"LoRA gradient {name}: not finite")
+        if b.float().norm() == 0:
+            # the last single block's to_q / proj_mlp / proj_out LoRA acts
+            # on condition rows only, which the velocity never reads
+            zero.append(name)
+            if a.float().norm() != 0:
+                raise Failure(f"LoRA gradient {name}: plain is zero, kernels not")
+            continue
+        rel, floor = rel_l2(a, b), rel_l2(f, b)
+        worst, worst_floor = max(worst, (rel, name)), max(worst_floor, (floor, name))
+        if not rel <= GRAD_REL_L2:
+            raise Failure(f"LoRA gradient {name}: rel L2 {rel} (bound "
+                          f"{GRAD_REL_L2}, floor {floor})")
+    if not worst_floor[0] <= 0.5 * GRAD_REL_L2:
+        raise Failure(f"LoRA gradients: the rounding floor {worst_floor} is not "
+                      f"small against the bound {GRAD_REL_L2}")
+    print(f"  LoRA gradients, 1+1 blocks at full width ({len(leaves)} factors, "
+          f"{len(zero)} zero in both: {zero}): rel L2 kernels vs plain at most "
+          f"{worst[0]:.3e} ({worst[1]}; bound {GRAD_REL_L2:.0e}); plain with "
+          f"float32 probabilities vs plain at most {worst_floor[0]:.3e} "
+          f"({worst_floor[1]}); launches {counts}", flush=True)
+    if not all(counts[n] for n in ("flash_bwd_dkv", "flash_bwd_dq",
+                                   "qmm_t_stacked", "qmm_t")):
+        raise Failure(f"a backward kernel was not launched: {counts}")
 
 
 STEPS = 28
@@ -672,6 +952,140 @@ def serve(torch, pipe):
     return counts
 
 
+TRAIN_STEPS = 4
+# configs/seed_512.yaml's optimizer and model flags
+SEED_512_OPTIMIZER = {"type": "Prodigy", "params": dict(
+    lr=0.1, use_bias_correction=True, safeguard_warmup=True, weight_decay=0.01)}
+SEED_512_FLAGS = {"union_cond_attn": True, "add_cond_attn": False,
+                  "latent_lora": False}
+
+
+def _byte_sums(torch, tree):
+    """{path: sum of the leaf's bytes} (int64, one block at a time): a
+    checksum of every leaf of a frozen tree."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, f"{path}/{i}")
+        elif t is not None:
+            b = t.detach().contiguous().reshape(-1, t.shape[-1] if t.ndim else 1)
+            b = b.view(torch.uint8)
+            out[path] = int(sum(torch.sum(b[i:i + 4096], dtype=torch.int64)
+                                for i in range(0, b.shape[0], 4096)))
+
+    walk(tree, "")
+    return out
+
+
+def train(torch):
+    """The seed_512 QLoRA step at full FLUX.1-dev width and depth."""
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.ops.latents import latent_image_ids
+    from loongx_tpu_torch.train.lora import lora_state_dict
+    from loongx_tpu_torch.train.optim import build_optimizer
+    from loongx_tpu_torch.train.step import (
+        make_train_step, partition, trainable_mask,
+    )
+
+    t0 = time.perf_counter()
+    pipe = LoongXPipeline.init_training(seed=0)
+    cfg = pipe.flux_cfg
+    trainable, frozen = partition(pipe.params, trainable_mask(pipe.params))
+    init_fn, step_fn = make_train_step(
+        cfg, build_optimizer(SEED_512_OPTIMIZER), flags=SEED_512_FLAGS,
+        use_brain_condition=True, fuse_flag=True, remat=True, grad_clip=0.5,
+        dtype=torch.bfloat16)
+    state = init_fn(trainable)
+    # the trainable tree holds the LoRA factors only (lora_scale is frozen)
+    lora_sd = lora_state_dict(trainable["flux"])
+    lora_names, lora = list(lora_sd), list(lora_sd.values())
+    lora0 = [p.detach().clone() for p in lora]
+    sums0 = _byte_sums(torch, frozen)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    ids = latent_image_ids(64, 64)
+    batch = dict(x0=rand(1, 1024, 64), cond_tokens=rand(1, 1024, 64),
+                 prompt_embeds=rand(1, 512, 4096, scale=0.1),
+                 pooled=rand(1, 768, scale=0.1), img_ids=ids, cond_ids=ids,
+                 txt_ids=torch.zeros(512, 3, device="cuda"),
+                 eeg=rand(1, 4, 4096), ppg=rand(1, 4, 256), fnirs=rand(1, 6, 512),
+                 motion=rand(1, 6, 128))
+    n_lora = sum(p.numel() for p in lora)
+    print(f"  training tree built in {time.perf_counter() - t0:.1f} s: "
+          f"{len(lora)} LoRA leaves ({n_lora / 1e6:.2f} M params), "
+          f"{len(sums0)} frozen leaves", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    times, per_step = [], []
+    for i in range(TRAIN_STEPS):
+        before = dict(cuda_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, frozen, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append({n: cuda_build.LAUNCHES[n] - before.get(n, 0)
+                         for n in TRAIN_KERNELS})
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        d = float(state.optimizer.d)
+        print(f"  step {i + 1}: {times[-1]:.3f} s, loss {loss:.6f}, grad norm "
+              f"{norm:.6e}, t {float(m['t_mean']):.4f}, Prodigy d {d:.6e}"
+              + (" (warm-up)" if i == 0 else ""), flush=True)
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise Failure(f"train step {i + 1}: loss {loss}, grad norm {norm}")
+    launches = {n: cuda_build.LAUNCHES[n] for n in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = times[1:]
+    print(f"  {sum(steady) / len(steady):.3f} s/step over steps 2-{TRAIN_STEPS} "
+          f"({min(steady):.3f}-{max(steady):.3f}); peak memory {peak:.2f} GiB",
+          flush=True)
+    print(f"  launches per step {per_step[-1]} (remat: every block's forward "
+          f"kernels run twice, once in the forward and once recomputed in the "
+          f"backward); over {TRAIN_STEPS} steps {launches}", flush=True)
+    moved = {name: not torch.equal(a, b)
+             for name, a, b in zip(lora_names, lora, lora0)}
+    delta = sum(float((a.detach().float() - b.float()).abs().sum())
+                for a, b in zip(lora, lora0))
+    changed = [k for k, v in _byte_sums(torch, frozen).items() if v != sums0[k]]
+    print(f"  LoRA leaves moved: {sum(moved.values())} of {len(lora)} (sum "
+          f"|delta| {delta:.6e}); frozen leaves changed: {len(changed)} of "
+          f"{len(sums0)}", flush=True)
+    # B starts at 0, so any update shows in bf16; A ~ N(0, 1) / r moves by
+    # about lr * d = 1e-7 per step while Prodigy's d is at d0, far below its
+    # bf16 resolution, so A stays put in the first steps (in JAX as well)
+    still = [n for n, did in moved.items() if n.endswith("lora_b") and not did]
+    if still:
+        raise Failure(f"LoRA B factors left unchanged: {still}")
+    if changed:
+        raise Failure(f"frozen leaves changed: {changed[:5]}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise Failure(f"kernels not launched while training: {missing}")
+    # one more step under the profiler, outside the timings and the counts
+    prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
+    if prof is None:
+        print("  step device profile: not measured (no device activity in the "
+              "profiler)", flush=True)
+    else:
+        print("  step device profile: busy {busy_ms:.1f} ms over a span of "
+              "{span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
+              "{by_group_ms}; largest other {top_other_ms}".format(**prof),
+              flush=True)
+    del state, trainable, frozen, pipe
+    return launches
+
+
 def kernel_table(records, launches):
     """One entry per kernel: the worst error over its cases and the times
     at its main shape."""
@@ -692,14 +1106,24 @@ def kernel_table(records, launches):
         "qmm_act_quant": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
                           "loongx_tpu/ops/quant_matmul.py:39",
                           "single mlp gelu"),
+        "qmm_t": ("cuda", "loongx_tpu_torch/csrc/quant_matmul_t.cu",
+                  "loongx_tpu/ops/quant_matmul.py:192", "proj_out"),
+        "qmm_t_stacked": ("cuda", "loongx_tpu_torch/csrc/quant_matmul_t.cu",
+                          "loongx_tpu/ops/quant_matmul.py:711", "sgl proj_mlp"),
+        "flash_bwd_dkv": ("cuda", "loongx_tpu_torch/csrc/flash_attention.cu",
+                          "loongx_tpu/ops/flash_attention.py:593", "S2560 union"),
+        "flash_bwd_dq": ("cuda", "loongx_tpu_torch/csrc/flash_attention.cu",
+                         "loongx_tpu/ops/flash_attention.py:656", "S2560 union"),
     }
     table = []
     for name, (route, src, replaces, main_case) in meta.items():
         cases = [r for r in records if r["kernel"] == name]
         main = next(r for r in cases if r["case"] == main_case)
+        path = "train" if name in launches["train"] and (
+            name not in launches["serve"]) else "serve"
         table.append({
             "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[path][name], "launches_path": path,
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -741,13 +1165,21 @@ def main() -> int:
         with Phase("2 kernels vs plain", card):
             check_flash(torch, gen, records)
             check_qmm(torch, gen, records)
+            check_qmm_t(torch, gen, records)
+            check_flash_bwd(torch, gen, records)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
-        with Phase("3 full-width forward", card):
-            full_forward(torch, pipe, gen)
+        with Phase("3 full-width forward and LoRA gradients", card):
+            kw = full_forward(torch, pipe, gen)
+            lora_grads(torch, gen, kw)
         with Phase("4 serve", card):
-            launches = serve(torch, pipe)
+            launches = {"serve": serve(torch, pipe)}
+        pipe = kw = None  # free the serving bundle before training
+        gc.collect()
+        torch.cuda.empty_cache()
+        with Phase("5 train", card):
+            launches["train"] = train(torch)
     except Failure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

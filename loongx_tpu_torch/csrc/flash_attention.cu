@@ -1,10 +1,16 @@
-// Flash-attention forward for the unified [txt | img | cond] sequence, Hopper (sm_90a).
+// Flash attention for the unified [txt | img | cond] sequence, Hopper (sm_90a): the forward
+// and the two backward passes.
 //
-// Replaces the TPU kernel loongx_tpu/ops/flash_attention.py::_fwd_kernel (launched by
-// _flash_fwd, pallas_call at :512): exact softmax attention with an fp32 online softmax,
+// Forward: replaces the TPU kernel loongx_tpu/ops/flash_attention.py::_fwd_kernel (launched
+// by _flash_fwd, pallas_call at :512): exact softmax attention with an fp32 online softmax,
 // block masks built from the scalar cond_start (union / no_union / independent), an
 // additive log(c_factor) bias that replaces the masks, padded keys masked, and
-// interleaved-pair RoPE applied to q and k as their tiles load.
+// interleaved-pair RoPE applied to q and k as their tiles load.  With save_residuals it
+// also writes the per-row softmax statistics the backward rebuilds P from, in base 2:
+//   m2[b, h, i] = max_j s2_ij,  l[b, h, i] = sum_j 2^(s2_ij - m2_i),
+//   s2_ij = (q_i . k_j) * (scale * log2 e)  (masked: MASK_VALUE),
+// so P_ij = 2^(s2_ij - m2_i) / l_i.  The TPU kernel's natural-base m is m2 / log2 e; its l
+// is the same sum.
 //
 // What bounds it on this card: at the FLUX shapes (S = 2560 or 8704, D = 128, 24 heads) the
 // two matmuls are 4*S*S*D flops per head, about 80 GFLOP at S = 2560 against ~80 MB of
@@ -69,12 +75,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 // rotating interleaved pairs when cos/sin are given:
 //   out[2i] = x[2i] cos[2i] - x[2i+1] sin[2i],  out[2i+1] = x[2i+1] cos[2i+1] + x[2i] sin[2i+1]
 // in fp32 with separate roundings (no fma contraction), then rounded to bf16.
-template <int D, int ROWS>
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* base,
                                           long long ss, int r0, int S, const float* cos,
                                           const float* sin) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NTHREADS) {
+  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NT) {
     const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8;
     const int s = r0 + r;
     uint4 raw = make_uint4(0, 0, 0, 0);
@@ -108,7 +114,8 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 const float* __restrict__ cos, const float* __restrict__ sin, int S,
+                 const float* __restrict__ cos, const float* __restrict__ sin,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int H, int S,
                  long long sb, long long ss, long long sh, int cond_start, int mode,
                  float cbias, float scale) {
   constexpr int LD = D + PAD;
@@ -128,7 +135,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   // Q tile (rotated) -> registers, staged through the K|V buffer.
   static_assert(BQ == 2 * BKV, "the Q tile is staged in the K and V buffers");
-  load_tile<D, BQ>(smem, q + head, ss, q0, S, cos, sin);
+  load_tile<D, BQ, NTHREADS>(smem, q + head, ss, q0, S, cos, sin);
   __syncthreads();
   uint32_t qf[KSTEPS][4];
 #pragma unroll
@@ -150,8 +157,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   for (int kv0 = 0; kv0 < S; kv0 += BKV) {
     __syncthreads();  // every warp is done with the previous K/V (or Q) tile
-    load_tile<D, BKV>(ks, k + head, ss, kv0, S, cos, sin);
-    load_tile<D, BKV>(vs, v + head, ss, kv0, S, nullptr, nullptr);
+    load_tile<D, BKV, NTHREADS>(ks, k + head, ss, kv0, S, cos, sin);
+    load_tile<D, BKV, NTHREADS>(vs, v + head, ss, kv0, S, nullptr, nullptr);
     __syncthreads();
 
     // scores: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
@@ -243,10 +250,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
   }
 
-  // normalise (l == 0 guarded like the TPU kernel) and store
+  // normalise (l == 0 guarded like the TPU kernel) and store; the residuals are the row's
+  // running max and sum, reduced over the quad, written once per row
+  const long long stat = ((long long)blockIdx.z * H + blockIdx.y) * S;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row_id[r] >= S) continue;
+    if (m_out != nullptr && t == 0) {
+      m_out[stat + row_id[r]] = m_run[r];
+      l_out[stat + row_id[r]] = l_run[r];
+    }
     const float l = l_run[r] == 0.f ? 1.f : l_run[r];
     __nv_bfloat16* orow = o + head + (long long)row_id[r] * ss;
 #pragma unroll
@@ -258,15 +271,401 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+// ---------------------------------------------------------------------------------------
+// Backward: dK/dV pass and dQ pass (Dao-style two-pass backward, no atomics)
+// ---------------------------------------------------------------------------------------
+//
+// Replace loongx_tpu/ops/flash_attention.py::_bwd_dkv_kernel (pallas_call :798) and
+// ::_bwd_dq_kernel (:834).  Both rebuild P from the forward's base-2 residuals,
+//   P_ij = 2^(s2_ij - m2_i) / l_i   (l == 0 rows: m2 = 0, l = 1; padded query rows: P = 0),
+// with the forward's masks (padded keys, no_union, independent), and take
+// di_i = rowsum(o_i * do_i) (fp32, computed by the caller) for
+//   dS_ij = P_ij * (dP_ij - di_i) * scale,  dP = dO V^T.
+// q and k are RoPE-rotated as their tiles load (rounded to bf16, as in the forward); dK and
+// dQ are rotated back (the transpose of the rotation) as they are stored.  P and dS enter
+// the tensor cores rounded to bf16; every sum is fp32.
+//
+// What bounds them on this card: the dK/dV pass does 4 matmuls (S, dP, dV, dK) and the dQ
+// pass 3 (S, dP, dQ) of 2*S*S*D flops per head, 7 against the 5 an ideal single pass needs
+// (the two-pass design recomputes S and dP instead of accumulating dQ with atomics); at
+// S = 2560, D = 128 that is ~12 GFLOP per head against ~3 MB of operands: tensor-core
+// operations bound them.  Design, kept simple: blocks of 4 warps; in the dK/dV pass each
+// block owns 64 keys (16 per warp) with dK and dV accumulated in registers and loops over
+// all query tiles (32 rows per step), in the dQ pass each block owns 64 query rows with dQ
+// in registers and loops over all key tiles (64 per step).  The loop over the sequence
+// runs inside the block, the TPU kernels' sequential grid axis.  mma.sync m16n8k16 with
+// ldmatrix fragments from shared memory; a C fragment of P or dS becomes the A fragment of
+// the next product in registers.  No cp.async/TMA pipeline and no wgmma yet.
+
+constexpr int BWD_THREADS = 128;  // 4 warps
+constexpr int DKV_KEYS = 64;      // keys per dK/dV block (16 per warp)
+constexpr int DKV_QSTEP = 32;     // query rows per dK/dV loop step
+constexpr int DQ_ROWS = 64;       // query rows per dQ block (16 per warp)
+constexpr int DQ_KSTEP = 64;      // keys per dQ loop step
+
+__device__ __forceinline__ bool masked(int mode, bool row_cond, bool col_cond) {
+  return (mode == NO_UNION && row_cond != col_cond) ||
+         (mode == INDEPENDENT && row_cond && !col_cond);
+}
+
+// The A fragment (16 x 16, row-major) at rows r0.., cols c0.. of a shared tile.
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&r)[4], const __nv_bfloat16* tile, int ld,
+                                           int r0, int c0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(r, tile + (r0 + lane % 8 + 8 * ((lane / 8) % 2)) * ld + c0 + 8 * (lane / 16));
+}
+
+// Inverse RoPE of an interleaved pair (x0, x1) at (row, c): the transpose of the rotation,
+// y = x * cos - (x @ R) * sin, as the TPU kernels store dq / dk.
+__device__ __forceinline__ void rope_back(float& x0, float& x1, const float* cos,
+                                          const float* sin, int D, int row, int c) {
+  if (cos == nullptr) return;
+  const float2 cc = *reinterpret_cast<const float2*>(cos + (long long)row * D + c);
+  const float2 sn = *reinterpret_cast<const float2*>(sin + (long long)row * D + c);
+  const float y0 = __fadd_rn(__fmul_rn(x0, cc.x), __fmul_rn(x1, sn.x));
+  const float y1 = __fsub_rn(__fmul_rn(x1, cc.y), __fmul_rn(x0, sn.y));
+  x0 = y0;
+  x1 = y1;
+}
+
+struct BwdArgs {
+  const __nv_bfloat16 *q, *k, *v, *dout;
+  const float *m2, *l, *di, *cos, *sin;
+  __nv_bfloat16 *dq, *dk, *dv;
+  int H, S;
+  long long sb, ss, sh;
+  int cond_start, mode;
+  float scale;
+};
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkv_kernel(const BwdArgs p) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  constexpr int LD = D + PAD;
+  constexpr int KSTEPS = D / 16, DTILES = D / 8, NQ = DKV_QSTEP / 8;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* vs = ks + DKV_KEYS * LD;
+  __nv_bfloat16* qs = vs + DKV_KEYS * LD;
+  __nv_bfloat16* dos = qs + DKV_QSTEP * LD;
+  float* m_s = reinterpret_cast<float*>(dos + DKV_QSTEP * LD);
+  float* il_s = m_s + DKV_QSTEP;
+  float* di_s = il_s + DKV_QSTEP;
+
+  const int k0 = blockIdx.x * DKV_KEYS;
+  const long long head = (long long)blockIdx.z * p.sb + (long long)blockIdx.y * p.sh;
+  const long long stat = ((long long)blockIdx.z * p.H + blockIdx.y) * p.S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mi = lane / 8, mr = lane % 8;
+  const int wk = warp * 16;  // this warp's first key inside the tile
+  const float scale_log2 = p.scale * LOG2E;
+  const int key_id[2] = {k0 + wk + g, k0 + wk + g + 8};
+  const bool key_cond[2] = {key_id[0] >= p.cond_start, key_id[1] >= p.cond_start};
+
+  load_tile<D, DKV_KEYS, BWD_THREADS>(ks, p.k + head, p.ss, k0, p.S, p.cos, p.sin);
+  load_tile<D, DKV_KEYS, BWD_THREADS>(vs, p.v + head, p.ss, k0, p.S, nullptr, nullptr);
+
+  float dk[DTILES][4], dv[DTILES][4];
+#pragma unroll
+  for (int i = 0; i < DTILES; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int q0 = 0; q0 < p.S; q0 += DKV_QSTEP) {
+    __syncthreads();  // every warp is done with the previous Q / dO tile and its stats
+    load_tile<D, DKV_QSTEP, BWD_THREADS>(qs, p.q + head, p.ss, q0, p.S, p.cos, p.sin);
+    load_tile<D, DKV_QSTEP, BWD_THREADS>(dos, p.dout + head, p.ss, q0, p.S, nullptr, nullptr);
+    for (int i = threadIdx.x; i < DKV_QSTEP; i += BWD_THREADS) {
+      const int row = q0 + i;
+      float m = 0.f, il = 0.f, d = 0.f;  // padded query rows: P = 0
+      if (row < p.S) {
+        const float l = p.l[stat + row];
+        m = l == 0.f ? 0.f : p.m2[stat + row];
+        il = 1.f / (l == 0.f ? 1.f : l);
+        d = p.di[stat + row];
+      }
+      m_s[i] = m;
+      il_s[i] = il;
+      di_s[i] = d;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x DKV_QSTEP queries per warp
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int nn = 0; nn < NQ; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nn][e] = dpt[nn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; kk += 2) {
+      uint32_t ka0[4], ka1[4], va0[4], va1[4];
+      ldmatrix_a(ka0, ks, LD, wk, kk * 16);
+      ldmatrix_a(ka1, ks, LD, wk, kk * 16 + 16);
+      ldmatrix_a(va0, vs, LD, wk, kk * 16);
+      ldmatrix_a(va1, vs, LD, wk, kk * 16 + 16);
+#pragma unroll
+      for (int nn = 0; nn < NQ; ++nn) {
+        const int off = (nn * 8 + mr) * LD + (mi % 2) * 8 + (mi / 2) * 16 + kk * 16;
+        uint32_t b[4];
+        ldmatrix_x4(b, qs + off);
+        mma_bf16(st[nn], ka0, b[0], b[1]);
+        mma_bf16(st[nn], ka1, b[2], b[3]);
+        ldmatrix_x4(b, dos + off);
+        mma_bf16(dpt[nn], va0, b[0], b[1]);
+        mma_bf16(dpt[nn], va1, b[2], b[3]);
+      }
+    }
+
+    // P^T and dS^T (fp32), then bf16 A fragments (k = query)
+    uint32_t pf[NQ / 2][4], dsf[NQ / 2][4];
+#pragma unroll
+    for (int nn = 0; nn < NQ; ++nn) {
+      float pv[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const int qi = nn * 8 + 2 * t + (e % 2);
+        const int qrow = q0 + qi;
+        float s = st[nn][e] * scale_log2;
+        if (key_id[r] >= p.S || masked(p.mode, qrow >= p.cond_start, key_cond[r]))
+          s = MASK_VALUE;
+        pv[e] = exp2f(s - m_s[qi]) * il_s[qi];
+        ds[e] = pv[e] * (dpt[nn][e] - di_s[qi]) * p.scale;
+      }
+      pf[nn / 2][(nn % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
+      pf[nn / 2][(nn % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+      dsf[nn / 2][(nn % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nn / 2][(nn % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q (B operands: dO and Q transposed out of shared memory)
+#pragma unroll
+    for (int kq = 0; kq < NQ / 2; ++kq) {
+      const int off = (kq * 16 + (mi % 2) * 8 + mr) * LD + (mi / 2) * 8;
+#pragma unroll
+      for (int dn = 0; dn < DTILES; dn += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, dos + off + dn * 8);
+        mma_bf16(dv[dn], pf[kq], b[0], b[1]);
+        mma_bf16(dv[dn + 1], pf[kq], b[2], b[3]);
+        ldmatrix_x4_trans(b, qs + off + dn * 8);
+        mma_bf16(dk[dn], dsf[kq], b[0], b[1]);
+        mma_bf16(dk[dn + 1], dsf[kq], b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key_id[r] >= p.S) continue;
+    __nv_bfloat16* dkrow = p.dk + head + (long long)key_id[r] * p.ss;
+    __nv_bfloat16* dvrow = p.dv + head + (long long)key_id[r] * p.ss;
+#pragma unroll
+    for (int dn = 0; dn < DTILES; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      float x0 = dk[dn][2 * r], x1 = dk[dn][2 * r + 1];
+      rope_back(x0, x1, p.cos, p.sin, D, key_id[r], c);
+      *reinterpret_cast<uint32_t*>(dkrow + c) = pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(dvrow + c) = pack_bf16(dv[dn][2 * r], dv[dn][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_kernel(const BwdArgs p) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  constexpr int LD = D + PAD;
+  constexpr int KSTEPS = D / 16, DTILES = D / 8, NK = DQ_KSTEP / 8;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* dos = qs + DQ_ROWS * LD;
+  __nv_bfloat16* ks = dos + DQ_ROWS * LD;
+  __nv_bfloat16* vs = ks + DQ_KSTEP * LD;
+
+  const int q0 = blockIdx.x * DQ_ROWS;
+  const long long head = (long long)blockIdx.z * p.sb + (long long)blockIdx.y * p.sh;
+  const long long stat = ((long long)blockIdx.z * p.H + blockIdx.y) * p.S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mi = lane / 8, mr = lane % 8;
+  const int wr = warp * 16;
+  const float scale_log2 = p.scale * LOG2E;
+
+  load_tile<D, DQ_ROWS, BWD_THREADS>(qs, p.q + head, p.ss, q0, p.S, p.cos, p.sin);
+  load_tile<D, DQ_ROWS, BWD_THREADS>(dos, p.dout + head, p.ss, q0, p.S, nullptr, nullptr);
+
+  int row_id[2];
+  bool row_cond[2];
+  float m_row[2], il_row[2], di_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_id[r] = q0 + wr + g + 8 * r;
+    row_cond[r] = row_id[r] >= p.cond_start;
+    m_row[r] = il_row[r] = di_row[r] = 0.f;  // padded query rows: P = 0
+    if (row_id[r] < p.S) {
+      const float l = p.l[stat + row_id[r]];
+      m_row[r] = l == 0.f ? 0.f : p.m2[stat + row_id[r]];
+      il_row[r] = 1.f / (l == 0.f ? 1.f : l);
+      di_row[r] = p.di[stat + row_id[r]];
+    }
+  }
+
+  float dq[DTILES][4];
+#pragma unroll
+  for (int i = 0; i < DTILES; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  for (int kv0 = 0; kv0 < p.S; kv0 += DQ_KSTEP) {
+    __syncthreads();  // every warp is done with the previous K / V tile (and Q, dO are stored)
+    load_tile<D, DQ_KSTEP, BWD_THREADS>(ks, p.k + head, p.ss, kv0, p.S, p.cos, p.sin);
+    load_tile<D, DQ_KSTEP, BWD_THREADS>(vs, p.v + head, p.ss, kv0, p.S, nullptr, nullptr);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: 16 rows x DQ_KSTEP keys per warp
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int nn = 0; nn < NK; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nn][e] = dp[nn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; kk += 2) {
+      uint32_t qa0[4], qa1[4], da0[4], da1[4];
+      ldmatrix_a(qa0, qs, LD, wr, kk * 16);
+      ldmatrix_a(qa1, qs, LD, wr, kk * 16 + 16);
+      ldmatrix_a(da0, dos, LD, wr, kk * 16);
+      ldmatrix_a(da1, dos, LD, wr, kk * 16 + 16);
+#pragma unroll
+      for (int nn = 0; nn < NK; ++nn) {
+        const int off = (nn * 8 + mr) * LD + (mi % 2) * 8 + (mi / 2) * 16 + kk * 16;
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + off);
+        mma_bf16(sc[nn], qa0, b[0], b[1]);
+        mma_bf16(sc[nn], qa1, b[2], b[3]);
+        ldmatrix_x4(b, vs + off);
+        mma_bf16(dp[nn], da0, b[0], b[1]);
+        mma_bf16(dp[nn], da1, b[2], b[3]);
+      }
+    }
+
+    // dS (fp32) -> bf16 A fragments (k = key)
+    uint32_t dsf[NK / 2][4];
+#pragma unroll
+    for (int nn = 0; nn < NK; ++nn) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const int col = kv0 + nn * 8 + 2 * t + (e % 2);
+        float s = sc[nn][e] * scale_log2;
+        if (col >= p.S || masked(p.mode, row_cond[r], col >= p.cond_start)) s = MASK_VALUE;
+        const float pv = exp2f(s - m_row[r]) * il_row[r];
+        ds[e] = pv * (dp[nn][e] - di_row[r]) * p.scale;
+      }
+      dsf[nn / 2][(nn % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nn / 2][(nn % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K (B operand: K transposed out of shared memory)
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      const __nv_bfloat16* kaddr = ks + (kk * 16 + (mi % 2) * 8 + mr) * LD + (mi / 2) * 8;
+#pragma unroll
+      for (int dn = 0; dn < DTILES; dn += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, kaddr + dn * 8);
+        mma_bf16(dq[dn], dsf[kk], b[0], b[1]);
+        mma_bf16(dq[dn + 1], dsf[kk], b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row_id[r] >= p.S) continue;
+    __nv_bfloat16* dqrow = p.dq + head + (long long)row_id[r] * p.ss;
+#pragma unroll
+    for (int dn = 0; dn < DTILES; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      float x0 = dq[dn][2 * r], x1 = dq[dn][2 * r + 1];
+      rope_back(x0, x1, p.cos, p.sin, D, row_id[r], c);
+      *reinterpret_cast<uint32_t*>(dqrow + c) = pack_bf16(x0, x1);
+    }
+  }
+}
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return (2 * DKV_KEYS + 2 * DKV_QSTEP) * (D + PAD) * 2 + 3 * DKV_QSTEP * 4;
+}
+template <int D>
+constexpr int dq_smem_bytes() {
+  return (2 * DQ_ROWS + 2 * DQ_KSTEP) * (D + PAD) * 2;
+}
+
+template <int D>
+cudaError_t launch_bwd(bool dkv, const BwdArgs& a, int B, cudaStream_t st) {
+  const int bytes = dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>();
+  auto* kernel = dkv ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
+  // above 48 KB a block's shared memory must be opted into (cheap; set on every launch)
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int rows = dkv ? DKV_KEYS : DQ_ROWS;
+  const dim3 grid((a.S + rows - 1) / rows, a.H, B);
+  kernel<<<grid, BWD_THREADS, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+int bwd_entry(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+              const float* m2, const float* l, const float* di, const float* cos,
+              const float* sin, void* dq, void* dk, void* dv, int B, int H, int S, int D,
+              long long sb, long long ss, long long sh, int cond_start, int mode, float scale,
+              void* stream) {
+  if (mode != UNION && mode != NO_UNION && mode != INDEPENDENT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.m2 = m2;
+  a.l = l;
+  a.di = di;
+  a.cos = cos;
+  a.sin = sin;
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.H = H;
+  a.S = S;
+  a.sb = sb;
+  a.ss = ss;
+  a.sh = sh;
+  a.cond_start = cond_start;
+  a.mode = mode;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 128) {
+    err = launch_bwd<128>(dkv, a, B, st);
+  } else if (D == 64) {
+    err = launch_bwd<64>(dkv, a, B, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // q, k, v, o: bf16 with element strides (sb, ss, sh) for (batch, seq, head) and a unit
-// head-dim stride; cos/sin: fp32 [S, D] or null.  Returns cudaGetLastError().
+// head-dim stride; cos/sin: fp32 [S, D] or null; m_out/l_out: fp32 [B, H, S] residuals or
+// null.  Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const float* cos, const float* sin, int B, int H, int S,
-                                   int D, long long sb, long long ss, long long sh,
-                                   int cond_start, int mode, float cbias, float scale,
-                                   void* stream) {
+                                   const float* cos, const float* sin, float* m_out,
+                                   float* l_out, int B, int H, int S, int D, long long sb,
+                                   long long ss, long long sh, int cond_start, int mode,
+                                   float cbias, float scale, void* stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -274,13 +673,38 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   if (D == 128) {
-    flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, cos, sin, S, sb, ss, sh,
-                                                     cond_start, mode, cbias, scale);
+    flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, cos, sin, m_out, l_out,
+                                                     H, S, sb, ss, sh, cond_start, mode,
+                                                     cbias, scale);
   } else if (D == 64) {
-    flash_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, cos, sin, S, sb, ss, sh,
-                                                    cond_start, mode, cbias, scale);
+    flash_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, cos, sin, m_out, l_out,
+                                                    H, S, sb, ss, sh, cond_start, mode,
+                                                    cbias, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dK/dV pass: q, k, v, do bf16 (strides as above), m2 / l / di fp32 [B, H, S] (the
+// forward's base-2 residuals and rowsum(o * do)) -> dk, dv bf16 in the same layout.
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* m2, const float* l,
+                                       const float* di, const float* cos, const float* sin,
+                                       void* dk, void* dv, int B, int H, int S, int D,
+                                       long long sb, long long ss, long long sh,
+                                       int cond_start, int mode, float scale, void* stream) {
+  return bwd_entry(true, q, k, v, dout, m2, l, di, cos, sin, nullptr, dk, dv, B, H, S, D, sb,
+                   ss, sh, cond_start, mode, scale, stream);
+}
+
+// The dQ pass: the same inputs -> dq bf16.
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* dout, const float* m2, const float* l,
+                                      const float* di, const float* cos, const float* sin,
+                                      void* dq, int B, int H, int S, int D, long long sb,
+                                      long long ss, long long sh, int cond_start, int mode,
+                                      float scale, void* stream) {
+  return bwd_entry(false, q, k, v, dout, m2, l, di, cos, sin, dq, nullptr, nullptr, B, H, S,
+                   D, sb, ss, sh, cond_start, mode, scale, stream);
 }

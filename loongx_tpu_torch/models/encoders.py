@@ -7,11 +7,17 @@ multi-scale feature-pyramid pooling, projected to the text-embedding spaces:
   * fNIRS [B, 6, 512]  -> [B, 768]        (CLIP pooled shape)
   * Motion[B, 6, 128]  -> [B, 768]
 
-Inference only (dropout off).  SSM math is float32; projections run in the
-params' dtype.
+SSM math is float32; projections run in the params' dtype.  Each
+projection stack ends its Linear -> LN -> ReLU layers with dropout 0.3,
+active only in training: pass ``dropout`` = a ``torch.Generator`` to draw
+the keep masks, or the keep masks themselves (one boolean tensor per layer,
+e.g. the JAX package's own ``jax.random.bernoulli`` draws); None (the
+default) is inference, dropout off.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -56,11 +62,26 @@ def _mlp_ln_relu(dims, kw) -> Params:
     return p
 
 
-def _apply_mlp_ln_relu(p: Params, x: torch.Tensor, n: int) -> torch.Tensor:
+DROPOUT_RATE = 0.3
+Dropout = Optional[Union[torch.Generator, Sequence[torch.Tensor]]]
+
+
+def _apply_mlp_ln_relu(p: Params, x: torch.Tensor, n: int,
+                       dropout: Dropout = None) -> torch.Tensor:
+    """Linear -> LN -> ReLU (-> dropout) x n.  Dropout keeps an element with
+    probability 0.7 and scales it by 1 / 0.7 (a true division)."""
     for i in range(n):
         x = linear(p[f"linear_{i}"], x)
         x = layer_norm(x, p[f"ln_{i}"]["weight"], p[f"ln_{i}"]["bias"], eps=1e-5)
         x = torch.relu(x)
+        if dropout is not None:
+            if isinstance(dropout, torch.Generator):
+                keep = torch.rand(x.shape, generator=dropout,
+                                  device=x.device) < 1.0 - DROPOUT_RATE
+            else:
+                keep = dropout[i].to(x.device)
+            x = torch.where(keep, x / x.new_full((), 1.0 - DROPOUT_RATE),
+                            torch.zeros_like(x))
     return x
 
 
@@ -80,8 +101,8 @@ def init_eeg_encoder(*, generator=None, dtype=torch.bfloat16,
     }
 
 
-def eeg_encode(params: Params, x: torch.Tensor,
-               s4_mode: str = "conv") -> torch.Tensor:
+def eeg_encode(params: Params, x: torch.Tensor, s4_mode: str = "conv",
+               dropout: Dropout = None) -> torch.Tensor:
     """EEG (canonicalised to [B, 4, 4096]) -> [B, 512, 4096]."""
     x = canonicalise_signal(x, "eeg")
     b = x.shape[0]
@@ -92,7 +113,8 @@ def eeg_encode(params: Params, x: torch.Tensor,
     z2 = adaptive_avg_pool1d(z2.transpose(1, 2), 64)           # [B, 4, 64]
     fpp = feature_pyramid_pooling(x, (128, 256, 512, 1024, 2048))
     combined = torch.cat([z1, fpp, z2], dim=-1)                # [B, 4, 4096]
-    h = _apply_mlp_ln_relu(params["proj"], combined.reshape(b, -1), 2)
+    h = _apply_mlp_ln_relu(params["proj"], combined.reshape(b, -1), 2,
+                           dropout)
     return linear(params["token_proj"], h.reshape(b, 512, 8))
 
 
@@ -107,15 +129,15 @@ def init_ppg_encoder(*, generator=None, dtype=torch.bfloat16,
     }
 
 
-def ppg_encode(params: Params, x: torch.Tensor,
-               s4_mode: str = "conv") -> torch.Tensor:
+def ppg_encode(params: Params, x: torch.Tensor, s4_mode: str = "conv",
+               dropout: Dropout = None) -> torch.Tensor:
     x = canonicalise_signal(x, "ppg")
     b = x.shape[0]
     z = s4_stack_apply(params["s4"], x.transpose(1, 2), s4_mode)
     z = adaptive_avg_pool1d(z.transpose(1, 2), 16)
     fpp = feature_pyramid_pooling(x, (64, 128, 256))
     combined = torch.cat([z.reshape(b, -1), fpp.reshape(b, -1)], dim=-1)
-    h = _apply_mlp_ln_relu(params["proj"], combined, 2)
+    h = _apply_mlp_ln_relu(params["proj"], combined, 2, dropout)
     return linear(params["token_proj"], h.reshape(b, 512, 8))
 
 
@@ -129,15 +151,15 @@ def init_fnirs_encoder(*, generator=None, dtype=torch.bfloat16,
     }
 
 
-def fnirs_encode(params: Params, x: torch.Tensor,
-                 s4_mode: str = "conv") -> torch.Tensor:
+def fnirs_encode(params: Params, x: torch.Tensor, s4_mode: str = "conv",
+                 dropout: Dropout = None) -> torch.Tensor:
     x = canonicalise_signal(x, "fnirs")
     b = x.shape[0]
     z = s4_stack_apply(params["s4"], x.transpose(1, 2), s4_mode)
     z = adaptive_avg_pool1d(z.transpose(1, 2), 32)
     fpp = feature_pyramid_pooling(x, (128, 256, 448))
     combined = torch.cat([z.reshape(b, -1), fpp.reshape(b, -1)], dim=-1)
-    return _apply_mlp_ln_relu(params["proj"], combined, 2)
+    return _apply_mlp_ln_relu(params["proj"], combined, 2, dropout)
 
 
 def init_motion_encoder(*, generator=None, dtype=torch.bfloat16,
@@ -150,12 +172,12 @@ def init_motion_encoder(*, generator=None, dtype=torch.bfloat16,
     }
 
 
-def motion_encode(params: Params, x: torch.Tensor,
-                  s4_mode: str = "conv") -> torch.Tensor:
+def motion_encode(params: Params, x: torch.Tensor, s4_mode: str = "conv",
+                  dropout: Dropout = None) -> torch.Tensor:
     x = canonicalise_signal(x, "motion")
     b = x.shape[0]
     z = s4_stack_apply(params["s4"], x.transpose(1, 2), s4_mode)
     z = adaptive_avg_pool1d(z.transpose(1, 2), 6)
     fpp = feature_pyramid_pooling(x, (32, 64, 124))
     combined = torch.cat([z.reshape(b, -1), fpp.reshape(b, -1)], dim=-1)
-    return _apply_mlp_ln_relu(params["proj"], combined, 2)
+    return _apply_mlp_ln_relu(params["proj"], combined, 2, dropout)

@@ -14,9 +14,18 @@ index (``_blk``), every other leaf is indexed per block.  Routing:
 
   * int8 block linears -> ``quant_matmul_stacked`` (fused bias + gelu for
     the MLP-in projections) and the fused qkv -> ``quant_qkv_stacked``;
-  * int8 flat linears (embedders, norm_out, proj_out) -> ``quant_matmul``;
+  * int8 flat linears (embedders, norm_out, proj_out) -> ``quant_matmul``
+    (fused bias + gelu where `linear_gelu` has no active LoRA);
   * float linears -> a float32 ``torch.matmul``;
   * attention -> ``flash_attention`` (bshd, RoPE in the kernel).
+
+With grad enabled the int8 linears go through the differentiable
+counterparts (``quant_matmul_vjp``, ``quant_matmul_stacked_vjp``,
+``quant_linear_gelu_stacked``, ``quant_linear_gelu``), whose backward runs
+the transposed kernels; ``flash_attention`` is differentiable by itself.
+``flux_forward(remat=True)`` checkpoints each block (non-reentrant
+``torch.utils.checkpoint``), as the JAX package wraps each scan body in
+``jax.checkpoint``: the backward re-runs a block's forward kernels.
 
 ``w8a8`` selects the MAC mode of every int8 linear (the serving knob the
 JAX package reads from LOONGX_W8A8).  The LN-prologue and gate-epilogue
@@ -32,6 +41,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from loongx_tpu_torch.ops import flash_attention as fa
 from loongx_tpu_torch.ops import quant_matmul as qmm
@@ -185,14 +195,15 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
     x2 = x.reshape(-1, k)
     if "kernel_q" in p:
         n = p["kernel_q"].shape[-1]
+        grad = torch.is_grad_enabled()
         if "_blk" in p:
             nb = p["kernel_q"].shape[0]
-            y = qmm.quant_matmul_stacked(
-                x2, p["kernel_q"], p["kernel_scale"].reshape(nb, 1, n),
-                p["_blk"], w8a8=w8a8)
+            mm = qmm.quant_matmul_stacked_vjp if grad else qmm.quant_matmul_stacked
+            y = mm(x2, p["kernel_q"], p["kernel_scale"].reshape(nb, 1, n),
+                   p["_blk"], w8a8=w8a8)
         else:
-            y = qmm.quant_matmul(x2, p["kernel_q"],
-                                 p["kernel_scale"].reshape(1, n), w8a8=w8a8)
+            mm = qmm.quant_matmul_vjp if grad else qmm.quant_matmul
+            y = mm(x2, p["kernel_q"], p["kernel_scale"].reshape(1, n), w8a8=w8a8)
         y = y.float()
     else:
         y = torch.matmul(x2.float(), p["kernel"].float())
@@ -212,14 +223,33 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
 def linear_gelu(p: Params, x: torch.Tensor, use_lora: bool = True,
                 lora_mask: Optional[torch.Tensor] = None,
                 w8a8: bool = False) -> torch.Tensor:
-    """gelu_tanh(linear(p, x)); int8 block linears without an active LoRA
-    fuse the bias + gelu into the quant-matmul epilogue."""
-    if "_blk" in p and not (use_lora and "lora_a" in p):
+    """gelu_tanh(linear(p, x)); int8 linears without an active LoRA fuse
+    the bias + gelu into the quant-matmul epilogue."""
+    if "kernel_q" in p and not (use_lora and "lora_a" in p):
         lead, k = x.shape[:-1], x.shape[-1]
-        nb, _, n = p["kernel_q"].shape
-        y = qmm.quant_matmul_stacked(
-            x.reshape(-1, k), p["kernel_q"], p["kernel_scale"].reshape(nb, 1, n),
-            p["_blk"], bias3=_bias3(p, n), activation="gelu_tanh", w8a8=w8a8)
+        x2 = x.reshape(-1, k)
+        grad = torch.is_grad_enabled()
+        n = p["kernel_q"].shape[-1]
+        if "_blk" in p:
+            nb = p["kernel_q"].shape[0]
+            scale3 = p["kernel_scale"].reshape(nb, 1, n)
+            if grad:
+                y = qmm.quant_linear_gelu_stacked(
+                    x2, p["kernel_q"], scale3, _bias3(p, n), p["_blk"], w8a8=w8a8)
+            else:
+                y = qmm.quant_matmul_stacked(
+                    x2, p["kernel_q"], scale3, p["_blk"], bias3=_bias3(p, n),
+                    activation="gelu_tanh", w8a8=w8a8)
+        else:
+            scale = p["kernel_scale"].reshape(1, n)
+            bias = (p["bias"].float().reshape(1, n) if "bias" in p else
+                    torch.zeros(1, n, dtype=torch.float32, device=x.device))
+            if grad:
+                y = qmm.quant_linear_gelu(x2, p["kernel_q"], scale, bias,
+                                          w8a8=w8a8)
+            else:
+                y = qmm.quant_matmul(x2, p["kernel_q"], scale, bias=bias,
+                                     activation="gelu_tanh", w8a8=w8a8)
         return y.reshape(*lead, n).to(x.dtype)
     return gelu_tanh(linear(p, x, use_lora, lora_mask, w8a8))
 
@@ -507,12 +537,14 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
                  c_factor: Optional[float] = None, w8a8: bool = False,
                  controlnet_block_samples: Optional[torch.Tensor] = None,
                  controlnet_single_block_samples: Optional[torch.Tensor] = None,
-                 ) -> torch.Tensor:
+                 remat: bool = False) -> torch.Tensor:
     """Conditioned FLUX forward -> [B, S_img, in_channels] velocity.
 
     img/cond: [B, S, in_channels] packed latent tokens; txt [B, S_txt,
     joint_dim]; pooled [B, pooled_dim]; timestep / guidance [B] (scaled by
-    1000 here); *_ids [S, 3]; c_factor: condition strength (None = 1)."""
+    1000 here); *_ids [S, 3]; c_factor: condition strength (None = 1);
+    remat: checkpoint each block when grad is enabled (gradient
+    checkpointing: its activations are recomputed in the backward)."""
     if controlnet_block_samples is not None or (
             controlnet_single_block_samples is not None):
         raise NotImplementedError("ControlNet residual inputs are not ported")
@@ -542,17 +574,30 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
     ids = [txt_ids, img_ids] + ([cond_ids] if use_cond else [])
     rope_full = rope_embed(torch.cat(ids, dim=0), cfg.axes_dims, cfg.theta)
 
-    for i in range(cfg.num_double_blocks):
-        txt_h, img_h, cond_h = double_block_forward(
+    remat = remat and torch.is_grad_enabled()
+
+    def run(block_fn, *args):
+        if remat:
+            return checkpoint(block_fn, *args, use_reentrant=False)
+        return block_fn(*args)
+
+    def double(i, img_h, txt_h, cond_h):
+        return double_block_forward(
             _block_view(params["double_blocks"], i), cfg, img_h, txt_h, cond_h,
             temb, cond_temb, rope_full, flags, c_factor, w8a8)
+
+    def single(i, x, cond_h):
+        return single_block_forward(
+            _block_view(params["single_blocks"], i), cfg, x, cond_h, temb,
+            cond_temb, rope_full, flags, c_factor, w8a8)
+
+    for i in range(cfg.num_double_blocks):
+        txt_h, img_h, cond_h = run(double, i, img_h, txt_h, cond_h)
 
     s_txt = txt_h.shape[1]
     x = torch.cat([txt_h, img_h], dim=1)
     for i in range(cfg.num_single_blocks):
-        x, cond_h = single_block_forward(
-            _block_view(params["single_blocks"], i), cfg, x, cond_h, temb,
-            cond_temb, rope_full, flags, c_factor, w8a8)
+        x, cond_h = run(single, i, x, cond_h)
     x = x[:, s_txt:]
 
     mod = linear(params["norm_out"]["linear"], silu(temb), False, None, w8a8)

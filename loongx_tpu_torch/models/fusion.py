@@ -4,6 +4,8 @@ statistics; the top-k channel mask keeps exactly k channels."""
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from loongx_tpu_torch.ops.nn import Params, init_linear, linear
@@ -79,3 +81,23 @@ def fuse_fnirs_motion(params: Params, fnirs_feat: torch.Tensor,
     f, m = fnirs_feat[:, None, :], motion_feat[:, None, :]
     fused = duan_apply(params["duan_pooled_sig"], f, m)
     return linear(params["fusion_pooled_sig"], torch.cat([f, fused], -1))[:, 0]
+
+
+def fuse_text_train(params: Params, prompt_embeds: torch.Tensor,
+                    pooled_embeds: torch.Tensor, brain_prompt: torch.Tensor,
+                    brain_pooled: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-path fusion: DUAN(brain, text) -> concat on the token axis
+    -> fusion linear -> residual add onto the text embeds.  With
+    ``brain_pooled`` None (no fNIRS in the sample) the pooled branch is
+    skipped and ``pooled_embeds`` returned as is."""
+    fused_p = duan_apply(params["duan_prompt"], brain_prompt, prompt_embeds)
+    cat = torch.cat([prompt_embeds, fused_p], dim=1)          # [B, 1024, 4096]
+    delta = linear(params["fusion_prompt"], cat.transpose(1, 2)).transpose(1, 2)
+    prompt_out = prompt_embeds + delta
+    if brain_pooled is None:
+        return prompt_out, pooled_embeds
+    p, bp = pooled_embeds[:, None, :], brain_pooled[:, None, :]
+    fused_pool = duan_apply(params["duan_pooled"], bp, p)[:, 0]  # [B, 768]
+    cat_pool = torch.cat([pooled_embeds, fused_pool], dim=-1)
+    return prompt_out, pooled_embeds + linear(params["fusion_pooled"], cat_pool)

@@ -1,6 +1,7 @@
-"""The model bundle the edit path serves from (counterpart of the parts of
-``loongx_tpu/models/pipeline.py`` the neural edit uses): configs plus the
-param trees {"flux", "vae", "encoders", "dgf"} on one device."""
+"""The model bundles (counterpart of the parts of
+``loongx_tpu/models/pipeline.py`` the neural edit and the QLoRA step use):
+configs plus the param trees on one device -- {"flux", "vae", "encoders",
+"dgf"} to serve from, {"flux", "encoders", "dgf"} to train."""
 
 from __future__ import annotations
 
@@ -18,12 +19,13 @@ from loongx_tpu_torch.models.fusion import init_dgf
 from loongx_tpu_torch.ops.quant import (
     fuse_qkv_projections, random_quantized_like, split_single_proj_out,
 )
+from loongx_tpu_torch.train.lora import add_lora
 
 
 @dataclasses.dataclass
 class LoongXPipeline:
     flux_cfg: FluxConfig
-    vae_cfg: VAEConfig
+    vae_cfg: Optional[VAEConfig]
     params: Dict[str, Any]
     dtype: torch.dtype = torch.bfloat16
     # named LoRA adapters: any registry with the JAX package's
@@ -45,7 +47,7 @@ class LoongXPipeline:
 
     @property
     def device(self) -> torch.device:
-        return self.params["vae"]["decoder"]["conv_out"]["bias"].device
+        return self.params["flux"]["x_embedder"]["bias"].device
 
     @staticmethod
     def init_serving(flux_cfg: Optional[FluxConfig] = None,
@@ -63,15 +65,37 @@ class LoongXPipeline:
         flux = split_single_proj_out(fuse_qkv_projections(flux),
                                      flux_cfg.hidden)
         kw = dict(generator=gen, dtype=torch.bfloat16, device=device)
-        params = {
-            "flux": flux,
-            "vae": init_vae_params(vae_cfg, **kw),
-            "encoders": {
-                "eeg": init_eeg_encoder(**kw),
-                "ppg": init_ppg_encoder(**kw),
-                "fnirs": init_fnirs_encoder(**kw),
-                "motion": init_motion_encoder(**kw),
-            },
-            "dgf": init_dgf(**kw),
-        }
+        params = {"flux": flux, "vae": init_vae_params(vae_cfg, **kw),
+                  **_brain_params(kw)}
         return LoongXPipeline(flux_cfg, vae_cfg, params, torch.bfloat16)
+
+    @staticmethod
+    def init_training(flux_cfg: Optional[FluxConfig] = None, *, seed: int = 0,
+                      device="cuda") -> "LoongXPipeline":
+        """The QLoRA training bundle of ``configs/seed_512.yaml`` with random
+        weights made on ``device`` from ``seed``: random int8 DiT in the
+        training layout (q/k/v unfused, proj_out whole), bf16 LoRA leaves
+        (r 4, alpha 4) on ``DEFAULT_TARGETS``, CS3 encoders and DGF.  No
+        VAE: the step takes packed latents."""
+        flux_cfg = flux_cfg or FluxConfig.flux_dev()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        flux = random_quantized_like(
+            init_flux_params(flux_cfg, dtype=torch.bfloat16, device="meta"),
+            generator=gen, device=device)
+        flux = add_lora(flux, r=4, alpha=4, dtype=torch.bfloat16, generator=gen)
+        kw = dict(generator=gen, dtype=torch.bfloat16, device=device)
+        return LoongXPipeline(flux_cfg, None, {"flux": flux, **_brain_params(kw)},
+                              torch.bfloat16)
+
+
+def _brain_params(kw) -> Dict[str, Any]:
+    """Random CS3 encoders and DGF."""
+    return {
+        "encoders": {
+            "eeg": init_eeg_encoder(**kw),
+            "ppg": init_ppg_encoder(**kw),
+            "fnirs": init_fnirs_encoder(**kw),
+            "motion": init_motion_encoder(**kw),
+        },
+        "dgf": init_dgf(**kw),
+    }

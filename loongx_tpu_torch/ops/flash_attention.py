@@ -1,15 +1,31 @@
-"""Flash attention for the unified [txt | img | cond] sequence (forward).
+"""Flash attention for the unified [txt | img | cond] sequence, forward and
+backward.
 
 Counterpart of ``loongx_tpu/ops/flash_attention.py::flash_attention`` (the
-TPU kernel ``_fwd_kernel``).  On a CUDA tensor this launches the hand-written
-kernel in ``csrc/flash_attention.cu``; on a CPU tensor it runs the plain
-version, `flash_attention_plain` (``ops/attention.unified_attention``'s
-math).  There is no fallback between the two.
+TPU kernels ``_fwd_kernel``, ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``).
+On CUDA tensors this launches the hand-written kernels in
+``csrc/flash_attention.cu``; on CPU tensors it runs their plain versions
+(`flash_attention_plain`, `flash_residuals_plain`,
+`flash_attention_bwd_plain`).  There is no fallback between the two.
 
 The mask structure comes from one boundary, ``cond_start`` (== S when there
 is no condition stream); ``c_factor`` switches to the additive log-bias on
 the cond <-> non-cond blocks and overrides ``mode``; ``rope`` = (cos, sin)
 [S, D] float32 tables rotates q and k inside the kernel.
+
+Under autograd (any of q/k/v requires grad) `flash_attention` runs the
+forward with ``save_residuals`` and its backward launches the dK/dV and dQ
+kernels, with ``di = rowsum(o * do)`` taken in float32 outside them, as the
+JAX package does.  The residuals are base 2 (the kernels' softmax base):
+
+    s2_ij = fl(q_i . k_j) * fl(scale * log2 e)   (masked: MASK_VALUE)
+    m2_i  = max_j s2_ij,   l_i = sum_j 2^(s2_ij - m2_i)
+    P_ij  = 2^(s2_ij - m2_i) / l_i
+
+so the JAX package's natural-base m is ``m2 / log2 e`` and its l is ``l``.
+Both are float32 [B, H, S] in either layout.  The ``c_factor`` mode's
+backward is a plain float32 recompute on every device (the JAX package has
+no kernel for it either).  The RoPE tables get no gradient.
 """
 
 from __future__ import annotations
@@ -22,12 +38,21 @@ import numpy as np
 import torch
 
 from loongx_tpu_torch.ops import cuda_build
-from loongx_tpu_torch.ops.attention import MODES, unified_attention
+from loongx_tpu_torch.ops.attention import MODES, _block_bias, unified_attention
+from loongx_tpu_torch.ops.rope import apply_rope
 
 _MODE_IDS = {"union": 0, "no_union": 1, "independent": 2, "cfactor": 3}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _F,
-              _F, _P]
+_FWD_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                  _I, _I, _F, _F, _P]
+_DKV_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                  _L, _L, _L, _I, _I, _F, _P]
+_DQ_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                 _L, _L, _I, _I, _F, _P]
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+LOG2E = 1.4426950408889634
+
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _dims(q: torch.Tensor, layout: str):
@@ -40,32 +65,117 @@ def _dims(q: torch.Tensor, layout: str):
     raise ValueError(f"unknown layout {layout!r}")
 
 
+def _scales(d: int) -> Tuple[float, float]:
+    """(scale, scale * log2 e) as the kernels compute them in float32."""
+    scale = np.float32(1.0 / math.sqrt(d))
+    return float(scale), float(scale * np.float32(LOG2E))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
 def flash_attention_plain(q, k, v, *, cond_start: int, mode: str = "union",
-                          c_factor: Optional[float] = None,
-                          rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                          c_factor: Optional[float] = None, rope: Rope = None,
                           layout: str = "bhsd") -> torch.Tensor:
-    """The kernel's contract in plain PyTorch (unified_attention)."""
+    """The forward kernel's contract in plain PyTorch (unified_attention)."""
     s = _dims(q, layout)[2]
     return unified_attention(q, k, v, cond_len=s - cond_start, mode=mode,
                              c_factor=c_factor, rope=rope, layout=layout)
 
 
-def flash_attention(q, k, v, *, cond_start: int, mode: str = "union",
-                    c_factor: Optional[float] = None,
-                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    layout: str = "bhsd") -> torch.Tensor:
-    """Attention with condition block semantics; q/k/v [B, H, S, D] ("bhsd")
-    or [B, S, H, D] ("bshd"), output in the same layout and dtype."""
-    if mode not in MODES:
-        raise ValueError(f"unknown attention mode {mode!r}")
-    b, h, s, d, (sb, ss, sh) = _dims(q, layout)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, cond_start=cond_start, mode=mode,
-                                     c_factor=c_factor, rope=rope,
-                                     layout=layout)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _head_major(layout: str, *ts):
+    return [t.transpose(1, 2) if layout == "bshd" else t for t in ts]
+
+
+def _scores2(q, k, cond_start: int, mode: str, rope: Rope):
+    """(rotated q, rotated k, masked base-2 scores s2 float32 [B, H, S, S]);
+    q/k head-major, rotated and rounded to their dtype as the kernels load
+    them."""
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    s = q.shape[2]
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s2 = s2 * _scales(q.shape[-1])[1]
+    bias = _block_bias(s, cond_start, mode, None, q.device) if cond_start < s else None
+    if bias is not None:
+        s2 = torch.where(bias == 0, s2, torch.full_like(s2, MASK_VALUE))
+    return q, k, s2
+
+
+def flash_residuals_plain(q, k, *, cond_start: int, mode: str = "union",
+                          rope: Rope = None, layout: str = "bhsd"):
+    """The forward kernel's residuals (m2, l), float32 [B, H, S]."""
+    q, k = _head_major(layout, q, k)
+    _, _, s2 = _scores2(q, k, cond_start, mode, rope)
+    m2 = s2.amax(-1)
+    return m2, torch.exp2(s2 - m2[..., None]).sum(-1)
+
+
+def _rope_back(g: torch.Tensor, cos, sin) -> torch.Tensor:
+    """Transpose of the interleaved-pair rotation: g * cos - (g @ R) * sin
+    with (g @ R)[2i] = -g[2i+1], (g @ R)[2i+1] = g[2i], in float32."""
+    pair = g.unflatten(-1, (-1, 2))
+    rot = torch.stack([-pair[..., 1], pair[..., 0]], dim=-1).flatten(-2)
+    return g * cos - rot * sin
+
+
+def flash_attention_bwd_plain(q, k, v, do, m2, l, di, *, cond_start: int,
+                              mode: str = "union", rope: Rope = None,
+                              layout: str = "bhsd"):
+    """The backward kernels' contract in plain PyTorch -> (dq, dk, dv) in
+    q's layout and dtype.  P is rebuilt from the residuals (l == 0 rows take
+    m2 = 0, l = 1); P and dS are rounded to the input dtype before their
+    products, as they enter the tensor cores; sums are float32."""
+    dt = q.dtype
+    q, k, v, do = _head_major(layout, q, k, v, do)
+    qr, kr, s2 = _scores2(q, k, cond_start, mode, rope)
+    empty = l == 0
+    m_safe = torch.where(empty, torch.zeros_like(m2), m2)
+    inv_l = 1.0 / torch.where(empty, torch.ones_like(l), l)
+    p = torch.exp2(s2 - m_safe[..., None]) * inv_l[..., None]
+    dof, vf = do.float(), v.float()
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - di[..., None]) * _scales(q.shape[-1])[0]).to(dt).float()
+    dq = torch.matmul(ds, kr.float())
+    dk = torch.matmul(ds.transpose(-1, -2), qr.float())
+    if rope is not None:
+        dq, dk = _rope_back(dq, *rope), _rope_back(dk, *rope)
+    return tuple(_head_major(layout, dq.to(dt), dk.to(dt), dv.to(dt)))
+
+
+def _cfactor_bwd_plain(q, k, v, do, cond_start: int, c_factor: float,
+                       rope: Rope, layout: str):
+    """The c_factor mode's backward: exact float32 recompute (the JAX
+    package's XLA path, ``_flash_attention_bwd`` :980-1009)."""
+    dt = q.dtype
+    q, k, v, do = (t.float() for t in _head_major(layout, q, k, v, do))
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    logits = logits + _block_bias(q.shape[2], cond_start, "union", c_factor,
+                                  q.device)
+    p = torch.softmax(logits, -1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    if rope is not None:
+        dq, dk = _rope_back(dq, *rope), _rope_back(dk, *rope)
+    return tuple(_head_major(layout, dq.to(dt), dk.to(dt), dv.to(dt)))
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_qkv(q, names_tensors, d: int) -> None:
+    for name, t in names_tensors:
         if t.dtype != torch.bfloat16 or t.shape != q.shape or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be bf16 {tuple(q.shape)} "
                              f"on {q.device}, got {t.dtype} {tuple(t.shape)}")
@@ -74,29 +184,192 @@ def flash_attention(q, k, v, *, cond_start: int, mode: str = "union",
                              "16-byte aligned")
     if d not in (64, 128):
         raise ValueError(f"flash_attention: head_dim {d} not in (64, 128)")
-    cos = sin = None
-    if rope is not None:
-        cos, sin = rope
-        for t in (cos, sin):
-            if (t.dtype != torch.float32 or tuple(t.shape) != (s, d)
-                    or not t.is_contiguous() or t.device != q.device
-                    or t.data_ptr() % 16):
-                raise ValueError("flash_attention: rope tables must be "
-                                 f"contiguous 16-byte aligned float32 [{s}, {d}] "
-                                 f"on {q.device}")
+
+
+def _cuda_rope(rope: Rope, s: int, d: int, device):
+    if rope is None:
+        return None, None
+    cos, sin = rope
+    for t in (cos, sin):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (s, d)
+                or not t.is_contiguous() or t.device != device
+                or t.data_ptr() % 16):
+            raise ValueError("flash_attention: rope tables must be "
+                             f"contiguous 16-byte aligned float32 [{s}, {d}] "
+                             f"on {device}")
+    return cos.data_ptr(), sin.data_ptr()
+
+
+def _stats_check(b: int, h: int, s: int, device, **stats) -> None:
+    for name, t in stats.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, s)
+                or not t.is_contiguous() or t.device != device):
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"contiguous float32 [{b}, {h}, {s}] on {device}")
+
+
+def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
+             rope: Rope, layout: str, save_residuals: bool):
+    """o, or (o, m2, l) with ``save_residuals``: the kernel on CUDA tensors,
+    the plain versions on CPU tensors."""
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}")
+    b, h, s, d, (sb, ss, sh) = _dims(q, layout)
+    if q.device.type == "cpu":
+        o = flash_attention_plain(q, k, v, cond_start=cond_start, mode=mode,
+                                  c_factor=c_factor, rope=rope, layout=layout)
+        if not save_residuals:
+            return o
+        return (o, *flash_residuals_plain(q, k, cond_start=cond_start,
+                                          mode=mode, rope=rope, layout=layout))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_cuda_qkv(q, (("q", q), ("k", k), ("v", v)), d)
+    cos_p, sin_p = _cuda_rope(rope, s, d, q.device)
     cbias = 0.0
     if c_factor is not None:
+        if save_residuals:
+            raise ValueError("flash_attention: the c_factor mode saves no "
+                             "residuals (its backward recomputes)")
         mode = "cfactor"
         cbias = float(np.log(np.float32(c_factor)))
     out = torch.empty_like(q)
-    lib = cuda_build.library("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes, fn.restype = _SIGNATURE, ctypes.c_int
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              None if cos is None else cos.data_ptr(),
-              None if sin is None else sin.data_ptr(),
-              b, h, s, d, sb, ss, sh, cond_start, _MODE_IDS[mode], cbias,
-              1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    m2 = l = None
+    if save_residuals:
+        m2 = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m2)
+    fn = cuda_build.library("flash_attention").flash_attention_fwd
+    fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos_p,
+              sin_p, None if m2 is None else m2.data_ptr(),
+              None if l is None else l.data_ptr(), b, h, s, d, sb, ss, sh,
+              cond_start, _MODE_IDS[mode], cbias, _scales(d)[0],
+              torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(code, "flash_attention_fwd")
     cuda_build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, m2, l) if save_residuals else out
+
+
+def flash_attention_bwd(q, k, v, do, m2, l, di, *, cond_start: int,
+                        mode: str = "union", rope: Rope = None,
+                        layout: str = "bhsd", need_dq: bool = True,
+                        need_dkv: bool = True):
+    """(dq, dk, dv) from the forward's inputs, its base-2 residuals (m2, l)
+    and di = rowsum(o * do), all [B, H, S] float32.  On CUDA tensors the
+    dK/dV and the dQ kernels (each only if needed; a pass not run returns
+    None); on CPU tensors `flash_attention_bwd_plain`."""
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}")
+    b, h, s, d, (sb, ss, sh) = _dims(q, layout)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, m2, l, di,
+                                         cond_start=cond_start, mode=mode,
+                                         rope=rope, layout=layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_cuda_qkv(q, (("q", q), ("k", k), ("v", v), ("do", do)), d)
+    _stats_check(b, h, s, q.device, m2=m2, l=l, di=di)
+    cos_p, sin_p = _cuda_rope(rope, s, d, q.device)
+    lib = cuda_build.library("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = _scales(d)[0]
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            m2.data_ptr(), l.data_ptr(), di.data_ptr(), cos_p, sin_p)
+    dims = (b, h, s, d, sb, ss, sh, cond_start, _MODE_IDS[mode], scale, stream)
+    dq = dk = dv = None
+    if need_dkv:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        fn = lib.flash_attention_bwd_dkv
+        fn.argtypes, fn.restype = _DKV_SIGNATURE, ctypes.c_int
+        cuda_build.check(fn(*head, dk.data_ptr(), dv.data_ptr(), *dims),
+                         "flash_attention_bwd_dkv")
+        cuda_build.LAUNCHES["flash_bwd_dkv"] += 1
+    if need_dq:
+        dq = torch.empty_like(q)
+        fn = lib.flash_attention_bwd_dq
+        fn.argtypes, fn.restype = _DQ_SIGNATURE, ctypes.c_int
+        cuda_build.check(fn(*head, dq.data_ptr(), *dims),
+                         "flash_attention_bwd_dq")
+        cuda_build.LAUNCHES["flash_bwd_dq"] += 1
+    return dq, dk, dv
+
+
+def _row_dot(o: torch.Tensor, do: torch.Tensor, layout: str) -> torch.Tensor:
+    """di = rowsum(o * do) in float32, [B, H, S] in either layout."""
+    di = (o.float() * do.float()).sum(-1)
+    return di.transpose(1, 2).contiguous() if layout == "bshd" else di
+
+
+# ---------------------------------------------------------------------------
+# Differentiable entry point
+# ---------------------------------------------------------------------------
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Mask modes: the forward kernel saves (m2, l); the backward runs the
+    dK/dV and dQ kernels (each only when its gradients are needed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, cond_start, mode, layout):
+        rope = None if cos is None else (cos, sin)
+        o, m2, l = _forward(q, k, v, cond_start, mode, None, rope, layout,
+                            save_residuals=True)
+        ctx.save_for_backward(q, k, v, o, m2, l, cos, sin)
+        ctx.meta = (cond_start, mode, layout)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m2, l, cos, sin = ctx.saved_tensors
+        cond_start, mode, layout = ctx.meta
+        do = do.to(q.dtype).contiguous()
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, do, m2, l, _row_dot(o, do, layout), cond_start=cond_start,
+            mode=mode, rope=None if cos is None else (cos, sin), layout=layout,
+            need_dq=need_q, need_dkv=need_k or need_v)
+        return (dq if need_q else None, dk if need_k else None,
+                dv if need_v else None, None, None, None, None, None)
+
+
+class _FlashCFactorFn(torch.autograd.Function):
+    """c_factor mode: the forward kernel, a plain float32 recompute backward
+    (on every device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, cond_start, c_factor, layout):
+        rope = None if cos is None else (cos, sin)
+        ctx.save_for_backward(q, k, v, cos, sin)
+        ctx.meta = (cond_start, c_factor, layout)
+        return _forward(q, k, v, cond_start, "union", c_factor, rope, layout,
+                        save_residuals=False)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin = ctx.saved_tensors
+        cond_start, c_factor, layout = ctx.meta
+        dq, dk, dv = _cfactor_bwd_plain(
+            q, k, v, do, cond_start, c_factor,
+            None if cos is None else (cos, sin), layout)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, cond_start: int, mode: str = "union",
+                    c_factor: Optional[float] = None, rope: Rope = None,
+                    layout: str = "bhsd") -> torch.Tensor:
+    """Attention with condition block semantics; q/k/v [B, H, S, D] ("bhsd")
+    or [B, S, H, D] ("bshd"), output in the same layout and dtype.
+    Differentiable in q, k and v when grad is enabled."""
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}")
+    cos, sin = rope if rope is not None else (None, None)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        s = _dims(q, layout)[2]
+        if c_factor is not None and cond_start < s:
+            return _FlashCFactorFn.apply(q, k, v, cos, sin, cond_start,
+                                         c_factor, layout)
+        return _FlashAttentionFn.apply(q, k, v, cos, sin, cond_start, mode,
+                                       layout)
+    return _forward(q, k, v, cond_start, mode, c_factor, rope, layout,
+                    save_residuals=False)

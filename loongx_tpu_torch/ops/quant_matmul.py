@@ -1,6 +1,8 @@
-"""int8-weight matmuls: y = x @ Wq * scale (+ bias) (+ gelu_tanh), forward.
+"""int8-weight matmuls: y = x @ Wq * scale (+ bias) (+ gelu_tanh), their
+transposed products dx = (dy * scale) @ Wq^T, and the autograd Functions
+that train LoRA against the frozen int8 base (QLoRA).
 
-Counterpart of the forward contracts of ``loongx_tpu/ops/quant_matmul.py``:
+Counterpart of ``loongx_tpu/ops/quant_matmul.py``.  Forward contracts:
 
   * `quant_matmul` -- flat ``[K, N]`` weight (``quant_matmul`` /
     ``quant_matmul_w8a8``, TPU kernel ``_qmm_kernel``);
@@ -11,8 +13,15 @@ Counterpart of the forward contracts of ``loongx_tpu/ops/quant_matmul.py``:
     RMS on q and k, written as ``[3, M, H]`` planes (TPU kernel
     ``_qmm_qkv_stacked_kernel``).
 
-All three launch the CUDA kernel in ``csrc/quant_matmul.cu`` on CUDA
-tensors and run their plain versions on CPU tensors; nothing falls back.
+Backward contracts (TPU kernels ``_qmm_t_kernel`` / ``_qmm_t_stacked_kernel``,
+CUDA kernel ``csrc/quant_matmul_t.cu``):
+
+  * `quant_matmul_t` / `quant_matmul_t_stacked` -- dx[m, k] = sum_n
+    cast(dy[m, n] * scale[n]) * Wq[k, n] with the weight in its stored
+    [K, N] layout (block ``blk`` of a stack by pointer offset).
+
+The forward and transposed kernels run on CUDA tensors and their plain
+versions on CPU tensors; nothing falls back.
 In W8A8 mode the GEMM is preceded by `act_quant`, a small kernel of the
 same source that quantizes the activations.
 
@@ -30,6 +39,18 @@ Two MAC modes, chosen by ``w8a8``:
     copied exactly: `stacked_w8a8_group` / `flat_w8a8_group`.
 
 The epilogue is fp32: z = acc * scale, + bias, then gelu_tanh, then one cast.
+
+The transposed product rounds dy * scale (fp32) to dy's dtype before the
+contraction, as the TPU kernel rounds it to bf16, and sums in fp32; for
+bf16 dy that is the CUDA kernel exactly, for float32 dy the JAX package's
+XLA transpose of its dequant path.
+
+Autograd (the JAX custom VJPs): `quant_matmul_vjp`,
+`quant_matmul_stacked_vjp`, `quant_linear_gelu_stacked` and
+`quant_linear_gelu` are differentiable in x only.  The frozen int8 weight,
+scale and bias get no gradient, and no dx is computed when x needs none
+(``ctx.needs_input_grad``).  The gelu variants recompute the pre-activation
+in their backward, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -47,6 +68,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMM_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P]
 _QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P]
+_T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -173,6 +195,15 @@ def quant_qkv_plain(x, w_q, scale, bias, norm_w, head_dim: int,
     q = rms_heads_plain(q, head_dim, norm_w[0])
     k = rms_heads_plain(k, head_dim, norm_w[1])
     return q.to(out_dtype), k.to(out_dtype), v.to(out_dtype)
+
+
+def qmm_t_plain(dy: torch.Tensor, w_q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the transposed kernel on a [K, N] weight (a view of
+    a stack is fine): dy [M, N], scale broadcastable to [N] -> dx [M, K] in
+    dy's dtype."""
+    a = (dy.float() * scale.reshape(-1).float()).to(dy.dtype).float()
+    return torch.matmul(a, w_q.float().t()).to(dy.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -347,3 +378,166 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
             group, k_pad, out, norm_w_ptr=norm_w.data_ptr(),
             head_dim=head_dim, plane_h=h)
     return out[0], out[1], out[2]
+
+
+# ---------------------------------------------------------------------------
+# Transposed products (the backward of the int8 linears)
+# ---------------------------------------------------------------------------
+
+
+def _launch_t(name: str, dy: torch.Tensor, w_ptr: int, k: int, n: int,
+              scale_ptr: int) -> torch.Tensor:
+    dy = dy.to(torch.bfloat16).contiguous()
+    _check(n % 16 == 0 and k % 2 == 0,
+           f"transposed kernel: N {n} must be a multiple of 16, K {k} even")
+    out = torch.empty(dy.shape[0], k, dtype=torch.bfloat16, device=dy.device)
+    fn = cuda_build.library("quant_matmul_t").qmm_t_gemm
+    fn.argtypes, fn.restype = _T_SIGNATURE, ctypes.c_int
+    cuda_build.check(fn(dy.data_ptr(), w_ptr, scale_ptr, out.data_ptr(),
+                        dy.shape[0], k, n,
+                        torch.cuda.current_stream(dy.device).cuda_stream),
+                     f"qmm_t_gemm ({name})")
+    cuda_build.LAUNCHES[name] += 1
+    return out
+
+
+def _cuda_dy(dy: torch.Tensor, n: int) -> None:
+    _check(dy.device.type == "cuda", f"unsupported device {dy.device}")
+    _check(dy.ndim == 2 and dy.shape[1] == n,
+           f"dy must be [M, {n}], got {tuple(dy.shape)}")
+    _check(dy.is_floating_point(), f"dy must be floating point, got {dy.dtype}")
+
+
+def quant_matmul_t(dy: torch.Tensor, w_q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """dx = cast(dy * scale) @ w_q^T: dy [M, N], w_q [K, N] int8, scale
+    [1, N] -> [M, K] (bf16 from the kernel, dy's dtype from the plain
+    version)."""
+    k, n = w_q.shape
+    if dy.device.type == "cpu":
+        return qmm_t_plain(dy, w_q, scale)
+    _cuda_dy(dy, n)
+    _cuda_weight(w_q, dy.device)
+    _cuda_vec(scale, (1, n), "scale", dy.device)
+    return _launch_t("qmm_t", dy, w_q.data_ptr(), k, n, scale.data_ptr())
+
+
+def quant_matmul_t_stacked(dy: torch.Tensor, w_q3: torch.Tensor,
+                           scale3: torch.Tensor, blk: int) -> torch.Tensor:
+    """dx = cast(dy * scale3[blk]) @ w_q3[blk]^T without slicing the stack:
+    dy [M, N], w_q3 [NB, K, N] int8, scale3 [NB, 1, N] -> [M, K]."""
+    nb, k, n = w_q3.shape
+    if not 0 <= blk < nb:
+        raise IndexError(f"block {blk} out of range for a stack of {nb}")
+    if dy.device.type == "cpu":
+        return qmm_t_plain(dy, w_q3[blk], scale3[blk])
+    _cuda_dy(dy, n)
+    _cuda_weight(w_q3, dy.device)
+    _cuda_vec(scale3, (nb, 1, n), "scale", dy.device)
+    return _launch_t("qmm_t_stacked", dy, _stack_ptr(w_q3, blk), k, n,
+                     _stack_ptr(scale3, blk))
+
+
+# ---------------------------------------------------------------------------
+# Autograd Functions (the JAX custom VJPs)
+# ---------------------------------------------------------------------------
+
+
+def _gelu_grad(dy: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """d gelu_tanh(z) * dy in float32, cast to dy's dtype."""
+    return torch.ops.aten.gelu_backward(dy.float(), z.float(),
+                                        approximate="tanh").to(dy.dtype)
+
+
+class _QuantMatmulFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q, scale, w8a8):
+        ctx.save_for_backward(w_q, scale)
+        ctx.x_dtype = x.dtype
+        return quant_matmul(x, w_q, scale, w8a8=w8a8)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        w_q, scale = ctx.saved_tensors
+        return quant_matmul_t(dy, w_q, scale).to(ctx.x_dtype), None, None, None
+
+
+class _QuantMatmulStackedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q3, scale3, blk, w8a8):
+        ctx.save_for_backward(w_q3, scale3)
+        ctx.blk, ctx.x_dtype = blk, x.dtype
+        return quant_matmul_stacked(x, w_q3, scale3, blk, w8a8=w8a8)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        w_q3, scale3 = ctx.saved_tensors
+        dx = quant_matmul_t_stacked(dy, w_q3, scale3, ctx.blk)
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+class _QuantLinearGeluStackedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q3, scale3, bias3, blk, w8a8):
+        ctx.save_for_backward(x if ctx.needs_input_grad[0] else None, w_q3,
+                              scale3, bias3)
+        ctx.blk, ctx.w8a8 = blk, w8a8
+        return quant_matmul_stacked(x, w_q3, scale3, blk, bias3=bias3,
+                                    activation="gelu_tanh", w8a8=w8a8)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        x, w_q3, scale3, bias3 = ctx.saved_tensors
+        z = quant_matmul_stacked(x, w_q3, scale3, ctx.blk, bias3=bias3,
+                                 w8a8=ctx.w8a8)  # recompute pre-activation
+        dx = quant_matmul_t_stacked(_gelu_grad(dy, z), w_q3, scale3, ctx.blk)
+        return dx.to(x.dtype), None, None, None, None, None
+
+
+class _QuantLinearGeluFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q, scale, bias, w8a8):
+        ctx.save_for_backward(x if ctx.needs_input_grad[0] else None, w_q,
+                              scale, bias)
+        ctx.w8a8 = w8a8
+        return quant_matmul(x, w_q, scale, bias=bias, activation="gelu_tanh",
+                            w8a8=w8a8)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        x, w_q, scale, bias = ctx.saved_tensors
+        z = quant_matmul(x, w_q, scale, bias=bias, w8a8=ctx.w8a8)
+        dx = quant_matmul_t(_gelu_grad(dy, z), w_q, scale)
+        return dx.to(x.dtype), None, None, None, None
+
+
+def quant_matmul_vjp(x, w_q, scale, *, w8a8: bool = False):
+    """`quant_matmul`, differentiable in x (backward: `quant_matmul_t`)."""
+    return _QuantMatmulFn.apply(x, w_q, scale, w8a8)
+
+
+def quant_matmul_stacked_vjp(x, w_q3, scale3, blk: int, *, w8a8: bool = False):
+    """`quant_matmul_stacked`, differentiable in x (backward:
+    `quant_matmul_t_stacked`)."""
+    return _QuantMatmulStackedFn.apply(x, w_q3, scale3, blk, w8a8)
+
+
+def quant_linear_gelu_stacked(x, w_q3, scale3, bias3, blk: int, *,
+                              w8a8: bool = False):
+    """gelu_tanh(x @ w_q3[blk] * scale3[blk] + bias3[blk]) with the fused
+    epilogue, differentiable in x (recompute backward)."""
+    return _QuantLinearGeluStackedFn.apply(x, w_q3, scale3, bias3, blk, w8a8)
+
+
+def quant_linear_gelu(x, w_q, scale, bias, *, w8a8: bool = False):
+    """gelu_tanh(x @ w_q * scale + bias) with the fused epilogue (bias
+    [1, N] float32), differentiable in x (recompute backward)."""
+    return _QuantLinearGeluFn.apply(x, w_q, scale, bias, w8a8)

@@ -1,5 +1,6 @@
 """Flow-match Euler schedule (counterpart of ``loongx_tpu/ops/schedule.py``):
-FLUX.1-dev constants, dynamic exponential time shift, trailing sigma 0."""
+FLUX.1-dev constants, dynamic exponential time shift, trailing sigma 0, and
+the training interpolant."""
 
 from __future__ import annotations
 
@@ -36,3 +37,10 @@ def euler_step(latents: torch.Tensor, model_output: torch.Tensor,
     dt = np.float32(sigma_next) - np.float32(sigma)
     out = latents.float() + float(dt) * model_output.float()
     return out.to(latents.dtype)
+
+
+def flow_match_xt(x0: torch.Tensor, x1: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+    """Training-time interpolant x_t = (1 - t) x0 + t x1, t [B]."""
+    t = t.reshape(t.shape[0], *([1] * (x0.ndim - 1)))
+    return (1.0 - t) * x0 + t * x1

@@ -1,0 +1,232 @@
+"""The training step: flow-matching loss over the LoRA leaves (counterpart
+of ``loongx_tpu/train/step.py``).
+
+The param tree is a nested dict; the trainable set is a mask over it
+(`trainable_mask`), and `partition` / `combine` split and join the tree as
+the JAX package does, with the trainable leaves flagged
+``requires_grad``.  The optimizer is PyTorch's: ``make_train_step`` takes a
+factory ``params -> torch.optim.Optimizer`` (`train.optim.build_optimizer`)
+and updates the trainable leaves in place.
+
+Random draws are explicit: the step takes either a ``torch.Generator`` or a
+dict of the draws themselves -- ``t`` [B] (after the sigmoid), ``noise``
+(x1, x0's shape) and ``dropout`` {"eeg" | "ppg" | "fnirs" | "motion": [keep
+mask per layer]} -- so a test can hand the port the JAX package's own
+``jax.random`` draws.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from loongx_tpu_torch.models.encoders import (
+    eeg_encode, fnirs_encode, motion_encode, ppg_encode,
+)
+from loongx_tpu_torch.models.flux.model import FluxConfig, flux_forward
+from loongx_tpu_torch.models.fusion import (
+    fuse_eeg_ppg, fuse_fnirs_motion, fuse_text_train,
+)
+from loongx_tpu_torch.ops.schedule import flow_match_xt
+from loongx_tpu_torch.train.lora import lora_mask
+from loongx_tpu_torch.train.optim import OptimizerFactory
+
+Draws = Union[torch.Generator, Dict[str, Any]]
+
+
+# ---------------------------------------------------------------------------
+# Trainable / frozen
+# ---------------------------------------------------------------------------
+
+
+def _map(fn, *trees):
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [_map(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+    return fn(*trees)
+
+
+def leaves(tree) -> List[Any]:
+    """The leaves of a dict/list tree in a fixed order (None leaves kept)."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def trainable_mask(params: Dict[str, Any], train_encoders: bool = False):
+    """Mask over the pipeline tree: the LoRA factors of the flux tree, plus
+    (optionally) every encoder and DGF leaf."""
+    mask = {k: _map(lambda _: False, v) for k, v in params.items()}
+    mask["flux"] = lora_mask(params["flux"])
+    if train_encoders:
+        for name in ("encoders", "dgf"):
+            if name in params:
+                mask[name] = _map(lambda _: True, params[name])
+    return mask
+
+
+def partition(params, mask) -> Tuple[Any, Any]:
+    """(trainable, frozen) trees, None at the complementary positions.  The
+    trainable leaves are flagged ``requires_grad``, the frozen ones not."""
+    def flag(p, m):
+        if p.is_floating_point():
+            p.requires_grad_(bool(m))
+        elif m:
+            raise ValueError(f"a {p.dtype} leaf cannot be trainable")
+        return p
+
+    _map(flag, params, mask)
+    return (_map(lambda p, m: p if m else None, params, mask),
+            _map(lambda p, m: None if m else p, params, mask))
+
+
+def combine(trainable, frozen):
+    return _map(lambda a, b: b if a is None else a, trainable, frozen)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+_MODALITIES = ("eeg", "ppg", "fnirs", "motion")
+
+
+def _draws(draws: Draws, x0: torch.Tensor):
+    """(t, x1, {modality: dropout}) from a generator or explicit draws: t =
+    sigmoid(N(0, 1)) [B], x1 = N(0, 1) like x0, float32."""
+    if isinstance(draws, torch.Generator):
+        b = x0.shape[0]
+        t = torch.sigmoid(torch.randn(b, generator=draws, device=x0.device))
+        x1 = torch.randn(x0.shape, generator=draws, device=x0.device)
+        return t, x1, {m: draws for m in _MODALITIES}
+    dropout = draws.get("dropout") or {}
+    return (draws["t"].to(x0.device, torch.float32),
+            draws["noise"].to(x0.device, torch.float32),
+            {m: dropout.get(m) for m in _MODALITIES})
+
+
+def flow_match_loss(params: Dict[str, Any], flux_cfg: FluxConfig,
+                    batch: Dict[str, torch.Tensor], draws: Draws,
+                    flags: Optional[Dict[str, Any]] = None,
+                    use_brain_condition: bool = False, fuse_flag: bool = True,
+                    remat: bool = False, dtype=torch.bfloat16):
+    """One flow-matching MSE step -> (loss, mean t), float32 scalars.
+
+    batch: x0 [B, S, C] clean packed latents; img_ids / txt_ids;
+    prompt_embeds / pooled; optional cond_tokens / cond_ids; optional
+    eeg / ppg / fnirs / motion (the CS3 encoders' dropout is active)."""
+    x0 = batch["x0"].float()
+    t, x1, dropout = _draws(draws, x0)
+    x_t = flow_match_xt(x0, x1, t).to(dtype)
+    prompt_embeds = batch["prompt_embeds"].to(dtype)
+    pooled = batch["pooled"].to(dtype)
+
+    if use_brain_condition and "eeg" in batch:
+        enc, dgf = params["encoders"], params["dgf"]
+        eeg_feat = eeg_encode(enc["eeg"], batch["eeg"].to(dtype),
+                              dropout=dropout["eeg"])
+        brain_prompt = eeg_feat
+        if "ppg" in batch:
+            brain_prompt = fuse_eeg_ppg(dgf, eeg_feat, ppg_encode(
+                enc["ppg"], batch["ppg"].to(dtype), dropout=dropout["ppg"]))
+        brain_pooled = None
+        if "fnirs" in batch:
+            brain_pooled = fnirs_encode(enc["fnirs"], batch["fnirs"].to(dtype),
+                                        dropout=dropout["fnirs"])
+            if "motion" in batch:
+                brain_pooled = fuse_fnirs_motion(dgf, brain_pooled, motion_encode(
+                    enc["motion"], batch["motion"].to(dtype),
+                    dropout=dropout["motion"]))
+        if fuse_flag:
+            prompt_embeds, pooled = fuse_text_train(
+                dgf, prompt_embeds, pooled, brain_prompt, brain_pooled)
+        else:
+            prompt_embeds = brain_prompt.to(dtype)
+            if brain_pooled is not None:
+                pooled = brain_pooled.to(dtype)
+
+    b = x0.shape[0]
+    guidance = (torch.ones(b, dtype=torch.float32, device=x0.device)
+                if flux_cfg.guidance_embeds else None)
+    cond = batch.get("cond_tokens")
+    pred = flux_forward(
+        params["flux"], flux_cfg, img=x_t, txt=prompt_embeds, pooled=pooled,
+        timestep=t, guidance=guidance, img_ids=batch["img_ids"],
+        txt_ids=batch["txt_ids"], cond=None if cond is None else cond.to(dtype),
+        cond_ids=batch.get("cond_ids"), flags=flags, remat=remat)
+    loss = torch.mean((pred.float() - (x1 - x0)) ** 2)
+    return loss, torch.mean(t)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+class TrainState(NamedTuple):
+    trainable: Any
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over all gradients, accumulated in float32."""
+    sq = [torch.sum(g.float() ** 2) for g in grads]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: g if norm < max_norm else (g / norm) *
+    max_norm (no epsilon, unlike torch.nn.utils.clip_grad_norm_)."""
+    trigger = norm < max_norm
+    return [torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm)
+            for g in grads]
+
+
+def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
+                    flags: Optional[Dict[str, Any]] = None,
+                    use_brain_condition: bool = False, fuse_flag: bool = True,
+                    remat: bool = True, grad_clip: Optional[float] = 0.5,
+                    dtype=torch.bfloat16) -> Tuple[Callable, Callable]:
+    """(init_fn, step_fn) with the JAX package's contract:
+
+      init_fn(trainable) -> TrainState
+      step_fn(state, frozen, batch, draws) -> (state, metrics)
+
+    ``metrics``: loss, grad_norm (before clipping), t_mean (float32 scalar
+    tensors on the params' device).  The trainable leaves are updated in
+    place; the returned state counts one more step.  ``grad_clip`` None or
+    0 leaves clipping to the caller."""
+    flags = dict(flags or {})
+
+    def init_fn(trainable) -> TrainState:
+        params = [p for p in leaves(trainable) if p is not None]
+        for p in params:
+            p.requires_grad_(True)
+        return TrainState(trainable, optimizer(params), 0)
+
+    def step_fn(state: TrainState, frozen, batch, draws: Draws):
+        params = combine(state.trainable, frozen)
+        loss, t_mean = flow_match_loss(
+            params, flux_cfg, batch, draws, flags, use_brain_condition,
+            fuse_flag, remat, dtype)
+        group = state.optimizer.param_groups[0]["params"]
+        grads = list(torch.autograd.grad(loss, group))
+        norm = global_norm(grads)
+        if grad_clip:
+            grads = clip_by_global_norm(grads, grad_clip, norm)
+        for p, g in zip(group, grads):
+            p.grad = g
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics = {"loss": loss.detach(), "grad_norm": norm.detach(),
+                   "t_mean": t_mean.detach()}
+        return state._replace(step=state.step + 1), metrics
+
+    return init_fn, step_fn
