@@ -20,7 +20,16 @@ Phases (each prints one line with the card, its power limit and seconds):
      stage times, ms/step, edits/s, finite outputs of the right shape
      within loose range limits (the random VAE weights decode a little
      past [-1, 1]; the share outside is printed), and the card's SM clock
-     and power draw sampled while it serves;
+     and power draw sampled while it serves; then the first request again
+     with ``s4_mode="pallas"`` (the S4D recurrence kernel: its launches and
+     the brain embeds against the conv mode's, and the plain recurrence's)
+     and with ``int8_attn=True`` (int8 QK^T: ms/step and the image against
+     the bf16-score one);
+  generate: random int8 T5-XXL and CLIP-L join the serving bundle, and
+     ``generate()`` serves two text-prompt edits in fuse mode (infer wiring,
+     a Condition with the source image and all four signals, a character
+     tokenizer): stage times, ms/step, edits/s, stacked-kernel launches per
+     prompt, CLIP ms, then ``free_text_encoders()`` and the bytes it frees;
   5. train: the serving bundle is freed, the seed_512 QLoRA configuration
      is built on the card (int8 FLUX.1-dev, LoRA r 4, CS3 + DGF frozen with
      dropout on, Prodigy, clip 0.5, remat, bf16, batch 1 at 512 px) and
@@ -30,8 +39,9 @@ Phases (each prints one line with the card, its power limit and seconds):
      the step's device time by kernel group.
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
-launch counts from phase 4 for the forward kernels and from phase 5 for
-the backward ones) and the card's name and power limit.  The last line is
+launch counts from phase 4 for the forward kernels -- the S4D and int8
+attention kernels from the phase-4 request that selects them -- and from
+phase 5 for the backward ones) and the card's name and power limit.  The last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
@@ -525,17 +535,175 @@ def check_flash_bwd(torch, gen, records):
               flush=True)
 
 
+# the S4D kernel against its plain version (absolute, no looser than the
+# JAX kernel's own 1e-4 against its scan: the state updates are the same
+# separately rounded IEEE operations, only the sum over n is reordered) and
+# against the FFT convolution (relative L2, the agreement recorded on the TPU)
+S4D_ATOL, S4D_CONV_REL_L2 = 1e-4, 1.8e-3
+# one dependent complex update of the recurrence: multiply, subtract, add
+S4D_STEP_CYCLES = 12
+
+
+def s4d_cases():
+    # (label, B, L, H, N): every S4D layer of the CS3 encoders (two per stack)
+    return [("EEG wide", 1, 4096, 64, 32), ("EEG narrow", 1, 4096, 4, 2),
+            ("PPG", 1, 256, 4, 2), ("fNIRS", 1, 512, 6, 3),
+            ("motion", 1, 128, 6, 3)]
+
+
+def check_s4d(torch, gen, records):
+    from loongx_tpu_torch.ops import s4 as ts4
+    from loongx_tpu_torch.ops import s4_scan
+
+    for label, b, length, h, n in s4d_cases():
+        p = ts4.init_s4d_layer(h, 2 * n, generator=gen, device="cuda")
+        u = torch.randn(b, length, h, generator=gen, device="cuda")
+        out = s4_scan.s4d_scan_recurrent(p, u)
+        ref = s4_scan.s4d_scan_plain(p, u)
+        conv = ts4.s4d_conv(p, u)
+        err = (out - ref).abs().max().item()
+        rel = rel_l2(out, conv)
+        ms = cuda_time_ms(lambda: s4_scan.s4d_scan_recurrent(p, u))
+        plain_ms = cuda_time_ms(lambda: s4_scan.s4d_scan_plain(p, u), iters=2)
+        conv_ms = cuda_time_ms(lambda: ts4.s4d_conv(p, u))
+        # u read and y written in fp32, the six [H, N] planes and D; about 14
+        # flops per (b, t, h, n)
+        bms, by = bound_ms(2 * b * length * h * 4 + (6 * n + 1) * h * 4,
+                           14.0 * b * length * h * n, "fp32")
+        clock_hz = 1.98e9  # the SM clock the card holds under load
+        latency_ms = 1e3 * length * S4D_STEP_CYCLES / clock_hz
+        records.append(dict(kernel="s4d_scan", case=label, err=err,
+                            tol=S4D_ATOL, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, conv_ms=conv_ms, bound_ms=bms,
+                            bound_by=by, latency_bound_ms=latency_ms))
+        print(f"  s4d_scan {label:10s} B{b} L{length} H{h} N{n} err {err:.3e} "
+              f"(tol {S4D_ATOL:.0e}) rel L2 vs s4d_conv {rel:.3e} (bound "
+              f"{S4D_CONV_REL_L2:.1e}) kernel {ms:.4f} ms plain {plain_ms:.2f}"
+              f" s4d_conv {conv_ms:.4f} bound {bms:.5f} ({by}); recurrence "
+              f"latency {latency_ms:.4f}", flush=True)
+        if not (err <= S4D_ATOL and rel <= S4D_CONV_REL_L2):
+            raise Failure(f"s4d_scan {label}: err {err} (tol {S4D_ATOL}), rel "
+                          f"L2 vs conv {rel} (bound {S4D_CONV_REL_L2})")
+
+
+# the int8 QK^T forward against the bf16-score kernel: the JAX package's own
+# bar for int8 scores (tests/test_flash_attention.py)
+INT8_RMS, INT8_CORR = 0.03, 0.999
+
+
+def check_flash_int8(torch, gen, records):
+    """The k-quantization pass (codes and scales equal to the plain
+    version's) and the int8 QK^T forward (within kernel 1's bound of its
+    plain version, within JAX's int8 bar of the bf16-score kernel)."""
+    import torch.nn.functional as F
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops.attention import int8_key_span
+    from loongx_tpu_torch.ops.rope import apply_rope, rope_embed
+
+    h, d = 24, 128
+    for label, s, c in (("S2560 union", 2560, 1024), ("S8704 union", 8704, 4096)):
+        q, k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
+        rope = rope_embed(ids.floor())
+        span = int8_key_span(s)
+        kq = dict(span=span, rope=rope, layout="bshd")
+        codes, scales = fa.flash_kquant(k, **kq)
+        codes_p, scales_p = fa.flash_kquant_plain(k, **kq)
+        n_diff = int((codes != codes_p).sum().item())
+        scale_err = (scales - scales_p).abs().max().item()
+        kw = dict(cond_start=s - c, rope=rope, layout="bshd")
+        out = fa.flash_attention(q, k, v, int8_attn=True, **kw).float()
+        ref = fa.flash_attention_plain(q, k, v, int8_attn=True, **kw).float()
+        bf = fa.flash_attention(q, k, v, **kw).float()
+        err = (out - ref).abs().max().item()
+        tol = 2.0 ** -5 * ref.abs().max().item()
+        rel = rel_l2(out, ref)
+        rms = ((out - bf).pow(2).mean().sqrt() / bf.pow(2).mean().sqrt()).item()
+        corr = torch.corrcoef(torch.stack([out.flatten(), bf.flatten()]))[0, 1].item()
+        ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, int8_attn=True, **kw))
+        bf_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        kq_ms = cuda_time_ms(lambda: fa.flash_kquant(k, **kq))
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, int8_attn=True, **kw), iters=2)
+        kq_plain_ms = cuda_time_ms(lambda: fa.flash_kquant_plain(k, **kq), iters=2)
+        qr, kr = (apply_rope(t.transpose(1, 2), *rope) for t in (q, k))
+        vr = v.transpose(1, 2).contiguous()
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
+        # the k pass and the forward together: q, k, v read, o written (bf16),
+        # the rope tables; S.S.D MACs of int8 scores and of bf16 P.V per head
+        t_ops = 2.0 * h * s * s * d / PEAK_OPS["int8"] + 2.0 * h * s * s * d / PEAK_OPS["bf16"]
+        t_bytes = (4 * s * h * d * 2 + 2 * s * d * 4) / HBM_BYTES_PER_S
+        bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        # the k pass alone: k and the rope tables read, codes and scales
+        # written; about 10 fp32 operations an element (rotate, abs, max,
+        # divide, round)
+        kq_bms, kq_by = bound_ms(s * h * d * 2 + 2 * s * d * 4 + s * h * d
+                                 + h * scales.shape[-1] * 4, 10.0 * s * h * d,
+                                 "fp32")
+        records.append(dict(kernel="flash_attention_int8", case=label, err=err,
+                            tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bf16_ms=bf_ms, bound_ms=bms, bound_by=by))
+        records.append(dict(kernel="flash_kquant", case=label,
+                            err=float(n_diff) + scale_err, tol=0.0, ms=kq_ms,
+                            plain_ms=kq_plain_ms, library_ms=None,
+                            bound_ms=kq_bms, bound_by=kq_by))
+        print(f"  flash int8 {label:12s} k pass: codes differing {n_diff} of "
+              f"{codes.numel()}, scale err {scale_err:.1e}, {kq_ms:.4f} ms "
+              f"(plain {kq_plain_ms:.3f}, bound {kq_bms:.4f} {kq_by}); forward "
+              f"err {err:.3e} (tol {tol:.2e}) rel L2 {rel:.3e} (bound "
+              f"{FLASH_REL_L2:.0e}); vs bf16 scores rms {rms:.4f} (bound "
+              f"{INT8_RMS}) corr {corr:.6f} (bound {INT8_CORR}); int8 {ms:.3f} "
+              f"ms (k pass included) bf16 {bf_ms:.3f} plain {plain_ms:.3f} sdpa "
+              f"{lib_ms:.3f} bound {bms:.3f} ({by})", flush=True)
+        if n_diff or scale_err:
+            raise Failure(f"flash_kquant {label}: {n_diff} codes differ, scale "
+                          f"err {scale_err}")
+        if not (err <= tol and rel <= FLASH_REL_L2 and rms < INT8_RMS
+                and corr > INT8_CORR):
+            raise Failure(f"flash int8 {label}: err {err} (tol {tol}), rel L2 "
+                          f"{rel}, rms {rms}, corr {corr}")
+        del q, k, v, out, ref, bf, qr, kr, vr
+        torch.cuda.empty_cache()
+
+
+def check_t5_gemms(torch, gen, records):
+    """The stacked kernel at the three T5-XXL shapes (M 512 tokens,
+    weight-only, 24 layers), held to one bf16 rounding like every GEMM."""
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    for label, k, n, act in (("t5 q/k/v/o", 4096, 4096, None),
+                             ("t5 wi_0 gelu", 4096, 10240, "gelu_tanh"),
+                             ("t5 wi_1", 4096, 10240, None),
+                             ("t5 wo", 10240, 4096, None)):
+        m, nb = 512, 24
+        wq = torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        sc = torch.rand(nb, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        blk = nb - 2
+        run = lambda: qmm.quant_matmul_stacked(x, wq, sc, blk, activation=act)
+        plain = lambda: qmm.qmm_plain(x, wq[blk], sc[blk], None, act)
+        _qmm_record(records, "qmm_stacked", label, False, run(), plain(),
+                    cuda_time_ms(run), cuda_time_ms(plain, iters=2),
+                    cuda_time_ms(_library_call(torch, x, wq[blk], False)),
+                    m, k, n)
+
+
 # ---------------------------------------------------------------------------
 # Phases 3, 4 and 5
 # ---------------------------------------------------------------------------
 
 
 def attention_fp32_probs(q, k, v, *, cond_start, mode="union", c_factor=None,
-                         rope=None, layout="bhsd"):
+                         rope=None, layout="bhsd", int8_attn=False):
     """The plain attention with float32 probabilities in the PV product (the
     plain version rounds them to bf16 first): an equally valid rounding,
-    used to measure how far such a choice moves a whole forward."""
+    used to measure how far such a choice moves a whole forward (bf16
+    scores only)."""
     import torch
+    if int8_attn:
+        raise Failure("attention_fp32_probs has no int8 score mode")
     from loongx_tpu_torch.ops.attention import _block_bias
     from loongx_tpu_torch.ops.rope import apply_rope
 
@@ -762,6 +930,21 @@ def full_forward(torch, pipe, gen):
             if floor_share is not None and not floor <= floor_share * bound:
                 raise Failure(f"forward {label}: the rounding floor {floor} "
                               f"is not small against the bound {bound}")
+        # the int8 QK^T mode through all 57 blocks (W8A8): kernels against
+        # their plain versions (gross faults only, as for W8A8 above) and,
+        # printed, against bf16 scores
+        v_bf16 = flux_forward(params, cfg, w8a8=True, **kw)
+        v_int8 = flux_forward(params, cfg, w8a8=True, int8_attn=True, **kw)
+        with plain_versions():
+            v_int8_plain = flux_forward(params, cfg, w8a8=True, int8_attn=True,
+                                        **kw)
+        rel, rel_bf16 = rel_l2(v_int8, v_int8_plain), rel_l2(v_int8, v_bf16)
+        finite = bool(torch.isfinite(v_int8).all())
+        print(f"  forward 19+38 blocks W8A8 int8_attn: rel L2 {rel:.3e} (bound "
+              f"5e-02), against bf16 scores {rel_bf16:.3e}, finite {finite}",
+              flush=True)
+        if not finite or not rel <= 5e-2:
+            raise Failure(f"forward int8_attn: rel L2 {rel}, finite {finite}")
     if prof is None:
         print("  forward device profile: not measured (no device activity "
               "in the profiler)", flush=True)
@@ -898,7 +1081,7 @@ def serve(torch, pipe):
             motion=rng.standard_normal((1, 6, 128)).astype(np.float32),
             seed=seed))
     saved = {name: getattr(generate, name) for name in stage_names}
-    served, card_samples = 0, []
+    served, card_samples, images = 0, [], []
     try:
         for name, key in stage_names.items():
             setattr(generate, name, timed(saved[name], key))
@@ -909,9 +1092,9 @@ def serve(torch, pipe):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 img = generate.neural_edit(
-                    pipe, req.pop("cond_image"), **req,
-                    num_inference_steps=STEPS, w8a8=True)
+                    pipe, **req, num_inference_steps=STEPS, w8a8=True)
                 dt = time.perf_counter() - t0
+                images.append(img)
                 finite = bool(np.isfinite(img).all())
                 outside = float(np.mean(np.abs(img) > 1.0))
                 peak = float(np.abs(img).max())
@@ -921,7 +1104,9 @@ def serve(torch, pipe):
                       f"{STEPS}, stages " + ", ".join(
                           f"{k} {v:.3f}" for k, v in times.items())
                       + f", output [{img.min():.3f}, {img.max():.3f}] "
-                      f"({outside:.2e} outside [-1, 1]) finite {finite}",
+                      f"({outside:.2e} outside [-1, 1]) finite {finite} (PERF.md's"
+                      f" serving reading before the text slice: 243.5 ms/step"
+                      f" on H100 80GB HBM3, 700 W)",
                       flush=True)
                 if not (finite and img.shape == (1, 512, 512, 3)
                         and outside <= MAX_SHARE_OUTSIDE_UNIT
@@ -932,10 +1117,11 @@ def serve(torch, pipe):
                         f"{MAX_SHARE_OUTSIDE_UNIT}), max |x| {peak} (limit "
                         f"{MAX_ABS_OUT})")
                 served += 1
+        counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
+        options = serve_options(torch, pipe, requests[0], images[0], times)
     finally:
         for name, fn in saved.items():
             setattr(generate, name, fn)
-    counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
     print(f"  launches over {served} requests: {counts}", flush=True)
     if not all(counts.values()):
         raise Failure(f"a kernel was not launched while serving: {counts}")
@@ -949,7 +1135,206 @@ def serve(torch, pipe):
     else:
         print("  card while serving: clocks and power not measured (no "
               "nvidia-smi samples)", flush=True)
-    return counts
+    return counts, options
+
+
+# brain embeds through the S4D recurrence kernel against the plain
+# recurrence on the card: gross faults only, since the bf16 rounding of each
+# S4D output and the DGF's top-k channel mask turn any reordering of a sum
+# into flipped roundings and, near the threshold, swapped channels (the
+# readings against the conv mode are printed beside it)
+S4_EMBED_REL_L2 = 5e-2
+
+
+def serve_options(torch, pipe, req, img_ref, times):
+    """The first request again through each serving option, fed the same
+    signals, latents and noise (the same seed): ``s4_mode="pallas"``
+    (launches of the S4D kernel, the brain embeds against the conv mode's
+    and the plain recurrence's on the card) and ``int8_attn=True`` (ms/step,
+    the image against the bf16-score image).  Returns the launch counts of
+    each option's request."""
+    import numpy as np
+    from loongx_tpu_torch.ops import cuda_build, s4_scan
+    from loongx_tpu_torch.sampling import generate
+
+    sig = {k: req[k] for k in ("eeg", "ppg", "fnirs", "motion")}
+    embeds = {}
+    cuda_build.LAUNCHES.clear()
+    for mode in ("conv", "pallas"):
+        embeds[mode] = generate.encode_brain_conditions(pipe, s4_mode=mode, **sig)
+    encode_launches = cuda_build.LAUNCHES["s4d_scan"]
+    kernel = s4_scan.s4d_scan_recurrent
+    s4_scan.s4d_scan_recurrent = s4_scan.s4d_scan_plain
+    try:
+        embeds["plain"] = generate.encode_brain_conditions(
+            pipe, s4_mode="pallas", **sig)
+    finally:
+        s4_scan.s4d_scan_recurrent = kernel
+    rels = {f"{a} vs {b}": [rel_l2(x, y) for x, y in zip(embeds[a], embeds[b])]
+            for a, b in (("pallas", "conv"), ("plain", "conv"),
+                         ("pallas", "plain"))}
+    out, ms_step = {}, {}
+    for label, option in (("s4_mode=pallas", dict(s4_mode="pallas")),
+                          ("int8_attn", dict(int8_attn=True))):
+        times.clear()
+        cuda_build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = generate.neural_edit(pipe, **req, num_inference_steps=STEPS,
+                                   w8a8=True, **option)
+        dt = time.perf_counter() - t0
+        out[label] = dict(cuda_build.LAUNCHES)
+        ms_step[label] = times["denoise_s"] / STEPS * 1e3
+        rel = float(np.linalg.norm(img - img_ref) / np.linalg.norm(img_ref))
+        beside = (f" (bf16 scores, the request before: "
+                  f"{ms_step['s4_mode=pallas']:.1f})" if label == "int8_attn"
+                  else "")
+        print(f"  request seed {req['seed']} {label}: edit {dt:.2f} s, "
+              f"{ms_step[label]:.1f} ms/step x {STEPS}{beside}, "
+              f"image rel L2 vs the first request {rel:.3e}, finite "
+              f"{bool(np.isfinite(img).all())}, launches "
+              + ", ".join(f"{k} {out[label].get(k, 0)}" for k in
+                          ("s4d_scan", "flash_attention", "flash_attention_int8",
+                           "flash_kquant")), flush=True)
+        if not (np.isfinite(img).all() and img.shape == img_ref.shape):
+            raise Failure(f"request {label}: output {img.shape} not finite")
+    print(f"  brain embeds (prompt, pooled) rel L2: "
+          + "; ".join(f"{k} {v[0]:.3e}, {v[1]:.3e}" for k, v in rels.items())
+          + f" (bound {S4_EMBED_REL_L2:.0e} for pallas vs plain); S4D "
+          f"launches per brain encode {encode_launches}", flush=True)
+    n_layers = 2 * len(s4d_cases())
+    if encode_launches != n_layers or out["s4_mode=pallas"]["s4d_scan"] != n_layers:
+        raise Failure(f"S4D launches {encode_launches} per encode, "
+                      f"{out['s4_mode=pallas'].get('s4d_scan')} per request, "
+                      f"not {n_layers}")
+    if not max(rels["pallas vs plain"]) <= S4_EMBED_REL_L2:
+        raise Failure(f"brain embeds through the S4D recurrence: {rels}")
+    blocks = pipe.flux_cfg.num_double_blocks + pipe.flux_cfg.num_single_blocks
+    int8 = out["int8_attn"]
+    if not (int8.get("flash_attention_int8") == int8.get("flash_kquant")
+            == STEPS * blocks and not int8.get("flash_attention")):
+        raise Failure(f"int8_attn request launches {int8}")
+    return out
+
+
+class CharTokenizer:
+    """A deterministic character tokenizer with the Hugging Face call
+    interface the pipeline uses (no vocabulary files in the repository)."""
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+    def __call__(self, prompts, padding=None, max_length=None, truncation=None,
+                 return_tensors=None):
+        import numpy as np
+        ids = np.zeros((len(prompts), max_length), np.int64)
+        for i, p in enumerate(prompts):
+            for j, ch in enumerate(p[:max_length]):
+                ids[i, j] = (ord(ch) * 31 + j) % self.vocab_size
+
+        class Out:
+            input_ids = ids
+
+        return Out()
+
+
+def serve_text(torch, pipe):
+    """generate() with text prompts in fuse mode: random int8 T5-XXL and
+    CLIP-L join the serving bundle, two requests at 512x512 and 28 steps
+    (W8A8), then the text encoders are freed."""
+    import numpy as np
+    from loongx_tpu_torch.models import pipeline as pipeline_mod
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.sampling import generate
+    from loongx_tpu_torch.sampling.condition import Condition
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pipe.add_text_encoders(seed=3, t5_tokenizer=CharTokenizer(32128),
+                           clip_tokenizer=CharTokenizer(49408))
+    torch.cuda.synchronize()
+    text_bytes = torch.cuda.memory_allocated() - mem0
+    print(f"  random int8 T5-XXL and CLIP-L made in "
+          f"{time.perf_counter() - t0:.1f} s: {text_bytes / 1e9:.3f} GB",
+          flush=True)
+
+    times, stacked = {}, []
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            before = cuda_build.LAUNCHES["qmm_stacked"]
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t
+            if key == "text_encode_s":
+                stacked.append(cuda_build.LAUNCHES["qmm_stacked"] - before)
+            return out
+        return wrapper
+
+    module_stages = [(generate, "encode_brain_conditions", "brain_encode_s"),
+                     (generate, "denoise", "denoise_s"),
+                     (generate, "vae_decode", "decode_s"),
+                     (pipeline_mod, "clip_encode", "clip_s"),
+                     (pipeline_mod, "t5_encode", "t5_s")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in module_stages]
+    pipe.encode_text = timed(pipe.encode_text, "text_encode_s")
+    pipe.encode_image_tokens = timed(pipe.encode_image_tokens, "vae_encode_s")
+    try:
+        for (mod, name, key), (_, _, fn) in zip(module_stages, saved):
+            setattr(mod, name, timed(fn, key))
+        for seed in (1, 2):
+            rng = np.random.default_rng(10 + seed)
+            img = (rng.random((512, 512, 3)) * 255).astype(np.uint8)
+            cond = Condition(
+                "eeg+fnirs", condition=img,
+                eeg=rng.standard_normal((1, 4, 4096)).astype(np.float32),
+                ppg=rng.standard_normal((1, 4, 256)).astype(np.float32),
+                fnirs=rng.standard_normal((1, 6, 512)).astype(np.float32),
+                motion=rng.standard_normal((1, 6, 128)).astype(np.float32))
+            times.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate.generate(
+                pipe, prompt="make the sky a deep evening blue",
+                conditions=[cond], use_brain_condition=True, fuse_flag=True,
+                fuse_mode="infer", height=512, width=512,
+                num_inference_steps=STEPS, seed=seed, w8a8=True)
+            dt = time.perf_counter() - t0
+            finite = bool(np.isfinite(out).all())
+            outside = float(np.mean(np.abs(out) > 1.0))
+            peak = float(np.abs(out).max())
+            print(f"  generate seed {seed}: {dt:.2f} s ({1.0 / dt:.4f} edits/s),"
+                  f" {times['denoise_s'] / STEPS * 1e3:.1f} ms/step x {STEPS}, "
+                  f"stages " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+                  + f"; stacked-kernel launches in the text encode "
+                  f"{stacked[-1]}; output {out.shape} [{out.min():.3f}, "
+                  f"{out.max():.3f}] ({outside:.2e} outside [-1, 1]) finite "
+                  f"{finite}", flush=True)
+            if not (finite and out.shape == (1, 512, 512, 3)
+                    and outside <= MAX_SHARE_OUTSIDE_UNIT and peak <= MAX_ABS_OUT):
+                raise Failure(f"generate seed {seed}: output {out.shape}, finite "
+                              f"{finite}, {outside} outside [-1, 1], max |x| {peak}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        del pipe.encode_text, pipe.encode_image_tokens
+    expected = 7 * pipe.t5_cfg.num_layers
+    if stacked != [expected] * 2:
+        raise Failure(f"stacked-kernel launches per prompt {stacked}, not "
+                      f"{expected}")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    pipe.free_text_encoders()
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = mem1 - torch.cuda.memory_allocated()
+    print(f"  free_text_encoders(): {freed / 1e9:.3f} GB freed (the encoders "
+          f"took {text_bytes / 1e9:.3f} GB)", flush=True)
+    if "t5" in pipe.params or freed < 0.9 * text_bytes:
+        raise Failure(f"free_text_encoders freed {freed} of {text_bytes} bytes")
 
 
 TRAIN_STEPS = 4
@@ -1088,42 +1473,46 @@ def train(torch):
 
 def kernel_table(records, launches):
     """One entry per kernel: the worst error over its cases and the times
-    at its main shape."""
+    at its main shape; launches from the run of its path."""
+    csrc = "loongx_tpu_torch/csrc/"
+    fa_py = "loongx_tpu/ops/flash_attention.py"
+    qmm_py = "loongx_tpu/ops/quant_matmul.py"
+    # name: (source, replaces, main case, path whose launches count)
     meta = {
-        "flash_attention": ("cuda", "loongx_tpu_torch/csrc/flash_attention.cu",
-                            "loongx_tpu/ops/flash_attention.py:193",
-                            "S2560 union"),
-        "qmm_stacked": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
-                        "loongx_tpu/ops/quant_matmul.py:422",
-                        "single mlp gelu w8a8"),
-        "qmm_qkv_stacked": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
-                            "loongx_tpu/ops/quant_matmul.py:1067",
-                            "single w8a8"),
-        "qmm_flat": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
-                     "loongx_tpu/ops/quant_matmul.py:75",
-                     "context_embedder w8a8"),
+        "flash_attention": ("flash_attention.cu", f"{fa_py}:193", "S2560 union",
+                            "serve"),
+        "qmm_stacked": ("quant_matmul.cu", f"{qmm_py}:422",
+                        "single mlp gelu w8a8", "serve"),
+        "qmm_qkv_stacked": ("quant_matmul.cu", f"{qmm_py}:1067", "single w8a8",
+                            "serve"),
+        "qmm_flat": ("quant_matmul.cu", f"{qmm_py}:75", "context_embedder w8a8",
+                     "serve"),
         # the activation quantization inside the TPU kernels' W8A8 MAC
-        "qmm_act_quant": ("cuda", "loongx_tpu_torch/csrc/quant_matmul.cu",
-                          "loongx_tpu/ops/quant_matmul.py:39",
-                          "single mlp gelu"),
-        "qmm_t": ("cuda", "loongx_tpu_torch/csrc/quant_matmul_t.cu",
-                  "loongx_tpu/ops/quant_matmul.py:192", "proj_out"),
-        "qmm_t_stacked": ("cuda", "loongx_tpu_torch/csrc/quant_matmul_t.cu",
-                          "loongx_tpu/ops/quant_matmul.py:711", "sgl proj_mlp"),
-        "flash_bwd_dkv": ("cuda", "loongx_tpu_torch/csrc/flash_attention.cu",
-                          "loongx_tpu/ops/flash_attention.py:593", "S2560 union"),
-        "flash_bwd_dq": ("cuda", "loongx_tpu_torch/csrc/flash_attention.cu",
-                         "loongx_tpu/ops/flash_attention.py:656", "S2560 union"),
+        "qmm_act_quant": ("quant_matmul.cu", f"{qmm_py}:39", "single mlp gelu",
+                          "serve"),
+        "qmm_t": ("quant_matmul_t.cu", f"{qmm_py}:192", "proj_out", "train"),
+        "qmm_t_stacked": ("quant_matmul_t.cu", f"{qmm_py}:711", "sgl proj_mlp",
+                          "train"),
+        "flash_bwd_dkv": ("flash_attention.cu", f"{fa_py}:593", "S2560 union",
+                          "train"),
+        "flash_bwd_dq": ("flash_attention.cu", f"{fa_py}:656", "S2560 union",
+                         "train"),
+        "s4d_scan": ("s4d_scan.cu", "loongx_tpu/ops/s4_pallas.py:30",
+                     "EEG wide", "serve s4_mode=pallas"),
+        # the int8 QK^T mode of _fwd_kernel (:228-291) and its k quantization
+        "flash_attention_int8": ("flash_attention.cu", f"{fa_py}:193",
+                                 "S2560 union", "serve int8_attn"),
+        "flash_kquant": ("flash_attention.cu", f"{fa_py}:228", "S2560 union",
+                         "serve int8_attn"),
     }
     table = []
-    for name, (route, src, replaces, main_case) in meta.items():
+    for name, (src, replaces, main_case, path) in meta.items():
         cases = [r for r in records if r["kernel"] == name]
         main = next(r for r in cases if r["case"] == main_case)
-        path = "train" if name in launches["train"] and (
-            name not in launches["serve"]) else "serve"
         table.append({
-            "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": launches[path][name], "launches_path": path,
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": launches[path].get(name, 0),
+            "launches_path": path,
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1167,6 +1556,11 @@ def main() -> int:
             check_qmm(torch, gen, records)
             check_qmm_t(torch, gen, records)
             check_flash_bwd(torch, gen, records)
+            # a generator of their own keeps phase 3's inputs as they were
+            gen_new = torch.Generator(device="cuda").manual_seed(3)
+            check_s4d(torch, gen_new, records)
+            check_flash_int8(torch, gen_new, records)
+            check_t5_gemms(torch, gen_new, records)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
@@ -1174,7 +1568,12 @@ def main() -> int:
             kw = full_forward(torch, pipe, gen)
             lora_grads(torch, gen, kw)
         with Phase("4 serve", card):
-            launches = {"serve": serve(torch, pipe)}
+            counts, options = serve(torch, pipe)
+            launches = {"serve": counts,
+                        "serve s4_mode=pallas": options["s4_mode=pallas"],
+                        "serve int8_attn": options["int8_attn"]}
+        with Phase("generate (text prompts, fuse mode)", card):
+            serve_text(torch, pipe)
         pipe = kw = None  # free the serving bundle before training
         gc.collect()
         torch.cuda.empty_cache()

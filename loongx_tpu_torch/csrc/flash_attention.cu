@@ -12,6 +12,19 @@
 // so P_ij = 2^(s2_ij - m2_i) / l_i.  The TPU kernel's natural-base m is m2 / log2 e; its l
 // is the same sum.
 //
+// int8 QK^T mode (serving only; the TPU kernel's int8_qk path, flash_attention.py:228-291):
+// the scores are (q_codes . k_codes) * (q_scale[row] * k_scale[span]), s8 x s8 -> s32 on
+// mma.sync m16n8k32, then the same fp32 softmax and bf16 P.V.  Codes follow the TPU kernel's
+// _quant: sc = absmax / 127 (1 when absmax is 0, IEEE division), code = clip(rint(x / sc),
+// -127, 127), taken after RoPE and its rounding to bf16.  q is quantized per row as its tile
+// loads.  The k scale spans the TPU kernel's key tile block_k (the whole padded row at every
+// FLUX length), wider than any block's view here, so a pre-pass of two small kernels
+// (kquant_absmax_kernel: rotate, round, absmax per span by atomicMax on the float's bits,
+// exact and order-free for non-negative floats; kquant_codes_kernel: rotate again and write
+// the codes, head-major [B, H, S, D] int8, and one fp32 scale per span) runs first.  The int8
+// K tile halves the K bytes the forward reads and its score product runs at twice the bf16
+// tensor rate; P.V stays bf16, so at most about a third of the work moves to the faster path.
+//
 // What bounds it on this card: at the FLUX shapes (S = 2560 or 8704, D = 128, 24 heads) the
 // two matmuls are 4*S*S*D flops per head, about 80 GFLOP at S = 2560 against ~80 MB of
 // q/k/v/o, far above the bf16 ridge (~295 flop/byte): it is bound by tensor-core operations.
@@ -75,6 +88,28 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 // rotating interleaved pairs when cos/sin are given:
 //   out[2i] = x[2i] cos[2i] - x[2i+1] sin[2i],  out[2i+1] = x[2i+1] cos[2i+1] + x[2i] sin[2i+1]
 // in fp32 with separate roundings (no fma contraction), then rounded to bf16.
+// Eight bf16 values at columns c8.. of row s (raw), rotated by that row's cos/sin when given.
+template <int D>
+__device__ __forceinline__ uint4 rope8(uint4 raw, const float* cos, const float* sin, int s,
+                                       int c8) {
+  if (cos == nullptr) return raw;
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  const float4* c4 = reinterpret_cast<const float4*>(cos + (long long)s * D + c8);
+  const float4* s4 = reinterpret_cast<const float4*>(sin + (long long)s * D + c8);
+  const float4 ca = __ldg(c4), cb = __ldg(c4 + 1), sa = __ldg(s4), sb = __ldg(s4 + 1);
+  const float cp[8] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+  const float sp[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+  float out[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float x0 = __bfloat162float(x[2 * j]), x1 = __bfloat162float(x[2 * j + 1]);
+    out[2 * j] = __fadd_rn(__fmul_rn(x0, cp[2 * j]), __fmul_rn(-x1, sp[2 * j]));
+    out[2 * j + 1] = __fadd_rn(__fmul_rn(x1, cp[2 * j + 1]), __fmul_rn(x0, sp[2 * j + 1]));
+  }
+  return make_uint4(pack_bf16(out[0], out[1]), pack_bf16(out[2], out[3]),
+                    pack_bf16(out[4], out[5]), pack_bf16(out[6], out[7]));
+}
+
 template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* base,
                                           long long ss, int r0, int S, const float* cos,
@@ -84,45 +119,69 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
     const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8;
     const int s = r0 + r;
     uint4 raw = make_uint4(0, 0, 0, 0);
-    if (s < S) {
-      raw = *reinterpret_cast<const uint4*>(base + (long long)s * ss + c8);
-      if (cos != nullptr) {
-        const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-        const float4* c4 = reinterpret_cast<const float4*>(cos + (long long)s * D + c8);
-        const float4* s4 = reinterpret_cast<const float4*>(sin + (long long)s * D + c8);
-        const float4 ca = __ldg(c4), cb = __ldg(c4 + 1), sa = __ldg(s4), sb = __ldg(s4 + 1);
-        const float cp[8] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
-        const float sp[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-        float out[8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float x0 = __bfloat162float(x[2 * j]), x1 = __bfloat162float(x[2 * j + 1]);
-          out[2 * j] = __fadd_rn(__fmul_rn(x0, cp[2 * j]), __fmul_rn(-x1, sp[2 * j]));
-          out[2 * j + 1] = __fadd_rn(__fmul_rn(x1, cp[2 * j + 1]), __fmul_rn(x0, sp[2 * j + 1]));
-        }
-        raw.x = pack_bf16(out[0], out[1]);
-        raw.y = pack_bf16(out[2], out[3]);
-        raw.z = pack_bf16(out[4], out[5]);
-        raw.w = pack_bf16(out[6], out[7]);
-      }
-    }
+    if (s < S) raw = rope8<D>(*reinterpret_cast<const uint4*>(base + (long long)s * ss + c8),
+                              cos, sin, s, c8);
     *reinterpret_cast<uint4*>(smem + r * (D + PAD) + c8) = raw;
   }
 }
 
-template <int D>
+// int8 codes of x with scale sc (IEEE division, round half to even, clip to +-127).
+__device__ __forceinline__ int quant8(float x, float sc) {
+  return max(-127, min(127, __float2int_rn(__fdiv_rn(x, sc))));
+}
+__device__ __forceinline__ float scale8(float absmax) {
+  return absmax == 0.f ? 1.f : __fdiv_rn(absmax, 127.f);
+}
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
+         ((uint32_t)(d & 0xff) << 24);
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int PAD8 = 16;  // bytes of row padding of an int8 K tile in shared memory
+
+// int8 codes of rows [r0, r0 + ROWS) of one head ([S, D] row-major) into shared memory (row
+// stride D + PAD8 bytes), zero past S.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_codes(int8_t* smem, const int8_t* base, int r0, int S) {
+  constexpr int CHUNKS = D / 16;
+  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NT) {
+    const int r = c / CHUNKS, c16 = (c % CHUNKS) * 16;
+    const int s = r0 + r;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (s < S) raw = *reinterpret_cast<const uint4*>(base + (long long)s * D + c16);
+    *reinterpret_cast<uint4*>(smem + r * (D + PAD8) + c16) = raw;
+  }
+}
+
+// INT8 selects the int8 QK^T mode: kq / kscale are the pre-pass's codes [B, H, S, D] and
+// scales [B, H, nspan] (k is unused); otherwise kq / kscale are unused.
+template <int D, bool INT8>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const int8_t* __restrict__ kq, const float* __restrict__ kscale,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  const float* __restrict__ cos, const float* __restrict__ sin,
                  float* __restrict__ m_out, float* __restrict__ l_out, int H, int S,
                  long long sb, long long ss, long long sh, int cond_start, int mode,
-                 float cbias, float scale) {
+                 float cbias, float scale, int span, int nspan) {
   constexpr int LD = D + PAD;
+  constexpr int LD8 = D + PAD8;
   __shared__ __align__(16) __nv_bfloat16 smem[2 * BKV * LD];  // K | V tiles, or the Q tile
   __nv_bfloat16* ks = smem;
+  int8_t* k8 = reinterpret_cast<int8_t*>(smem);  // the int8 K tile (fits the K half)
   __nv_bfloat16* vs = smem + BKV * LD;
+  static_assert(BKV * (D + PAD8) <= BKV * LD * 2, "the int8 K tile fits the K buffer");
   constexpr int KSTEPS = D / 16;   // k-steps of the QK^T product
+  constexpr int KSTEPS8 = D / 32;  // k-steps of the int8 QK^T product
   constexpr int DTILES = D / 8;    // n-tiles of the output
 
   const int q0 = blockIdx.x * BQ;
@@ -137,15 +196,43 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   static_assert(BQ == 2 * BKV, "the Q tile is staged in the K and V buffers");
   load_tile<D, BQ, NTHREADS>(smem, q + head, ss, q0, S, cos, sin);
   __syncthreads();
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[INT8 ? 1 : KSTEPS][4];    // bf16 A fragments
+  uint32_t qf8[INT8 ? KSTEPS8 : 1][4];  // int8 A fragments
+  float qsc[2] = {1.f, 1.f};            // int8: the scales of rows g and g + 8
+  if constexpr (INT8) {
+    // per-row absmax of this warp's 16 rows, then codes straight into the fragments:
+    // a0 (row g, cols 4t..), a1 (row g + 8), a2 (row g, cols 16 + 4t..), a3 (row g + 8)
+#pragma unroll 1
+    for (int r = 0; r < 16; ++r) {
+      float a = 0.f;
+      for (int c = lane; c < D; c += 32)
+        a = fmaxf(a, fabsf(__bfloat162float(ks[(wr + r) * LD + c])));
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(ks + (wr + g) * LD + c);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(ks + (wr + g + 8) * LD + c);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(ks + (wr + g) * LD + c + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(ks + (wr + g + 8) * LD + c + 8);
+      for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+      if (r == g) qsc[0] = scale8(a);
+      if (r == g + 8) qsc[1] = scale8(a);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS8; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat16* x = ks + (wr + g + 8 * (j % 2)) * LD + kk * 32 + 16 * (j / 2) + 4 * t;
+        const float sc = qsc[j % 2];
+        qf8[kk][j] = pack4(quant8(__bfloat162float(x[0]), sc), quant8(__bfloat162float(x[1]), sc),
+                           quant8(__bfloat162float(x[2]), sc), quant8(__bfloat162float(x[3]), sc));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(ks + (wr + g) * LD + c);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(ks + (wr + g + 8) * LD + c);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(ks + (wr + g) * LD + c + 8);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(ks + (wr + g + 8) * LD + c + 8);
+    }
   }
+  const long long bh = (long long)blockIdx.z * H + blockIdx.y;
 
   float acc[DTILES][4];
 #pragma unroll
@@ -157,23 +244,45 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   for (int kv0 = 0; kv0 < S; kv0 += BKV) {
     __syncthreads();  // every warp is done with the previous K/V (or Q) tile
-    load_tile<D, BKV, NTHREADS>(ks, k + head, ss, kv0, S, cos, sin);
+    if constexpr (INT8) {
+      load_codes<D, BKV, NTHREADS>(k8, kq + bh * S * D, kv0, S);
+    } else {
+      load_tile<D, BKV, NTHREADS>(ks, k + head, ss, kv0, S, cos, sin);
+    }
     load_tile<D, BKV, NTHREADS>(vs, v + head, ss, kv0, S, nullptr, nullptr);
     __syncthreads();
 
     // scores: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
     float sc[BKV / 8][4];
+    if constexpr (INT8) {
+      // a 64-key tile lies inside one span (span is a multiple of 64)
+      const float ksc = kscale[bh * nspan + kv0 / span];
+      const float qk[2] = {qsc[0] * ksc, qsc[1] * ksc};
 #pragma unroll
-    for (int nn = 0; nn < BKV / 8; ++nn) {
-      sc[nn][0] = sc[nn][1] = sc[nn][2] = sc[nn][3] = 0.f;
-      // matrices: keys nn*8.., d columns kk*16 + {0, 8, 16, 24} -> (b0, b1) of kk and kk + 1
-      const __nv_bfloat16* kaddr = ks + (nn * 8 + mr) * LD + (mi % 2) * 8 + (mi / 2) * 16;
+      for (int nn = 0; nn < BKV / 8; ++nn) {
+        int acc8[4] = {0, 0, 0, 0};
+        // B fragment: key nn*8 + g, bytes kk*32 + 4t.. (b0) and kk*32 + 16 + 4t.. (b1)
+        const int8_t* krow = k8 + (nn * 8 + g) * LD8 + 4 * t;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kaddr + kk * 16);
-        mma_bf16(sc[nn], qf[kk], b[0], b[1]);
-        mma_bf16(sc[nn], qf[kk + 1], b[2], b[3]);
+        for (int kk = 0; kk < KSTEPS8; ++kk)
+          mma_s8(acc8, qf8[kk], *reinterpret_cast<const uint32_t*>(krow + kk * 32),
+                 *reinterpret_cast<const uint32_t*>(krow + kk * 32 + 16));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nn][e] = __fmul_rn(static_cast<float>(acc8[e]), qk[e / 2]);
+      }
+    } else {
+#pragma unroll
+      for (int nn = 0; nn < BKV / 8; ++nn) {
+        sc[nn][0] = sc[nn][1] = sc[nn][2] = sc[nn][3] = 0.f;
+        // matrices: keys nn*8.., d columns kk*16 + {0, 8, 16, 24} -> (b0, b1) of kk and kk + 1
+        const __nv_bfloat16* kaddr = ks + (nn * 8 + mr) * LD + (mi % 2) * 8 + (mi / 2) * 16;
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; kk += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kaddr + kk * 16);
+          mma_bf16(sc[nn], qf[kk], b[0], b[1]);
+          mma_bf16(sc[nn], qf[kk + 1], b[2], b[3]);
+        }
       }
     }
 
@@ -252,7 +361,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   // normalise (l == 0 guarded like the TPU kernel) and store; the residuals are the row's
   // running max and sum, reduced over the quad, written once per row
-  const long long stat = ((long long)blockIdx.z * H + blockIdx.y) * S;
+  const long long stat = bh * S;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row_id[r] >= S) continue;
@@ -269,6 +378,85 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
           pack_bf16(acc[dn][2 * r] / l, acc[dn][2 * r + 1] / l);
     }
   }
+}
+
+// The int8 mode's k pre-pass: one block per 64 keys of one head.  Pass 1 folds the absmax
+// of the rotated, bf16-rounded keys into amax[b, h, span] (the float's bits, atomicMax: exact
+// for non-negative floats in any order); pass 2 rotates again and writes the codes and, from
+// the block that starts a span, that span's scale.
+constexpr int KQ_ROWS = 64;
+constexpr int KQ_THREADS = 256;
+
+template <int D>
+__global__ void __launch_bounds__(KQ_THREADS)
+kquant_absmax_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ cos,
+                     const float* __restrict__ sin, unsigned* __restrict__ amax, int H, int S,
+                     long long sb, long long ss, long long sh, int span, int nspan) {
+  constexpr int CHUNKS = D / 8;
+  const int r0 = blockIdx.x * KQ_ROWS;
+  const long long head = (long long)blockIdx.z * sb + (long long)blockIdx.y * sh;
+  float a = 0.f;
+  for (int c = threadIdx.x; c < KQ_ROWS * CHUNKS; c += KQ_THREADS) {
+    const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8, s = r0 + r;
+    if (s >= S) continue;
+    const uint4 raw = rope8<D>(*reinterpret_cast<const uint4*>(k + head + (long long)s * ss + c8),
+                               cos, sin, s, c8);
+    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a = fmaxf(a, fabsf(__bfloat162float(x[j])));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  __shared__ float wmax[KQ_THREADS / 32];
+  if (threadIdx.x % 32 == 0) wmax[threadIdx.x / 32] = a;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = 0.f;
+    for (int w = 0; w < KQ_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
+    const long long bh = (long long)blockIdx.z * H + blockIdx.y;
+    atomicMax(amax + bh * nspan + r0 / span, __float_as_uint(m));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(KQ_THREADS)
+kquant_codes_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ cos,
+                    const float* __restrict__ sin, const unsigned* __restrict__ amax,
+                    int8_t* __restrict__ codes, float* __restrict__ scales, int H, int S,
+                    long long sb, long long ss, long long sh, int span, int nspan) {
+  constexpr int CHUNKS = D / 8;
+  const int r0 = blockIdx.x * KQ_ROWS;
+  const long long head = (long long)blockIdx.z * sb + (long long)blockIdx.y * sh;
+  const long long bh = (long long)blockIdx.z * H + blockIdx.y;
+  const float sc = scale8(__uint_as_float(amax[bh * nspan + r0 / span]));
+  if (threadIdx.x == 0 && r0 % span == 0) scales[bh * nspan + r0 / span] = sc;
+  for (int c = threadIdx.x; c < KQ_ROWS * CHUNKS; c += KQ_THREADS) {
+    const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8, s = r0 + r;
+    if (s >= S) continue;
+    const uint4 raw = rope8<D>(*reinterpret_cast<const uint4*>(k + head + (long long)s * ss + c8),
+                               cos, sin, s, c8);
+    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    int qv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) qv[j] = quant8(__bfloat162float(x[j]), sc);
+    *reinterpret_cast<uint2*>(codes + (bh * S + s) * D + c8) =
+        make_uint2(pack4(qv[0], qv[1], qv[2], qv[3]), pack4(qv[4], qv[5], qv[6], qv[7]));
+  }
+}
+
+template <int D>
+cudaError_t launch_kquant(const __nv_bfloat16* k, const float* cos, const float* sin,
+                          unsigned* amax, int8_t* codes, float* scales, int B, int H, int S,
+                          long long sb, long long ss, long long sh, int span, int nspan,
+                          cudaStream_t st) {
+  const dim3 grid((S + KQ_ROWS - 1) / KQ_ROWS, H, B);
+  kquant_absmax_kernel<D><<<grid, KQ_THREADS, 0, st>>>(k, cos, sin, amax, H, S, sb, ss, sh,
+                                                       span, nspan);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kquant_codes_kernel<D><<<grid, KQ_THREADS, 0, st>>>(k, cos, sin, amax, codes, scales, H, S,
+                                                      sb, ss, sh, span, nspan);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------------------
@@ -673,13 +861,67 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   if (D == 128) {
-    flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, cos, sin, m_out, l_out,
-                                                     H, S, sb, ss, sh, cond_start, mode,
-                                                     cbias, scale);
+    flash_fwd_kernel<128, false><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, nullptr, nullptr, vp, op, cos, sin, m_out, l_out, H, S, sb, ss, sh, cond_start,
+        mode, cbias, scale, 1, 1);
   } else if (D == 64) {
-    flash_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, cos, sin, m_out, l_out,
-                                                    H, S, sb, ss, sh, cond_start, mode,
-                                                    cbias, scale);
+    flash_fwd_kernel<64, false><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, nullptr, nullptr, vp, op, cos, sin, m_out, l_out, H, S, sb, ss, sh, cond_start,
+        mode, cbias, scale, 1, 1);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 mode's k pre-pass: k bf16 (strides as above), cos/sin fp32 [S, D] or null, amax an
+// int32 [B, H, nspan] buffer of zeros -> codes int8 [B, H, S, D] (head-major), scales fp32
+// [B, H, nspan], one per span of `span` keys (a multiple of 64).  Returns cudaGetLastError().
+extern "C" int flash_attention_kquant(const void* k, const float* cos, const float* sin,
+                                      void* amax, void* codes, float* scales, int B, int H,
+                                      int S, int D, long long sb, long long ss, long long sh,
+                                      int span, int nspan, void* stream) {
+  if (span <= 0 || span % KQ_ROWS || nspan != (S + span - 1) / span)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  auto* am = static_cast<unsigned*>(amax);
+  auto* cp = static_cast<int8_t*>(codes);
+  cudaError_t err;
+  if (D == 128) {
+    err = launch_kquant<128>(kp, cos, sin, am, cp, scales, B, H, S, sb, ss, sh, span, nspan, st);
+  } else if (D == 64) {
+    err = launch_kquant<64>(kp, cos, sin, am, cp, scales, B, H, S, sb, ss, sh, span, nspan, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// The int8 QK^T forward: q, v, o as in flash_attention_fwd; kq / kscale the pre-pass's
+// codes and scales.  No residuals (serving only).  Returns cudaGetLastError().
+extern "C" int flash_attention_fwd_int8(const void* q, const void* kq, const float* kscale,
+                                        const void* v, void* o, const float* cos,
+                                        const float* sin, int B, int H, int S, int D,
+                                        long long sb, long long ss, long long sh,
+                                        int cond_start, int mode, float cbias, float scale,
+                                        int span, int nspan, void* stream) {
+  if (span <= 0 || span % BKV || nspan != (S + span - 1) / span)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kqp = static_cast<const int8_t*>(kq);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  if (D == 128) {
+    flash_fwd_kernel<128, true><<<grid, NTHREADS, 0, st>>>(
+        qp, nullptr, kqp, kscale, vp, op, cos, sin, nullptr, nullptr, H, S, sb, ss, sh,
+        cond_start, mode, cbias, scale, span, nspan);
+  } else if (D == 64) {
+    flash_fwd_kernel<64, true><<<grid, NTHREADS, 0, st>>>(
+        qp, nullptr, kqp, kscale, vp, op, cos, sin, nullptr, nullptr, H, S, sb, ss, sh,
+        cond_start, mode, cbias, scale, span, nspan);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -28,7 +28,8 @@ the transposed kernels; ``flash_attention`` is differentiable by itself.
 ``jax.checkpoint``: the backward re-runs a block's forward kernels.
 
 ``w8a8`` selects the MAC mode of every int8 linear (the serving knob the
-JAX package reads from LOONGX_W8A8).  The LN-prologue and gate-epilogue
+JAX package reads from LOONGX_W8A8); ``int8_attn`` the int8 QK^T mode of
+the attention (LOONGX_INT8_ATTN there; off under autograd).  The LN-prologue and gate-epilogue
 fusions of the TPU kernels are off here, as they are by default there: the
 layer norm / adaLN affine and the gated residual are composed around the
 matmul.
@@ -416,19 +417,21 @@ def _attn_mode(flags: Dict[str, Any]) -> str:
     return "union"
 
 
-def _attention(q, k, v, s_cond: int, flags, c_factor, rope_full):
+def _attention(q, k, v, s_cond: int, flags, c_factor, rope_full,
+               int8_attn: bool = False):
     s = q.shape[1]
     out = fa.flash_attention(q, k, v, cond_start=s - s_cond,
                              mode=_attn_mode(flags) if s_cond else "union",
                              c_factor=c_factor if s_cond else None,
-                             rope=rope_full, layout="bshd")
+                             rope=rope_full, layout="bshd", int8_attn=int8_attn)
     b, _, h, d = out.shape
     return out.reshape(b, s, h * d)
 
 
 def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
                          cond_temb, rope_full, flags: Dict[str, Any],
-                         c_factor: Optional[float], w8a8: bool = False):
+                         c_factor: Optional[float], w8a8: bool = False,
+                         int8_attn: bool = False):
     """One dual-stream block; img and cond ride one fused latent stream with
     per-segment modulation, gating and LoRA masks."""
     use_cond = cond is not None
@@ -454,7 +457,7 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
     q = torch.cat([q_t, q_l], dim=1)
     k = torch.cat([k_t, k_l], dim=1)
     v = torch.cat([v_t, v_l], dim=1)
-    out = _attention(q, k, v, s_cond, flags, c_factor, rope_full)
+    out = _attention(q, k, v, s_cond, flags, c_factor, rope_full, int8_attn)
 
     attn_txt = linear(attn["to_add_out"], out[:, :s_txt], False, None, w8a8)
     if use_cond and flags.get("add_cond_attn", False):
@@ -489,7 +492,8 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
 
 def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
                          cond_temb, rope_full, flags: Dict[str, Any],
-                         c_factor: Optional[float], w8a8: bool = False):
+                         c_factor: Optional[float], w8a8: bool = False,
+                         int8_attn: bool = False):
     """One single-stream block over [txt + img] (+ cond), stream-fused."""
     use_cond = cond is not None
     latent_lora = bool(flags.get("latent_lora", False))
@@ -506,7 +510,7 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
     mlp_h = linear_gelu(block["proj_mlp"], normed, luse, lmask, w8a8)
     q, k, v = _qkv(block["attn"], normed, cfg.num_heads, "to", luse, lmask,
                    w8a8)
-    out = _attention(q, k, v, s_cond, flags, c_factor, rope_full)
+    out = _attention(q, k, v, s_cond, flags, c_factor, rope_full, int8_attn)
 
     g_cond = mc[2] if use_cond else None
     if "proj_out_mlp" in block:
@@ -537,14 +541,15 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
                  c_factor: Optional[float] = None, w8a8: bool = False,
                  controlnet_block_samples: Optional[torch.Tensor] = None,
                  controlnet_single_block_samples: Optional[torch.Tensor] = None,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, int8_attn: bool = False) -> torch.Tensor:
     """Conditioned FLUX forward -> [B, S_img, in_channels] velocity.
 
     img/cond: [B, S, in_channels] packed latent tokens; txt [B, S_txt,
     joint_dim]; pooled [B, pooled_dim]; timestep / guidance [B] (scaled by
     1000 here); *_ids [S, 3]; c_factor: condition strength (None = 1);
     remat: checkpoint each block when grad is enabled (gradient
-    checkpointing: its activations are recomputed in the backward)."""
+    checkpointing: its activations are recomputed in the backward);
+    int8_attn: int8 QK^T scores in every attention (inference only)."""
     if controlnet_block_samples is not None or (
             controlnet_single_block_samples is not None):
         raise NotImplementedError("ControlNet residual inputs are not ported")
@@ -584,12 +589,12 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
     def double(i, img_h, txt_h, cond_h):
         return double_block_forward(
             _block_view(params["double_blocks"], i), cfg, img_h, txt_h, cond_h,
-            temb, cond_temb, rope_full, flags, c_factor, w8a8)
+            temb, cond_temb, rope_full, flags, c_factor, w8a8, int8_attn)
 
     def single(i, x, cond_h):
         return single_block_forward(
             _block_view(params["single_blocks"], i), cfg, x, cond_h, temb,
-            cond_temb, rope_full, flags, c_factor, w8a8)
+            cond_temb, rope_full, flags, c_factor, w8a8, int8_attn)
 
     for i in range(cfg.num_double_blocks):
         txt_h, img_h, cond_h = run(double, i, img_h, txt_h, cond_h)

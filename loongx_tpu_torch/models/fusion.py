@@ -1,5 +1,6 @@
-"""DGF (Dynamic Gated Fusion): DUAN adaptive normalisation + the pairwise
-fusion linears (counterpart of ``loongx_tpu/models/fusion.py``).  Float32
+"""DGF (Dynamic Gated Fusion): DUAN adaptive normalisation, the pairwise
+fusion linears and the two text-fusion wirings (counterpart of
+``loongx_tpu/models/fusion.py``).  Float32
 statistics; the top-k channel mask keeps exactly k channels."""
 
 from __future__ import annotations
@@ -101,3 +102,16 @@ def fuse_text_train(params: Params, prompt_embeds: torch.Tensor,
     fused_pool = duan_apply(params["duan_pooled"], bp, p)[:, 0]  # [B, 768]
     cat_pool = torch.cat([pooled_embeds, fused_pool], dim=-1)
     return prompt_out, pooled_embeds + linear(params["fusion_pooled"], cat_pool)
+
+
+def fuse_text_infer(params: Params, prompt_embeds: torch.Tensor,
+                    pooled_embeds: torch.Tensor, brain_prompt: torch.Tensor,
+                    brain_pooled: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference-path fusion: DUAN applied directly with (text, brain)
+    argument order, no concat or residual (the asymmetry with
+    `fuse_text_train` is the reference's)."""
+    prompt_out = duan_apply(params["duan_prompt"], prompt_embeds, brain_prompt)
+    pooled_out = duan_apply(params["duan_pooled"], pooled_embeds[:, None, :],
+                            brain_pooled[:, None, :])[:, 0]
+    return prompt_out, pooled_out

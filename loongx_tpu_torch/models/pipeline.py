@@ -1,12 +1,17 @@
-"""The model bundles (counterpart of the parts of
-``loongx_tpu/models/pipeline.py`` the neural edit and the QLoRA step use):
+"""The model bundle (counterpart of ``loongx_tpu/models/pipeline.py``):
 configs plus the param trees on one device -- {"flux", "vae", "encoders",
-"dgf"} to serve from, {"flux", "encoders", "dgf"} to train."""
+"dgf"} to serve the neural edit, with "t5" and "clip" added
+(`add_text_encoders`) to serve text prompts, {"flux", "encoders", "dgf"} to
+train.
+
+Tokenizers are any callables with the Hugging Face interface the JAX package
+uses: ``tok(prompts, padding="max_length", max_length=n, truncation=True,
+return_tensors="np").input_ids`` -> int array [B, n]."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -14,10 +19,18 @@ from loongx_tpu_torch.models.encoders import (
     init_eeg_encoder, init_fnirs_encoder, init_motion_encoder, init_ppg_encoder,
 )
 from loongx_tpu_torch.models.flux.model import FluxConfig, init_flux_params
-from loongx_tpu_torch.models.flux.vae import VAEConfig, init_vae_params
+from loongx_tpu_torch.models.flux.vae import (
+    VAEConfig, init_vae_params, scale_latents, vae_encode, vae_sample,
+)
 from loongx_tpu_torch.models.fusion import init_dgf
+from loongx_tpu_torch.models.text.clip import (
+    CLIPTextConfig, clip_encode, init_clip_params,
+)
+from loongx_tpu_torch.models.text.t5 import T5Config, init_t5_params, t5_encode
+from loongx_tpu_torch.ops.latents import pack_latents
 from loongx_tpu_torch.ops.quant import (
-    fuse_qkv_projections, random_quantized_like, split_single_proj_out,
+    fuse_qkv_projections, quantize_tree, random_quantized_like,
+    split_single_proj_out,
 )
 from loongx_tpu_torch.train.lora import add_lora
 
@@ -28,11 +41,15 @@ class LoongXPipeline:
     vae_cfg: Optional[VAEConfig]
     params: Dict[str, Any]
     dtype: torch.dtype = torch.bfloat16
-    # named LoRA adapters: any registry with the JAX package's
-    # AdapterRegistry interface (``in``, ``activate``, ``deactivate``,
-    # ``names``) over this package's param trees
+    # named LoRA adapters (train.adapters.AdapterRegistry, or any registry
+    # with its interface: ``in``, ``activate``, ``deactivate``, ``names``)
     adapters: Optional[Any] = None
     active_adapter: Optional[str] = None
+    t5_cfg: Optional[T5Config] = None
+    clip_cfg: Optional[CLIPTextConfig] = None
+    t5_tokenizer: Any = None
+    clip_tokenizer: Any = None
+    max_sequence_length: int = 512
 
     def set_adapters(self, name: str) -> bool:
         """Activate the named LoRA adapter on the DiT.  No-op (False) with
@@ -86,6 +103,107 @@ class LoongXPipeline:
         kw = dict(generator=gen, dtype=torch.bfloat16, device=device)
         return LoongXPipeline(flux_cfg, None, {"flux": flux, **_brain_params(kw)},
                               torch.bfloat16)
+
+
+    def add_text_encoders(self, t5_cfg: Optional[T5Config] = None,
+                          clip_cfg: Optional[CLIPTextConfig] = None, *,
+                          seed: int = 0, t5_tokenizer: Any = None,
+                          clip_tokenizer: Any = None) -> "LoongXPipeline":
+        """Complete a serving bundle for text prompts: random T5 (XXL by
+        default) and CLIP text (L) encoders made on the pipeline's device
+        from ``seed`` with the JAX package's init, then int8-quantized
+        (`quantize(dit=False)`), as the JAX package serves them.  Returns
+        self."""
+        device = self.device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.t5_cfg = t5_cfg or T5Config.xxl()
+        self.clip_cfg = clip_cfg or CLIPTextConfig.large()
+        kw = dict(generator=gen, dtype=self.dtype, device=device)
+        self.params["t5"] = init_t5_params(self.t5_cfg, **kw)
+        self.params["clip"] = init_clip_params(self.clip_cfg, **kw)
+        self.t5_tokenizer, self.clip_tokenizer = t5_tokenizer, clip_tokenizer
+        return self.quantize(dit=False, text=True)
+
+    def quantize(self, dit: bool = True, text: bool = True,
+                 fuse_qkv: bool = True,
+                 split_proj_out: bool = True) -> "LoongXPipeline":
+        """Int8-quantize weights in place (per output channel,
+        `ops.quant.quantize_tree`): the DiT (then, unless switched off, its
+        qkv fused and the single-block proj_out split, the serving layout)
+        and the text encoders.  Returns self."""
+        if dit and "flux" in self.params:
+            flux = quantize_tree(self.params["flux"])
+            if fuse_qkv:
+                flux = fuse_qkv_projections(flux)
+            if split_proj_out:
+                flux = split_single_proj_out(flux, self.flux_cfg.hidden)
+            self.params["flux"] = flux
+        if text:
+            for name in ("t5", "clip"):
+                if name in self.params:
+                    self.params[name] = quantize_tree(self.params[name])
+        return self
+
+    def free_text_encoders(self) -> None:
+        """Drop the T5 and CLIP params and the tokenizers (their device
+        memory returns to PyTorch's allocator); `encode_text` then needs
+        ``neural_only``."""
+        for name in ("t5", "clip"):
+            self.params.pop(name, None)
+        self.t5_tokenizer = None
+        self.clip_tokenizer = None
+
+    def encode_image_tokens(self, images: torch.Tensor,
+                            noise: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, int, int]:
+        """images [B, H, W, 3] in [-1, 1] -> (packed latent tokens, lat_h,
+        lat_w).  ``noise`` (standard normals of the latent's shape) samples
+        the latent distribution; without it the mean is used."""
+        mean, logvar = vae_encode(self.params["vae"], self.vae_cfg,
+                                  images.to(self.dtype))
+        lat = vae_sample(mean, logvar, noise) if noise is not None else mean
+        lat = scale_latents(self.vae_cfg, lat)
+        return pack_latents(lat), lat.shape[1], lat.shape[2]
+
+    def encode_text(self, prompts, neural_only: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """prompts (str | list[str] | None) -> (prompt_embeds [B, S, 4096],
+        pooled [B, 768], txt_ids [S, 3]).  Without tokenizers this is a hard
+        error unless ``neural_only``: then the embeds are zeros, safe only
+        where brain embeds replace them (fuse_flag=False)."""
+        if prompts is None:
+            prompts = [""]
+        elif isinstance(prompts, str):
+            prompts = [prompts]
+        device = self.device
+        if self.t5_tokenizer is None or self.clip_tokenizer is None:
+            if not neural_only:
+                raise RuntimeError(
+                    "encode_text: no tokenizers loaded in this pipeline. "
+                    "Add t5_tokenizer/clip_tokenizer directories to the "
+                    "checkpoint for text conditioning, or pass "
+                    "neural_only=True (CLI: --neural_only) if brain "
+                    "embeddings replace text embeddings (fuse_flag=False).")
+            b, s = len(prompts), self.max_sequence_length
+            return (torch.zeros(b, s, self.flux_cfg.joint_dim, dtype=self.dtype,
+                                device=device),
+                    torch.zeros(b, self.flux_cfg.pooled_dim, dtype=self.dtype,
+                                device=device),
+                    torch.zeros(s, 3, dtype=torch.float32, device=device))
+        t5_ids = self.t5_tokenizer(
+            prompts, padding="max_length", max_length=self.max_sequence_length,
+            truncation=True, return_tensors="np").input_ids
+        prompt_embeds = t5_encode(self.params["t5"], self.t5_cfg,
+                                  torch.as_tensor(t5_ids, device=device))
+        clip_ids = self.clip_tokenizer(
+            prompts, padding="max_length",
+            max_length=min(77, self.clip_cfg.max_positions), truncation=True,
+            return_tensors="np").input_ids
+        _, pooled = clip_encode(self.params["clip"], self.clip_cfg,
+                                torch.as_tensor(clip_ids, device=device))
+        txt_ids = torch.zeros(prompt_embeds.shape[1], 3, dtype=torch.float32,
+                              device=device)
+        return prompt_embeds.to(self.dtype), pooled.to(self.dtype), txt_ids
 
 
 def _brain_params(kw) -> Dict[str, Any]:

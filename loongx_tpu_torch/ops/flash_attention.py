@@ -13,6 +13,16 @@ is no condition stream); ``c_factor`` switches to the additive log-bias on
 the cond <-> non-cond blocks and overrides ``mode``; ``rope`` = (cos, sin)
 [S, D] float32 tables rotates q and k inside the kernel.
 
+``int8_attn`` (serving only) selects the int8 QK^T mode of the TPU kernel
+(``_fwd_kernel`` :228-291, the JAX package's LOONGX_INT8_ATTN=1): a
+k-quantization pass (`flash_kquant`, a kernel of the same source) rotates k,
+rounds it to bf16 and writes int8 codes with one scale per span of the TPU
+kernel's key tile (`ops.attention.int8_key_span`); the forward kernel
+quantizes each q row on load and takes the scores from an s8 x s8 -> s32
+product, (q_codes . k_codes) * (q_scale * k_scale).  The softmax and the
+bf16 P.V are the bf16-score kernel's.  Under autograd the mode is off, as
+in JAX: the backward rebuilds P from bf16 scores.
+
 Under autograd (any of q/k/v requires grad) `flash_attention` runs the
 forward with ``save_residuals`` and its backward launches the dK/dV and dQ
 kernels, with ``di = rowsum(o * do)`` taken in float32 outside them, as the
@@ -38,7 +48,9 @@ import numpy as np
 import torch
 
 from loongx_tpu_torch.ops import cuda_build
-from loongx_tpu_torch.ops.attention import MODES, _block_bias, unified_attention
+from loongx_tpu_torch.ops.attention import (
+    MODES, _block_bias, int8_key_span, quantize_spans, unified_attention,
+)
 from loongx_tpu_torch.ops.rope import apply_rope
 
 _MODE_IDS = {"union": 0, "no_union": 1, "independent": 2, "cfactor": 3}
@@ -49,6 +61,10 @@ _DKV_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                   _L, _L, _L, _I, _I, _F, _P]
 _DQ_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                  _L, _L, _I, _I, _F, _P]
+_KQUANT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
+                     _P]
+_FWD_INT8_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                       _I, _I, _F, _F, _I, _I, _P]
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LOG2E = 1.4426950408889634
 
@@ -78,11 +94,26 @@ def _scales(d: int) -> Tuple[float, float]:
 
 def flash_attention_plain(q, k, v, *, cond_start: int, mode: str = "union",
                           c_factor: Optional[float] = None, rope: Rope = None,
-                          layout: str = "bhsd") -> torch.Tensor:
-    """The forward kernel's contract in plain PyTorch (unified_attention)."""
+                          layout: str = "bhsd", int8_attn: bool = False,
+                          block_k: Optional[int] = None) -> torch.Tensor:
+    """The forward kernel's contract in plain PyTorch (unified_attention),
+    in either score mode."""
     s = _dims(q, layout)[2]
     return unified_attention(q, k, v, cond_len=s - cond_start, mode=mode,
-                             c_factor=c_factor, rope=rope, layout=layout)
+                             c_factor=c_factor, rope=rope, layout=layout,
+                             int8_attn=int8_attn, block_k=block_k)
+
+
+def flash_kquant_plain(k, *, span: int, rope: Rope = None,
+                       layout: str = "bhsd"):
+    """The k-quantization pass in plain PyTorch: k rotated and rounded to
+    its dtype -> (int8 codes [B, H, S, D], float32 scales [B, H,
+    ceil(S / span)])."""
+    (k,) = _head_major(layout, k)
+    if rope is not None:
+        k = apply_rope(k, *rope)
+    codes, scales = quantize_spans(k, span)
+    return codes.to(torch.int8).contiguous(), scales
 
 
 def _head_major(layout: str, *ts):
@@ -208,16 +239,51 @@ def _stats_check(b: int, h: int, s: int, device, **stats) -> None:
                              f"contiguous float32 [{b}, {h}, {s}] on {device}")
 
 
+def flash_kquant(k, *, span: int, rope: Rope = None, layout: str = "bhsd"):
+    """The int8 mode's k-quantization pass -> (int8 codes [B, H, S, D],
+    float32 scales [B, H, ceil(S / span)]): the CUDA kernel on a CUDA
+    tensor (bf16, ``span`` a multiple of 64), `flash_kquant_plain` on a CPU
+    tensor."""
+    b, h, s, d, (sb, ss, sh) = _dims(k, layout)
+    if k.device.type == "cpu":
+        return flash_kquant_plain(k, span=span, rope=rope, layout=layout)
+    if k.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {k.device}")
+    _check_cuda_qkv(k, (("k", k),), d)
+    if span <= 0 or span % 64:
+        raise ValueError(f"flash_kquant: span {span} is not a positive "
+                         "multiple of 64")
+    cos_p, sin_p = _cuda_rope(rope, s, d, k.device)
+    nspan = -(-s // span)
+    codes = torch.empty(b, h, s, d, dtype=torch.int8, device=k.device)
+    scales = torch.empty(b, h, nspan, dtype=torch.float32, device=k.device)
+    amax = torch.zeros(b, h, nspan, dtype=torch.int32, device=k.device)
+    fn = cuda_build.library("flash_attention").flash_attention_kquant
+    fn.argtypes, fn.restype = _KQUANT_SIGNATURE, ctypes.c_int
+    cuda_build.check(fn(k.data_ptr(), cos_p, sin_p, amax.data_ptr(),
+                        codes.data_ptr(), scales.data_ptr(), b, h, s, d, sb,
+                        ss, sh, span, nspan,
+                        torch.cuda.current_stream(k.device).cuda_stream),
+                     "flash_attention_kquant")
+    cuda_build.LAUNCHES["flash_kquant"] += 1
+    return codes, scales
+
+
 def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
-             rope: Rope, layout: str, save_residuals: bool):
+             rope: Rope, layout: str, save_residuals: bool,
+             int8_attn: bool = False, block_k: Optional[int] = None):
     """o, or (o, m2, l) with ``save_residuals``: the kernel on CUDA tensors,
     the plain versions on CPU tensors."""
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
+    if int8_attn and save_residuals:
+        raise ValueError("flash_attention: the int8 score mode saves no "
+                         "residuals (the backward rebuilds bf16 scores)")
     b, h, s, d, (sb, ss, sh) = _dims(q, layout)
     if q.device.type == "cpu":
         o = flash_attention_plain(q, k, v, cond_start=cond_start, mode=mode,
-                                  c_factor=c_factor, rope=rope, layout=layout)
+                                  c_factor=c_factor, rope=rope, layout=layout,
+                                  int8_attn=int8_attn, block_k=block_k)
         if not save_residuals:
             return o
         return (o, *flash_residuals_plain(q, k, cond_start=cond_start,
@@ -233,6 +299,9 @@ def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
                              "residuals (its backward recomputes)")
         mode = "cfactor"
         cbias = float(np.log(np.float32(c_factor)))
+    if int8_attn:
+        return _forward_int8(q, k, v, cond_start, mode, cbias, rope, layout,
+                             int8_key_span(s, block_k), (cos_p, sin_p))
     out = torch.empty_like(q)
     m2 = l = None
     if save_residuals:
@@ -248,6 +317,24 @@ def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
     cuda_build.check(code, "flash_attention_fwd")
     cuda_build.LAUNCHES["flash_attention"] += 1
     return (out, m2, l) if save_residuals else out
+
+
+def _forward_int8(q, k, v, cond_start: int, mode: str, cbias: float,
+                  rope: Rope, layout: str, span: int, rope_ptrs):
+    """The int8 QK^T forward on CUDA tensors: the k-quantization pass, then
+    the forward kernel in its int8 mode."""
+    b, h, s, d, (sb, ss, sh) = _dims(q, layout)
+    codes, scales = flash_kquant(k, span=span, rope=rope, layout=layout)
+    out = torch.empty_like(q)
+    fn = cuda_build.library("flash_attention").flash_attention_fwd_int8
+    fn.argtypes, fn.restype = _FWD_INT8_SIGNATURE, ctypes.c_int
+    code = fn(q.data_ptr(), codes.data_ptr(), scales.data_ptr(), v.data_ptr(),
+              out.data_ptr(), *rope_ptrs, b, h, s, d, sb, ss, sh, cond_start,
+              _MODE_IDS[mode], cbias, _scales(d)[0], span, scales.shape[-1],
+              torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(code, "flash_attention_fwd_int8")
+    cuda_build.LAUNCHES["flash_attention_int8"] += 1
+    return out
 
 
 def flash_attention_bwd(q, k, v, do, m2, l, di, *, cond_start: int,
@@ -356,15 +443,20 @@ class _FlashCFactorFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, cond_start: int, mode: str = "union",
                     c_factor: Optional[float] = None, rope: Rope = None,
-                    layout: str = "bhsd") -> torch.Tensor:
+                    layout: str = "bhsd", int8_attn: bool = False,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """Attention with condition block semantics; q/k/v [B, H, S, D] ("bhsd")
     or [B, S, H, D] ("bshd"), output in the same layout and dtype.
-    Differentiable in q, k and v when grad is enabled."""
+    Differentiable in q, k and v when grad is enabled, and then always with
+    bf16 scores: ``int8_attn`` (int8 QK^T, k-scale span `int8_key_span`(S,
+    ``block_k``)) applies to inference only."""
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
     cos, sin = rope if rope is not None else (None, None)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        # int8 scores are forced off here, as in the JAX package: the
+        # backward rebuilds the probabilities from bf16 scores
         s = _dims(q, layout)[2]
         if c_factor is not None and cond_start < s:
             return _FlashCFactorFn.apply(q, k, v, cos, sin, cond_start,
@@ -372,4 +464,4 @@ def flash_attention(q, k, v, *, cond_start: int, mode: str = "union",
         return _FlashAttentionFn.apply(q, k, v, cos, sin, cond_start, mode,
                                        layout)
     return _forward(q, k, v, cond_start, mode, c_factor, rope, layout,
-                    save_residuals=False)
+                    save_residuals=False, int8_attn=int8_attn, block_k=block_k)

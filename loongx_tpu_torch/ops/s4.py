@@ -6,7 +6,8 @@
 
 ``s4d_conv`` (the serving mode) materialises the length-L kernel and
 convolves by FFT; ``s4d_scan`` runs the recurrence step by step as a plain
-reference.  All SSM math is float32 in real/imag planes.
+reference; ``ops/s4_scan.py`` runs it as a kernel (mode "pallas"), with
+``s4d_scan`` as its plain version.  All SSM math is float32 in real/imag planes.
 """
 
 from __future__ import annotations
@@ -88,22 +89,24 @@ def s4d_conv(p: Params, u: torch.Tensor) -> torch.Tensor:
 
 
 def s4d_scan(p: Params, u: torch.Tensor) -> torch.Tensor:
-    """Recurrent mode, one step per position (plain reference; the JAX
-    package's associative scan and Pallas kernel compute the same
-    recurrence).  Same contract as `s4d_conv`."""
-    abar_r, abar_i, bbar_r, bbar_i, c_r, c_i = discretise_real(p)
+    """Recurrent mode, one step per position, each product and sum rounded
+    on its own in the order of the TPU kernel (``s4_pallas.py:49-61``): the
+    plain reference, and the plain version of the recurrence kernel
+    (``ops/s4_scan.py``).  The JAX package's associative scan computes the
+    same recurrence.  Same contract as `s4d_conv`."""
+    ar, ai, br, bi, cr, ci = discretise_real(p)
     uf = u.float()
     b, length, h = uf.shape
-    x_r = uf.new_zeros(b, h, abar_r.shape[1])
-    x_i = torch.zeros_like(x_r)
+    xr = uf.new_zeros(b, h, ar.shape[1])
+    xi = torch.zeros_like(xr)
     ys = []
     for t in range(length):
-        ut = uf[:, t, :, None]
-        x_r, x_i = (abar_r * x_r - abar_i * x_i + bbar_r * ut,
-                    abar_r * x_i + abar_i * x_r + bbar_i * ut)
-        ys.append(2.0 * ((c_r * x_r).sum(-1) - (c_i * x_i).sum(-1)))
-    y = torch.stack(ys, dim=1) + uf * p["D"]
-    return y.to(u.dtype)
+        u_t = uf[:, t, :]
+        u_col = u_t[:, :, None]
+        xr, xi = (ar * xr - ai * xi + br * u_col,
+                  ai * xr + ar * xi + bi * u_col)
+        ys.append(2.0 * (cr * xr - ci * xi).sum(-1) + p["D"].float() * u_t)
+    return torch.stack(ys, dim=1).to(u.dtype)
 
 
 def init_s4_stack(d_input: int, d_model: int, d_output: int,
@@ -128,13 +131,23 @@ def init_s4_stack(d_input: int, d_model: int, d_output: int,
 def s4_stack_apply(params: Params, u: torch.Tensor,
                    mode: str = "conv") -> torch.Tensor:
     """u: [B, L, d_input] -> [B, L, d_output]: encoder linear, then
-    [S4D -> linear -> GLU -> residual -> LN] per block, then decoder."""
-    if mode == "conv":
-        core = s4d_conv
+    [S4D -> linear -> GLU -> residual -> LN] per block, then decoder.
+
+    mode (the JAX package's names): "conv" (FFT convolution, the serving
+    default), "scan" (the step-by-step plain reference) or "pallas" (the
+    recurrence kernel of ``ops/s4_scan.py``: the CUDA kernel
+    ``csrc/s4d_scan.cu`` on CUDA tensors, its plain version on CPU
+    tensors)."""
+    if mode == "pallas":
+        from loongx_tpu_torch.ops.s4_scan import s4d_scan_recurrent
+
+        core = s4d_scan_recurrent
     elif mode == "scan":
         core = s4d_scan
+    elif mode == "conv":
+        core = s4d_conv
     else:
-        raise ValueError(f"unknown s4 mode {mode!r} (conv | scan)")
+        raise ValueError(f"unknown s4 mode {mode!r} (conv | scan | pallas)")
     x = linear(params["encoder"], u)
     for blk in params["blocks"]:
         z = linear(blk["out"], core(blk["s4"], x))

@@ -5,7 +5,9 @@ Targeted linears gain ``lora_a`` [.., in, r], ``lora_b`` [.., r, out] and
 a ``lora_scale`` leaf (alpha / r, one per stacked block);
 ``models/flux/model.py::linear`` adds ``(x A) B * scale`` where the call
 site's ``use_lora`` gate is on.  Stacked block trees get stacked factors.
-peft-style init: A ~ N(0, 1) / r, B = 0.
+peft-style init: A ~ N(0, 1) / r, B = 0.  `lora_state_dict` /
+`load_lora_state_dict` move the LoRA leaves in and out of a tree as a flat
+{path/leaf: tensor} dict (the adapter registry's storage).
 """
 
 from __future__ import annotations
@@ -131,3 +133,78 @@ def lora_state_dict(params: Params) -> Dict[str, torch.Tensor]:
             if leaf.get("lora_scale") is not None:
                 out[f"{path}/lora_scale"] = leaf["lora_scale"]
     return out
+
+
+def _route_split_proj_out(index, state: Dict[str, Any]) -> Dict[str, Any]:
+    """Fit a LoRA state to the serving-time single-block proj_out K-split
+    (`ops.quant.split_single_proj_out`).  A factor trained on the whole
+    [hidden + mlp]-row proj_out is split by rows onto proj_out and
+    proj_out_mlp (exact: x A B = x_attn A[:h] B + x_mlp A[h:] B); a state
+    saved from a split tree loads into a whole one by concatenating the rows
+    back."""
+    out = dict(state)
+    paths = {k.rsplit("/", 1)[0] for k in state}
+    for path in sorted(paths):
+        if path.endswith("/proj_out") and path in index:
+            mlp = path + "_mlp"
+            a_key = f"{path}/lora_a"
+            if mlp in index and a_key in out:
+                kernel = index[path].get("kernel", index[path].get("kernel_q"))
+                k_rows = kernel.shape[-2]
+                a = torch.as_tensor(out[a_key])
+                if a.shape[-2] > k_rows:
+                    out[a_key] = a[..., :k_rows, :]
+                    out[f"{mlp}/lora_a"] = a[..., k_rows:, :]
+                    for leaf in ("lora_b", "lora_scale"):
+                        if f"{path}/{leaf}" in out:
+                            out[f"{mlp}/{leaf}"] = out[f"{path}/{leaf}"]
+        elif path.endswith("/proj_out_mlp") and path not in index:
+            base = path[: -len("_mlp")]
+            a_base, a_mlp = f"{base}/lora_a", f"{path}/lora_a"
+            if base in index and a_base in out and a_mlp in out:
+                out[a_base] = torch.cat([torch.as_tensor(out[a_base]),
+                                         torch.as_tensor(out[a_mlp])], dim=-2)
+                for leaf in ("lora_a", "lora_b", "lora_scale"):
+                    out.pop(f"{path}/{leaf}", None)
+    return out
+
+
+def load_lora_state_dict(params: Params, state: Dict[str, Any],
+                         strict_shapes: bool = True) -> Params:
+    """Inverse of `lora_state_dict`: writes the state's leaves into
+    ``params`` (mutated and returned), each on its kernel's device.
+    ``strict_shapes=False`` allows factors of another rank.  Factors without
+    a lora_scale entry get scale 1.0."""
+    index = {path: leaf for path, leaf in _walk_linears(params)}
+    state = _route_split_proj_out(index, state)
+    scale_paths, factor_paths = set(), {}
+    for key, value in state.items():
+        path, leaf_name = key.rsplit("/", 1)
+        if path not in index:
+            raise KeyError(f"no linear at {path!r} in params")
+        tgt = index[path]
+        kernel = tgt.get("kernel", tgt.get("kernel_q"))
+        value = torch.as_tensor(value).to(kernel.device)
+        if leaf_name == "lora_a" and (kernel.ndim == value.ndim
+                                      and kernel.shape[-2] != value.shape[-2]):
+            raise ValueError(
+                f"{key}: lora_a input dim {value.shape[-2]} does not match "
+                f"the kernel's {kernel.shape[-2]} at {path!r} (kernel "
+                f"{tuple(kernel.shape)}) — wrong adapter for this "
+                "model/layout?")
+        if (strict_shapes and tgt.get(leaf_name) is not None
+                and tgt[leaf_name].shape != value.shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} != expected "
+                             f"{tuple(tgt[leaf_name].shape)}")
+        tgt[leaf_name] = value
+        if leaf_name == "lora_scale":
+            scale_paths.add(path)
+        else:
+            factor_paths[path] = (tuple(value.shape[:-2]), value.device)
+    # no lora_scale entry means scale 1.0, even over a deactivated (zeroed)
+    # scale already in the tree
+    for path, (stack, device) in factor_paths.items():
+        if path not in scale_paths:
+            index[path]["lora_scale"] = torch.ones(stack, dtype=torch.float32,
+                                                   device=device)
+    return params

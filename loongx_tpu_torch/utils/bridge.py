@@ -6,7 +6,8 @@ bridge returns the same tree of torch tensors on a device, every layout kept
 as it is: stacked ``[NB, ...]`` block trees, ``kernel`` ``[in, out]`` or
 ``kernel_q`` int8 / ``kernel_scale`` ``[..., 1, out]``, ``bias``, the LoRA
 leaves, the fused ``to_qkv`` / ``add_qkv_proj`` and split ``proj_out`` /
-``proj_out_mlp`` serving forms, HWIO conv kernels and the S4D parameters.
+``proj_out_mlp`` serving forms, HWIO conv kernels, the S4D parameters and
+the T5 / CLIP text encoders (float or int8 block stacks, embeddings).
 A leaf name it does not know raises instead of being dropped.
 """
 
@@ -25,6 +26,9 @@ KNOWN_LEAVES = frozenset({
     "weight",
     # S4D layers
     "log_A_real", "A_imag", "C", "log_dt", "D",
+    # text encoders: T5 token embedding and relative-position bias, CLIP
+    # token and position embeddings
+    "embed", "rel_pos_bias", "token_embed", "pos_embed",
 })
 
 
