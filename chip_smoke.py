@@ -7,15 +7,22 @@ Phases (each prints one line with the card, its power limit and seconds):
   1. require CUDA, build every kernel from ``loongx_tpu_torch/csrc``;
   2. every kernel against its plain PyTorch version at the shapes the edit
      and training paths give it, with its error, tolerance and times
-     (kernel, plain, bound, one library call as a yardstick);
+     (kernel, plain, bound, one library call as a yardstick); the fused
+     forms of the int8 kernels (the LN + adaLN prologue, W8A8 and
+     weight-only, stacked and fused-qkv; the gate + residual epilogue)
+     also beside their unfused route, the W8A8 prologue's int8 codes
+     exactly equal to the plain version's, and both fused autograd
+     Functions' gradients at the training shape;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
      double and single block (weight-only and W8A8) and after all 57
      (W8A8), each beside its rounding floor, the launch count of each
-     kernel and a device profile; then the gradients of every LoRA factor
-     of the training tree's first double and single block (unit gain, LoRA
-     on), kernels vs plain, beside their rounding floor;
+     kernel and a device profile; the same 57 blocks with ``fuse_ln`` and
+     ``fuse_gate`` (kernels vs plain beside the floor, 114 prologue and
+     114 gate launches, its device profile); then the gradients of every
+     LoRA factor of the training tree's first double and single block
+     (unit gain, LoRA on), kernels vs plain, beside their rounding floor;
   4. serve: ``neural_edit`` at 512x512 for two requests (28 steps, W8A8),
      stage times, ms/step, edits/s, finite outputs of the right shape
      within loose range limits (the random VAE weights decode a little
@@ -24,7 +31,8 @@ Phases (each prints one line with the card, its power limit and seconds):
      with ``s4_mode="pallas"`` (the S4D recurrence kernel: its launches and
      the brain embeds against the conv mode's, and the plain recurrence's)
      and with ``int8_attn=True`` (int8 QK^T: ms/step and the image against
-     the bf16-score one);
+     the bf16-score one) and with ``fuse_ln`` + ``fuse_gate`` (ms/step
+     beside the first request's, 3192 prologue and 3192 gate launches);
   generate: random int8 T5-XXL and CLIP-L join the serving bundle, and
      ``generate()`` serves two text-prompt edits in fuse mode (infer wiring,
      a Condition with the source image and all four signals, a character
@@ -36,12 +44,14 @@ Phases (each prints one line with the card, its power limit and seconds):
      takes 4 steps: s/step, loss, grad norm and Prodigy's d per step, peak
      memory, launches per step; every LoRA B factor must move, int8 and
      frozen leaves must not; then a fifth step under the profiler gives
-     the step's device time by kernel group.
+     the step's device time by kernel group; then two steps with
+     ``fuse_ln`` (38 prologue launches a step: ff.in, forward and remat):
+     finite loss, LoRA B factors moved, frozen leaves untouched, s/step.
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
-launch counts from phase 4 for the forward kernels -- the S4D and int8
-attention kernels from the phase-4 request that selects them -- and from
-phase 5 for the backward ones) and the card's name and power limit.  The last line is
+launch counts from phase 4 for the forward kernels -- the S4D, int8
+attention and fused-elementwise kernels from the phase-4 request that
+selects them -- and from phase 5 for the backward ones) and the card's name and power limit.  The last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
@@ -690,6 +700,273 @@ def check_t5_gemms(torch, gen, records):
                     m, k, n)
 
 
+def fused_cases():
+    # (kernel, label, M, K, N, NB, boundary, activation): the fused forms at
+    # the serving shapes; each form runs in both MAC modes
+    return [
+        ("qmm_stacked_ln", "single mlp gelu", 2560, 3072, 12288, 38, 1536,
+         "gelu_tanh"),
+        ("qmm_qkv_stacked_ln", "img+cond", 2048, 3072, 9216, 19, 1024, None),
+        ("qmm_stacked_gate", "attn/ff-out", 2048, 3072, 3072, 19, 1024, None),
+        ("qmm_stacked_gate", "single proj K12288", 2560, 12288, 3072, 38,
+         1536, None),
+    ]
+
+
+# relative L2 of the fused Functions' gradients, kernels vs plain: a few
+# bf16 roundings of the transposed kernel's output (2^-9 relative each)
+FUSED_GRAD_REL_L2 = 1e-2
+
+
+def _fused_operands(torch, gen, m, k, n, boundary):
+    """Stream-like operands of one fused call: x and resid with the scale
+    and offset of a residual stream, ab rows near (1 + scale, shift), gate
+    rows of the adaLN-zero gate's size, each segment its own."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = (randn(m, k) * 3.0 + 0.5).to(torch.bfloat16)
+    ab = torch.zeros(8, k, device="cuda")
+    ab[0], ab[2] = 1.0 + randn(k, scale=0.1), 1.0 + randn(k, scale=0.1)
+    ab[1], ab[3] = randn(k, scale=0.1), randn(k, scale=0.1)
+    gate = torch.zeros(8, n, device="cuda")
+    gate[:2] = randn(2, n, scale=0.5)
+    resid = randn(m, n).to(torch.bfloat16)
+    return x, ab, gate, resid
+
+
+def check_fused(torch, gen, records):
+    """The LN + adaLN prologue (W8A8: in the activation pass, whose codes
+    must equal the plain version's exactly; weight-only: on the A tile)
+    and the gate + residual epilogue against their plain versions at the
+    FLUX shapes, beside the unfused route (PyTorch LN + affine, then the
+    same kernel; the kernel, then PyTorch gate + residual) and the bound;
+    then both autograd Functions' gradients at the training shape."""
+    from loongx_tpu_torch.models.flux.model import _ln_mod, _seg_affine
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    for kernel, label, m, k, n, nb, boundary, act in fused_cases():
+        wq = torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        sc = torch.rand(nb, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        bi = torch.randn(nb, 1, n, generator=gen, device="cuda") * 0.02
+        blk = nb - 2
+        x, ab, gate, resid = _fused_operands(torch, gen, m, k, n, boundary)
+        # the model's ln_mod tuple (bf16 modulation rows) for the unfused
+        # route
+        ln_mod = (*(ab[i:i + 1].to(torch.bfloat16) for i in range(4)),
+                  boundary)
+        qkv = kernel == "qmm_qkv_stacked_ln"
+        if qkv:
+            norm_w = torch.rand(3, n // 3, generator=gen, device="cuda") + 0.5
+            norm_w[2] = 1.0
+        for w8a8 in (True, False):
+            group, k_pad = qmm.stacked_w8a8_group(k, n)
+            if qkv:
+                def run():
+                    return qmm.quant_qkv_stacked(x, wq, sc, bi, norm_w, blk,
+                                                 128, w8a8=w8a8, ab=ab,
+                                                 seg_boundary=boundary)
+
+                def plain():
+                    return qmm.quant_qkv_plain(x, wq[blk], sc[blk], bi[blk],
+                                               norm_w, 128, w8a8, group, k_pad,
+                                               ab, boundary)
+
+                def unfused():
+                    xm = _ln_mod(x[None], ln_mod)[0]
+                    return qmm.quant_qkv_stacked(xm, wq, sc, bi, norm_w, blk,
+                                                 128, w8a8=w8a8)
+            elif kernel == "qmm_stacked_ln":
+                kw = dict(bias3=bi, activation=act, w8a8=w8a8)
+
+                def run():
+                    return qmm.quant_matmul_stacked(x, wq, sc, blk, ab=ab,
+                                                    seg_boundary=boundary, **kw)
+
+                def plain():
+                    return qmm.qmm_plain(x, wq[blk], sc[blk], bi[blk], act,
+                                         w8a8, group, k_pad, ab,
+                                         seg_boundary=boundary)
+
+                def unfused():
+                    xm = _ln_mod(x[None], ln_mod)[0]
+                    return qmm.quant_matmul_stacked(xm, wq, sc, blk, **kw)
+            else:
+                def run():
+                    return qmm.quant_matmul_stacked(
+                        x, wq, sc, blk, bias3=bi, w8a8=w8a8, resid=resid,
+                        gate=gate, seg_boundary=boundary)
+
+                def plain():
+                    return qmm.qmm_plain(x, wq[blk], sc[blk], bi[blk], None,
+                                         w8a8, group, k_pad, resid=resid,
+                                         gate=gate, seg_boundary=boundary)
+
+                def unfused():
+                    # the model's unfused gate_res_linear around the kernel
+                    h = qmm.quant_matmul_stacked(x, wq, sc, blk, bias3=bi,
+                                                 w8a8=w8a8)[None]
+                    zero = torch.zeros_like(gate[0:1])
+                    return resid[None] + _seg_affine(
+                        h, boundary, gate[0:1].to(h.dtype), zero,
+                        gate[1:2].to(h.dtype), zero)
+            resid0 = resid.clone()
+            out, ref = run(), plain()
+            if not torch.equal(resid, resid0):
+                raise Failure(f"{kernel} {label}: resid written in place")
+            if qkv:
+                out, ref = torch.stack(out), torch.stack(ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            if kernel == "qmm_stacked_gate":
+                # on out - resid: one bf16 rounding of each output, plus a
+                # bound scaled by max |g z|, not by max |out|
+                gz = (ref.float() - resid.float()).abs().max().item()
+                excess = ((out.float() - ref.float()).abs()
+                          - 2.0 ** -7 * ref.float().abs()).max().item()
+                tol = 1e-4 * gz
+                ok = excess <= tol
+            else:
+                tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
+                ok = err <= tol
+            ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=2)
+            unfused_ms = cuda_time_ms(unfused)
+            # x, the weight, scale and bias, ab and the row stats read once,
+            # out written once (plus resid and gate for the gate form);
+            # the GEMM's 2MKN operations at the MAC mode's rate and about
+            # 4 fp32 operations per element of x or of the output
+            nbytes = (m * k * 2 + k * n + 2 * n * 4 + m * n * 2
+                      + (8 * k * 4 + m * 8 if kernel != "qmm_stacked_gate"
+                         else m * n * 2 + 8 * n * 4))
+            t_ops = (2.0 * m * k * n / PEAK_OPS["int8" if w8a8 else "bf16"]
+                     + 4.0 * m * (k if kernel != "qmm_stacked_gate" else n)
+                     / PEAK_OPS["fp32"])
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            bms = 1e3 * max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            mode = "w8a8" if w8a8 else "wonly"
+            records.append(dict(kernel=kernel, case=f"{label} {mode}", m=m,
+                                k=k, n=n, err=err, tol=tol, ms=ms,
+                                plain_ms=plain_ms, unfused_ms=unfused_ms,
+                                library_ms=None, bound_ms=bms, bound_by=by))
+            print(f"  {kernel:18s} {label:18s} {mode:5s} M{m} K{k} N{n} "
+                  f"boundary {boundary} err {err:.3e} "
+                  + (f"(over one rounding {excess:.3e}, tol {tol:.2e} = 1e-4 "
+                     f"max|g z|) " if kernel == "qmm_stacked_gate" else
+                     f"(tol {tol:.2e}) ")
+                  + f"kernel {ms:.3f} ms unfused route {unfused_ms:.3f} plain "
+                  f"{plain_ms:.3f} bound {bms:.3f} ({by})", flush=True)
+            if not ok:
+                raise Failure(f"{kernel} {label} {mode}: err {err}, tol {tol}")
+            if w8a8 and kernel == "qmm_stacked_ln":
+                _check_act_quant_ln(qmm, records, label, x, ab, boundary,
+                                    group, k_pad)
+        del wq, sc, bi
+        torch.cuda.empty_cache()
+    check_fused_grads(torch, gen)
+
+
+# the row stats kernel against the JAX recipe in PyTorch: float32 sums of
+# K terms in another order, as a share of the row's scale (|d mean| * rstd,
+# |d rstd| / rstd)
+LN_STATS_TOL = 1e-5
+
+
+def _check_act_quant_ln(qmm, records, label, x, ab, boundary, group, k_pad):
+    """The row stats kernel against its plain version, then the W8A8 pass
+    with the prologue against its plain version fed the same stats: int8
+    codes and scales equal (tolerance 0)."""
+    stats, stats_ref = qmm.ln_row_stats(x), qmm.ln_row_stats_plain(x)
+    rstd = stats_ref[:, 1]
+    stats_err = max(((stats[:, 0] - stats_ref[:, 0]).abs() * rstd).max().item(),
+                    ((stats[:, 1] - rstd).abs() / rstd).max().item())
+    s_ms = cuda_time_ms(lambda: qmm.ln_row_stats(x))
+    s_plain_ms = cuda_time_ms(lambda: qmm.ln_row_stats_plain(x), iters=2)
+    m, k = x.shape
+    # read bf16 x (twice: the second time from L2), write the stats; a sum,
+    # a subtract, a multiply and a sum per element
+    s_bms, s_by = bound_ms(m * k * 2 + m * 8, 4.0 * m * k, "fp32")
+    records.append(dict(kernel="qmm_ln_stats", case=label, m=m, k=k,
+                        err=stats_err, tol=LN_STATS_TOL, ms=s_ms,
+                        plain_ms=s_plain_ms, library_ms=None, bound_ms=s_bms,
+                        bound_by=s_by))
+    print(f"  {'qmm_ln_stats':18s} {label:18s} M{m} K{k} err {stats_err:.2e} "
+          f"(tol {LN_STATS_TOL:.0e}, of the row's scale) kernel {s_ms:.4f} ms "
+          f"plain {s_plain_ms:.3f} bound {s_bms:.4f} ({s_by})", flush=True)
+    if not stats_err <= LN_STATS_TOL:
+        raise Failure(f"qmm_ln_stats {label}: err {stats_err}")
+    q, xs = qmm.act_quant(x, group, k_pad, ab, boundary, stats)
+    q_ref, xs_ref = qmm.act_quant_plain(x, group, k_pad, ab, boundary, stats)
+    n_diff = int((q.float() != q_ref).sum().item())
+    scale_err = (xs - xs_ref).abs().max().item()
+    ms = cuda_time_ms(lambda: qmm.act_quant(x, group, k_pad, ab, boundary,
+                                            stats))
+    plain_ms = cuda_time_ms(lambda: qmm.act_quant_plain(
+        x, group, k_pad, ab, boundary, stats), iters=2)
+    # read bf16 x, the row stats and the ab rows, write int8 codes and fp32
+    # scales; the prologue's 4 operations and abs, max, divide, round
+    bms, by = bound_ms(m * k * 2 + m * 8 + 8 * k * 4 + m * k_pad
+                       + m * (k_pad // group) * 4, 8.0 * m * k, "fp32")
+    records.append(dict(kernel="qmm_act_quant_ln", case=label, m=m, k=k,
+                        err=float(n_diff) + scale_err, tol=0.0, ms=ms,
+                        plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                        bound_by=by))
+    print(f"  {'qmm_act_quant_ln':18s} {label:18s} M{m} K{k} group {group} "
+          f"codes differing {n_diff} of {q.numel()}, scale err {scale_err:.1e} "
+          f"(tol 0) kernel {ms:.3f} ms plain {plain_ms:.3f} bound {bms:.4f} "
+          f"({by})", flush=True)
+    if n_diff or scale_err:
+        raise Failure(f"qmm_act_quant_ln {label}: {n_diff} codes differ, "
+                      f"scale err {scale_err}")
+
+
+def check_fused_grads(torch, gen):
+    """Both fused autograd Functions at the training shape (the double
+    block's img+cond stream, M 2048, boundary 1024; weight-only): ff.in's
+    prologue with gelu, K 3072 -> N 12288, and a gated K 3072 -> N 3072
+    linear; the gradients of x, ab / x, resid, gate through the kernels
+    against the same Functions on the plain versions."""
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    m, boundary, k = 2048, 1024, 3072
+    for label, n, gated in (("ff-in gelu", 12288, False),
+                            ("attn/ff-out", 3072, True)):
+        wq = torch.randint(-128, 128, (19, k, n), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        sc = torch.rand(19, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        bi = torch.randn(19, 1, n, generator=gen, device="cuda") * 0.02
+        x, ab, gate, resid = _fused_operands(torch, gen, m, k, n, boundary)
+        dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def grads():
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in ((x, resid, gate) if gated else (x, ab))]
+            if gated:
+                y = qmm.quant_gate_res_linear_stacked(
+                    leaves[0], wq, sc, bi, leaves[1], leaves[2], 17,
+                    seg_boundary=boundary)
+            else:
+                y = qmm.quant_ln_mod_linear_stacked(
+                    leaves[0], wq, sc, bi, leaves[1], 17,
+                    seg_boundary=boundary, activation="gelu_tanh")
+            return torch.autograd.grad(y, leaves, dy)
+
+        g_k = grads()
+        with plain_versions():
+            g_p = grads()
+        names = ("x", "resid", "gate") if gated else ("x", "ab")
+        rels = {nm: rel_l2(a, b) for nm, a, b in zip(names, g_k, g_p)}
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+        print(f"  fused autograd {label:12s} M{m} K{k} N{n} boundary "
+              f"{boundary}: gradients rel L2 kernels vs plain "
+              + ", ".join(f"{nm} {r:.3e}" for nm, r in rels.items())
+              + f" (bound {FUSED_GRAD_REL_L2:.0e}), finite {finite}",
+              flush=True)
+        if not finite or not max(rels.values()) <= FUSED_GRAD_REL_L2:
+            raise Failure(f"fused autograd {label}: {rels}, finite {finite}")
+        del wq, sc, bi
+
+
 # ---------------------------------------------------------------------------
 # Phases 3, 4 and 5
 # ---------------------------------------------------------------------------
@@ -737,16 +1014,24 @@ def plain_versions(attention=None):
                              k_pad)
 
     def stacked(x, w_q3, scale3, blk, *, bias3=None, activation=None,
-                w8a8=False):
+                w8a8=False, ab=None, resid=None, gate=None, seg_boundary=0):
+        if not qmm.stacked_ok(*w_q3.shape[1:]):
+            raise Failure(f"plain_versions: no stacked tiling for "
+                          f"{tuple(w_q3.shape)}")
         group, k_pad = qmm.stacked_w8a8_group(*w_q3.shape[1:])
         return qmm.qmm_plain(x, w_q3[blk], scale3[blk],
                              None if bias3 is None else bias3[blk], activation,
-                             w8a8, group, k_pad)
+                             w8a8, group, k_pad, ab, resid, gate, seg_boundary)
 
-    def qkv(x, w_q3, scale3, bias3, norm_w, blk, head_dim, *, w8a8=False):
+    def qkv(x, w_q3, scale3, bias3, norm_w, blk, head_dim, *, w8a8=False,
+            ab=None, seg_boundary=0):
         group, k_pad = qmm.stacked_w8a8_group(*w_q3.shape[1:])
         return qmm.quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk],
-                                   norm_w, head_dim, w8a8, group, k_pad)
+                                   norm_w, head_dim, w8a8, group, k_pad, ab,
+                                   seg_boundary)
+
+    def t_stacked(dy, w_q3, scale3, blk):
+        return qmm.qmm_t_plain(dy, w_q3[blk], scale3[blk])
 
     def flat_vjp(x, w_q, scale, *, w8a8=False):
         return flat(x, w_q, scale, w8a8=w8a8)
@@ -767,7 +1052,8 @@ def plain_versions(attention=None):
              (qmm, "quant_qkv_stacked", qkv), (qmm, "quant_matmul_vjp", flat_vjp),
              (qmm, "quant_matmul_stacked_vjp", stacked_vjp),
              (qmm, "quant_linear_gelu_stacked", gelu_stacked),
-             (qmm, "quant_linear_gelu", gelu_flat)]
+             (qmm, "quant_linear_gelu", gelu_flat),
+             (qmm, "quant_matmul_t_stacked", t_stacked)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -945,6 +1231,7 @@ def full_forward(torch, pipe, gen):
               flush=True)
         if not finite or not rel <= 5e-2:
             raise Failure(f"forward int8_attn: rel L2 {rel}, finite {finite}")
+        fused = fused_forward(torch, params, cfg, kw, v_bf16, t_kernel)
     if prof is None:
         print("  forward device profile: not measured (no device activity "
               "in the profiler)", flush=True)
@@ -958,7 +1245,75 @@ def full_forward(torch, pipe, gen):
                       f"{cfg.num_double_blocks + cfg.num_single_blocks}")
     if not all(counts.values()):
         raise Failure(f"a kernel was not launched: {counts}")
+    fused_launch_check(cfg, fused, 1, "forward")
     return kw
+
+
+FUSED_KERNELS = ("qmm_stacked_ln", "qmm_qkv_stacked_ln", "qmm_stacked_gate",
+                 "qmm_act_quant_ln", "qmm_ln_stats")
+
+
+def fused_launch_check(cfg, counts, forwards, what):
+    """Per forward at B 1: one prologue in each block's qkv and MLP-in
+    projection (2 x 57 = 114; W8A8: as many activation passes with the
+    prologue and row stats launches), one gate epilogue in each block's two
+    gated projections (114); the unfused qkv kernel only for the double
+    blocks' text stream."""
+    blocks = cfg.num_double_blocks + cfg.num_single_blocks
+    ln = counts.get("qmm_stacked_ln", 0) + counts.get("qmm_qkv_stacked_ln", 0)
+    want = 2 * blocks * forwards
+    if not (ln == counts.get("qmm_stacked_gate", 0)
+            == counts.get("qmm_act_quant_ln", 0)
+            == counts.get("qmm_ln_stats", 0) == want
+            and counts.get("qmm_qkv_stacked", 0)
+            == cfg.num_double_blocks * forwards):
+        raise Failure(f"{what}: fused launches {counts}, want {want} prologues"
+                      f" and {want} gates")
+
+
+def fused_forward(torch, params, cfg, kw, v_unfused, t_unfused):
+    """The 57-block unit-gain W8A8 forward with fuse_ln and fuse_gate:
+    kernels against plain beside the rounding floor, against the unfused
+    forward, its time, launches and device profile.  Returns the launch
+    counts of one forward."""
+    from loongx_tpu_torch.models.flux.model import flux_forward
+    from loongx_tpu_torch.ops import cuda_build
+
+    fkw = dict(kw, w8a8=True, fuse_ln=True, fuse_gate=True)
+    flux_forward(params, cfg, **fkw)  # warm
+    torch.cuda.synchronize()
+    cuda_build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    v_k = flux_forward(params, cfg, **fkw)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    counts = dict(cuda_build.LAUNCHES)
+    prof = device_profile(torch, lambda: flux_forward(params, cfg, **fkw))
+    with plain_versions():
+        v_p = flux_forward(params, cfg, **fkw)
+    with plain_versions(attention_fp32_probs):
+        v_floor = flux_forward(params, cfg, **fkw)
+    rel, floor = rel_l2(v_k, v_p), rel_l2(v_floor, v_p)
+    finite = bool(torch.isfinite(v_k).all())
+    print(f"  forward 19+38 blocks W8A8 fuse_ln+fuse_gate: rel L2 {rel:.3e} "
+          f"(bound 5e-02; plain with float32 probabilities vs plain: "
+          f"{floor:.3e}), against the unfused forward {rel_l2(v_k, v_unfused):.3e},"
+          f" finite {finite}; {t_fused * 1e3:.1f} ms (unfused "
+          f"{t_unfused * 1e3:.1f} ms); launches " + ", ".join(
+              f"{n} {counts.get(n, 0)}" for n in FUSED_KERNELS + (
+                  "qmm_stacked", "qmm_qkv_stacked", "qmm_act_quant")),
+          flush=True)
+    if prof is None:
+        print("  fused forward device profile: not measured (no device "
+              "activity in the profiler)", flush=True)
+    else:
+        print("  fused forward device profile: busy {busy_ms:.1f} ms over a "
+              "span of {span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
+              "{by_group_ms}; largest other {top_other_ms}".format(**prof),
+              flush=True)
+    if not finite or not rel <= 5e-2:
+        raise Failure(f"fused forward: rel L2 {rel}, finite {finite}")
+    return counts
 
 
 # bound on the relative L2 of a LoRA factor's gradient, kernels vs plain
@@ -1081,7 +1436,7 @@ def serve(torch, pipe):
             motion=rng.standard_normal((1, 6, 128)).astype(np.float32),
             seed=seed))
     saved = {name: getattr(generate, name) for name in stage_names}
-    served, card_samples, images = 0, [], []
+    served, card_samples, images, ms_steps = 0, [], [], []
     try:
         for name, key in stage_names.items():
             setattr(generate, name, timed(saved[name], key))
@@ -1095,6 +1450,7 @@ def serve(torch, pipe):
                     pipe, **req, num_inference_steps=STEPS, w8a8=True)
                 dt = time.perf_counter() - t0
                 images.append(img)
+                ms_steps.append(times["denoise_s"] / STEPS * 1e3)
                 finite = bool(np.isfinite(img).all())
                 outside = float(np.mean(np.abs(img) > 1.0))
                 peak = float(np.abs(img).max())
@@ -1118,7 +1474,8 @@ def serve(torch, pipe):
                         f"{MAX_ABS_OUT})")
                 served += 1
         counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
-        options = serve_options(torch, pipe, requests[0], images[0], times)
+        options = serve_options(torch, pipe, requests[0], images[0], times,
+                                ms_steps[0])
     finally:
         for name, fn in saved.items():
             setattr(generate, name, fn)
@@ -1146,13 +1503,14 @@ def serve(torch, pipe):
 S4_EMBED_REL_L2 = 5e-2
 
 
-def serve_options(torch, pipe, req, img_ref, times):
+def serve_options(torch, pipe, req, img_ref, times, ms_unfused):
     """The first request again through each serving option, fed the same
     signals, latents and noise (the same seed): ``s4_mode="pallas"``
     (launches of the S4D kernel, the brain embeds against the conv mode's
-    and the plain recurrence's on the card) and ``int8_attn=True`` (ms/step,
-    the image against the bf16-score image).  Returns the launch counts of
-    each option's request."""
+    and the plain recurrence's on the card), ``int8_attn=True`` (ms/step,
+    the image against the bf16-score image) and ``fuse_ln`` + ``fuse_gate``
+    (ms/step beside the first request's, ``ms_unfused``; launches of the
+    fused forms).  Returns the launch counts of each option's request."""
     import numpy as np
     from loongx_tpu_torch.ops import cuda_build, s4_scan
     from loongx_tpu_torch.sampling import generate
@@ -1175,7 +1533,9 @@ def serve_options(torch, pipe, req, img_ref, times):
                          ("pallas", "plain"))}
     out, ms_step = {}, {}
     for label, option in (("s4_mode=pallas", dict(s4_mode="pallas")),
-                          ("int8_attn", dict(int8_attn=True))):
+                          ("int8_attn", dict(int8_attn=True)),
+                          ("fuse_ln+fuse_gate",
+                           dict(fuse_ln=True, fuse_gate=True))):
         times.clear()
         cuda_build.LAUNCHES.clear()
         torch.cuda.synchronize()
@@ -1186,16 +1546,17 @@ def serve_options(torch, pipe, req, img_ref, times):
         out[label] = dict(cuda_build.LAUNCHES)
         ms_step[label] = times["denoise_s"] / STEPS * 1e3
         rel = float(np.linalg.norm(img - img_ref) / np.linalg.norm(img_ref))
-        beside = (f" (bf16 scores, the request before: "
-                  f"{ms_step['s4_mode=pallas']:.1f})" if label == "int8_attn"
-                  else "")
+        beside = {"int8_attn": f" (bf16 scores, the request before: "
+                               f"{ms_step['s4_mode=pallas']:.1f})",
+                  "fuse_ln+fuse_gate": f" (unfused, the first request: "
+                                       f"{ms_unfused:.1f})"}.get(label, "")
         print(f"  request seed {req['seed']} {label}: edit {dt:.2f} s, "
               f"{ms_step[label]:.1f} ms/step x {STEPS}{beside}, "
               f"image rel L2 vs the first request {rel:.3e}, finite "
               f"{bool(np.isfinite(img).all())}, launches "
               + ", ".join(f"{k} {out[label].get(k, 0)}" for k in
                           ("s4d_scan", "flash_attention", "flash_attention_int8",
-                           "flash_kquant")), flush=True)
+                           "flash_kquant") + FUSED_KERNELS), flush=True)
         if not (np.isfinite(img).all() and img.shape == img_ref.shape):
             raise Failure(f"request {label}: output {img.shape} not finite")
     print(f"  brain embeds (prompt, pooled) rel L2: "
@@ -1214,6 +1575,8 @@ def serve_options(torch, pipe, req, img_ref, times):
     if not (int8.get("flash_attention_int8") == int8.get("flash_kquant")
             == STEPS * blocks and not int8.get("flash_attention")):
         raise Failure(f"int8_attn request launches {int8}")
+    fused_launch_check(pipe.flux_cfg, out["fuse_ln+fuse_gate"], STEPS,
+                       "fuse_ln+fuse_gate request")
     return out
 
 
@@ -1467,8 +1830,62 @@ def train(torch):
               "{span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
               "{by_group_ms}; largest other {top_other_ms}".format(**prof),
               flush=True)
+    train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
+                   sums0, sum(steady) / len(steady))
     del state, trainable, frozen, pipe
     return launches
+
+
+FUSED_TRAIN_STEPS = 2
+
+
+def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
+                   sums0, s_unfused):
+    """Two more steps with ``fuse_ln`` (the same state and optimizer): with
+    DEFAULT_TARGETS LoRA only the double blocks' ff.in is fusable, so its
+    prologue runs 19 times in the forward and 19 in the remat; finite loss,
+    every LoRA B factor moves, frozen leaves untouched, s/step beside the
+    unfused steps'."""
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.train.optim import build_optimizer
+    from loongx_tpu_torch.train.step import make_train_step
+
+    _, step_fn = make_train_step(
+        cfg, build_optimizer(SEED_512_OPTIMIZER), flags=SEED_512_FLAGS,
+        use_brain_condition=True, fuse_flag=True, remat=True, grad_clip=0.5,
+        dtype=torch.bfloat16, fuse_ln=True)
+    before = [p.detach().clone() for p in lora]
+    times = []
+    for i in range(FUSED_TRAIN_STEPS):
+        cuda_build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, frozen, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        loss = float(m["loss"])
+        launches = {n: cuda_build.LAUNCHES[n] for n in FUSED_KERNELS}
+        print(f"  fuse_ln step {i + 1}: {times[-1]:.3f} s, loss {loss:.6f}, "
+              f"grad norm {float(m['grad_norm']):.6e}, launches {launches}",
+              flush=True)
+        if not math.isfinite(loss):
+            raise Failure(f"fuse_ln train step {i + 1}: loss {loss}")
+        # row stats: the forward's and the remat's prologues, and the
+        # backward's layer norm
+        if (launches["qmm_stacked_ln"] != 2 * cfg.num_double_blocks
+                or launches["qmm_ln_stats"] != 3 * cfg.num_double_blocks
+                or launches["qmm_stacked_gate"] or launches["qmm_act_quant_ln"]
+                or launches["qmm_qkv_stacked_ln"]):
+            raise Failure(f"fuse_ln train step: launches {launches}")
+    still = [n for n, a, b in zip(lora_names, lora, before)
+             if n.endswith("lora_b") and torch.equal(a, b)]
+    changed = [k for k, v in _byte_sums(torch, frozen).items() if v != sums0[k]]
+    print(f"  fuse_ln: {times[-1]:.3f} s/step (step 2; unfused steps 2-"
+          f"{TRAIN_STEPS}: {s_unfused:.3f}); LoRA B factors unmoved: "
+          f"{len(still)}; frozen leaves changed: {len(changed)}", flush=True)
+    if still or changed:
+        raise Failure(f"fuse_ln steps: LoRA B unmoved {still}, frozen changed "
+                      f"{changed[:5]}")
 
 
 def kernel_table(records, launches):
@@ -1504,6 +1921,22 @@ def kernel_table(records, launches):
                                  "S2560 union", "serve int8_attn"),
         "flash_kquant": ("flash_attention.cu", f"{fa_py}:228", "S2560 union",
                          "serve int8_attn"),
+        # the fused-elementwise forms of kernels 2 and 3: the LN + adaLN
+        # prologue (_ln_mod_prologue, run at :447 and :1086), its W8A8
+        # quantization (the prologue's output into _accum_tile :39) and the
+        # gate + residual epilogue (_gate_res_epilogue, run at :461)
+        "qmm_stacked_ln": ("quant_matmul.cu", f"{qmm_py}:392",
+                           "single mlp gelu w8a8", "serve fuse_ln+fuse_gate"),
+        "qmm_qkv_stacked_ln": ("quant_matmul.cu", f"{qmm_py}:1086",
+                               "img+cond w8a8", "serve fuse_ln+fuse_gate"),
+        "qmm_act_quant_ln": ("quant_matmul.cu", f"{qmm_py}:447",
+                             "single mlp gelu", "serve fuse_ln+fuse_gate"),
+        "qmm_stacked_gate": ("quant_matmul.cu", f"{qmm_py}:413",
+                             "single proj K12288 w8a8",
+                             "serve fuse_ln+fuse_gate"),
+        # the prologue's row stats (_ln_mean_rstd, in XLA beside the kernel)
+        "qmm_ln_stats": ("quant_matmul.cu", f"{qmm_py}:566", "single mlp gelu",
+                         "serve fuse_ln+fuse_gate"),
     }
     table = []
     for name, (src, replaces, main_case, path) in meta.items():
@@ -1517,6 +1950,8 @@ def kernel_table(records, launches):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main_case,
+            **({"unfused_ms": main["unfused_ms"]} if "unfused_ms" in main
+               else {}),
         })
     return table
 
@@ -1561,6 +1996,7 @@ def main() -> int:
             check_s4d(torch, gen_new, records)
             check_flash_int8(torch, gen_new, records)
             check_t5_gemms(torch, gen_new, records)
+            check_fused(torch, gen_new, records)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
@@ -1571,7 +2007,8 @@ def main() -> int:
             counts, options = serve(torch, pipe)
             launches = {"serve": counts,
                         "serve s4_mode=pallas": options["s4_mode=pallas"],
-                        "serve int8_attn": options["int8_attn"]}
+                        "serve int8_attn": options["int8_attn"],
+                        "serve fuse_ln+fuse_gate": options["fuse_ln+fuse_gate"]}
         with Phase("generate (text prompts, fuse mode)", card):
             serve_text(torch, pipe)
         pipe = kw = None  # free the serving bundle before training

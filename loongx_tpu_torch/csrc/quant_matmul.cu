@@ -15,6 +15,23 @@
 // the fused-qkv form, per-head RMS (eps 1e-6) times the norm weights on the q and k planes,
 // written into a [3, M, H] output.
 //
+// The fused-elementwise forms (the TPU kernels' _ln_mod_prologue :392 and _gate_res_epilogue
+// :413).  Rows split into a main and a cond segment at `boundary` (row >= boundary is cond);
+// every operation below is rounded on its own (__f*_rn), so no fma contraction changes a bit:
+//   * LN + adaLN prologue, x' = ((x - mean) * rstd) * a_seg + b_seg in fp32 from the bf16 x, the
+//     per-row (mean, rstd) precomputed (stats [M, 2]) and ab [8, K] (rows a_main, b_main,
+//     a_cond, b_cond).  W8A8: act_quant_kernel<true> quantizes x' itself (no bf16 rounding
+//     first).  Weight-only: the A tile goes global -> registers during the k tile's MMAs, then
+//     through the prologue into shared memory as bf16 (the TPU kernel's cast before its MXU);
+//   * gate + residual epilogue, out = bf16(float(resid) + g_seg * z) on the fp32 z (after the
+//     bias and any gelu), gate [8, N] (rows gate_main, gate_cond), resid bf16 [M, N].
+// Their cost on this card: the prologue adds reads of the ab rows (L2-resident) and a few fp32
+// operations per element of x, the epilogue one bf16 read of resid per output; both ride on
+// passes that already read x or write out, so they move no extra bytes of device memory beyond
+// resid, stats and ab.  The row stats come from ln_stats_kernel, one block per row reading the
+// row twice (the second time from L2): mean = sum / K, then rstd = 1 / sqrt(mean((x - mean)^2)
+// + 1e-6), the JAX package's recipe (_ln_mean_rstd) in one pass over x instead of PyTorch's six.
+//
 // What bounds it on this card: at the FLUX shapes (M 2048-2560, K 3072/12288, N 3072-18432)
 // each call does 2*M*K*N operations against K*N weight bytes: ~2000 int8 op/byte, far above
 // the ridge, so it is bound by tensor-core operations; the modulation matvecs (M = 2) are
@@ -34,7 +51,7 @@ constexpr int NTHREADS = 256;
 constexpr int TILE_BYTES = 64;  // k bytes per tile row: 64 int8 or 32 bf16
 constexpr int RS = 80;          // shared row stride in bytes (64 + 16 pad)
 
-enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_QKV = 2 };
+enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_QKV = 2, EPI_GATE = 3, EPI_GELU_GATE = 4 };
 
 struct QmmArgs {
   const uint8_t* a;     // W8A8: int8 [M, Kp]; weight-only: bf16 [M, K]
@@ -43,8 +60,12 @@ struct QmmArgs {
   const float* scale;   // fp32 [N]
   const float* bias;    // fp32 [N] or null
   const float* norm_w;  // fp32 [3, H] (EPI_QKV)
+  const float* ab;      // fp32 [8, K] (weight-only prologue) or null
+  const float* stats;   // fp32 [M, 2]: (mean, rstd) per row (prologue)
+  const __nv_bfloat16* resid;  // bf16 [M, N] (EPI_GATE, EPI_GELU_GATE)
+  const float* gate;    // fp32 [8, N] (EPI_GATE, EPI_GELU_GATE)
   __nv_bfloat16* out;   // [M, N] or [3, M, H]
-  int M, K, Kp, N, group, n_groups, head_dim, plane_h;
+  int M, K, Kp, N, group, n_groups, head_dim, plane_h, boundary;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -105,6 +126,54 @@ __device__ __forceinline__ void load_a(uint8_t* sa, const QmmArgs& p, int m0, in
   cp_async_commit();
 }
 
+// The prologue's value of one element: ((x - mean) * rstd) * a + b, each operation rounded.
+__device__ __forceinline__ float ln_mod(float x, float mean, float rstd, float a, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), a), b);
+}
+
+// Weight-only prologue, first half: the raw bf16 x of the next tile (rows [m0, m0+128) x 32 k)
+// -> registers, 16 bytes per (row, chunk) as load_a lays them out; zero past M and K.
+__device__ __forceinline__ void load_a_raw(uint4 (&r)[2], const QmmArgs& p, int m0, int kt) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = threadIdx.x + i * NTHREADS;
+    const int gm = m0 + (c >> 2), k = kt * 32 + (c & 3) * 8;
+    r[i] = (gm < p.M && k < p.K)
+               ? *reinterpret_cast<const uint4*>(p.a + ((long long)gm * p.K + k) * 2)
+               : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Second half: x' = ln_mod(x) of the segment's (a, b) in fp32 -> bf16 -> shared.  `mean` and
+// `rstd` are this thread's two rows' stats.
+__device__ __forceinline__ void store_a_ln(uint8_t* sa, const uint4 (&r)[2], const QmmArgs& p,
+                                           int m0, int kt, const float (&mean)[2],
+                                           const float (&rstd)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = threadIdx.x + i * NTHREADS;
+    const int row = c >> 2, ch = c & 3, gm = m0 + row, k = kt * 32 + ch * 8;
+    uint32_t packed[4] = {0u, 0u, 0u, 0u};
+    if (gm < p.M && k < p.K) {
+      const float* arow = p.ab + (gm >= p.boundary ? 2 : 0) * (long long)p.K + k;
+      const float4 a0 = *reinterpret_cast<const float4*>(arow);
+      const float4 a1 = *reinterpret_cast<const float4*>(arow + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(arow + p.K);
+      const float4 b1 = *reinterpret_cast<const float4*>(arow + p.K + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&r[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        packed[j] = pack_bf16(
+            ln_mod(__bfloat162float(xv[2 * j]), mean[i], rstd[i], a[2 * j], b[2 * j]),
+            ln_mod(__bfloat162float(xv[2 * j + 1]), mean[i], rstd[i], a[2 * j + 1], b[2 * j + 1]));
+    }
+    *reinterpret_cast<uint4*>(sa + row * RS + ch * 16) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+}
+
 // Weight tile (64 int8 k-rows W8A8, 32 weight-only) x 128 n -> registers, as 4x4 blocks:
 // lane a = lane % 8 walks n, b = lane / 8 walks k, so each load instruction reads 4 rows of
 // 32 contiguous bytes.
@@ -160,8 +229,11 @@ __device__ __forceinline__ void store_b(uint8_t* sb, const uint32_t (&r)[W8A8 ? 
   }
 }
 
-template <bool W8A8, int EPI>
+template <bool W8A8, int EPI, bool LN>
 __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
+  static_assert(!(W8A8 && LN), "W8A8 takes the prologue in its activation pass");
+  constexpr bool GELU = EPI == EPI_GELU || EPI == EPI_GELU_GATE;
+  constexpr bool GATE = EPI == EPI_GATE || EPI == EPI_GELU_GATE;
   __shared__ __align__(16) uint8_t sa[2][BM * RS];
   __shared__ __align__(16) uint8_t sb[2][BN * RS];
   __shared__ float red[BM][4];
@@ -186,7 +258,22 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
       }
 
   uint32_t breg[W8A8 ? 8 : 4];
-  load_a<W8A8>(sa[0], p, m0, 0);
+  uint4 areg[2];
+  float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
+  if (LN) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int gm = m0 + (threadIdx.x >> 2) + i * (NTHREADS >> 2);
+      if (gm < p.M) {
+        mean[i] = p.stats[2 * (long long)gm];
+        rstd[i] = p.stats[2 * (long long)gm + 1];
+      }
+    }
+    load_a_raw(areg, p, m0, 0);
+    store_a_ln(sa[0], areg, p, m0, 0, mean, rstd);
+  } else {
+    load_a<W8A8>(sa[0], p, m0, 0);
+  }
   load_b<W8A8>(breg, p, n0, 0);
   store_b<W8A8>(sb[0], breg);
   cp_async_wait_all();
@@ -196,7 +283,10 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
     const int cur = kt & 1;
     const bool more = kt + 1 < nk;
     if (more) {
-      load_a<W8A8>(sa[cur ^ 1], p, m0, kt + 1);
+      if (LN)
+        load_a_raw(areg, p, m0, kt + 1);
+      else
+        load_a<W8A8>(sa[cur ^ 1], p, m0, kt + 1);
       load_b<W8A8>(breg, p, n0, kt + 1);
     }
 #pragma unroll
@@ -245,7 +335,10 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
             }
         }
     }
-    if (more) store_b<W8A8>(sb[cur ^ 1], breg);
+    if (more) {
+      store_b<W8A8>(sb[cur ^ 1], breg);
+      if (LN) store_a_ln(sa[cur ^ 1], areg, p, m0, kt + 1, mean, rstd);
+    }
     cp_async_wait_all();
     __syncthreads();
   }
@@ -267,7 +360,7 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
           z0 = __fadd_rn(z0, b0);
           z1 = __fadd_rn(z1, b1);
         }
-        if (EPI == EPI_GELU) {
+        if (GELU) {
           z0 = gelu_tanh(z0);
           z1 = gelu_tanh(z1);
         }
@@ -283,12 +376,20 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm * 64 + mt * 16 + g + 8 * h;
         if (row >= p.M) continue;
+        const float* grow = GATE ? p.gate + (row >= p.boundary ? p.N : 0) : nullptr;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int col = n0 + wn * 32 + nt * 8 + 2 * t;
           if (col >= p.N) continue;
-          *reinterpret_cast<uint32_t*>(p.out + (long long)row * p.N + col) =
-              pack_bf16(facc[mt][nt][2 * h], facc[mt][nt][2 * h + 1]);
+          float z0 = facc[mt][nt][2 * h], z1 = facc[mt][nt][2 * h + 1];
+          if (GATE) {
+            // out = resid + g_seg * z on the fp32 z
+            const __nv_bfloat162 r =
+                *reinterpret_cast<const __nv_bfloat162*>(p.resid + (long long)row * p.N + col);
+            z0 = __fadd_rn(__low2float(r), __fmul_rn(grow[col], z0));
+            z1 = __fadd_rn(__high2float(r), __fmul_rn(grow[col + 1], z1));
+          }
+          *reinterpret_cast<uint32_t*>(p.out + (long long)row * p.N + col) = pack_bf16(z0, z1);
         }
       }
     return;
@@ -336,18 +437,69 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
     }
 }
 
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // red may still be read from a previous call
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float tot = 0.f;
+  for (int w = 0; w < blockDim.x / 32; ++w) tot += red[w];
+  return tot;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One block per row of x [M, K] (bf16 or fp32) -> stats [M, 2] = (mean, rstd).
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln_stats_kernel(const T* __restrict__ x, int K, float* __restrict__ stats) {
+  __shared__ float red[8];
+  const long long m = blockIdx.x;
+  const T* row = x + m * K;
+  float s = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) s += to_float(row[k]);
+  const float mean = block_sum(s, red) / static_cast<float>(K);
+  float s2 = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float d = __fsub_rn(to_float(row[k]), mean);
+    s2 = __fadd_rn(s2, __fmul_rn(d, d));
+  }
+  const float var = block_sum(s2, red) / static_cast<float>(K);
+  if (threadIdx.x == 0) {
+    stats[2 * m] = mean;
+    stats[2 * m + 1] = 1.f / sqrtf(var + 1e-6f);
+  }
+}
+
 // One block per (group, row): x_scale = absmax/127 (1 when absmax == 0) and
-// q = clip(rint(x / x_scale), -127, 127); zero past K up to n_groups * group.
+// q = clip(rint(v / x_scale), -127, 127); zero past K up to n_groups * group.  v is the bf16 x,
+// or with LN the fp32 prologue value ln_mod(x) of the row's segment (recomputed in the second
+// pass, bit for bit the same).
+template <bool LN>
 __global__ void __launch_bounds__(256)
 act_quant_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_groups,
-                 int8_t* __restrict__ xq, float* __restrict__ xs) {
+                 int8_t* __restrict__ xq, float* __restrict__ xs, const float* __restrict__ stats,
+                 const float* __restrict__ ab, int boundary) {
   __shared__ float wmax[8];
   const int m = blockIdx.y, gi = blockIdx.x, k0 = gi * group;
   const __nv_bfloat16* row = x + (long long)m * K;
+  float mean = 0.f, rstd = 0.f;
+  const float* arow = nullptr;
+  if (LN) {
+    mean = stats[2 * (long long)m];
+    rstd = stats[2 * (long long)m + 1];
+    arow = ab + (m >= boundary ? 2 : 0) * (long long)K;
+  }
+  auto value = [&](int k) {
+    const float v = __bfloat162float(row[k]);
+    return LN ? ln_mod(v, mean, rstd, arow[k], arow[K + k]) : v;
+  };
   float amax = 0.f;
   for (int j = threadIdx.x; j < group; j += blockDim.x) {
     const int k = k0 + j;
-    if (k < K) amax = fmaxf(amax, fabsf(__bfloat162float(row[k])));
+    if (k < K) amax = fmaxf(amax, fabsf(value(k)));
   }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
@@ -359,20 +511,22 @@ act_quant_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_gr
   int8_t* qrow = xq + (long long)m * n_groups * group + k0;
   for (int j = threadIdx.x; j < group; j += blockDim.x) {
     const int k = k0 + j;
-    const float v = k < K ? __bfloat162float(row[k]) : 0.f;
+    const float v = k < K ? value(k) : 0.f;
     const float q = fminf(fmaxf(rintf(v / scale), -127.f), 127.f);
     qrow[j] = static_cast<int8_t>(q);
   }
   if (threadIdx.x == 0) xs[(long long)m * n_groups + gi] = scale;
 }
 
-template <bool W8A8>
+template <bool W8A8, bool LN>
 cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
   switch (epilogue) {
-    case EPI_BIAS: qmm_kernel<W8A8, EPI_BIAS><<<grid, NTHREADS, 0, st>>>(p); break;
-    case EPI_GELU: qmm_kernel<W8A8, EPI_GELU><<<grid, NTHREADS, 0, st>>>(p); break;
-    case EPI_QKV: qmm_kernel<W8A8, EPI_QKV><<<grid, NTHREADS, 0, st>>>(p); break;
+    case EPI_BIAS: qmm_kernel<W8A8, EPI_BIAS, LN><<<grid, NTHREADS, 0, st>>>(p); break;
+    case EPI_GELU: qmm_kernel<W8A8, EPI_GELU, LN><<<grid, NTHREADS, 0, st>>>(p); break;
+    case EPI_QKV: qmm_kernel<W8A8, EPI_QKV, LN><<<grid, NTHREADS, 0, st>>>(p); break;
+    case EPI_GATE: qmm_kernel<W8A8, EPI_GATE, LN><<<grid, NTHREADS, 0, st>>>(p); break;
+    case EPI_GELU_GATE: qmm_kernel<W8A8, EPI_GELU_GATE, LN><<<grid, NTHREADS, 0, st>>>(p); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -380,21 +534,47 @@ cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
 
 }  // namespace
 
-// x bf16 [M, K] -> xq int8 [M, n_groups * group], xs fp32 [M, n_groups].
+// x [M, K] (fp32 if x_fp32, else bf16) -> stats fp32 [M, 2]: each row's (mean, rstd).
+extern "C" int qmm_ln_stats(const void* x, int x_fp32, int M, int K, float* stats,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_fp32)
+    ln_stats_kernel<float><<<M, 256, 0, st>>>(static_cast<const float*>(x), K, stats);
+  else
+    ln_stats_kernel<__nv_bfloat16><<<M, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x), K,
+                                                       stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x bf16 [M, K] -> xq int8 [M, n_groups * group], xs fp32 [M, n_groups]; with ab (fp32
+// [8, K]) and stats (fp32 [M, 2]) the LN + adaLN prologue's value is quantized instead.
 extern "C" int qmm_act_quant(const void* x, int M, int K, int group, int n_groups, void* xq,
-                             float* xs, void* stream) {
+                             float* xs, const float* stats, const float* ab, int boundary,
+                             void* stream) {
   const dim3 grid(n_groups, M);
-  act_quant_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), K, group, n_groups, static_cast<int8_t*>(xq), xs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  if (ab != nullptr && stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (ab)
+    act_quant_kernel<true><<<grid, 256, 0, st>>>(xb, K, group, n_groups,
+                                                 static_cast<int8_t*>(xq), xs, stats, ab,
+                                                 boundary);
+  else
+    act_quant_kernel<false><<<grid, 256, 0, st>>>(xb, K, group, n_groups,
+                                                  static_cast<int8_t*>(xq), xs, nullptr,
+                                                  nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // a: W8A8 int8 [M, Kp] (with xs) or bf16 [M, K]; w: int8 [K, N] at block blk; out bf16.
-// epilogue 0: scale (+bias); 1: scale (+bias) + gelu_tanh; 2: fused qkv into [3, M, plane_h].
+// epilogue 0: scale (+bias); 1: scale (+bias) + gelu_tanh; 2: fused qkv into [3, M, plane_h];
+// 3 / 4: as 0 / 1, then out = resid + g_seg * z.  ab + stats (weight-only only): the LN + adaLN
+// prologue on the A tile.  Rows >= boundary take the cond rows of ab and gate.
 extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, const void* w,
-                        const float* scale, const float* bias, const float* norm_w, void* out,
-                        int M, int K, int Kp, int N, int group, int n_groups, int head_dim,
-                        int plane_h, void* stream) {
+                        const float* scale, const float* bias, const float* norm_w,
+                        const float* ab, const float* stats, const void* resid,
+                        const float* gate, void* out, int M, int K, int Kp, int N, int group,
+                        int n_groups, int head_dim, int plane_h, int boundary, void* stream) {
   QmmArgs p;
   p.a = static_cast<const uint8_t*>(a);
   p.xs = xs;
@@ -402,6 +582,10 @@ extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, 
   p.scale = scale;
   p.bias = bias;
   p.norm_w = norm_w;
+  p.ab = ab;
+  p.stats = stats;
+  p.resid = static_cast<const __nv_bfloat16*>(resid);
+  p.gate = gate;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.M = M;
   p.K = K;
@@ -411,7 +595,16 @@ extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, 
   p.n_groups = n_groups;
   p.head_dim = head_dim;
   p.plane_h = plane_h;
+  p.boundary = boundary;
+  const bool gated = epilogue == EPI_GATE || epilogue == EPI_GELU_GATE;
+  if ((ab != nullptr) != (stats != nullptr) || (w8a8 && ab != nullptr) ||
+      gated != (resid != nullptr && gate != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = w8a8 ? launch<true>(epilogue, p, st) : launch<false>(epilogue, p, st);
+  cudaError_t err;
+  if (w8a8)
+    err = launch<true, false>(epilogue, p, st);
+  else
+    err = ab ? launch<false, true>(epilogue, p, st) : launch<false, false>(epilogue, p, st);
   return static_cast<int>(err);
 }

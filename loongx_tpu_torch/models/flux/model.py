@@ -29,10 +29,20 @@ the transposed kernels; ``flash_attention`` is differentiable by itself.
 
 ``w8a8`` selects the MAC mode of every int8 linear (the serving knob the
 JAX package reads from LOONGX_W8A8); ``int8_attn`` the int8 QK^T mode of
-the attention (LOONGX_INT8_ATTN there; off under autograd).  The LN-prologue and gate-epilogue
-fusions of the TPU kernels are off here, as they are by default there: the
-layer norm / adaLN affine and the gated residual are composed around the
-matmul.
+the attention (LOONGX_INT8_ATTN there; off under autograd).
+
+``fuse_ln`` / ``fuse_gate`` (LOONGX_FUSE_LN / LOONGX_FUSE_GATE there, off
+by default in both) fold the block's elementwise work into the int8
+kernels: the layer norm + per-segment adaLN affine becomes the prologue of
+the fused qkv and the MLP-in projections (`ln_mod_linear`, ``_qkv(...,
+ln_mod=)``), the adaLN-zero gate + residual add the epilogue of to_out,
+ff.out and proj_out (`gate_res_linear`).  They route exactly where the
+JAX package's `_elementwise_fusable` / ``ln_in_kernel`` route: the flag is
+on, the weight is an int8 stack with ``_blk``, no active LoRA leaf sits on
+the linear and the batch is 1; everywhere else the same math is composed
+around the matmul (``add_cond_attn``'s cross-segment add always is).  With
+grad enabled the fused forms go through `quant_ln_mod_linear_stacked` /
+`quant_gate_res_linear_stacked`.
 """
 
 from __future__ import annotations
@@ -255,6 +265,63 @@ def linear_gelu(p: Params, x: torch.Tensor, use_lora: bool = True,
     return gelu_tanh(linear(p, x, use_lora, lora_mask, w8a8))
 
 
+def _elementwise_fusable(p: Params, x: torch.Tensor, use_lora: bool,
+                         flag: bool) -> bool:
+    """Can the LN prologue / gate epilogue ride into this linear's kernel
+    (the JAX package's `_elementwise_fusable`)?"""
+    return (flag and "kernel_q" in p and "_blk" in p
+            and p["kernel_q"].ndim == 3 and not (use_lora and "lora_a" in p)
+            and x.shape[0] == 1)
+
+
+def _mk_ab(a_main, b_main, a_cond, b_cond, k: int) -> torch.Tensor:
+    """The kernels' [8, K] float32 ab operand: rows a_main / b_main / a_cond
+    / b_cond (batch row 0); the cond rows repeat the main affine when there
+    is no cond segment."""
+    if a_cond is None:
+        a_cond, b_cond = a_main, b_main
+    return _rows8([a_main, b_main, a_cond, b_cond], k)
+
+
+def _rows8(rows, width: int) -> torch.Tensor:
+    """[8, width] float32: batch row 0 of each given [B, width] tensor, then
+    zero rows (the kernels' ab / gate operand layout)."""
+    top = torch.stack([r[0].float() for r in rows])
+    return torch.cat([top, top.new_zeros(8 - len(rows), width)])
+
+
+def ln_mod_linear(p: Params, x: torch.Tensor, ln_mod,
+                  activation: Optional[str] = None, use_lora: bool = True,
+                  lora_mask: Optional[torch.Tensor] = None, w8a8: bool = False,
+                  fuse_ln: bool = False) -> torch.Tensor:
+    """(layer_norm(x) * a_seg + b_seg) -> linear (+ gelu_tanh).
+
+    ln_mod = (a_main, b_main, a_cond | None, b_cond | None, boundary); x is
+    the raw fused [main | cond] stream [B, S, K]."""
+    if activation not in (None, "gelu_tanh"):
+        raise ValueError(f"unknown fused activation {activation!r}")
+    if _elementwise_fusable(p, x, use_lora, fuse_ln):
+        a_m, b_m, a_c, b_c, boundary = ln_mod
+        b, s, k = x.shape
+        nb, _, n = p["kernel_q"].shape
+        x2, wq, blk = x.reshape(s, k), p["kernel_q"], p["_blk"]
+        sc, bias3 = p["kernel_scale"].reshape(nb, 1, n), _bias3(p, n)
+        ab = _mk_ab(a_m, b_m, a_c, b_c, k)
+        if torch.is_grad_enabled():
+            y = qmm.quant_ln_mod_linear_stacked(
+                x2, wq, sc, bias3, ab, blk, seg_boundary=boundary,
+                activation=activation, w8a8=w8a8)
+        else:
+            y = qmm.quant_matmul_stacked(
+                x2, wq, sc, blk, bias3=bias3, activation=activation, w8a8=w8a8,
+                ab=ab, seg_boundary=boundary)
+        return y.reshape(b, s, n).to(x.dtype)
+    nx = _ln_mod(x, ln_mod)
+    if activation == "gelu_tanh":
+        return linear_gelu(p, nx, use_lora, lora_mask, w8a8)
+    return linear(p, nx, use_lora, lora_mask, w8a8)
+
+
 # ---------------------------------------------------------------------------
 # Embeddings
 # ---------------------------------------------------------------------------
@@ -303,9 +370,11 @@ def combined_timestep_embed(params: Params, cfg: FluxConfig,
 
 
 def _fused_qkv_stacked(p: Params, nq, nk, x: torch.Tensor, num_heads: int,
-                       w8a8: bool):
+                       w8a8: bool, ln_mod=None):
     """Stacked fused-qkv projection: one kernel does the matmul, the q/k/v
-    split into planes and the per-head RMS of q and k."""
+    split into planes and the per-head RMS of q and k; ``ln_mod`` also
+    fuses the layer norm + adaLN affine into its x load (x is then the raw
+    stream)."""
     b, s, kdim = x.shape
     nb, _, n3 = p["kernel_q"].shape
     h = n3 // 3
@@ -315,9 +384,14 @@ def _fused_qkv_stacked(p: Params, nq, nk, x: torch.Tensor, num_heads: int,
         nk["weight"].float().repeat(num_heads),
         torch.ones(h, dtype=torch.float32, device=x.device),
     ])
+    ab, boundary = None, 0
+    if ln_mod is not None:
+        a_m, b_m, a_c, b_c, boundary = ln_mod
+        ab = _mk_ab(a_m, b_m, a_c, b_c, kdim)
     q, k, v = qmm.quant_qkv_stacked(
         x.reshape(-1, kdim), p["kernel_q"], p["kernel_scale"].reshape(nb, 1, n3),
-        _bias3(p, n3), norm_w, p["_blk"], hd, w8a8=w8a8)
+        _bias3(p, n3), norm_w, p["_blk"], hd, w8a8=w8a8, ab=ab,
+        seg_boundary=boundary)
     shape = (b, s, num_heads, hd)
     return (q.reshape(shape).to(x.dtype), k.reshape(shape).to(x.dtype),
             v.reshape(shape).to(x.dtype))
@@ -325,18 +399,23 @@ def _fused_qkv_stacked(p: Params, nq, nk, x: torch.Tensor, num_heads: int,
 
 def _qkv(attn: Params, x: torch.Tensor, num_heads: int, prefix: str = "to",
          use_lora: bool = True, lora_mask: Optional[torch.Tensor] = None,
-         w8a8: bool = False):
+         w8a8: bool = False, ln_mod=None, fuse_ln: bool = False):
     """Project + split heads + per-head RMS q/k norm -> [B, S, H, Dh] x 3
-    (bshd, the projection's own layout)."""
+    (bshd, the projection's own layout).  With ``ln_mod`` x is the raw
+    stream: the layer norm + adaLN affine rides into the fused-qkv kernel
+    under ``fuse_ln`` at batch 1, else it is applied here."""
     if prefix == "to":
         fused = attn.get("to_qkv")
         nq, nk = attn["norm_q"], attn["norm_k"]
     else:
         fused = attn.get("add_qkv_proj")
         nq, nk = attn["norm_added_q"], attn["norm_added_k"]
+    fused_ok = fused is not None and "kernel_q" in fused and "_blk" in fused
+    if ln_mod is not None and not (fused_ok and fuse_ln and x.shape[0] == 1):
+        x, ln_mod = _ln_mod(x, ln_mod), None
     if fused is not None:
-        if "kernel_q" in fused and "_blk" in fused:
-            return _fused_qkv_stacked(fused, nq, nk, x, num_heads, w8a8)
+        if fused_ok:
+            return _fused_qkv_stacked(fused, nq, nk, x, num_heads, w8a8, ln_mod)
         q, k, v = linear(fused, x, use_lora=False, w8a8=w8a8).chunk(3, dim=-1)
     elif prefix == "to":
         q, k, v = (linear(attn[f"to_{n}"], x, use_lora, lora_mask, w8a8)
@@ -402,8 +481,26 @@ def _ln_mod(x, ln_mod):
 
 
 def gate_res_linear(p: Params, x, resid, g_main, g_cond, boundary: int,
-                    use_lora: bool = True, lora_mask=None, w8a8: bool = False):
-    """resid + gate_seg(row) * linear(x): the adaLN-zero gated residual."""
+                    use_lora: bool = True, lora_mask=None, w8a8: bool = False,
+                    fuse_gate: bool = False):
+    """resid + gate_seg(row) * linear(x): the adaLN-zero gated residual,
+    in the kernel's store epilogue under ``fuse_gate`` where fusable."""
+    if _elementwise_fusable(p, x, use_lora, fuse_gate):
+        b, s, k = x.shape
+        nb, _, n = p["kernel_q"].shape
+        x2, wq, blk = x.reshape(s, k), p["kernel_q"], p["_blk"]
+        sc, bias3 = p["kernel_scale"].reshape(nb, 1, n), _bias3(p, n)
+        r2 = resid.reshape(s, n)
+        gate = _rows8([g_main, g_main if g_cond is None else g_cond], n)
+        if torch.is_grad_enabled():
+            y = qmm.quant_gate_res_linear_stacked(
+                x2, wq, sc, bias3, r2, gate, blk, seg_boundary=boundary,
+                w8a8=w8a8)
+        else:
+            y = qmm.quant_matmul_stacked(
+                x2, wq, sc, blk, bias3=bias3, w8a8=w8a8, resid=r2, gate=gate,
+                seg_boundary=boundary)
+        return y.reshape(b, s, n).to(resid.dtype)
     h = linear(p, x, use_lora, lora_mask, w8a8)
     zero = torch.zeros_like(g_main)
     return resid + _seg_affine(h, boundary, g_main, zero, g_cond, zero)
@@ -431,7 +528,8 @@ def _attention(q, k, v, s_cond: int, flags, c_factor, rope_full,
 def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
                          cond_temb, rope_full, flags: Dict[str, Any],
                          c_factor: Optional[float], w8a8: bool = False,
-                         int8_attn: bool = False):
+                         int8_attn: bool = False, fuse_ln: bool = False,
+                         fuse_gate: bool = False):
     """One dual-stream block; img and cond ride one fused latent stream with
     per-segment modulation, gating and LoRA masks."""
     use_cond = cond is not None
@@ -451,8 +549,8 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
     n_txt = layer_norm(txt) * (1.0 + mt[1][:, None, :]) + mt[0][:, None, :]
 
     attn = block["attn"]
-    q_l, k_l, v_l = _qkv(attn, _ln_mod(lat, lm_attn), nh, "to", luse, lmask,
-                         w8a8)
+    q_l, k_l, v_l = _qkv(attn, lat, nh, "to", luse, lmask, w8a8, lm_attn,
+                         fuse_ln)
     q_t, k_t, v_t = _qkv(attn, n_txt, nh, "add", False, None, w8a8)
     q = torch.cat([q_t, q_l], dim=1)
     k = torch.cat([k_t, k_l], dim=1)
@@ -474,14 +572,16 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
     else:
         lat = gate_res_linear(attn["to_out"], out[:, s_txt:], lat, mi[2],
                               mc[2] if use_cond else None, s_img, luse, lmask,
-                              w8a8)
+                              w8a8, fuse_gate)
     txt = txt + mt[2][:, None, :] * attn_txt
 
     ln_ff = (1.0 + mi[4], mi[3], (1.0 + mc[4]) if use_cond else None,
              mc[3] if use_cond else None, s_img)
-    h = linear_gelu(block["ff"]["in"], _ln_mod(lat, ln_ff), False, None, w8a8)
+    h = ln_mod_linear(block["ff"]["in"], lat, ln_ff, "gelu_tanh", False, None,
+                      w8a8, fuse_ln)
     lat = gate_res_linear(block["ff"]["out"], h, lat, mi[5],
-                          mc[5] if use_cond else None, s_img, luse, lmask, w8a8)
+                          mc[5] if use_cond else None, s_img, luse, lmask, w8a8,
+                          fuse_gate)
 
     n2t = layer_norm(txt) * (1.0 + mt[4][:, None, :]) + mt[3][:, None, :]
     ht = linear_gelu(block["ff_context"]["in"], n2t, False, None, w8a8)
@@ -493,7 +593,8 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
 def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
                          cond_temb, rope_full, flags: Dict[str, Any],
                          c_factor: Optional[float], w8a8: bool = False,
-                         int8_attn: bool = False):
+                         int8_attn: bool = False, fuse_ln: bool = False,
+                         fuse_gate: bool = False):
     """One single-stream block over [txt + img] (+ cond), stream-fused."""
     use_cond = cond is not None
     latent_lora = bool(flags.get("latent_lora", False))
@@ -506,10 +607,17 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
                        latent_lora, 3, w8a8)
     lm = (1.0 + mx[1], mx[0], (1.0 + mc[1]) if use_cond else None,
           mc[0] if use_cond else None, s_x)
-    normed = _ln_mod(full, lm)
-    mlp_h = linear_gelu(block["proj_mlp"], normed, luse, lmask, w8a8)
-    q, k, v = _qkv(block["attn"], normed, cfg.num_heads, "to", luse, lmask,
-                   w8a8)
+    if fuse_ln:
+        # proj_mlp and the qkv each take the raw stream and its prologue
+        mlp_h = ln_mod_linear(block["proj_mlp"], full, lm, "gelu_tanh", luse,
+                              lmask, w8a8, fuse_ln)
+        q, k, v = _qkv(block["attn"], full, cfg.num_heads, "to", luse, lmask,
+                       w8a8, lm, fuse_ln)
+    else:
+        normed = _ln_mod(full, lm)
+        mlp_h = linear_gelu(block["proj_mlp"], normed, luse, lmask, w8a8)
+        q, k, v = _qkv(block["attn"], normed, cfg.num_heads, "to", luse, lmask,
+                       w8a8)
     out = _attention(q, k, v, s_cond, flags, c_factor, rope_full, int8_attn)
 
     g_cond = mc[2] if use_cond else None
@@ -517,12 +625,13 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
         # split proj_out: y = x_attn W[:h] + x_mlp W[h:] + b, accumulated
         # through the gated residual (never builds the [S, h + mlp] concat)
         full = gate_res_linear(block["proj_out"], out, full, mx[2], g_cond,
-                               s_x, luse, lmask, w8a8)
+                               s_x, luse, lmask, w8a8, fuse_gate)
         full = gate_res_linear(block["proj_out_mlp"], mlp_h, full, mx[2],
-                               g_cond, s_x, luse, lmask, w8a8)
+                               g_cond, s_x, luse, lmask, w8a8, fuse_gate)
     else:
         full = gate_res_linear(block["proj_out"], torch.cat([out, mlp_h], -1),
-                               full, mx[2], g_cond, s_x, luse, lmask, w8a8)
+                               full, mx[2], g_cond, s_x, luse, lmask, w8a8,
+                               fuse_gate)
     return full[:, :s_x], full[:, s_x:] if use_cond else None
 
 
@@ -541,7 +650,8 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
                  c_factor: Optional[float] = None, w8a8: bool = False,
                  controlnet_block_samples: Optional[torch.Tensor] = None,
                  controlnet_single_block_samples: Optional[torch.Tensor] = None,
-                 remat: bool = False, int8_attn: bool = False) -> torch.Tensor:
+                 remat: bool = False, int8_attn: bool = False,
+                 fuse_ln: bool = False, fuse_gate: bool = False) -> torch.Tensor:
     """Conditioned FLUX forward -> [B, S_img, in_channels] velocity.
 
     img/cond: [B, S, in_channels] packed latent tokens; txt [B, S_txt,
@@ -549,7 +659,9 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
     1000 here); *_ids [S, 3]; c_factor: condition strength (None = 1);
     remat: checkpoint each block when grad is enabled (gradient
     checkpointing: its activations are recomputed in the backward);
-    int8_attn: int8 QK^T scores in every attention (inference only)."""
+    int8_attn: int8 QK^T scores in every attention (inference only);
+    fuse_ln / fuse_gate: the LN + adaLN prologue / gate + residual epilogue
+    in the int8 kernels where fusable (see the module docstring)."""
     if controlnet_block_samples is not None or (
             controlnet_single_block_samples is not None):
         raise NotImplementedError("ControlNet residual inputs are not ported")
@@ -589,12 +701,14 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
     def double(i, img_h, txt_h, cond_h):
         return double_block_forward(
             _block_view(params["double_blocks"], i), cfg, img_h, txt_h, cond_h,
-            temb, cond_temb, rope_full, flags, c_factor, w8a8, int8_attn)
+            temb, cond_temb, rope_full, flags, c_factor, w8a8, int8_attn,
+            fuse_ln, fuse_gate)
 
     def single(i, x, cond_h):
         return single_block_forward(
             _block_view(params["single_blocks"], i), cfg, x, cond_h, temb,
-            cond_temb, rope_full, flags, c_factor, w8a8, int8_attn)
+            cond_temb, rope_full, flags, c_factor, w8a8, int8_attn, fuse_ln,
+            fuse_gate)
 
     for i in range(cfg.num_double_blocks):
         txt_h, img_h, cond_h = run(double, i, img_h, txt_h, cond_h)

@@ -40,6 +40,28 @@ Two MAC modes, chosen by ``w8a8``:
 
 The epilogue is fp32: z = acc * scale, + bias, then gelu_tanh, then one cast.
 
+The fused-elementwise forms of the stacked and fused-qkv contracts (the
+TPU kernels' ``_ln_mod_prologue`` and ``_gate_res_epilogue``, reached in
+the JAX package through LOONGX_FUSE_LN / LOONGX_FUSE_GATE):
+
+  * ``ab`` [8, K] (rows a_main / b_main / a_cond / b_cond): the LN + adaLN
+    prologue x' = ((bf16(x) - mean) * rstd) * a_seg + b_seg in float32,
+    each operation rounded on its own, with the per-row (mean, rstd) of x
+    computed ahead of the GEMM (`ln_row_stats`: a small kernel of the same
+    source on CUDA, the JAX recipe in PyTorch on CPU).  W8A8 quantizes
+    the float32 x' as it is (`act_quant` with ``ab``: the prologue runs in
+    the activation pass); weight-only rounds x' to bf16 on the A-tile load;
+  * ``resid`` [M, N] + ``gate`` [8, N] (rows gate_main / gate_cond): the
+    store becomes out = bf16(float(bf16(resid)) + g_seg * z), z the float32
+    epilogue value (never rounded before the gate);
+  * the segment of a row is ``row >= seg_boundary`` on global row ids.
+
+With ``ab`` or ``resid`` the plain version is the kernel's arithmetic at
+any input dtype (x taken as bf16, a bf16 output), as the JAX package's
+fused path always runs its kernel.  Shapes the stacked tiling cannot cover
+compose the prologue and epilogue around the unfused product instead, as
+the JAX package does (LN and affine rounded to bf16 first).
+
 The transposed product rounds dy * scale (fp32) to dy's dtype before the
 contraction, as the TPU kernel rounds it to bf16, and sums in fp32; for
 bf16 dy that is the CUDA kernel exactly, for float32 dy the JAX package's
@@ -51,6 +73,11 @@ Autograd (the JAX custom VJPs): `quant_matmul_vjp`,
 scale and bias get no gradient, and no dx is computed when x needs none
 (``ctx.needs_input_grad``).  The gelu variants recompute the pre-activation
 in their backward, as the JAX package does.
+`quant_ln_mod_linear_stacked` and `quant_gate_res_linear_stacked` are the
+fused forms' autograd Functions: dx through the transposed kernel, the LN,
+affine and gate backward in PyTorch, real gradients for ``ab``, ``resid``
+and ``gate`` (they chain to the adaLN projections), none for the int8
+leaves.
 """
 
 from __future__ import annotations
@@ -63,12 +90,14 @@ import torch.nn.functional as F
 
 from loongx_tpu_torch.ops import cuda_build
 
-EPI_BIAS, EPI_GELU, EPI_QKV = 0, 1, 2
+EPI_BIAS, EPI_GELU, EPI_QKV, EPI_GATE, EPI_GELU_GATE = 0, 1, 2, 3, 4
+_LN_EPS = 1e-6  # the FLUX layer norm's epsilon, as the JAX package's _LN_EPS
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_GEMM_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _P]
-_QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P]
+_GEMM_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _I, _P]
+_QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]
 _T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
+_STATS_SIGNATURE = [_P, _I, _I, _I, _P, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -104,14 +133,18 @@ def _stacked_blocks(k: int, n: int) -> Tuple[int, int]:
     return block_n, (1024 if wide_n else 1536)
 
 
+def stacked_ok(k: int, n: int) -> bool:
+    """Can the stacked TPU tiling cover [K, N] (_stacked_ok)?"""
+    block_n, block_k = _stacked_blocks(k, n)
+    return k % min(block_k, k) == 0 and n % min(block_n, n) == 0
+
+
 def stacked_w8a8_group(k: int, n: int) -> Tuple[int, int]:
     """(group, padded K) of the stacked W8A8 kernel: its k tile (3072 at
     every FLUX shape, K = 12288 included); shapes the stacked tiling cannot
     cover take the flat kernel's policy, as the TPU path falls back."""
-    block_n, block_k = _stacked_blocks(k, n)
-    block_n, block_k = min(block_n, n), min(block_k, k)
-    if k % block_k == 0 and n % block_n == 0:
-        return block_k, k
+    if stacked_ok(k, n):
+        return min(_stacked_blocks(k, n)[1], k), k
     return flat_w8a8_group(k, n)
 
 
@@ -127,27 +160,93 @@ def qkv_supported(k: int, n3: int, head_dim: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def act_quant_plain(x: torch.Tensor, group: int,
-                    k_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """bf16(x) [M, K] -> (q float32 [M, k_pad] integer-valued, x_scale
-    float32 [M, k_pad // group])."""
-    xf = F.pad(x.to(torch.bfloat16).float(), (0, k_pad - x.shape[1]))
-    xg = xf.view(x.shape[0], k_pad // group, group)
+def ln_row_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """[M, K] -> float32 [M, 2]: each row's (mean, rstd) in the JAX
+    package's recipe (_ln_mean_rstd): mean, then mean((x - mean)^2), then
+    rsqrt(var + _LN_EPS)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(-1, keepdim=True)
+    return torch.cat([mean, torch.rsqrt(var + _LN_EPS)], -1)
+
+
+def _seg_rows(m: int, boundary: int, device) -> torch.Tensor:
+    """[M, 1] bool: does the row belong to the cond segment?"""
+    return (torch.arange(m, device=device) >= boundary)[:, None]
+
+
+def _seg_select(main: torch.Tensor, cond: torch.Tensor, m: int,
+                boundary: int) -> torch.Tensor:
+    return torch.where(_seg_rows(m, boundary, main.device), cond, main)
+
+
+def _ln_affine(xf: torch.Tensor, ab: torch.Tensor, stats: torch.Tensor,
+               boundary: int) -> torch.Tensor:
+    """((xf - mean) * rstd) * a_seg + b_seg on float32 xf, each operation
+    rounded on its own (the kernel's order)."""
+    m = xf.shape[0]
+    xn = (xf - stats[:, 0:1]) * stats[:, 1:2]
+    return (xn * _seg_select(ab[0], ab[2], m, boundary)
+            + _seg_select(ab[1], ab[3], m, boundary))
+
+
+def ln_mod_plain(x: torch.Tensor, ab: torch.Tensor, stats: torch.Tensor,
+                 boundary: int) -> torch.Tensor:
+    """The LN + adaLN prologue in float32 on the kernel's bf16 x."""
+    return _ln_affine(x.to(torch.bfloat16).float(), ab, stats, boundary)
+
+
+def gate_res_plain(z: torch.Tensor, resid: torch.Tensor, gate: torch.Tensor,
+                   boundary: int) -> torch.Tensor:
+    """The gate + residual epilogue on the float32 z: float(bf16(resid)) +
+    g_seg * z in float32."""
+    g = _seg_select(gate[0], gate[1], z.shape[0], boundary)
+    return resid.to(torch.bfloat16).float() + g * z
+
+
+def _quant_groups(xf: torch.Tensor, group: int,
+                  k_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (row, group) int8 quantization of float32 values xf [M, K]."""
+    xf = F.pad(xf, (0, k_pad - xf.shape[1]))
+    xg = xf.view(xf.shape[0], k_pad // group, group)
     absmax = xg.abs().amax(-1)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the true quotient in the last bit
     xs = torch.where(absmax == 0, torch.ones_like(absmax),
                      absmax / absmax.new_full((), 127.0))
     q = torch.clamp(torch.round(xg / xs[..., None]), -127, 127)
-    return q.view(x.shape[0], k_pad), xs
+    return q.view(xf.shape[0], k_pad), xs
 
 
-def _plain_acc(x, w_q, scale, bias, w8a8: bool, group: int, k_pad: int):
+def act_quant_plain(x: torch.Tensor, group: int, k_pad: int,
+                    ab: Optional[torch.Tensor] = None, seg_boundary: int = 0,
+                    stats: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16(x) [M, K] -> (q float32 [M, k_pad] integer-valued, x_scale
+    float32 [M, k_pad // group]); with ``ab`` the float32 prologue output
+    is quantized instead (not rounded to bf16 first), from ``stats`` or,
+    when not given, x's `ln_row_stats_plain`."""
+    if ab is not None:
+        if stats is None:
+            stats = ln_row_stats_plain(x)
+        return _quant_groups(ln_mod_plain(x, ab, stats, seg_boundary), group,
+                             k_pad)
+    return _quant_groups(x.to(torch.bfloat16).float(), group, k_pad)
+
+
+def _plain_acc(x, w_q, scale, bias, w8a8: bool, group: int, k_pad: int,
+               ab=None, seg_boundary: int = 0):
     """(z = acc * scale + bias in float32, output dtype) of the plain MAC:
     per-group s8 products (integer-valued float32 matmuls) rescaled into
-    the accumulator for W8A8, x @ w in float32 for weight-only."""
+    the accumulator for W8A8, x @ w in float32 for weight-only.  With
+    ``ab`` the MAC takes the prologue's output (weight-only: rounded to
+    bf16, the kernel's A tile)."""
+    if ab is not None and not w8a8:
+        x = ln_mod_plain(x, ab, ln_row_stats_plain(x),
+                         seg_boundary).to(torch.bfloat16)
     if w8a8:
-        xq, xs = act_quant_plain(x, group, k_pad)
+        xq, xs = act_quant_plain(x, group, k_pad, ab, seg_boundary)
         wf = F.pad(w_q.float(), (0, 0, 0, k_pad - w_q.shape[0]))
         acc = torch.zeros(x.shape[0], w_q.shape[1], dtype=torch.float32,
                           device=x.device)
@@ -167,14 +266,25 @@ def _plain_acc(x, w_q, scale, bias, w8a8: bool, group: int, k_pad: int):
 def qmm_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
               activation: Optional[str] = None, w8a8: bool = False,
-              group: int = 0, k_pad: int = 0) -> torch.Tensor:
+              group: int = 0, k_pad: int = 0,
+              ab: Optional[torch.Tensor] = None,
+              resid: Optional[torch.Tensor] = None,
+              gate: Optional[torch.Tensor] = None,
+              seg_boundary: int = 0) -> torch.Tensor:
     """Plain version of the kernel on a [K, N] weight (a view of a stack is
-    fine): x [M, K]; scale/bias broadcastable to [N]."""
-    z, out_dtype = _plain_acc(x, w_q, scale, bias, w8a8, group, k_pad)
+    fine): x [M, K]; scale/bias broadcastable to [N]; ``ab`` / ``resid`` +
+    ``gate`` the fused prologue / epilogue (x taken as bf16 then, as the
+    kernel does; the output is bf16)."""
+    if resid is not None and ab is None:
+        x = x.to(torch.bfloat16)
+    z, out_dtype = _plain_acc(x, w_q, scale, bias, w8a8, group, k_pad, ab,
+                              seg_boundary)
     if activation == "gelu_tanh":
         z = F.gelu(z, approximate="tanh")
     elif activation is not None:
         raise ValueError(f"unknown fused activation {activation!r}")
+    if resid is not None:
+        z = gate_res_plain(z, resid, gate, seg_boundary)
     return z.to(out_dtype)
 
 
@@ -187,10 +297,12 @@ def rms_heads_plain(z: torch.Tensor, head_dim: int,
 
 
 def quant_qkv_plain(x, w_q, scale, bias, norm_w, head_dim: int,
-                    w8a8: bool = False, group: int = 0, k_pad: int = 0):
+                    w8a8: bool = False, group: int = 0, k_pad: int = 0,
+                    ab: Optional[torch.Tensor] = None, seg_boundary: int = 0):
     """Plain version of the fused-qkv kernel on a [K, 3H] weight: the RMS
     epilogue runs on the float32 z, before the one cast."""
-    z, out_dtype = _plain_acc(x, w_q, scale, bias, w8a8, group, k_pad)
+    z, out_dtype = _plain_acc(x, w_q, scale, bias, w8a8, group, k_pad, ab,
+                              seg_boundary)
     q, k, v = z.chunk(3, dim=-1)
     q = rms_heads_plain(q, head_dim, norm_w[0])
     k = rms_heads_plain(k, head_dim, norm_w[1])
@@ -216,50 +328,93 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def act_quant(x: torch.Tensor, group: int,
-              k_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The W8A8 activation pass: bf16(x) [M, K] -> (int8 [M, k_pad], float32
-    x_scale [M, k_pad // group]), K zero-padded to k_pad.  Launches
-    ``act_quant_kernel`` on a CUDA tensor; `act_quant_plain` on CPU."""
+def ln_row_stats(x: torch.Tensor) -> torch.Tensor:
+    """Each row's (mean, rstd) of x [M, K] as float32 [M, 2]: launches
+    ``ln_stats_kernel`` on a CUDA tensor (bf16 or float32 as given; other
+    dtypes as float32), `ln_row_stats_plain` on CPU."""
     if x.device.type == "cpu":
-        q, xs = act_quant_plain(x, group, k_pad)
+        return ln_row_stats_plain(x)
+    _check(x.ndim == 2 and x.is_floating_point(),
+           f"x must be a floating-point [M, K] matrix, got {x.dtype} "
+           f"{tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        x = x.float()
+    x = x.contiguous()
+    m, k = x.shape
+    stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
+    fn = cuda_build.library("quant_matmul").qmm_ln_stats
+    fn.argtypes, fn.restype = _STATS_SIGNATURE, ctypes.c_int
+    cuda_build.check(fn(x.data_ptr(), int(x.dtype == torch.float32), m, k,
+                        stats.data_ptr(),
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "qmm_ln_stats")
+    cuda_build.LAUNCHES["qmm_ln_stats"] += 1
+    return stats
+
+
+def act_quant(x: torch.Tensor, group: int, k_pad: int,
+              ab: Optional[torch.Tensor] = None, seg_boundary: int = 0,
+              stats: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The W8A8 activation pass: bf16(x) [M, K] -> (int8 [M, k_pad], float32
+    x_scale [M, k_pad // group]), K zero-padded to k_pad.  With ``ab`` [8,
+    K] the pass quantizes the LN + adaLN prologue's float32 output instead
+    (``stats``: x's `ln_row_stats`, computed here when not given).
+    Launches ``act_quant_kernel`` on a CUDA tensor; `act_quant_plain` on
+    CPU."""
+    if x.device.type == "cpu":
+        q, xs = act_quant_plain(x, group, k_pad, ab, seg_boundary, stats)
         return q.to(torch.int8), xs
     m, k = x.shape
+    if ab is not None and stats is None:
+        stats = ln_row_stats(x)
     x = _cuda_x(x, k)
     _check(group % 64 == 0 and k_pad % group == 0 and k <= k_pad,
            f"W8A8 kernel: group {group} must be a multiple of 64 dividing "
            f"k_pad {k_pad} >= K {k}")
+    _cuda_vec(ab, (8, k), "ab", x.device)
+    _cuda_vec(stats, (m, 2), "LN row stats", x.device)
     a = torch.empty(m, k_pad, dtype=torch.int8, device=x.device)
     xs = torch.empty(m, k_pad // group, dtype=torch.float32, device=x.device)
     fn = cuda_build.library("quant_matmul").qmm_act_quant
     fn.argtypes, fn.restype = _QUANT_SIGNATURE, ctypes.c_int
+    name = "qmm_act_quant" if ab is None else "qmm_act_quant_ln"
     cuda_build.check(fn(x.data_ptr(), m, k, group, k_pad // group, a.data_ptr(),
-                        xs.data_ptr(),
-                        torch.cuda.current_stream(x.device).cuda_stream),
-                     "qmm_act_quant")
-    cuda_build.LAUNCHES["qmm_act_quant"] += 1
+                        xs.data_ptr(), _ptr(stats), _ptr(ab), seg_boundary,
+                        torch.cuda.current_stream(x.device).cuda_stream), name)
+    cuda_build.LAUNCHES[name] += 1
     return a, xs
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _launch(name: str, x, w_ptr: int, k: int, n: int, scale_ptr: int,
             bias_ptr: Optional[int], epilogue: int, w8a8: bool, group: int,
             k_pad: int, out: torch.Tensor, norm_w_ptr: Optional[int] = None,
-            head_dim: int = 0, plane_h: int = 0) -> None:
+            head_dim: int = 0, plane_h: int = 0, ab=None, stats=None,
+            resid=None, gate=None, seg_boundary: int = 0) -> None:
+    """One GEMM launch (after the W8A8 activation pass, which takes the
+    prologue in that mode); ``x`` is the bf16 operand, ``stats`` the
+    prologue's row stats of the caller's x."""
     m = x.shape[0]
     lib = cuda_build.library("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     xs = None
     if w8a8:
-        a, xs = act_quant(x, group, k_pad)
+        a, xs = act_quant(x, group, k_pad, ab, seg_boundary, stats)
+        ab = stats = None
     else:
         _check(k % 8 == 0, f"weight-only kernel: K {k} not a multiple of 8")
         a = x
     fn = lib.qmm_gemm
     fn.argtypes, fn.restype = _GEMM_SIGNATURE, ctypes.c_int
-    code = fn(int(w8a8), epilogue, a.data_ptr(),
-              None if xs is None else xs.data_ptr(), w_ptr, scale_ptr, bias_ptr,
-              norm_w_ptr, out.data_ptr(), m, k, k_pad, n, group,
-              k_pad // group if w8a8 else 0, head_dim, plane_h, stream)
+    code = fn(int(w8a8), epilogue, a.data_ptr(), _ptr(xs), w_ptr, scale_ptr,
+              bias_ptr, norm_w_ptr, _ptr(ab), _ptr(stats), _ptr(resid),
+              _ptr(gate), out.data_ptr(), m, k, k_pad, n, group,
+              k_pad // group if w8a8 else 0, head_dim, plane_h, seg_boundary,
+              stream)
     cuda_build.check(code, f"qmm_gemm ({name})")
     cuda_build.LAUNCHES[name] += 1
 
@@ -269,7 +424,9 @@ def _cuda_x(x: torch.Tensor, k: int) -> torch.Tensor:
     _check(x.ndim == 2 and x.shape[1] == k,
            f"x must be [M, {k}], got {tuple(x.shape)}")
     _check(x.is_floating_point(), f"x must be floating point, got {x.dtype}")
-    return x.to(torch.bfloat16).contiguous()
+    x = x.to(torch.bfloat16).contiguous()
+    # the kernels load x in 16-byte chunks
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _cuda_vec(t: Optional[torch.Tensor], shape, what: str, device):
@@ -287,6 +444,34 @@ def _cuda_weight(w: torch.Tensor, device):
            f"weight must be contiguous int8 on {device}, got {w.dtype} on "
            f"{w.device}")
     _check(w.shape[-1] % 16 == 0, f"N {w.shape[-1]} not a multiple of 16")
+
+
+def _cuda_resid(resid: torch.Tensor, m: int, n: int, device) -> torch.Tensor:
+    _check(resid.device == device and resid.is_floating_point()
+           and tuple(resid.shape) == (m, n),
+           f"resid must be floating point [{m}, {n}] on {device}, got "
+           f"{resid.dtype} {tuple(resid.shape)} on {resid.device}")
+    return resid.to(torch.bfloat16).contiguous()
+
+
+def _check_fused(k: int, n: int, ab, resid, gate) -> None:
+    if (resid is None) != (gate is None):
+        raise ValueError("resid and gate come together (the gate epilogue)")
+    if ab is not None and tuple(ab.shape) != (8, k):
+        raise ValueError(f"ab must be [8, {k}], got {tuple(ab.shape)}")
+    if ab is not None and ab.device.type == "cuda":
+        _check(ab.data_ptr() % 16 == 0, "ab must be 16-byte aligned (the "
+               "weight-only prologue loads it in float4s)")
+    if gate is not None and tuple(gate.shape) != (8, n):
+        raise ValueError(f"gate must be [8, {n}], got {tuple(gate.shape)}")
+
+
+def _xla_ln_mod(x, ab, boundary: int) -> torch.Tensor:
+    """The JAX package's composition of the prologue where the stacked
+    tiling cannot take it (_xla_ln_mod): LN of x as given, the affine, one
+    bf16 rounding."""
+    return _ln_affine(x.float(), ab, ln_row_stats(x),
+                      boundary).to(torch.bfloat16)
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
@@ -318,43 +503,78 @@ def quant_matmul_stacked(x: torch.Tensor, w_q3: torch.Tensor,
                          scale3: torch.Tensor, blk: int, *,
                          bias3: Optional[torch.Tensor] = None,
                          activation: Optional[str] = None,
-                         w8a8: bool = False) -> torch.Tensor:
+                         w8a8: bool = False,
+                         ab: Optional[torch.Tensor] = None,
+                         resid: Optional[torch.Tensor] = None,
+                         gate: Optional[torch.Tensor] = None,
+                         seg_boundary: int = 0) -> torch.Tensor:
     """x [M, K] @ w_q3[blk] ([NB, K, N] int8) * scale3[blk] ([NB, 1, N])
-    (+ bias3[blk]) (+ gelu)."""
+    (+ bias3[blk]) (+ gelu); ``ab`` [8, K] fuses the LN + adaLN prologue,
+    ``resid`` [M, N] + ``gate`` [8, N] the gate + residual epilogue, rows
+    split into segments at ``seg_boundary``."""
     nb, k, n = w_q3.shape
     if not 0 <= blk < nb:
         raise IndexError(f"block {blk} out of range for a stack of {nb}")
+    _check_fused(k, n, ab, resid, gate)
     group, k_pad = stacked_w8a8_group(k, n)
+    if (ab is not None or resid is not None) and not stacked_ok(k, n):
+        # the JAX package's route where the stacked tiling cannot cover the
+        # shape: the prologue and epilogue composed around the product
+        if ab is not None:
+            x = _xla_ln_mod(x, ab, seg_boundary)
+        y = quant_matmul_stacked(x.to(torch.bfloat16), w_q3, scale3, blk,
+                                 bias3=bias3, activation=activation, w8a8=w8a8)
+        if resid is not None:
+            y = gate_res_plain(y.float(), resid, gate,
+                               seg_boundary).to(torch.bfloat16)
+        return y
     if x.device.type == "cpu":
         return qmm_plain(x, w_q3[blk], scale3[blk],
                          None if bias3 is None else bias3[blk], activation,
-                         w8a8, group, k_pad)
+                         w8a8, group, k_pad, ab, resid, gate, seg_boundary)
+    m = x.shape[0]
+    stats = None if ab is None else ln_row_stats(x)
     x = _cuda_x(x, k)
     _cuda_weight(w_q3, x.device)
     _cuda_vec(scale3, (nb, 1, n), "scale", x.device)
     _cuda_vec(bias3, (nb, 1, n), "bias", x.device)
-    out = torch.empty(x.shape[0], n, dtype=torch.bfloat16, device=x.device)
-    _launch("qmm_stacked", x, _stack_ptr(w_q3, blk), k, n,
-            _stack_ptr(scale3, blk),
-            None if bias3 is None else _stack_ptr(bias3, blk),
-            EPI_GELU if activation == "gelu_tanh" else EPI_BIAS, w8a8, group,
-            k_pad, out)
+    _cuda_vec(ab, (8, k), "ab", x.device)
+    _cuda_vec(gate, (8, n), "gate", x.device)
+    if resid is not None:
+        resid = _cuda_resid(resid, m, n, x.device)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    gelu = activation == "gelu_tanh"
+    if resid is not None:
+        epilogue = EPI_GELU_GATE if gelu else EPI_GATE
+    else:
+        epilogue = EPI_GELU if gelu else EPI_BIAS
+    name = ("qmm_stacked" + ("_ln" if ab is not None else "")
+            + ("_gate" if resid is not None else ""))
+    _launch(name, x, _stack_ptr(w_q3, blk), k, n, _stack_ptr(scale3, blk),
+            None if bias3 is None else _stack_ptr(bias3, blk), epilogue, w8a8,
+            group, k_pad, out, ab=ab, stats=stats, resid=resid, gate=gate,
+            seg_boundary=seg_boundary)
     return out
 
 
 def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
                       scale3: torch.Tensor, bias3: torch.Tensor,
                       norm_w: torch.Tensor, blk: int, head_dim: int, *,
-                      w8a8: bool = False):
+                      w8a8: bool = False, ab: Optional[torch.Tensor] = None,
+                      seg_boundary: int = 0):
     """(q, k, v), each [M, H]: one matmul over the fused [NB, K, 3H] weight,
     per-head RMS (eps 1e-6) times norm_w[0] / norm_w[1] on q / k, v as is.
-    norm_w: [3, H] float32."""
+    norm_w: [3, H] float32; ``ab`` [8, K] fuses the LN + adaLN prologue."""
     nb, k, n3 = w_q3.shape
     if not 0 <= blk < nb:
         raise IndexError(f"block {blk} out of range for a stack of {nb}")
+    _check_fused(k, n3, ab, None, None)
     h = n3 // 3
     if not qkv_supported(k, n3, head_dim):
-        # the TPU path's fallback: plain matmul kernel, then split + RMS
+        # the TPU path's fallback: (the prologue composed ahead,) the plain
+        # matmul kernel, then split + RMS
+        if ab is not None:
+            x = _xla_ln_mod(x, ab, seg_boundary)
         y = quant_matmul_stacked(x, w_q3, scale3, blk, bias3=bias3,
                                  w8a8=w8a8).float()
         q, kk, v = y.chunk(3, dim=-1)
@@ -364,19 +584,22 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
     group, k_pad = stacked_w8a8_group(k, n3)
     if x.device.type == "cpu":
         return quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk], norm_w,
-                               head_dim, w8a8, group, k_pad)
+                               head_dim, w8a8, group, k_pad, ab, seg_boundary)
+    stats = None if ab is None else ln_row_stats(x)
     x = _cuda_x(x, k)
     _cuda_weight(w_q3, x.device)
     _cuda_vec(scale3, (nb, 1, n3), "scale", x.device)
     _cuda_vec(bias3, (nb, 1, n3), "bias", x.device)
     _cuda_vec(norm_w, (3, h), "norm_w", x.device)
+    _cuda_vec(ab, (8, k), "ab", x.device)
     _check(h % 128 == 0, f"qkv kernel: H {h} not a multiple of 128")
     _check(head_dim in (32, 64, 128), f"qkv kernel: head_dim {head_dim}")
     out = torch.empty(3, x.shape[0], h, dtype=torch.bfloat16, device=x.device)
-    _launch("qmm_qkv_stacked", x, _stack_ptr(w_q3, blk), k, n3,
-            _stack_ptr(scale3, blk), _stack_ptr(bias3, blk), EPI_QKV, w8a8,
-            group, k_pad, out, norm_w_ptr=norm_w.data_ptr(),
-            head_dim=head_dim, plane_h=h)
+    _launch("qmm_qkv_stacked" + ("_ln" if ab is not None else ""), x,
+            _stack_ptr(w_q3, blk), k, n3, _stack_ptr(scale3, blk),
+            _stack_ptr(bias3, blk), EPI_QKV, w8a8, group, k_pad, out,
+            norm_w_ptr=norm_w.data_ptr(), head_dim=head_dim, plane_h=h, ab=ab,
+            stats=stats, seg_boundary=seg_boundary)
     return out[0], out[1], out[2]
 
 
@@ -517,6 +740,115 @@ class _QuantLinearGeluFn(torch.autograd.Function):
         z = quant_matmul(x, w_q, scale, bias=bias, w8a8=ctx.w8a8)
         dx = quant_matmul_t(_gelu_grad(dy, z), w_q, scale)
         return dx.to(x.dtype), None, None, None, None
+
+
+def _ln_stats(x: torch.Tensor):
+    """(normalized x in float32, rstd [M, 1]) with the prologue's recipe."""
+    stats = ln_row_stats(x)
+    return (x.float() - stats[:, 0:1]) * stats[:, 1:2], stats[:, 1:2]
+
+
+def _seg_sums(v: torch.Tensor, boundary: int):
+    """(sum over main rows, sum over cond rows) of float32 v [M, D]."""
+    cond = _seg_rows(v.shape[0], boundary, v.device)
+    return (torch.where(cond, 0.0, v).sum(0), torch.where(cond, v, 0.0).sum(0))
+
+
+class _QuantLnModLinearStackedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q3, scale3, bias3, ab, blk, seg_boundary, activation,
+                w8a8):
+        ctx.save_for_backward(x, w_q3, scale3, bias3, ab)
+        ctx.blk, ctx.boundary = blk, seg_boundary
+        ctx.activation, ctx.w8a8 = activation, w8a8
+        return quant_matmul_stacked(x, w_q3, scale3, blk, bias3=bias3,
+                                    activation=activation, w8a8=w8a8, ab=ab,
+                                    seg_boundary=seg_boundary)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_q3, scale3, bias3, ab = ctx.saved_tensors
+        m, blk, boundary = x.shape[0], ctx.blk, ctx.boundary
+        xn, rstd = _ln_stats(x)
+        a_seg = _seg_select(ab[0], ab[2], m, boundary)
+        if ctx.activation == "gelu_tanh":
+            # recompute the pre-activation through the unfused product
+            x_mod = (xn * a_seg + _seg_select(ab[1], ab[3], m, boundary))
+            z = quant_matmul_stacked(x_mod.to(torch.bfloat16), w_q3, scale3,
+                                     blk, bias3=bias3, w8a8=ctx.w8a8)
+            dz = _gelu_grad(dy, z)
+        else:
+            dz = dy
+        dxmod = quant_matmul_t_stacked(dz, w_q3, scale3, blk).float()
+        dab = None
+        if ctx.needs_input_grad[4]:
+            da_main, da_cond = _seg_sums(dxmod * xn, boundary)
+            db_main, db_cond = _seg_sums(dxmod, boundary)
+            dab = torch.zeros_like(ab)
+            for row, v in enumerate((da_main, db_main, da_cond, db_cond)):
+                dab[row] = v
+        dx = None
+        if ctx.needs_input_grad[0]:
+            # layer norm backward (no learned affine)
+            dn = dxmod * a_seg
+            dn_mean = dn.mean(-1, keepdim=True)
+            proj = (dn * xn).mean(-1, keepdim=True)
+            dx = (rstd * (dn - dn_mean - xn * proj)).to(x.dtype)
+        return dx, None, None, None, dab, None, None, None, None
+
+
+class _QuantGateResLinearStackedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q3, scale3, bias3, resid, gate, blk, seg_boundary,
+                w8a8):
+        ctx.save_for_backward(x, w_q3, scale3, bias3, gate)
+        ctx.blk, ctx.boundary, ctx.w8a8 = blk, seg_boundary, w8a8
+        ctx.resid_dtype = resid.dtype
+        return quant_matmul_stacked(x, w_q3, scale3, blk, bias3=bias3,
+                                    w8a8=w8a8, resid=resid, gate=gate,
+                                    seg_boundary=seg_boundary)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_q3, scale3, bias3, gate = ctx.saved_tensors
+        m, blk, boundary = x.shape[0], ctx.blk, ctx.boundary
+        dyf = dy.float()
+        dx = dgate = dresid = None
+        if ctx.needs_input_grad[0]:
+            g_seg = _seg_select(gate[0], gate[1], m, boundary)
+            dz = (dyf * g_seg).to(dy.dtype)
+            dx = quant_matmul_t_stacked(dz, w_q3, scale3, blk).to(x.dtype)
+        if ctx.needs_input_grad[4]:
+            dresid = dy.to(ctx.resid_dtype)  # d(resid + ...)/d(resid) = 1
+        if ctx.needs_input_grad[5]:
+            # the forward's z: the kernel takes x as bf16
+            z = quant_matmul_stacked(x.to(torch.bfloat16), w_q3, scale3, blk,
+                                     bias3=bias3, w8a8=ctx.w8a8).float()
+            dgate = torch.zeros_like(gate)
+            dgate[0], dgate[1] = _seg_sums(dyf * z, boundary)
+        return dx, None, None, None, dresid, dgate, None, None, None
+
+
+def quant_ln_mod_linear_stacked(x, w_q3, scale3, bias3, ab, blk: int, *,
+                                seg_boundary: int = 0,
+                                activation: Optional[str] = None,
+                                w8a8: bool = False):
+    """act(((layernorm(x) * a_seg + b_seg) @ w_q3[blk]) * scale3[blk] +
+    bias3[blk]) with the prologue in the kernel (ab [8, K] float32),
+    differentiable in x and ab (the JAX package's
+    quant_ln_mod_linear_stacked)."""
+    return _QuantLnModLinearStackedFn.apply(x, w_q3, scale3, bias3, ab, blk,
+                                            seg_boundary, activation, w8a8)
+
+
+def quant_gate_res_linear_stacked(x, w_q3, scale3, bias3, resid, gate,
+                                  blk: int, *, seg_boundary: int = 0,
+                                  w8a8: bool = False):
+    """resid + gate_seg(row) * (x @ w_q3[blk] * scale3[blk] + bias3[blk])
+    with the epilogue in the kernel (gate [8, N] float32), differentiable in
+    x, resid and gate (the JAX package's quant_gate_res_linear_stacked)."""
+    return _QuantGateResLinearStackedFn.apply(x, w_q3, scale3, bias3, resid,
+                                              gate, blk, seg_boundary, w8a8)
 
 
 def quant_matmul_vjp(x, w_q, scale, *, w8a8: bool = False):

@@ -43,7 +43,8 @@ def denoise(flux_params, flux_cfg: FluxConfig, flags: Dict[str, Any],
             cond: Optional[torch.Tensor], cond_ids: Optional[torch.Tensor],
             sigmas: np.ndarray, guidance: Optional[torch.Tensor],
             c_factor: Optional[float], w8a8: bool = False,
-            int8_attn: bool = False) -> torch.Tensor:
+            int8_attn: bool = False, fuse_ln: bool = False,
+            fuse_gate: bool = False) -> torch.Tensor:
     """The denoise loop; sigmas [steps + 1] float32 (host), the DiT's
     timestep is sigma itself."""
     lat = latents
@@ -54,7 +55,8 @@ def denoise(flux_params, flux_cfg: FluxConfig, flags: Dict[str, Any],
             flux_params, flux_cfg, img=lat.to(txt.dtype), txt=txt,
             pooled=pooled, timestep=t, guidance=guidance, img_ids=img_ids,
             txt_ids=txt_ids, cond=cond, cond_ids=cond_ids, flags=flags,
-            c_factor=c_factor, w8a8=w8a8, int8_attn=int8_attn)
+            c_factor=c_factor, w8a8=w8a8, int8_attn=int8_attn,
+            fuse_ln=fuse_ln, fuse_gate=fuse_gate)
         lat = euler_step(lat, v, sigma, sigma_next)
     return lat
 
@@ -92,8 +94,9 @@ def fused_edit_program(flux_params, vae_params, enc, dgf,
                        cond_noise: Optional[torch.Tensor], *,
                        flux_cfg: FluxConfig, vae_cfg, flags: Dict[str, Any],
                        s4_mode: str, lat_h: int, lat_w: int,
-                       w8a8: bool = False,
-                       int8_attn: bool = False) -> torch.Tensor:
+                       w8a8: bool = False, int8_attn: bool = False,
+                       fuse_ln: bool = False,
+                       fuse_gate: bool = False) -> torch.Tensor:
     """Brain encode (replace mode) + condition VAE encode + denoise + VAE
     decode -> images [B, H, W, 3].  ``cond_img`` [B, H, W, 3] in [-1, 1];
     ``cond_noise``: standard-normal draw of the latent's shape for the VAE
@@ -118,7 +121,7 @@ def fused_edit_program(flux_params, vae_params, enc, dgf,
 
     out = denoise(flux_params, flux_cfg, flags, latents, prompt_embeds, pooled,
                   img_ids, txt_ids, cond_tokens, cond_ids, sigmas, guidance,
-                  c_factor, w8a8, int8_attn)
+                  c_factor, w8a8, int8_attn, fuse_ln, fuse_gate)
     lat = unscale_latents(vae_cfg, unpack_latents(out, lat_h, lat_w)).to(dtype)
     return vae_decode(vae_params, vae_cfg, lat)
 
@@ -188,7 +191,8 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
                 position_scale: float = 1.0, condition_scale: float = 1.0,
                 model_config: Optional[Dict[str, Any]] = None,
                 s4_mode: str = "conv", output_type: str = "np",
-                w8a8: bool = False, int8_attn: bool = False):
+                w8a8: bool = False, int8_attn: bool = False,
+                fuse_ln: bool = False, fuse_gate: bool = False):
     """The deployed neural edit (replace mode) on ``pipeline``'s device.
 
     ``cond_image``: PIL image or array [H, W, 3] / [B, H, W, 3] in [-1, 1]
@@ -197,8 +201,10 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
     sample draw, [B, H/8, W/8, latent C]) default to standard normals from
     ``generator`` (seeded with ``seed``, default 0).  ``w8a8`` selects the
     W8A8 MAC mode of the int8 DiT, ``int8_attn`` the int8 QK^T attention
-    scores, ``s4_mode`` the S4D core of the encoders ("conv", "scan" or
-    "pallas", the recurrence kernel).  Returns float32 numpy [B, H, W, 3]
+    scores, ``fuse_ln`` / ``fuse_gate`` the LN + adaLN prologue / gate +
+    residual epilogue inside the int8 kernels (batch 1), ``s4_mode`` the
+    S4D core of the encoders ("conv", "scan" or "pallas", the recurrence
+    kernel).  Returns float32 numpy [B, H, W, 3]
     ("np") or uint8 ("uint8")."""
     if eeg is None or fnirs is None:
         raise ValueError(
@@ -267,7 +273,7 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
             cond_noise.to(device), flux_cfg=pipeline.flux_cfg,
             vae_cfg=pipeline.vae_cfg, flags=dict(model_config or {}),
             s4_mode=s4_mode, lat_h=lat_h, lat_w=lat_w, w8a8=w8a8,
-            int8_attn=int8_attn)
+            int8_attn=int8_attn, fuse_ln=fuse_ln, fuse_gate=fuse_gate)
     images = images.float().cpu().numpy()
     if output_type == "uint8":
         images = ((np.clip(images, -1, 1) + 1) * 127.5).round().astype(np.uint8)
@@ -297,7 +303,8 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
              fuse_mode: str = "infer",
              model_config: Optional[Dict[str, Any]] = None,
              output_type: str = "np", decode_chunk: Optional[int] = None,
-             w8a8: bool = False, int8_attn: bool = False):
+             w8a8: bool = False, int8_attn: bool = False,
+             fuse_ln: bool = False, fuse_gate: bool = False):
     """Neural-driven image editing / generation on ``pipeline``'s device.
 
     ``eeg`` / ``fnirs`` / ``ppg`` / ``motion`` are the reference's
@@ -307,8 +314,9 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
     wiring ("infer" or "train").  ``condition_type`` drives the adapter
     switch on the precomputed ``cond_tokens`` path (a Condition brings its
     own type).  ``decode_chunk`` bounds how many images the VAE decodes at
-    once.  ``w8a8`` and ``int8_attn`` select the int8 DiT's MAC mode and
-    attention scores, as in `neural_edit`.
+    once.  ``w8a8``, ``int8_attn``, ``fuse_ln`` and ``fuse_gate`` select
+    the int8 DiT's MAC mode, attention scores and fused elementwise work,
+    as in `neural_edit`.
 
     Random draws: ``latents`` [B, S, C] and ``cond_noise`` (the condition
     VAE sample's standard normals, [1, H/8, W/8, latent C]) default to
@@ -549,7 +557,8 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
         out = denoise(pipeline.params["flux"], pipeline.flux_cfg,
                       dict(model_config or {}), latents, prompt_embeds,
                       pooled_prompt_embeds, img_ids, txt_ids, cond_tokens,
-                      cond_ids, sigmas, guidance, c_factor, w8a8, int8_attn)
+                      cond_ids, sigmas, guidance, c_factor, w8a8, int8_attn,
+                      fuse_ln, fuse_gate)
         if output_type == "latent":
             return out
 

@@ -114,12 +114,15 @@ def flow_match_loss(params: Dict[str, Any], flux_cfg: FluxConfig,
                     batch: Dict[str, torch.Tensor], draws: Draws,
                     flags: Optional[Dict[str, Any]] = None,
                     use_brain_condition: bool = False, fuse_flag: bool = True,
-                    remat: bool = False, dtype=torch.bfloat16):
+                    remat: bool = False, dtype=torch.bfloat16,
+                    fuse_ln: bool = False, fuse_gate: bool = False):
     """One flow-matching MSE step -> (loss, mean t), float32 scalars.
 
     batch: x0 [B, S, C] clean packed latents; img_ids / txt_ids;
     prompt_embeds / pooled; optional cond_tokens / cond_ids; optional
-    eeg / ppg / fnirs / motion (the CS3 encoders' dropout is active)."""
+    eeg / ppg / fnirs / motion (the CS3 encoders' dropout is active);
+    fuse_ln / fuse_gate: the DiT's fused elementwise forms (LOONGX_FUSE_LN /
+    LOONGX_FUSE_GATE in the JAX package)."""
     x0 = batch["x0"].float()
     t, x1, dropout = _draws(draws, x0)
     x_t = flow_match_xt(x0, x1, t).to(dtype)
@@ -158,7 +161,8 @@ def flow_match_loss(params: Dict[str, Any], flux_cfg: FluxConfig,
         params["flux"], flux_cfg, img=x_t, txt=prompt_embeds, pooled=pooled,
         timestep=t, guidance=guidance, img_ids=batch["img_ids"],
         txt_ids=batch["txt_ids"], cond=None if cond is None else cond.to(dtype),
-        cond_ids=batch.get("cond_ids"), flags=flags, remat=remat)
+        cond_ids=batch.get("cond_ids"), flags=flags, remat=remat,
+        fuse_ln=fuse_ln, fuse_gate=fuse_gate)
     loss = torch.mean((pred.float() - (x1 - x0)) ** 2)
     return loss, torch.mean(t)
 
@@ -193,7 +197,8 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
                     flags: Optional[Dict[str, Any]] = None,
                     use_brain_condition: bool = False, fuse_flag: bool = True,
                     remat: bool = True, grad_clip: Optional[float] = 0.5,
-                    dtype=torch.bfloat16) -> Tuple[Callable, Callable]:
+                    dtype=torch.bfloat16, fuse_ln: bool = False,
+                    fuse_gate: bool = False) -> Tuple[Callable, Callable]:
     """(init_fn, step_fn) with the JAX package's contract:
 
       init_fn(trainable) -> TrainState
@@ -202,7 +207,8 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
     ``metrics``: loss, grad_norm (before clipping), t_mean (float32 scalar
     tensors on the params' device).  The trainable leaves are updated in
     place; the returned state counts one more step.  ``grad_clip`` None or
-    0 leaves clipping to the caller."""
+    0 leaves clipping to the caller.  ``fuse_ln`` / ``fuse_gate`` as in
+    `flow_match_loss`."""
     flags = dict(flags or {})
 
     def init_fn(trainable) -> TrainState:
@@ -215,7 +221,7 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
         params = combine(state.trainable, frozen)
         loss, t_mean = flow_match_loss(
             params, flux_cfg, batch, draws, flags, use_brain_condition,
-            fuse_flag, remat, dtype)
+            fuse_flag, remat, dtype, fuse_ln, fuse_gate)
         group = state.optimizer.param_groups[0]["params"]
         grads = list(torch.autograd.grad(loss, group))
         norm = global_norm(grads)
