@@ -7,7 +7,12 @@ Phases (each prints one line with the card, its power limit and seconds):
   1. require CUDA, build every kernel from ``loongx_tpu_torch/csrc``;
   2. every kernel against its plain PyTorch version at the shapes the edit
      and training paths give it, with its error, tolerance and times
-     (kernel, plain, bound, one library call as a yardstick); the fused
+     (kernel, plain, bound, one library call as a yardstick); the wgmma
+     kernels (the flash forward with its RoPE pre-pass, the W8A8 GEMM) also
+     with the mma.sync kernel they replace timed beside them at the same
+     call (`cuda_build.mma_sync_only`), the flash residuals, cuBLAS bf16 on
+     the dequantised weight, and the share of the GEMM's time its B-tile
+     transpose takes (`transpose_share`); the fused
      forms of the int8 kernels (the LN + adaLN prologue, W8A8 and
      weight-only, stacked and fused-qkv; the gate + residual epilogue)
      also beside their unfused route, the W8A8 prologue's int8 codes
@@ -18,7 +23,10 @@ Phases (each prints one line with the card, its power limit and seconds):
      the plain versions: relative L2 of the velocities after the first
      double and single block (weight-only and W8A8) and after all 57
      (W8A8), each beside its rounding floor, the launch count of each
-     kernel and a device profile; the same 57 blocks with ``fuse_ln`` and
+     kernel (57 wgmma flash forwards after 57 RoPE pre-passes; every
+     stacked and fused-qkv GEMM on wgmma, the split of all 397 GEMM
+     launches by kernel), a device profile and a host profile; the same
+     57 blocks with ``fuse_ln`` and
      ``fuse_gate`` (kernels vs plain beside the floor, 114 prologue and
      114 gate launches, its device profile); then the gradients of every
      LoRA factor of the training tree's first double and single block
@@ -177,8 +185,17 @@ def flash_cases():
     ]
 
 
+# the residuals (m2, l) against the plain ones: m2 absolute, l relative
+RESIDUAL_TOL = 1e-4
+
+
 def check_flash(torch, gen, records):
+    """The bf16-score forward (the wgmma kernel and its RoPE pre-pass, as
+    `flash_fwd_route` sends head_dim 128) against its plain version in every
+    mode, with and without residuals; timed beside the mma.sync kernel it
+    replaces (`cuda_build.mma_sync_only`), SDPA and its bound."""
     import torch.nn.functional as F
+    from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.ops import flash_attention as fa
     from loongx_tpu_torch.ops.rope import apply_rope, rope_embed
 
@@ -190,13 +207,31 @@ def check_flash(torch, gen, records):
         cos, sin = rope_embed(ids.floor())
         kw = dict(cond_start=s - c, mode=mode, c_factor=cf, rope=(cos, sin),
                   layout="bshd")
+        route = fa.flash_fwd_route(d)
         out = fa.flash_attention(q, k, v, **kw).float()
         ref = fa.flash_attention_plain(q, k, v, **kw).float()
         err = (out - ref).abs().max().item()
         rel = ((out - ref).norm() / ref.norm()).item()
         # a few bf16 steps (2^-8 relative each) at the output's largest value
         tol = 2.0 ** -5 * ref.abs().max().item()
+        res = ""
+        res_ok = True
+        if cf is None:
+            o2, m2, l2 = fa._forward(q, k, v, s - c, mode, None, (cos, sin),
+                                     "bshd", save_residuals=True)
+            pm2, pl = fa.flash_residuals_plain(q, k, cond_start=s - c,
+                                               mode=mode, rope=(cos, sin),
+                                               layout="bshd")
+            err2 = (o2.float() - ref).abs().max().item()
+            res_err = max((m2 - pm2).abs().max().item(),
+                          ((l2 - pl).abs() / pl).max().item())
+            res_ok = err2 <= tol and res_err <= RESIDUAL_TOL
+            err = max(err, err2)
+            res = (f" with residuals: err {err2:.3e}, residuals err "
+                   f"{res_err:.1e} (tol {RESIDUAL_TOL:.0e});")
         ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        with cuda_build.mma_sync_only():
+            mma_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                                 iters=2)
         # yardstick: SDPA on pre-rotated head-major tensors (rope and the
@@ -221,15 +256,45 @@ def check_flash(torch, gen, records):
         nbytes = 4 * s * h * d * 2 + 2 * s * d * 4
         bms, by = bound_ms(nbytes, ops, "bf16")
         records.append(dict(kernel="flash_attention", case=label, err=err,
-                            tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bms, bound_by=by))
+                            tol=tol, ms=ms, mma_sync_ms=mma_ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bms, bound_by=by, route=route))
         print(f"  flash {label:22s} err {err:.3e} (tol {tol:.2e}) rel L2 "
-              f"{rel:.3e} (bound {FLASH_REL_L2:.0e}) kernel {ms:.3f} ms plain "
-              f"{plain_ms:.3f} sdpa {lib_ms:.3f} bound {bms:.3f} ({by})",
+              f"{rel:.3e} (bound {FLASH_REL_L2:.0e});{res} {route} {ms:.3f} ms"
+              f" (RoPE pre-pass included), mma.sync {mma_ms:.3f}, plain "
+              f"{plain_ms:.3f}, sdpa {lib_ms:.3f}, bound {bms:.3f} ({by})",
               flush=True)
-        if not (err <= tol and rel <= FLASH_REL_L2):
+        if not (err <= tol and rel <= FLASH_REL_L2 and res_ok):
             raise Failure(f"flash {label}: err {err} (tol {tol}), rel L2 "
-                          f"{rel} (bound {FLASH_REL_L2})")
+                          f"{rel} (bound {FLASH_REL_L2}){res}")
+        if label in ("S2560 union", "S8704 union"):
+            check_flash_rope(torch, fa, records, label, q, k, (cos, sin))
+        del q, k, v, qr, kr, vr, out, ref
+        torch.cuda.empty_cache()
+
+
+def check_flash_rope(torch, fa, records, label, q, k, rope):
+    """The wgmma forward's RoPE pre-pass against its plain version: equal
+    (the same separately rounded fp32 operations, one bf16 rounding)."""
+    out = fa.flash_rope(q, k, rope, "bshd")
+    ref = fa.flash_rope_plain(q, k, rope, "bshd")
+    n_diff = int((out != ref).sum().item())
+    ms = cuda_time_ms(lambda: fa.flash_rope(q, k, rope, "bshd"))
+    plain_ms = cuda_time_ms(lambda: fa.flash_rope_plain(q, k, rope, "bshd"),
+                            iters=2)
+    _, s, h, d = q.shape
+    # q, k and the two tables read, the rotated pair written; 3 fp32
+    # operations per element
+    bms, by = bound_ms(4 * s * h * d * 2 + 2 * s * d * 4, 3.0 * 2 * s * h * d,
+                       "fp32")
+    records.append(dict(kernel="flash_rope", case=label, err=float(n_diff),
+                        tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bms, bound_by=by))
+    print(f"  flash_rope {label:17s} elements differing {n_diff} of "
+          f"{out.numel()} (tol 0) kernel {ms:.4f} ms plain {plain_ms:.3f} "
+          f"bound {bms:.4f} ({by})", flush=True)
+    if n_diff:
+        raise Failure(f"flash_rope {label}: {n_diff} elements differ")
 
 
 def qmm_cases():
@@ -257,7 +322,7 @@ def qmm_cases():
 
 
 def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
-                m, k, n):
+                m, k, n, extra=None):
     import torch
     if isinstance(out, tuple):
         out, ref = torch.stack(out), torch.stack(ref)
@@ -268,12 +333,15 @@ def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
     bms, by = bound_ms(m * k * 2 + k * n + 2 * n * 4 + m * n * 2,
                        2.0 * m * k * n, kind)
     mode = "w8a8" if w8a8 else "wonly"
+    extra = extra or {}
     records.append(dict(kernel=kernel, case=f"{label} {mode}", m=m, k=k, n=n,
                         err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, bound_ms=bms, bound_by=by))
+                        library_ms=lib_ms, bound_ms=bms, bound_by=by, **extra))
     print(f"  {kernel:15s} {label:20s} {mode:5s} M{m} K{k} N{n} err {err:.3e} "
           f"(tol {tol:.2e}) kernel {ms:.3f} ms plain {plain_ms:.3f} lib "
-          f"{lib_ms:.3f} bound {bms:.3f} ({by})", flush=True)
+          f"{lib_ms:.3f} bound {bms:.3f} ({by})"
+          + "".join(f" {key} {v:.3f}" if isinstance(v, float) else f" {key} {v}"
+                    for key, v in extra.items()), flush=True)
     if not err <= tol:
         raise Failure(f"{kernel} {label} {mode}: err {err} > {tol}")
 
@@ -313,6 +381,46 @@ def _library_call(torch, x, wq, w8a8):
     return lambda: torch.matmul(x, wb)
 
 
+def _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad, w8a8):
+    """The route `qmm_route` takes, and in W8A8 the mma.sync kernel's time
+    at the same call (`cuda_build.mma_sync_only`) and cuBLAS bf16 on the
+    dequantised weight, a second yardstick beside torch._int_mm."""
+    from loongx_tpu_torch.ops import cuda_build
+    extra = {"route": qmm.qmm_route(k, n, group, k_pad, w8a8)}
+    if w8a8:
+        with cuda_build.mma_sync_only():
+            extra["mma_sync_ms"] = cuda_time_ms(run)
+        wb = wq.to(torch.bfloat16)
+        extra["cublas_bf16_ms"] = cuda_time_ms(lambda: torch.matmul(x, wb))
+    return extra
+
+
+def transpose_share(torch, qmm, x, wq, sc, bi, blk, act, group, k_pad):
+    """(GEMM ms, GEMM ms without the B-tile transpose, share) of the wgmma
+    GEMM alone on one call's activation codes: the transposing warpgroup
+    skips its work (the product is then wrong and is not read)."""
+    import ctypes
+    from loongx_tpu_torch.ops import cuda_build
+    m, k = x.shape
+    n = wq.shape[-1]
+    a, xs = qmm.act_quant(x, group, k_pad)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+    fn = cuda_build.library("quant_matmul").qmm_gemm_wgmma
+    fn.argtypes, fn.restype = qmm._WGMMA_SIGNATURE, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def gemm(transpose):
+        code = fn(qmm.EPI_GELU if act else qmm.EPI_BIAS, a.data_ptr(),
+                  xs.data_ptr(), qmm._stack_ptr(wq, blk), qmm._stack_ptr(sc, blk),
+                  qmm._stack_ptr(bi, blk), None, None, None, out.data_ptr(), m, k,
+                  k_pad, n, group, k_pad // group, 0, 0, 0, transpose, stream)
+        cuda_build.check(code, "qmm_gemm_wgmma")
+
+    with_t = cuda_time_ms(lambda: gemm(1))
+    without = cuda_time_ms(lambda: gemm(0))
+    return with_t, without, 1.0 - without / with_t
+
+
 def check_qmm(torch, gen, records):
     from loongx_tpu_torch.ops import quant_matmul as qmm
 
@@ -341,10 +449,17 @@ def check_qmm(torch, gen, records):
             plain = lambda: qmm.qmm_plain(x, wq[blk], sc[blk], bi[blk], act,
                                           w8a8, group, k_pad)
             out, ref = run(), plain()
+            extra = _route_extra(torch, qmm, run, x, wq[blk], k, n, group,
+                                 k_pad, w8a8)
+            if extra["route"] == "wgmma":
+                t, t0, share = transpose_share(torch, qmm, x, wq, sc, bi, blk,
+                                               act, group, k_pad)
+                extra.update(gemm_ms=t, no_transpose_ms=t0,
+                             transpose_share=share)
             _qmm_record(records, "qmm_stacked", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
-                        m, k, n)
+                        m, k, n, extra)
         for label, m, nb in qkv:
             k, n3 = 3072, 9216
             wq, sc, bi = stack(nb, k, n3)
@@ -361,7 +476,8 @@ def check_qmm(torch, gen, records):
             _qmm_record(records, "qmm_qkv_stacked", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
-                        m, k, n3)
+                        m, k, n3, _route_extra(torch, qmm, run, x, wq[blk], k,
+                                               n3, group, k_pad, w8a8))
         for label, m, k, n in flat:
             wq = torch.randint(-128, 128, (k, n), dtype=torch.int8,
                                device="cuda", generator=gen)
@@ -378,8 +494,15 @@ def check_qmm(torch, gen, records):
             _qmm_record(records, "qmm_flat", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq, w8a8)),
-                        m, k, n)
+                        m, k, n, _route_extra(torch, qmm, run, x, wq, k, n,
+                                              group, k_pad, w8a8))
     stacks.clear()
+    slower = [f"{r['kernel']} {r['case']}" for r in records
+              if r.get("route") == "wgmma" and r["kernel"] in (
+                  "qmm_stacked", "qmm_qkv_stacked") and r["m"] >= 512
+              and not r["ms"] < r["mma_sync_ms"]]
+    print(f"  wgmma GEMM slower than mma.sync at M >= 512 (stacked, qkv): "
+          f"{slower or 'none'}", flush=True)
 
 
 def qmm_t_cases():
@@ -1064,10 +1187,25 @@ def plain_versions(attention=None):
             setattr(mod, name, fn)
 
 
-KERNELS = ("flash_attention", "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
-           "qmm_act_quant")
-TRAIN_KERNELS = ("flash_attention", "qmm_stacked", "qmm_flat", "qmm_t",
-                 "qmm_t_stacked", "flash_bwd_dkv", "flash_bwd_dq")
+KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
+           "qmm_stacked", "qmm_stacked:wgmma", "qmm_qkv_stacked",
+           "qmm_qkv_stacked:wgmma", "qmm_flat", "qmm_flat:wgmma",
+           "qmm_flat:mma_sync", "qmm_act_quant")
+TRAIN_KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
+                 "qmm_stacked", "qmm_flat", "qmm_t", "qmm_t_stacked",
+                 "flash_bwd_dkv", "flash_bwd_dq")
+GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
+
+
+def gemm_split(counts):
+    """{entry: (launches, wgmma, mma_sync)} of the int8 GEMM entries; each
+    launch goes to exactly one of the two kernels."""
+    out = {e: (counts.get(e, 0), counts.get(f"{e}:wgmma", 0),
+               counts.get(f"{e}:mma_sync", 0)) for e in GEMM_ENTRIES}
+    for e, (total, wg, ms) in out.items():
+        if total != wg + ms:
+            raise Failure(f"{e}: {total} launches, {wg} wgmma + {ms} mma.sync")
+    return out
 
 
 def device_profile(torch, run):
@@ -1087,7 +1225,9 @@ def device_profile(torch, run):
     groups, other = {}, {}
     for e in events:
         us = e.time_range.end - e.time_range.start
-        group = next((g for g in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+        group = next((g for g in ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
+                                  "qmm_wgmma_kernel", "flash_fwd_kernel",
+                                  "flash_bwd_dkv_kernel",
                                   "flash_bwd_dq_kernel", "qmm_t_kernel",
                                   "qmm_kernel", "act_quant_kernel")
                       if g in e.name), None)
@@ -1103,6 +1243,25 @@ def device_profile(torch, run):
                 idle_share=1.0 - busy / span,
                 by_group_ms={k: v / 1e3 for k, v in groups.items()},
                 top_other_ms={k[:80]: v / 1e3 for k, v in top})
+
+
+def host_profile(torch, run, top=8):
+    """Host seconds of one ``run()`` under cProfile: the total and the
+    functions with the most time of their own."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    total = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"total_ms": round(total * 1e3, 1), "by_own_time_ms": {
+        f"{fn.rsplit('/', 1)[-1]}:{line}({name})": (round(v[2] * 1e3, 1), v[1])
+        for (fn, line, name), v in rows}}
 
 
 INT8_STD = math.sqrt((256 ** 2 - 1) / 12.0)  # uniform int8 bits -128..127
@@ -1175,7 +1334,10 @@ def full_forward(torch, pipe, gen):
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
         counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
+        split = gemm_split(cuda_build.LAUNCHES)
         prof = device_profile(torch, lambda: flux_forward(
+            params, cfg, w8a8=True, **kw))
+        host = host_profile(torch, lambda: flux_forward(
             params, cfg, w8a8=True, **kw))
         with plain_versions():
             t0 = time.perf_counter()
@@ -1183,8 +1345,8 @@ def full_forward(torch, pipe, gen):
             torch.cuda.synchronize()
             t_plain = time.perf_counter() - t0
         print(f"  forward S{s_txt + 2 * s_img}: kernels {t_kernel * 1e3:.1f} "
-              f"ms, plain {t_plain * 1e3:.1f} ms, launches {counts}",
-              flush=True)
+              f"ms, plain {t_plain * 1e3:.1f} ms, launches {counts}; GEMM "
+              f"launches (total, wgmma, mma.sync) {split}", flush=True)
         for depth, w8a8, bound, floor_share in comparisons:
             def run(depth=depth, w8a8=w8a8):
                 return flux_forward(params, depth, w8a8=w8a8, **kw)
@@ -1232,6 +1394,8 @@ def full_forward(torch, pipe, gen):
         if not finite or not rel <= 5e-2:
             raise Failure(f"forward int8_attn: rel L2 {rel}, finite {finite}")
         fused = fused_forward(torch, params, cfg, kw, v_bf16, t_kernel)
+    print(f"  forward host profile (cProfile, its own overhead included): "
+          f"{host}", flush=True)
     if prof is None:
         print("  forward device profile: not measured (no device activity "
               "in the profiler)", flush=True)
@@ -1240,9 +1404,15 @@ def full_forward(torch, pipe, gen):
               "{span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
               "{by_group_ms}; largest other {top_other_ms}".format(**prof),
               flush=True)
-    if counts["flash_attention"] != cfg.num_double_blocks + cfg.num_single_blocks:
-        raise Failure(f"flash launches {counts['flash_attention']} != "
-                      f"{cfg.num_double_blocks + cfg.num_single_blocks}")
+    blocks = cfg.num_double_blocks + cfg.num_single_blocks
+    if not (counts["flash_attention"] == counts["flash_attention:wgmma"]
+            == counts["flash_rope"] == blocks):
+        raise Failure(f"flash launches {counts}: want {blocks} on wgmma, each "
+                      f"after its RoPE pre-pass")
+    # every stacked and fused-qkv launch (M 2 to 2560) on the wgmma GEMM;
+    # the flat ones that the tiling cannot take (K 64, N 64) on mma.sync
+    if split["qmm_stacked"][2] or split["qmm_qkv_stacked"][2]:
+        raise Failure(f"stacked / qkv launches on mma.sync: {split}")
     if not all(counts.values()):
         raise Failure(f"a kernel was not launched: {counts}")
     fused_launch_check(cfg, fused, 1, "forward")
@@ -1461,8 +1631,8 @@ def serve(torch, pipe):
                           f"{k} {v:.3f}" for k, v in times.items())
                       + f", output [{img.min():.3f}, {img.max():.3f}] "
                       f"({outside:.2e} outside [-1, 1]) finite {finite} (PERF.md's"
-                      f" serving reading before the text slice: 243.5 ms/step"
-                      f" on H100 80GB HBM3, 700 W)",
+                      f" reading on the mma.sync kernels: 244.8 ms/step on "
+                      f"H100 80GB HBM3, 700 W)",
                       flush=True)
                 if not (finite and img.shape == (1, 512, 512, 3)
                         and outside <= MAX_SHARE_OUTSIDE_UNIT
@@ -1473,15 +1643,18 @@ def serve(torch, pipe):
                         f"{MAX_SHARE_OUTSIDE_UNIT}), max |x| {peak} (limit "
                         f"{MAX_ABS_OUT})")
                 served += 1
-        counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
+        counts = dict(cuda_build.LAUNCHES)
         options = serve_options(torch, pipe, requests[0], images[0], times,
                                 ms_steps[0])
     finally:
         for name, fn in saved.items():
             setattr(generate, name, fn)
-    print(f"  launches over {served} requests: {counts}", flush=True)
-    if not all(counts.values()):
-        raise Failure(f"a kernel was not launched while serving: {counts}")
+    print(f"  launches over {served} requests: "
+          f"{ {n: counts.get(n, 0) for n in KERNELS} }; GEMM launches (total, "
+          f"wgmma, mma.sync) {gemm_split(counts)}", flush=True)
+    missing = [n for n in KERNELS if not counts.get(n)]
+    if missing:
+        raise Failure(f"kernels not launched while serving: {missing}")
     if card_samples:
         clocks = sorted(s[0] for s in card_samples)
         watts = sorted(s[1] for s in card_samples)
@@ -1898,6 +2071,10 @@ def kernel_table(records, launches):
     meta = {
         "flash_attention": ("flash_attention.cu", f"{fa_py}:193", "S2560 union",
                             "serve"),
+        # the rotation of q and k inside _fwd_kernel (_rope_rotate :178), a
+        # pre-pass of the wgmma forward
+        "flash_rope": ("flash_attention.cu", f"{fa_py}:178", "S2560 union",
+                       "serve"),
         "qmm_stacked": ("quant_matmul.cu", f"{qmm_py}:422",
                         "single mlp gelu w8a8", "serve"),
         "qmm_qkv_stacked": ("quant_matmul.cu", f"{qmm_py}:1067", "single w8a8",
@@ -1950,8 +2127,15 @@ def kernel_table(records, launches):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main_case,
-            **({"unfused_ms": main["unfused_ms"]} if "unfused_ms" in main
-               else {}),
+            **{key: main[key] for key in ("unfused_ms", "mma_sync_ms",
+                                          "cublas_bf16_ms", "transpose_share")
+               if key in main},
+            **({"kernel": main["route"]} if "route" in main else {}),
+            **({"launches_by_route": {
+                r: launches[path].get(f"{name}:{r}", 0)
+                for r in ("wgmma", "mma_sync")}}
+               if f"{name}:wgmma" in launches[path]
+               or f"{name}:mma_sync" in launches[path] else {}),
         })
     return table
 

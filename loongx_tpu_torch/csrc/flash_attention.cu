@@ -37,13 +37,16 @@
 // The B fragments come out of shared memory by ldmatrix (.trans for V).  The softmax runs in
 // base 2 (scores prescaled by log2 e).  q/k/v/o are read and written through strides, so the
 // [B, S, H, D] projection layout needs no transpose.  Loads are plain (no cp.async/TMA
-// pipeline, no wgmma): two blocks per SM hide part of the latency.  Faster forms (wgmma, TMA,
-// warp specialisation) are later work.
+// pipeline, no wgmma): two blocks per SM hide part of the latency.  This kernel keeps head_dim
+// 64 and the int8 QK^T mode; at head_dim 128 (every FLUX shape) the bf16-score forward runs
+// flash_fwd_wgmma_kernel below ("Forward on wgmma"), chosen by flash_fwd_route in Python.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -458,6 +461,299 @@ cudaError_t launch_kquant(const __nv_bfloat16* k, const float* cos, const float*
                                                       sb, ss, sh, span, nspan);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------------------
+// Forward on wgmma (bf16 scores, D = 128): RoPE pre-pass + warp-specialised main kernel
+// ---------------------------------------------------------------------------------------
+//
+// rope_prepass_kernel rotates q and k once per element (rope8: the in-kernel rotation above,
+// fp32 with separate roundings, then bf16) into one head-major buffer [2, B, H, S, D]; without
+// RoPE the main kernel reads q and k as they lie.  flash_fwd_wgmma_kernel: one block per 128
+// query rows of one (batch, head); one producer thread loads the Q tile once and K and V tiles of
+// 128 keys into a ring of STAGES by TMA (4-D tensor maps {D, S, H, B} over any strides, boxes of
+// 64 d x 128 rows with the 128-byte swizzle, zeros past S); two consumer warpgroups own 64 query
+// rows each: S = Q.K^T by wgmma m64n128k16 (both operands d-contiguous, K-major), the base-2
+// online softmax of the mma.sync kernel in registers, P rounded to bf16 in registers as the A
+// operand of O += P.V (wgmma with V as B through the transpose bit: V tiles lie key-major, d
+// contiguous).  Key tiles that the block mask hides from every row of the block are skipped
+// (no_union, independent): a skipped tile would contribute 2^(MASK_VALUE - m) = 0 exactly.
+// Tiles that every row sees whole (tile_plain) skip the per-element mask: the row max is taken
+// on the raw scores and each probability is one fma and one ex2.approx, which halves the
+// softmax's instructions (it runs between the two products of each warpgroup, unoverlapped:
+// a software-pipelined loop and ping-pong scheduling of the two warpgroups measured slower).
+namespace fa3 {
+
+constexpr int D = 128, BQ = 128, BKV = 128, STAGES = 3;
+constexpr int PANEL = 128 * 128;  // bytes: 128 rows x 64 bf16, one TMA box
+// warpgroups: two consumers and the producer (one thread issues TMA); entry registers
+// 65536 / 384 = 168, then 240 for the consumers and 24 for the producer (2 x 72 = 144)
+constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128, ENTRY_REGS = 168;
+constexpr int SMEM_BYTES = (2 + 4 * STAGES) * PANEL + (1 + 2 * STAGES) * 8 + 1024;
+constexpr int ROPE_ROWS = 64;
+
+struct Args {
+  __nv_bfloat16* o;
+  float *m_out, *l_out;
+  int H, S;
+  long long sb, ss, sh;  // o's element strides (v's too)
+  int cond_start, mode;
+  float cbias, scale;
+};
+
+// Does key tile [kv0, kv0 + BKV) hold a key that some query row of [q0, q0 + BQ) attends to?
+__device__ __forceinline__ bool tile_visible(int mode, int cs, int S, int q0, int kv0) {
+  const bool rows_main = q0 < cs, rows_cond = q0 + BQ > cs && cs < S;
+  const bool cols_main = kv0 < cs, cols_cond = kv0 + BKV > cs && cs < S;
+  if (mode == NO_UNION) return (rows_main && cols_main) || (rows_cond && cols_cond);
+  if (mode == INDEPENDENT) return rows_main || cols_cond;
+  return true;
+}
+
+// Does every query row of the block see every key of the tile, with no bias (all keys real)?
+// Then the softmax needs no per-element mask.
+__device__ __forceinline__ bool tile_plain(int mode, int cs, int S, int q0, int kv0) {
+  if (kv0 + BKV > S) return false;
+  if (mode == UNION) return true;
+  const bool rows_main = q0 + BQ <= cs, rows_cond = q0 >= cs;
+  const bool cols_main = kv0 + BKV <= cs, cols_cond = kv0 >= cs;
+  if (mode == INDEPENDENT) return rows_main || cols_cond;
+  return (rows_main && cols_main) || (rows_cond && cols_cond);  // NO_UNION, CFACTOR
+}
+
+// 2^x by the MUFU unit (ex2.approx.ftz: results below 2^-126 flush to zero).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(256)
+rope_prepass_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const float* __restrict__ cos, const float* __restrict__ sin,
+                    __nv_bfloat16* __restrict__ out, int B, int H, int S, long long sb,
+                    long long ss, long long sh) {
+  constexpr int CHUNKS = D / 8;
+  const int r0 = blockIdx.x * ROPE_ROWS, h = blockIdx.y;
+  const int which = blockIdx.z / B, b = blockIdx.z % B;
+  const __nv_bfloat16* src = (which ? k : q) + (long long)b * sb + (long long)h * sh;
+  __nv_bfloat16* dst = out + (((long long)which * B + b) * H + h) * (long long)S * D;
+  for (int c = threadIdx.x; c < ROPE_ROWS * CHUNKS; c += blockDim.x) {
+    const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8, s = r0 + r;
+    if (s >= S) continue;
+    *reinterpret_cast<uint4*>(dst + (long long)s * D + c8) =
+        rope8<D>(*reinterpret_cast<const uint4*>(src + (long long)s * ss + c8), cos, sin, s, c8);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, const Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = base;                          // 2 panels
+  uint8_t* sk = base + 2 * PANEL;              // STAGES x 2 panels
+  uint8_t* sv = base + (2 + 2 * STAGES) * PANEL;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(base + (2 + 4 * STAGES) * PANEL);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int S = p.S, cs = p.cond_start, mode = p.mode;
+  const int ntiles = (S + BKV - 1) / BKV;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      hopper::mbar_arrive_expect_tx(qfull, 2 * PANEL);
+      hopper::tma_load_4d(sq, &map_q, qfull, 0, q0, h, b);
+      hopper::tma_load_4d(sq + PANEL, &map_q, qfull, 64, q0, h, b);
+      int it = 0;
+      for (int j = 0; j < ntiles; ++j) {
+        if (!tile_visible(mode, cs, S, q0, j * BKV)) continue;
+        const int s = it % STAGES;
+        hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 4 * PANEL);
+        uint8_t* kt = sk + s * 2 * PANEL;
+        uint8_t* vt = sv + s * 2 * PANEL;
+        hopper::tma_load_4d(kt, &map_k, &full[s], 0, j * BKV, h, b);
+        hopper::tma_load_4d(kt + PANEL, &map_k, &full[s], 64, j * BKV, h, b);
+        hopper::tma_load_4d(vt, &map_v, &full[s], 0, j * BKV, h, b);
+        hopper::tma_load_4d(vt + PANEL, &map_v, &full[s], 64, j * BKV, h, b);
+        ++it;
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float scale_log2 = p.scale * LOG2E, cbias_log2 = p.cbias * LOG2E;
+  const int row_id[2] = {q0 + wgi * 64 + warp * 16 + g, q0 + wgi * 64 + warp * 16 + g + 8};
+  const bool row_cond[2] = {row_id[0] >= cs, row_id[1] >= cs};
+
+  float o[64], sc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  const uint8_t* sq_wg = sq + wgi * 64 * 128;
+
+  // S = Q K^T of the tile in stage s: 8 k-steps of 16 d, 4 in each 64-wide panel
+  auto issue_scores = [&](int s) {
+    const uint8_t* kt = sk + s * 2 * PANEL;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int panel = kk / 4, off = (kk % 4) * 32;
+      const uint64_t dq = hopper::desc_sw128(sq_wg + panel * PANEL + off, 16, 1024);
+      const uint64_t dk = hopper::desc_sw128(kt + panel * PANEL + off, 16, 1024);
+      hopper::wgmma_m64n128k16_bf16_ss(sc, dq, dk, kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // O += P V of the tile in stage s: 8 k-steps of 16 keys; V's 64-wide d panels are PANEL
+  // bytes apart
+  auto issue_pv = [&](const uint32_t (&pf)[BKV / 16][4], int s) {
+    const uint8_t* vt = sv + s * 2 * PANEL;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      hopper::wgmma_m64n128k16_bf16_rs_tb(
+          o, pf[kk], hopper::desc_sw128(vt + kk * 16 * 128, PANEL, 1024), 1);
+    hopper::wgmma_commit();
+  };
+  // The online softmax of the scores of key tile kv0 (sc[4i + e]: row e / 2, key
+  // kv0 + 8i + 2t + e % 2): scale, padding mask, block masks / c_factor bias, row max, P as
+  // bf16 A fragments of the k-steps of 16 keys ({row g lo, row g+8 lo, row g hi, row g+8 hi});
+  // returns the factor the running output must take before P V is added.
+  auto softmax = [&](int kv0, uint32_t (&pf)[BKV / 16][4], float (&alpha)[2]) {
+    float m_cur[2] = {MASK_VALUE, MASK_VALUE};
+    // a plain tile keeps its raw scores: the row max scales after the max (rounding is
+    // monotonic, so it is the max of the scaled scores) and the exponent is one fma
+    const bool plain = tile_plain(mode, cs, S, q0, kv0);
+    const float mul = plain ? scale_log2 : 1.f;
+    if (plain) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) m_cur[(i % 4) / 2] = fmaxf(m_cur[(i % 4) / 2], sc[i]);
+      m_cur[0] *= scale_log2;
+      m_cur[1] *= scale_log2;
+    } else
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i % 4) / 2;
+      const int col = kv0 + (i / 4) * 8 + 2 * t + (i % 2);
+      float v = sc[i] * scale_log2;
+      if (col >= S) v = MASK_VALUE;
+      const bool col_cond = col >= cs;
+      if (mode == CFACTOR) {
+        v = v + (row_cond[r] != col_cond ? cbias_log2 : 0.f);
+      } else if (mode == NO_UNION) {
+        if (row_cond[r] != col_cond) v = MASK_VALUE;
+      } else if (mode == INDEPENDENT) {
+        if (row_cond[r] && !col_cond) v = MASK_VALUE;
+      }
+      sc[i] = v;
+      m_cur[r] = fmaxf(m_cur[r], v);
+    }
+    float m_next[2], l_add[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 1));
+      m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 2));
+      m_next[r] = fmaxf(m_run[r], m_cur[r]);
+      alpha[r] = exp2f(m_run[r] - m_next[r]);
+      m_run[r] = m_next[r];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      float pv[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        pv[e] = fast_exp2(fmaf(sc[8 * kk + e], mul, -m_next[(e % 4) / 2]));
+        l_add[(e % 4) / 2] += pv[e];
+      }
+      pf[kk][0] = pack_bf16(pv[0], pv[1]);
+      pf[kk][1] = pack_bf16(pv[2], pv[3]);
+      pf[kk][2] = pack_bf16(pv[4], pv[5]);
+      pf[kk][3] = pack_bf16(pv[6], pv[7]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_add[r] += __shfl_xor_sync(0xffffffffu, l_add[r], 1);
+      l_add[r] += __shfl_xor_sync(0xffffffffu, l_add[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + l_add[r];
+    }
+  };
+
+  hopper::mbar_wait(qfull, 0);
+  // per visible key tile: S = Q K^T, the softmax, O = alpha O + P V (the two consumer
+  // warpgroups interleave on the tensor cores on their own)
+  uint32_t pf[BKV / 16][4];
+  float alpha[2];
+  int it = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * BKV;
+    if (!tile_visible(mode, cs, S, q0, kv0)) continue;
+    const int s = it % STAGES;
+    hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+    issue_scores(s);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+    softmax(kv0, pf, alpha);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i % 4) / 2];
+    issue_pv(pf, s);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(o);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    ++it;
+  }
+
+  // normalise (l == 0 guarded) and store; the residuals once per row
+  const long long stat = ((long long)b * p.H + h) * S;
+  const long long head = (long long)b * p.sb + (long long)h * p.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row_id[r] >= S) continue;
+    if (p.m_out != nullptr && t == 0) {
+      p.m_out[stat + row_id[r]] = m_run[r];
+      p.l_out[stat + row_id[r]] = l_run[r];
+    }
+    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+    __nv_bfloat16* orow = p.o + head + (long long)row_id[r] * p.ss;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(orow + c) =
+          pack_bf16(o[4 * dn + 2 * r] / l, o[4 * dn + 2 * r + 1] / l);
+    }
+  }
+}
+
+// A 4-D map {D, S, H, B} of bf16 with element strides (sb, ss, sh), boxes of 64 d x 128 rows.
+bool qkv_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb, long long ss,
+             long long sh) {
+  const uint64_t dims[4] = {D, static_cast<uint64_t>(S), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(ss) * 2, static_cast<uint64_t>(sh) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {64, 128, 1, 1};
+  return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
+                                 box);
+}
+
+}  // namespace fa3
 
 // ---------------------------------------------------------------------------------------
 // Backward: dK/dV pass and dQ pass (Dao-style two-pass backward, no atomics)
@@ -949,4 +1245,57 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       float scale, void* stream) {
   return bwd_entry(false, q, k, v, dout, m2, l, di, cos, sin, dq, nullptr, nullptr, B, H, S,
                    D, sb, ss, sh, cond_start, mode, scale, stream);
+}
+
+// The RoPE pre-pass of the wgmma forward: q, k bf16 (element strides sb, ss, sh), cos/sin fp32
+// [S, 128] -> out bf16 [2, B, H, S, 128] (rotated q, then rotated k, head-major).
+extern "C" int flash_rope_prepass(const void* q, const void* k, const float* cos,
+                                  const float* sin, void* out, int B, int H, int S, long long sb,
+                                  long long ss, long long sh, void* stream) {
+  const dim3 grid((S + fa3::ROPE_ROWS - 1) / fa3::ROPE_ROWS, H, 2 * B);
+  fa3::rope_prepass_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), cos, sin,
+      static_cast<__nv_bfloat16*>(out), B, H, S, sb, ss, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16-score forward on wgmma, D = 128: q and k with element strides (qsb, qss, qsh) (the
+// pre-pass's head-major buffer, or the inputs as they lie when there is no RoPE), v and o with
+// (sb, ss, sh); m_out/l_out fp32 [B, H, S] base-2 residuals or null.  Every stride and base
+// must be 16-byte aligned (TMA).  Returns cudaGetLastError().
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                                         float* m_out, float* l_out, int B, int H, int S, int D,
+                                         long long qsb, long long qss, long long qsh,
+                                         long long sb, long long ss, long long sh,
+                                         int cond_start, int mode, float cbias, float scale,
+                                         void* stream) {
+  if (D != fa3::D || mode < UNION || mode > CFACTOR) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!fa3::qkv_map(&mq, q, B, H, S, qsb, qss, qsh) ||
+      !fa3::qkv_map(&mk, k, B, H, S, qsb, qss, qsh) || !fa3::qkv_map(&mv, v, B, H, S, sb, ss, sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  fa3::Args a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.m_out = m_out;
+  a.l_out = l_out;
+  a.H = H;
+  a.S = S;
+  a.sb = sb;
+  a.ss = ss;
+  a.sh = sh;
+  a.cond_start = cond_start;
+  a.mode = mode;
+  a.cbias = cbias;
+  a.scale = scale;
+  static const bool regs_ok =
+      hopper::entry_regs_are(fa3::flash_fwd_wgmma_kernel, fa3::ENTRY_REGS);
+  if (!regs_ok) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err = cudaFuncSetAttribute(fa3::flash_fwd_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         fa3::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + fa3::BQ - 1) / fa3::BQ, H, B);
+  fa3::flash_fwd_wgmma_kernel<<<grid, fa3::THREADS, fa3::SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -35,14 +35,20 @@
 // What bounds it on this card: at the FLUX shapes (M 2048-2560, K 3072/12288, N 3072-18432)
 // each call does 2*M*K*N operations against K*N weight bytes: ~2000 int8 op/byte, far above
 // the ridge, so it is bound by tensor-core operations; the modulation matvecs (M = 2) are
-// bound by the weight bytes.  Design, kept simple: 128x128 output tiles, 8 warps of 64x32,
-// k tiles of 64 bytes double-buffered in shared memory (x by cp.async, the weight through
-// registers because mma needs it k-major: each thread transposes 4x4 int8 blocks with
-// byte_perm).  No wgmma/TMA pipeline yet; that is later work.
+// bound by the weight bytes.  Two kernels take the forward:
+//   * qmm_wgmma_kernel (below, "The W8A8 GEMM on wgmma"): every W8A8 shape whose K, N, padded
+//     K and activation group are whole 128-wide tiles, the FLUX stacked, fused-qkv and flat
+//     layers from M 1 to 2560 (the Python wrapper's qmm_route);
+//   * qmm_kernel, kept simple: 128x128 output tiles, 8 warps of 64x32 on mma.sync, k tiles of
+//     64 bytes double-buffered in shared memory (x by cp.async, the weight through registers
+//     because mma needs it k-major: each thread transposes 4x4 int8 blocks with byte_perm);
+//     weight-only mode and the W8A8 layers with K or N of 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -66,6 +72,7 @@ struct QmmArgs {
   const float* gate;    // fp32 [8, N] (EPI_GATE, EPI_GELU_GATE)
   __nv_bfloat16* out;   // [M, N] or [3, M, H]
   int M, K, Kp, N, group, n_groups, head_dim, plane_h, boundary;
+  int transpose_b;  // wgmma kernel: 0 skips the B transpose (a timing probe; wrong results)
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -518,6 +525,364 @@ act_quant_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_gr
   if (threadIdx.x == 0) xs[(long long)m * n_groups + gi] = scale;
 }
 
+// ---------------------------------------------------------------------------------------
+// The W8A8 GEMM on wgmma (kernels 2, 3 and 4 at every shape the tiling takes; the Python
+// wrapper's `qmm_route` names the rule): one producer thread keeps a ring of STAGES tiles in
+// flight by TMA, A (the int8 codes [M, Kp], k-contiguous, 128 rows x 128 k bytes) and the raw
+// weight tile as it is stored ([K, N], n-contiguous, 128 k rows x 128 n bytes); a transposing
+// warpgroup writes each weight tile K-major into the 128-byte-swizzled B buffer (8-bit wgmma
+// takes B only K-major), off the MMA's critical path; two consumer warpgroups of 64 rows run
+// wgmma m64n128k32 s8 x s8 -> s32 over one activation group, then fold
+// facc += float(iacc) * x_scale[row, group] (__fmul_rn, __fadd_rn: _accum_tile's order, as the
+// mma.sync kernel) and restart the integer sums.  Epilogues as qmm_kernel's on the wgmma
+// fragment (mma.sync's C fragment repeated over the 16 n-tiles of 8 columns), gelu by
+// gelu_tanh_fast; the bf16 tile is staged in shared memory and written as whole rows.  One
+// persistent block per SM walks the output tiles, so the next tile's loads overlap the epilogue.
+// What bounds it: with the transpose, each 128-deep stage moves 112 KB through shared memory
+// (TMA 32, transpose 32, wgmma 48) against 491 cycles of int8 tensor work at the data sheet's
+// rate, and 32 KB from L2; the epilogue (gelu) runs unoverlapped on the consumers.
+
+namespace wg {
+
+constexpr int BM = 128, BN = 128, BK = 128;  // BK: k bytes per stage
+constexpr int STAGES = 4;
+constexpr int TILE = BM * BK;  // bytes of one A, raw-B or transposed-B tile
+// warpgroups: two consumers, the transposer, the producer (one thread issues TMA); entry
+// registers 65536 / 512 = 128, then 208 for the consumers, 72 for the transposer and 24 for the
+// producer: 2 x 80 x 128 = 56 x 128 + 104 x 128 moved
+constexpr int CONSUMERS = 256, TRANSPOSERS = 128, THREADS = CONSUMERS + TRANSPOSERS + 128;
+constexpr int ENTRY_REGS = 128;
+constexpr int OUT_TILE = 64 * BN * 2;  // one consumer warpgroup's bf16 output tile
+constexpr int SMEM_BYTES = 3 * STAGES * TILE + 2 * OUT_TILE + 3 * STAGES * 8 + 1024;
+
+// gelu_tanh with tanh(u) = 1 - 2 / (1 + 2^(2u log2 e)) on the MUFU unit (ex2.approx, fast
+// division): a few ulp of fp32 from gelu_tanh's tanhf, far below the output's bf16 rounding
+// (which it may flip by one step), in fewer instructions (tanhf made the M 2560 K 3072 N 12288
+// gelu call 7 % slower on an H100).
+__device__ __forceinline__ float gelu_tanh_fast(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(2.8853900817779268f * u));
+  return 0.5f * x * (2.f - __fdividef(2.f, 1.f + e));
+}
+
+// 4 rows of 4 int8 (one word each) -> the 4 columns (one word each).
+__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                             uint32_t (&col)[4]) {
+  const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), lo23 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t hi01 = __byte_perm(w0, w1, 0x7362), hi23 = __byte_perm(w2, w3, 0x7362);
+  col[0] = __byte_perm(lo01, lo23, 0x5410);
+  col[1] = __byte_perm(lo01, lo23, 0x7632);
+  col[2] = __byte_perm(hi01, hi23, 0x5410);
+  col[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// One transposing thread's share of a stage: 16 k rows x 8 n bytes of the raw tile (row k at
+// k * 128, chunk c at c ^ (k % 8)) -> 8 n rows x 16 k bytes of the B tile (row n, k chunk kc
+// at kc ^ (n % 8)).  Thread t takes n bytes 8 * (t % 16).. and k rows 16 * kc.. with
+// kc = (t / 16 + t) % 8: both the 8-byte loads of a half-warp and the 16-byte stores of a
+// quarter-warp fall on distinct banks.
+__device__ __forceinline__ void transpose_stage(const uint8_t* raw, uint8_t* bt, int t) {
+  const int nc8 = t % 16, kc = (t / 16 + t) % 8;
+  uint2 r[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int k = 16 * kc + i;
+    r[i] = *reinterpret_cast<const uint2*>(raw + k * 128 + (((nc8 / 2) ^ (k % 8)) * 16) +
+                                           (nc8 % 2) * 8);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // n bytes 0..3, then 4..7, of the thread's 8
+    uint32_t out[4][4];                   // [n][k word q]
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t c[4];
+      if (half == 0)
+        transpose4x4(r[4 * q].x, r[4 * q + 1].x, r[4 * q + 2].x, r[4 * q + 3].x, c);
+      else
+        transpose4x4(r[4 * q].y, r[4 * q + 1].y, r[4 * q + 2].y, r[4 * q + 3].y, c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j][q] = c[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 8 * nc8 + 4 * half + j;
+      *reinterpret_cast<uint4*>(bt + n * 128 + ((kc ^ (n % 8)) * 16)) =
+          make_uint4(out[j][0], out[j][1], out[j][2], out[j][3]);
+    }
+  }
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b, const QmmArgs p) {
+  constexpr bool GELU = EPI == EPI_GELU || EPI == EPI_GELU_GATE;
+  constexpr bool GATE = EPI == EPI_GATE || EPI == EPI_GELU_GATE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = base;
+  uint8_t* sraw = base + STAGES * TILE;
+  uint8_t* sbt = base + 2 * STAGES * TILE;
+  uint8_t* sout = base + 3 * STAGES * TILE;  // two 64 x 128 bf16 output tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(sout + 2 * OUT_TILE);
+  uint64_t* ready = full + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  // Persistent blocks walk the output tiles with M fastest: the blocks in flight share weight
+  // tiles, so the weight streams from device memory about once while the activations stay in
+  // L2.  The ring's stage counter runs on across tiles, so the next tile's loads overlap this
+  // tile's epilogue.
+  const int mtiles = (p.M + BM - 1) / BM;
+  const int tiles = mtiles * ((p.N + BN - 1) / BN);
+  const int nk = p.Kp / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&ready[s], TRANSPOSERS);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS + TRANSPOSERS) {
+    // producer warpgroup: one thread issues the TMA loads
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS + TRANSPOSERS) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % mtiles) * BM, n0 = (tile / mtiles) * BN;
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * TILE);
+          hopper::tma_load_2d(sa + s * TILE, &map_a, &full[s], j * BK, m0);
+          hopper::tma_load_2d(sraw + s * TILE, &map_b, &full[s], n0, j * BK);
+        }
+      }
+    }
+  } else if (threadIdx.x >= CONSUMERS) {
+    // transposing warpgroup: raw weight tile -> K-major swizzled B tile
+    hopper::setmaxnreg_dec<72>();
+    const int t = threadIdx.x - CONSUMERS;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int j = 0; j < nk; ++j, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        if (p.transpose_b) transpose_stage(sraw + s * TILE, sbt + s * TILE, t);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&ready[s]);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<208>();
+    const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+    const int per_group = p.group / BK;
+    uint8_t* stage = sout + wgi * OUT_TILE;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % mtiles) * BM, n0 = (tile / mtiles) * BN;
+      const int row0 = m0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
+      int iacc[64];
+      float facc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        iacc[i] = 0;
+        facc[i] = 0.f;
+      }
+      // one activation group at a time: its k tiles accumulate in iacc with one wgmma group in
+      // flight behind the one being issued, then the group's products fold into facc
+      for (int g0 = 0; g0 < nk; g0 += per_group) {
+        int pending = -1;  // the stage whose wgmma may still read its tiles
+        for (int j = g0; j < g0 + per_group; ++j, ++it) {
+          const int s = it % STAGES;
+          const uint32_t ph = (it / STAGES) & 1;
+          hopper::mbar_wait(&full[s], ph);
+          hopper::mbar_wait(&ready[s], ph);
+          const uint64_t da = hopper::desc_sw128(sa + s * TILE + wgi * 64 * BK, 16, 1024);
+          const uint64_t db = hopper::desc_sw128(sbt + s * TILE, 16, 1024);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk)
+            hopper::wgmma_m64n128k32_s8(iacc, da + 2 * kk, db + 2 * kk, j > g0 || kk > 0);
+          hopper::wgmma_commit();
+          // the previous stage's products are done: release its tiles
+          hopper::wgmma_wait<1>();
+          if (pending >= 0 && lane == 0) hopper::mbar_arrive(&empty[pending]);
+          pending = s;
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(iacc);
+        if (lane == 0) hopper::mbar_arrive(&empty[pending]);
+        // acc += float(i32) * x_scale(row, group)
+        const int gi = g0 / per_group;
+        const float xs0 = row0 < p.M ? p.xs[(long long)row0 * p.n_groups + gi] : 0.f;
+        const float xs1 = row1 < p.M ? p.xs[(long long)row1 * p.n_groups + gi] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          facc[i] = __fadd_rn(facc[i], __fmul_rn(static_cast<float>(iacc[i]),
+                                                 (i % 4) < 2 ? xs0 : xs1));
+      }
+
+      // epilogue: z = acc * scale (+ bias) in fp32, then gelu / gate / the qkv RMS
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int col = n0 + nt * 8 + 2 * t;
+        if (col >= p.N) continue;
+        const float s0 = p.scale[col], s1 = p.scale[col + 1];
+        const float b0 = p.bias ? p.bias[col] : 0.f, b1 = p.bias ? p.bias[col + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float z0 = __fmul_rn(facc[4 * nt + 2 * h], s0);
+          float z1 = __fmul_rn(facc[4 * nt + 2 * h + 1], s1);
+          if (p.bias) {
+            z0 = __fadd_rn(z0, b0);
+            z1 = __fadd_rn(z1, b1);
+          }
+          if (GELU) {
+            z0 = gelu_tanh_fast(z0);
+            z1 = gelu_tanh_fast(z1);
+          }
+          facc[4 * nt + 2 * h] = z0;
+          facc[4 * nt + 2 * h + 1] = z1;
+        }
+      }
+      int plane = 0;
+      if (EPI != EPI_QKV) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = h ? row1 : row0;
+          if (!GATE || row >= p.M) continue;
+          const float* grow = p.gate + (row >= p.boundary ? p.N : 0);
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const int col = n0 + nt * 8 + 2 * t;
+            if (col >= p.N) continue;
+            // out = resid + g_seg * z on the fp32 z
+            const __nv_bfloat162 r =
+                *reinterpret_cast<const __nv_bfloat162*>(p.resid + (long long)row * p.N + col);
+            float& z0 = facc[4 * nt + 2 * h];
+            float& z1 = facc[4 * nt + 2 * h + 1];
+            z0 = __fadd_rn(__low2float(r), __fmul_rn(grow[col], z0));
+            z1 = __fadd_rn(__high2float(r), __fmul_rn(grow[col + 1], z1));
+          }
+        }
+      } else {
+        // fused qkv: this warp holds whole rows of the tile, so each head's sum of squares is a
+        // sum over its n-tiles and the quad (H is a multiple of BN: one plane per block)
+        plane = n0 / p.plane_h;
+        const int tiles_per_head = p.head_dim / 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float rstd[4];
+#pragma unroll
+          for (int hh = 0; hh < 4; ++hh) {
+            float ss = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < 16; ++nt) {
+              const float a = facc[4 * nt + 2 * h], b = facc[4 * nt + 2 * h + 1];
+              if (nt / tiles_per_head == hh) ss += a * a + b * b;
+            }
+            ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+            ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+            rstd[hh] = 1.f / sqrtf(ss / static_cast<float>(p.head_dim) + 1e-6f);
+          }
+          if (plane >= 2) continue;
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const int hh = nt / tiles_per_head;
+            const float r = hh == 0 ? rstd[0] : hh == 1 ? rstd[1] : hh == 2 ? rstd[2] : rstd[3];
+            const int hc = n0 + nt * 8 + 2 * t - plane * p.plane_h;
+            facc[4 * nt + 2 * h] =
+                __fmul_rn(__fmul_rn(facc[4 * nt + 2 * h], r), p.norm_w[plane * p.plane_h + hc]);
+            facc[4 * nt + 2 * h + 1] = __fmul_rn(__fmul_rn(facc[4 * nt + 2 * h + 1], r),
+                                                 p.norm_w[plane * p.plane_h + hc + 1]);
+          }
+        }
+      }
+      // Stage the warpgroup's 64 x 128 bf16 results in shared memory (16-byte chunk c of row r
+      // at c ^ (r % 8): conflict-free both ways), then write whole 256-byte rows.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+          *reinterpret_cast<uint32_t*>(stage + r * 256 + ((nt ^ (r % 8)) * 16) + 4 * t) =
+              pack_bf16(facc[4 * nt + 2 * h], facc[4 * nt + 2 * h + 1]);
+      }
+      hopper::named_barrier_sync(1 + wgi, 128);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int idx = tid + 128 * i, r = idx / 16, c = idx % 16;
+        const int row = m0 + wgi * 64 + r, col = n0 + 8 * c;
+        if (row >= p.M || col >= p.N) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(stage + r * 256 + ((c ^ (r % 8)) * 16));
+        __nv_bfloat16* dst = EPI == EPI_QKV
+                                 ? p.out + ((long long)plane * p.M + row) * p.plane_h +
+                                       (col - plane * p.plane_h)
+                                 : p.out + (long long)row * p.N + col;
+        *reinterpret_cast<uint4*>(dst) = v;
+      }
+      hopper::named_barrier_sync(1 + wgi, 128);  // the stage is free for the next tile
+    }
+  }
+}
+
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+template <int EPI>
+cudaError_t launch_one(const CUtensorMap& ma, const CUtensorMap& mb, const QmmArgs& p,
+                       cudaStream_t st) {
+  static const bool regs_ok = hopper::entry_regs_are(qmm_wgmma_kernel<EPI>, ENTRY_REGS);
+  if (!regs_ok || num_sms() == 0) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(qmm_wgmma_kernel<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  const int blocks = tiles < num_sms() ? tiles : num_sms();
+  qmm_wgmma_kernel<EPI><<<blocks, THREADS, SMEM_BYTES, st>>>(ma, mb, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
+  if (p.Kp % BK || p.group % BK || p.K < BK || p.N < BN || p.N % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(p.Kp), static_cast<uint64_t>(p.M)};
+  const uint64_t a_strides[1] = {static_cast<uint64_t>(p.Kp)};
+  const uint64_t b_dims[2] = {static_cast<uint64_t>(p.N), static_cast<uint64_t>(p.K)};
+  const uint64_t b_strides[1] = {static_cast<uint64_t>(p.N)};
+  const uint32_t box[2] = {128, 128};
+  if (!hopper::make_tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.a, a_dims, a_strides,
+                               box) ||
+      !hopper::make_tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w, b_dims, b_strides,
+                               box))
+    return cudaErrorInvalidValue;
+  switch (epilogue) {
+    case EPI_BIAS: return launch_one<EPI_BIAS>(ma, mb, p, st);
+    case EPI_GELU: return launch_one<EPI_GELU>(ma, mb, p, st);
+    case EPI_QKV: return launch_one<EPI_QKV>(ma, mb, p, st);
+    case EPI_GATE: return launch_one<EPI_GATE>(ma, mb, p, st);
+    case EPI_GELU_GATE: return launch_one<EPI_GELU_GATE>(ma, mb, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 template <bool W8A8, bool LN>
 cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
@@ -566,15 +931,12 @@ extern "C" int qmm_act_quant(const void* x, int M, int K, int group, int n_group
   return static_cast<int>(cudaGetLastError());
 }
 
-// a: W8A8 int8 [M, Kp] (with xs) or bf16 [M, K]; w: int8 [K, N] at block blk; out bf16.
-// epilogue 0: scale (+bias); 1: scale (+bias) + gelu_tanh; 2: fused qkv into [3, M, plane_h];
-// 3 / 4: as 0 / 1, then out = resid + g_seg * z.  ab + stats (weight-only only): the LN + adaLN
-// prologue on the A tile.  Rows >= boundary take the cond rows of ab and gate.
-extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, const void* w,
-                        const float* scale, const float* bias, const float* norm_w,
-                        const float* ab, const float* stats, const void* resid,
-                        const float* gate, void* out, int M, int K, int Kp, int N, int group,
-                        int n_groups, int head_dim, int plane_h, int boundary, void* stream) {
+namespace {
+
+QmmArgs make_args(const void* a, const float* xs, const void* w, const float* scale,
+                  const float* bias, const float* norm_w, const float* ab, const float* stats,
+                  const void* resid, const float* gate, void* out, int M, int K, int Kp, int N,
+                  int group, int n_groups, int head_dim, int plane_h, int boundary) {
   QmmArgs p;
   p.a = static_cast<const uint8_t*>(a);
   p.xs = xs;
@@ -596,9 +958,30 @@ extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, 
   p.head_dim = head_dim;
   p.plane_h = plane_h;
   p.boundary = boundary;
+  p.transpose_b = 1;
+  return p;
+}
+
+bool gated_ok(int epilogue, const void* resid, const float* gate) {
   const bool gated = epilogue == EPI_GATE || epilogue == EPI_GELU_GATE;
+  return gated == (resid != nullptr && gate != nullptr);
+}
+
+}  // namespace
+
+// a: W8A8 int8 [M, Kp] (with xs) or bf16 [M, K]; w: int8 [K, N] at block blk; out bf16.
+// epilogue 0: scale (+bias); 1: scale (+bias) + gelu_tanh; 2: fused qkv into [3, M, plane_h];
+// 3 / 4: as 0 / 1, then out = resid + g_seg * z.  ab + stats (weight-only only): the LN + adaLN
+// prologue on the A tile.  Rows >= boundary take the cond rows of ab and gate.
+extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, const void* w,
+                        const float* scale, const float* bias, const float* norm_w,
+                        const float* ab, const float* stats, const void* resid,
+                        const float* gate, void* out, int M, int K, int Kp, int N, int group,
+                        int n_groups, int head_dim, int plane_h, int boundary, void* stream) {
+  const QmmArgs p = make_args(a, xs, w, scale, bias, norm_w, ab, stats, resid, gate, out, M, K,
+                              Kp, N, group, n_groups, head_dim, plane_h, boundary);
   if ((ab != nullptr) != (stats != nullptr) || (w8a8 && ab != nullptr) ||
-      gated != (resid != nullptr && gate != nullptr))
+      !gated_ok(epilogue, resid, gate))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -607,4 +990,20 @@ extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, 
   else
     err = ab ? launch<false, true>(epilogue, p, st) : launch<false, false>(epilogue, p, st);
   return static_cast<int>(err);
+}
+
+// The W8A8 GEMM on wgmma: the arguments of qmm_gemm in W8A8 mode (a int8 [M, Kp], 16-byte
+// aligned rows and base; w int8 [K, N]).  Takes Kp and group multiples of 128, K >= 128 and
+// N >= 128 (a multiple of 16); anything else returns cudaErrorInvalidValue.  transpose_b = 0
+// leaves the B tiles untransposed (wrong results): it measures what the transpose costs.
+extern "C" int qmm_gemm_wgmma(int epilogue, const void* a, const float* xs, const void* w,
+                              const float* scale, const float* bias, const float* norm_w,
+                              const void* resid, const float* gate, void* out, int M, int K,
+                              int Kp, int N, int group, int n_groups, int head_dim, int plane_h,
+                              int boundary, int transpose_b, void* stream) {
+  if (!gated_ok(epilogue, resid, gate)) return static_cast<int>(cudaErrorInvalidValue);
+  QmmArgs p = make_args(a, xs, w, scale, bias, norm_w, nullptr, nullptr, resid, gate, out, M, K,
+                        Kp, N, group, n_groups, head_dim, plane_h, boundary);
+  p.transpose_b = transpose_b;
+  return static_cast<int>(wg::launch(epilogue, p, static_cast<cudaStream_t>(stream)));
 }

@@ -2,19 +2,26 @@
 
 Each ``.cu`` source has a plain C interface and is compiled on first use by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``loongx_tpu_torch/_build/<name>-<hash>.so`` (the hash covers the source
-and flags, so an edited source is rebuilt), then loaded with ``ctypes``.
+``loongx_tpu_torch/_build/<name>-<hash>.so`` (the hash covers the source,
+every shared header ``csrc/*.cuh`` such as ``hopper.cuh``, and the flags, so
+an edited source or header is rebuilt), then loaded with ``ctypes``.
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a non-zero code.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one exactly
 where it launches its kernel.  Callers that want the count of one run reset
 it with ``LAUNCHES.clear()``.
+
+Where two hand-written kernels share a contract (the flash forward and the
+W8A8 GEMM on wgmma or on ``mma.sync``), the wrapper picks one by shape with
+a named rule; ``mma_sync_only()`` sends every such launch to the
+``mma.sync`` kernel, which takes every shape, to time it beside the other.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -34,6 +41,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
+FORCED_ROUTE: Optional[str] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,10 +55,12 @@ def nvcc_path() -> str:
                        "CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+def _lib_path(name: str, csrc: Path = CSRC_DIR) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> Sequence[str]:
@@ -103,3 +113,15 @@ def library(name: str) -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {code}")
+
+
+@contextlib.contextmanager
+def mma_sync_only():
+    """Route every launch that has a choice to its ``mma.sync`` kernel while
+    the block runs."""
+    global FORCED_ROUTE
+    saved, FORCED_ROUTE = FORCED_ROUTE, "mma_sync"
+    try:
+        yield
+    finally:
+        FORCED_ROUTE = saved

@@ -13,6 +13,14 @@ is no condition stream); ``c_factor`` switches to the additive log-bias on
 the cond <-> non-cond blocks and overrides ``mode``; ``rope`` = (cos, sin)
 [S, D] float32 tables rotates q and k inside the kernel.
 
+Two hand-written kernels take the bf16-score forward, picked by
+`flash_fwd_route`: at head_dim 128 (every FLUX shape) the wgmma kernel
+(``flash_fwd_wgmma_kernel``: TMA ring, two consumer warpgroups), after a
+pre-pass (`flash_rope`) that rotates q and k once into a head-major buffer;
+at head_dim 64 the ``mma.sync`` kernel, which rotates q and k as its tiles
+load.  Each launch counts as ``flash_attention`` and as
+``flash_attention:<route>``; the pre-pass as ``flash_rope``.
+
 ``int8_attn`` (serving only) selects the int8 QK^T mode of the TPU kernel
 (``_fwd_kernel`` :228-291, the JAX package's LOONGX_INT8_ATTN=1): a
 k-quantization pass (`flash_kquant`, a kernel of the same source) rotates k,
@@ -63,6 +71,9 @@ _DQ_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                  _L, _L, _I, _I, _F, _P]
 _KQUANT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                      _P]
+_WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                    _L, _I, _I, _F, _F, _P]
+_ROPE_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P]
 _FWD_INT8_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                        _I, _I, _F, _F, _I, _I, _P]
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -79,6 +90,13 @@ def _dims(q: torch.Tensor, layout: str):
         b, s, h, d = q.shape
         return b, h, s, d, (s * h * d, h * d, d)
     raise ValueError(f"unknown layout {layout!r}")
+
+
+def flash_fwd_route(d: int) -> str:
+    """The bf16-score forward kernel for head_dim ``d``: ``"wgmma"`` at 128
+    (its tiles are 64-wide d panels, two per row), ``"mma_sync"``
+    otherwise."""
+    return "wgmma" if d == 128 else "mma_sync"
 
 
 def _scales(d: int) -> Tuple[float, float]:
@@ -114,6 +132,35 @@ def flash_kquant_plain(k, *, span: int, rope: Rope = None,
         k = apply_rope(k, *rope)
     codes, scales = quantize_spans(k, span)
     return codes.to(torch.int8).contiguous(), scales
+
+
+def flash_rope_plain(q, k, rope: Rope, layout: str = "bhsd") -> torch.Tensor:
+    """The RoPE pre-pass in plain PyTorch: q and k rotated (float32, cast
+    back) -> [2, B, H, S, D] in their dtype, head-major."""
+    q, k = _head_major(layout, q, k)
+    return torch.stack([apply_rope(q, *rope), apply_rope(k, *rope)])
+
+
+def flash_rope(q, k, rope: Rope, layout: str = "bhsd") -> torch.Tensor:
+    """The wgmma forward's RoPE pre-pass -> rotated [2, B, H, S, D]: the
+    CUDA kernel on CUDA tensors (bf16, head_dim 128), `flash_rope_plain`
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_rope_plain(q, k, rope, layout)
+    b, h, s, d, (sb, ss, sh) = _dims(q, layout)
+    _check_cuda_qkv(q, (("q", q), ("k", k)), d)
+    if d != 128:
+        raise ValueError(f"flash_rope: head_dim {d} is not 128")
+    cos_p, sin_p = _cuda_rope(rope, s, d, q.device)
+    out = torch.empty(2, b, h, s, d, dtype=q.dtype, device=q.device)
+    fn = cuda_build.library("flash_attention").flash_rope_prepass
+    fn.argtypes, fn.restype = _ROPE_SIGNATURE, ctypes.c_int
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), cos_p, sin_p,
+                        out.data_ptr(), b, h, s, sb, ss, sh,
+                        torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_rope_prepass")
+    cuda_build.LAUNCHES["flash_rope"] += 1
+    return out
 
 
 def _head_major(layout: str, *ts):
@@ -307,16 +354,34 @@ def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
     if save_residuals:
         m2 = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
         l = torch.empty_like(m2)
-    fn = cuda_build.library("flash_attention").flash_attention_fwd
-    fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos_p,
-              sin_p, None if m2 is None else m2.data_ptr(),
-              None if l is None else l.data_ptr(), b, h, s, d, sb, ss, sh,
-              cond_start, _MODE_IDS[mode], cbias, _scales(d)[0],
-              torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(code, "flash_attention_fwd")
+    route = cuda_build.FORCED_ROUTE or flash_fwd_route(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = cuda_build.library("flash_attention")
+    scale = _scales(d)[0]
+    if route == "wgmma":
+        qk, qk_strides = (q, k), (sb, ss, sh)
+        if rope is not None:
+            qk = flash_rope(q, k, rope, layout)
+            qk_strides = (h * s * d, d, s * d)
+        fn = lib.flash_attention_fwd_wgmma
+        fn.argtypes, fn.restype = _WGMMA_SIGNATURE, ctypes.c_int
+        code = fn(qk[0].data_ptr(), qk[1].data_ptr(), v.data_ptr(),
+                  out.data_ptr(), _ptr(m2), _ptr(l), b, h, s, d, *qk_strides,
+                  sb, ss, sh, cond_start, _MODE_IDS[mode], cbias, scale, stream)
+    else:
+        fn = lib.flash_attention_fwd
+        fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  cos_p, sin_p, _ptr(m2), _ptr(l), b, h, s, d, sb, ss, sh,
+                  cond_start, _MODE_IDS[mode], cbias, scale, stream)
+    cuda_build.check(code, f"flash_attention_fwd ({route})")
     cuda_build.LAUNCHES["flash_attention"] += 1
+    cuda_build.LAUNCHES[f"flash_attention:{route}"] += 1
     return (out, m2, l) if save_residuals else out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _forward_int8(q, k, v, cond_start: int, mode: str, cbias: float,

@@ -23,7 +23,12 @@ CUDA kernel ``csrc/quant_matmul_t.cu``):
 The forward and transposed kernels run on CUDA tensors and their plain
 versions on CPU tensors; nothing falls back.
 In W8A8 mode the GEMM is preceded by `act_quant`, a small kernel of the
-same source that quantizes the activations.
+same source that quantizes the activations.  Two hand-written forward GEMMs
+share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
+warpgroup, ``qmm_wgmma_kernel``) takes every W8A8 shape its 128 x 128 x 128
+tiling covers, the ``mma.sync`` kernel (``qmm_kernel``) the rest and the
+weight-only mode; `qmm_route` is the rule, a dispatch by shape.  Each launch
+counts under its entry's name and under ``"<name>:<route>"``.
 
 Two MAC modes, chosen by ``w8a8``:
 
@@ -98,6 +103,8 @@ _GEMM_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
 _QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]
 _T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
 _STATS_SIGNATURE = [_P, _I, _I, _I, _P, _P]
+_WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,6 +153,20 @@ def stacked_w8a8_group(k: int, n: int) -> Tuple[int, int]:
     if stacked_ok(k, n):
         return min(_stacked_blocks(k, n)[1], k), k
     return flat_w8a8_group(k, n)
+
+
+WGMMA_TILE = 128  # the wgmma GEMM's M, N and k-byte tile
+
+
+def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
+    """The forward GEMM that takes a [K, N] weight: ``"wgmma"`` (W8A8 with
+    K and N of at least one tile and k_pad and the activation group whole
+    k tiles) or ``"mma_sync"`` (weight-only, and the W8A8 shapes the tiling
+    cannot take: K 64 of x_embedder, N 64 of proj_out)."""
+    t = WGMMA_TILE
+    if (w8a8 and k >= t and n >= t and group % t == 0 and k_pad % t == 0):
+        return "wgmma"
+    return "mma_sync"
 
 
 def qkv_supported(k: int, n3: int, head_dim: int) -> bool:
@@ -401,6 +422,7 @@ def _launch(name: str, x, w_ptr: int, k: int, n: int, scale_ptr: int,
     m = x.shape[0]
     lib = cuda_build.library("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    route = cuda_build.FORCED_ROUTE or qmm_route(k, n, group, k_pad, w8a8)
     xs = None
     if w8a8:
         a, xs = act_quant(x, group, k_pad, ab, seg_boundary, stats)
@@ -408,15 +430,24 @@ def _launch(name: str, x, w_ptr: int, k: int, n: int, scale_ptr: int,
     else:
         _check(k % 8 == 0, f"weight-only kernel: K {k} not a multiple of 8")
         a = x
-    fn = lib.qmm_gemm
-    fn.argtypes, fn.restype = _GEMM_SIGNATURE, ctypes.c_int
-    code = fn(int(w8a8), epilogue, a.data_ptr(), _ptr(xs), w_ptr, scale_ptr,
-              bias_ptr, norm_w_ptr, _ptr(ab), _ptr(stats), _ptr(resid),
-              _ptr(gate), out.data_ptr(), m, k, k_pad, n, group,
-              k_pad // group if w8a8 else 0, head_dim, plane_h, seg_boundary,
-              stream)
-    cuda_build.check(code, f"qmm_gemm ({name})")
+    n_groups = k_pad // group if w8a8 else 0
+    if route == "wgmma":
+        fn = lib.qmm_gemm_wgmma
+        fn.argtypes, fn.restype = _WGMMA_SIGNATURE, ctypes.c_int
+        code = fn(epilogue, a.data_ptr(), _ptr(xs), w_ptr, scale_ptr, bias_ptr,
+                  norm_w_ptr, _ptr(resid), _ptr(gate), out.data_ptr(), m, k,
+                  k_pad, n, group, n_groups, head_dim, plane_h, seg_boundary,
+                  1, stream)
+    else:
+        fn = lib.qmm_gemm
+        fn.argtypes, fn.restype = _GEMM_SIGNATURE, ctypes.c_int
+        code = fn(int(w8a8), epilogue, a.data_ptr(), _ptr(xs), w_ptr,
+                  scale_ptr, bias_ptr, norm_w_ptr, _ptr(ab), _ptr(stats),
+                  _ptr(resid), _ptr(gate), out.data_ptr(), m, k, k_pad, n,
+                  group, n_groups, head_dim, plane_h, seg_boundary, stream)
+    cuda_build.check(code, f"qmm_gemm ({name}, {route})")
     cuda_build.LAUNCHES[name] += 1
+    cuda_build.LAUNCHES[f"{name}:{route}"] += 1
 
 
 def _cuda_x(x: torch.Tensor, k: int) -> torch.Tensor:
