@@ -8,11 +8,15 @@ Phases (each prints one line with the card, its power limit and seconds):
   2. every kernel against its plain PyTorch version at the shapes the edit
      and training paths give it, with its error, tolerance and times
      (kernel, plain, bound, one library call as a yardstick); the wgmma
-     kernels (the flash forward with its RoPE pre-pass, the W8A8 GEMM) also
-     with the mma.sync kernel they replace timed beside them at the same
-     call (`cuda_build.mma_sync_only`), the flash residuals, cuBLAS bf16 on
-     the dequantised weight, and the share of the GEMM's time its B-tile
-     transpose takes (`transpose_share`); the fused
+     kernels (the flash forward with its RoPE pre-pass, the flash dK/dV and
+     dQ passes, the W8A8 GEMM) also with the mma.sync kernel they replace
+     checked and timed beside them at the same call
+     (`cuda_build.mma_sync_only`), at batch 1 and 2 in both layouts, the
+     flash residuals, the backward pair's two bounds (the five products an
+     ideal pass needs, the seven the two passes do), cuBLAS bf16 on the
+     dequantised weight, the share of the GEMM's time its B-tile transpose
+     takes (`transpose_share`), and the count of GEMM outputs that differ
+     from the plain version's (none in the W8A8 gelu cases); the fused
      forms of the int8 kernels (the LN + adaLN prologue, W8A8 and
      weight-only, stacked and fused-qkv; the gate + residual epilogue)
      also beside their unfused route, the W8A8 prologue's int8 codes
@@ -50,9 +54,11 @@ Phases (each prints one line with the card, its power limit and seconds):
      is built on the card (int8 FLUX.1-dev, LoRA r 4, CS3 + DGF frozen with
      dropout on, Prodigy, clip 0.5, remat, bf16, batch 1 at 512 px) and
      takes 4 steps: s/step, loss, grad norm and Prodigy's d per step, peak
-     memory, launches per step; every LoRA B factor must move, int8 and
+     memory, launches per step (every flash backward launch on the wgmma
+     route, none on mma.sync); every LoRA B factor must move, int8 and
      frozen leaves must not; then a fifth step under the profiler gives
-     the step's device time by kernel group; then two steps with
+     the step's device time by kernel group and its flash backward group;
+     then two steps with
      ``fuse_ln`` (38 prologue launches a step: ff.in, forward and remat):
      finite loss, LoRA B factors moved, frozen leaves untouched, s/step.
 
@@ -174,15 +180,23 @@ FLASH_REL_L2 = 1e-2
 
 
 def flash_cases():
-    # (label, S, cond_len, mode, c_factor)
+    # (label, B, S, cond_len, mode, c_factor, layout)
     return [
-        ("S2560 union", 2560, 1024, "union", None),
-        ("S2560 no_union", 2560, 1024, "no_union", None),
-        ("S2560 independent", 2560, 1024, "independent", None),
-        ("S2560 cfactor0.5", 2560, 1024, "union", 0.5),
-        ("S8704 union", 8704, 4096, "union", None),
-        ("S2000 independent", 2000, 700, "independent", None),
+        ("S2560 union", 1, 2560, 1024, "union", None, "bshd"),
+        ("S2560 no_union", 1, 2560, 1024, "no_union", None, "bshd"),
+        ("S2560 independent", 1, 2560, 1024, "independent", None, "bshd"),
+        ("S2560 cfactor0.5", 1, 2560, 1024, "union", 0.5, "bshd"),
+        ("S8704 union", 1, 8704, 4096, "union", None, "bshd"),
+        ("S2000 independent", 1, 2000, 700, "independent", None, "bshd"),
+        ("B2 S1000 union bhsd", 2, 1000, 300, "union", None, "bhsd"),
+        ("B2 S2560 independent", 2, 2560, 1024, "independent", None, "bshd"),
     ]
+
+
+def _qkv(torch, gen, b, s, h, d, layout, n=3):
+    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+    return [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(n)]
 
 
 # the residuals (m2, l) against the plain ones: m2 absolute, l relative
@@ -200,13 +214,12 @@ def check_flash(torch, gen, records):
     from loongx_tpu_torch.ops.rope import apply_rope, rope_embed
 
     h, d = 24, 128
-    for label, s, c, mode, cf in flash_cases():
-        q, k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+    for label, b, s, c, mode, cf, layout in flash_cases():
+        q, k, v = _qkv(torch, gen, b, s, h, d, layout)
         ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
         cos, sin = rope_embed(ids.floor())
         kw = dict(cond_start=s - c, mode=mode, c_factor=cf, rope=(cos, sin),
-                  layout="bshd")
+                  layout=layout)
         route = fa.flash_fwd_route(d)
         out = fa.flash_attention(q, k, v, **kw).float()
         ref = fa.flash_attention_plain(q, k, v, **kw).float()
@@ -218,10 +231,10 @@ def check_flash(torch, gen, records):
         res_ok = True
         if cf is None:
             o2, m2, l2 = fa._forward(q, k, v, s - c, mode, None, (cos, sin),
-                                     "bshd", save_residuals=True)
+                                     layout, save_residuals=True)
             pm2, pl = fa.flash_residuals_plain(q, k, cond_start=s - c,
                                                mode=mode, rope=(cos, sin),
-                                               layout="bshd")
+                                               layout=layout)
             err2 = (o2.float() - ref).abs().max().item()
             res_err = max((m2 - pm2).abs().max().item(),
                           ((l2 - pl).abs() / pl).max().item())
@@ -236,8 +249,8 @@ def check_flash(torch, gen, records):
                                 iters=2)
         # yardstick: SDPA on pre-rotated head-major tensors (rope and the
         # layout transposes not timed), the same mask or bias
-        qr, kr = (apply_rope(t.transpose(1, 2), cos, sin) for t in (q, k))
-        vr = v.transpose(1, 2).contiguous()
+        qr, kr = (apply_rope(t, cos, sin) for t in fa._head_major(layout, q, k))
+        vr = fa._head_major(layout, v)[0].contiguous()
         row = torch.arange(s, device="cuda") >= s - c
         if cf is not None:
             mask = torch.where(row[:, None] != row[None, :],
@@ -252,8 +265,8 @@ def check_flash(torch, gen, records):
             qr, kr, vr, attn_mask=mask))
         pairs = {"union": s * s, "no_union": (s - c) ** 2 + c * c,
                  "independent": s * s - c * (s - c)}[mode]
-        ops = 4.0 * h * d * pairs
-        nbytes = 4 * s * h * d * 2 + 2 * s * d * 4
+        ops = 4.0 * b * h * d * pairs
+        nbytes = 4 * b * s * h * d * 2 + 2 * s * d * 4
         bms, by = bound_ms(nbytes, ops, "bf16")
         records.append(dict(kernel="flash_attention", case=label, err=err,
                             tol=tol, ms=ms, mma_sync_ms=mma_ms,
@@ -322,11 +335,16 @@ def qmm_cases():
 
 
 def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
-                m, k, n, extra=None):
+                m, k, n, extra=None, exact=False):
+    """Record and print one GEMM case: its error against one bf16 rounding
+    and the count of outputs that differ from the plain version's at all,
+    which must be 0 where ``exact`` (the W8A8 gelu epilogue: tanhf in the
+    plain version's order)."""
     import torch
     if isinstance(out, tuple):
         out, ref = torch.stack(out), torch.stack(ref)
     err = (out.float() - ref.float()).abs().max().item()
+    flips = int((out != ref).sum().item())
     # one bf16 rounding at the output's scale
     tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
     kind = "int8" if w8a8 else "bf16"
@@ -336,14 +354,19 @@ def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
     extra = extra or {}
     records.append(dict(kernel=kernel, case=f"{label} {mode}", m=m, k=k, n=n,
                         err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, bound_ms=bms, bound_by=by, **extra))
+                        library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                        flips=flips, **extra))
     print(f"  {kernel:15s} {label:20s} {mode:5s} M{m} K{k} N{n} err {err:.3e} "
-          f"(tol {tol:.2e}) kernel {ms:.3f} ms plain {plain_ms:.3f} lib "
+          f"(tol {tol:.2e}) differing {flips}" + (" (tol 0)" if exact else "")
+          + f" kernel {ms:.3f} ms plain {plain_ms:.3f} lib "
           f"{lib_ms:.3f} bound {bms:.3f} ({by})"
           + "".join(f" {key} {v:.3f}" if isinstance(v, float) else f" {key} {v}"
                     for key, v in extra.items()), flush=True)
     if not err <= tol:
         raise Failure(f"{kernel} {label} {mode}: err {err} > {tol}")
+    if exact and flips:
+        raise Failure(f"{kernel} {label} {mode}: {flips} outputs differ from "
+                      "the plain version's")
 
 
 def _check_act_quant(qmm, records, label, x, group, k_pad):
@@ -459,7 +482,7 @@ def check_qmm(torch, gen, records):
             _qmm_record(records, "qmm_stacked", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
-                        m, k, n, extra)
+                        m, k, n, extra, exact=w8a8 and act == "gelu_tanh")
         for label, m, nb in qkv:
             k, n3 = 3072, 9216
             wq, sc, bi = stack(nb, k, n3)
@@ -576,65 +599,90 @@ def check_qmm_t(torch, gen, records):
 
 
 def flash_bwd_cases():
-    # (label, S, cond_len, mode, layout)
+    # (label, B, S, cond_len, mode, layout, rope)
     return [
-        ("S2560 union", 2560, 1024, "union", "bshd"),
-        ("S2000 independent", 2000, 700, "independent", "bshd"),
-        ("S300 no_union", 300, 77, "no_union", "bshd"),
-        ("S300 independent bhsd", 300, 77, "independent", "bhsd"),
+        ("S2560 union", 1, 2560, 1024, "union", "bshd", True),
+        ("S2000 independent", 1, 2000, 700, "independent", "bshd", True),
+        ("S300 no_union", 1, 300, 77, "no_union", "bshd", True),
+        ("S300 independent bhsd", 1, 300, 77, "independent", "bhsd", True),
+        ("B2 S1000 union bhsd", 2, 1000, 300, "union", "bhsd", True),
+        ("B2 S1024 no_union no RoPE", 2, 1024, 256, "no_union", "bshd", False),
     ]
 
 
+# the wgmma pair's target at S 2560 union (ms), recorded met or missed
+FLASH_BWD_TARGET_MS = 0.80
+
+
+def _bwd_errors(got, ref):
+    """{name: (max abs err, tol, rel L2)} of (dq, dk, dv) against the plain
+    backward; tol a few bf16 steps at the gradient's largest value."""
+    return {name: ((a.float() - b.float()).abs().max().item(),
+                   2.0 ** -5 * b.float().abs().max().item(), rel_l2(a, b))
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref)}
+
+
 def check_flash_bwd(torch, gen, records):
-    """The dK/dV and dQ kernels against the plain backward, fed the forward
-    kernel's own residuals; the yardstick is SDPA forward + backward minus
-    its forward, at the same shape without RoPE (union cases)."""
+    """The dK/dV and dQ kernels of `flash_bwd_route` (wgmma at head_dim 128,
+    fed the forward's RoPE pre-pass output as the autograd Function feeds
+    them) and, at the same call, the mma.sync pair they replace
+    (`cuda_build.mma_sync_only`), both against the plain backward fed the
+    forward kernel's own residuals; the yardstick is SDPA forward +
+    backward minus its forward, at the same shape without RoPE (union
+    cases)."""
     import torch.nn.functional as F
+    from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.ops import flash_attention as fa
     from loongx_tpu_torch.ops.rope import rope_embed
 
     h, d = 24, 128
-    for label, s, c, mode, layout in flash_bwd_cases():
-        shape = (1, s, h, d) if layout == "bshd" else (1, h, s, d)
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                       .to(torch.bfloat16) for _ in range(4))
-        ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
-        rope = rope_embed(ids.floor())
+    route = fa.flash_bwd_route(d)
+    for label, b, s, c, mode, layout, use_rope in flash_bwd_cases():
+        q, k, v, do = _qkv(torch, gen, b, s, h, d, layout, n=4)
+        rope = None
+        if use_rope:
+            ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
+            rope = rope_embed(ids.floor())
         kw = dict(cond_start=s - c, mode=mode, rope=rope, layout=layout)
         o, m2, l = fa._forward(q, k, v, s - c, mode, None, rope, layout,
                                save_residuals=True)
         di = fa._row_dot(o, do, layout)
         args = (q, k, v, do, m2, l, di)
-        got = fa.flash_attention_bwd(*args, **kw)
+        qk_rot = None if rope is None else fa.flash_rope(q, k, rope, layout)
         ref = fa.flash_attention_bwd_plain(*args, **kw)
+        errs = _bwd_errors(fa.flash_attention_bwd(*args, **kw, qk_rot=qk_rot),
+                           ref)
+        with cuda_build.mma_sync_only():
+            errs_mma = _bwd_errors(fa.flash_attention_bwd(*args, **kw), ref)
         # the residuals the forward kernel wrote, against the plain ones
         pm2, pl = fa.flash_residuals_plain(q, k, cond_start=s - c, mode=mode,
                                            rope=rope, layout=layout)
         res_err = max((m2 - pm2).abs().max().item(),
                       ((l - pl).abs() / pl).max().item())
-        errs = {}
-        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-            err = (a.float() - b.float()).abs().max().item()
-            rel = rel_l2(a, b)
-            tol = 2.0 ** -5 * b.float().abs().max().item()
-            errs[name] = (err, tol, rel)
-            if not (err <= tol and rel <= FLASH_REL_L2):
-                raise Failure(f"flash backward {label} {name}: err {err} "
-                              f"(tol {tol}), rel L2 {rel} (bound {FLASH_REL_L2})")
-        if not res_err <= 1e-4:
-            raise Failure(f"flash residuals {label}: err {res_err} > 1e-4")
+        for kernel, e in ((route, errs), ("mma_sync", errs_mma)):
+            for name, (err, tol, rel) in e.items():
+                if not (err <= tol and rel <= FLASH_REL_L2):
+                    raise Failure(f"flash backward {label} {name} ({kernel}): err "
+                                  f"{err} (tol {tol}), rel L2 {rel} (bound "
+                                  f"{FLASH_REL_L2})")
+        if not res_err <= RESIDUAL_TOL:
+            raise Failure(f"flash residuals {label}: err {res_err} > {RESIDUAL_TOL}")
         t_dkv = cuda_time_ms(lambda: fa.flash_attention_bwd(
-            *args, **kw, need_dq=False))
+            *args, **kw, need_dq=False, qk_rot=qk_rot))
         t_dq = cuda_time_ms(lambda: fa.flash_attention_bwd(
-            *args, **kw, need_dkv=False))
+            *args, **kw, need_dkv=False, qk_rot=qk_rot))
+        with cuda_build.mma_sync_only():
+            m_dkv = cuda_time_ms(lambda: fa.flash_attention_bwd(
+                *args, **kw, need_dq=False))
+            m_dq = cuda_time_ms(lambda: fa.flash_attention_bwd(
+                *args, **kw, need_dkv=False))
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(*args, **kw),
                                 iters=2)
         lib_ms = None
         if mode == "union":
-            qs, ks_, vs = (t.transpose(1, 2).detach().clone().requires_grad_()
-                           if layout == "bshd" else t.detach().clone().requires_grad_()
-                           for t in (q, k, v))
-            dos = do.transpose(1, 2) if layout == "bshd" else do
+            qs, ks_, vs = (t.detach().clone().requires_grad_()
+                           for t in fa._head_major(layout, q, k, v))
+            (dos,) = fa._head_major(layout, do)
 
             def fwd_bwd():
                 F.scaled_dot_product_attention(qs, ks_, vs).backward(dos)
@@ -643,29 +691,44 @@ def check_flash_bwd(torch, gen, records):
                 lambda: F.scaled_dot_product_attention(qs, ks_, vs))
         pairs = {"union": s * s, "no_union": (s - c) ** 2 + c * c,
                  "independent": s * s - c * (s - c)}[mode]
-        # the backward's work is 5 matmuls of 2*D flops per (query, key)
-        # pair: S, dP, dV, dK in the dK/dV pass, dQ in the dQ pass (the dQ
-        # pass's recompute of S and dP is the two-pass design's overhead)
-        in_bytes = 4 * s * h * d * 2 + 3 * h * s * 4 + 2 * s * d * 4
-        b_dkv = bound_ms(in_bytes + 2 * s * h * d * 2, 8.0 * h * d * pairs, "bf16")
-        b_dq = bound_ms(in_bytes + s * h * d * 2, 2.0 * h * d * pairs, "bf16")
-        for kernel, ms, (bms, by), names in (
-                ("flash_bwd_dkv", t_dkv, b_dkv, ("dk", "dv")),
-                ("flash_bwd_dq", t_dq, b_dq, ("dq",))):
+        # each product is 2*D flops per (query, key) pair and head: the
+        # dK/dV pass does 4 (S, dP, dV, dK), the dQ pass 3 (S and dP again,
+        # dQ); an ideal single pass would do 5
+        product = 2.0 * b * h * d * pairs
+        in_bytes = 4 * b * s * h * d * 2 + 3 * b * h * s * 4 + 2 * s * d * 4
+        b_dkv = bound_ms(in_bytes + 2 * b * s * h * d * 2, 4 * product, "bf16")
+        b_dq = bound_ms(in_bytes + b * s * h * d * 2, 3 * product, "bf16")
+        b_five = bound_ms(in_bytes + 3 * b * s * h * d * 2, 5 * product, "bf16")
+        for kernel, ms, mma_ms, (bms, by), names in (
+                ("flash_bwd_dkv", t_dkv, m_dkv, b_dkv, ("dk", "dv")),
+                ("flash_bwd_dq", t_dq, m_dq, b_dq, ("dq",))):
             records.append(dict(
-                kernel=kernel, case=label, err=max(errs[n][0] for n in names),
-                tol=min(errs[n][1] for n in names), ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        print(f"  flash bwd {label:22s} "
+                kernel=kernel, case=label,
+                err=max(errs[n][0] for n in names),
+                tol=min(errs[n][1] for n in names), ms=ms, mma_sync_ms=mma_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, route=route))
+        verdict = ""
+        if label == "S2560 union":
+            verdict = (f"; {route} pair "
+                       + ("faster" if t_dkv + t_dq < m_dkv + m_dq else "NOT faster")
+                       + f" than mma.sync, target {FLASH_BWD_TARGET_MS:.2f} ms "
+                       + ("met" if t_dkv + t_dq <= FLASH_BWD_TARGET_MS else "missed"))
+        print(f"  flash bwd {label:26s} "
               + " ".join(f"{n} err {e:.3e} (tol {t:.2e}) rel L2 {r:.3e}"
                          for n, (e, t, r) in errs.items())
-              + f" (bound {FLASH_REL_L2:.0e}); residuals err {res_err:.1e}; "
-              f"dK/dV {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}) dQ {t_dq:.3f} ms "
-              f"(bound {b_dq[0]:.3f}); both {t_dkv + t_dq:.3f} ms vs the "
-              f"5-matmul bound {b_dkv[0] + b_dq[0]:.3f}; plain {plain_ms:.3f}; "
-              f"sdpa backward "
-              + ("not timed (masked mode)" if lib_ms is None else f"{lib_ms:.3f}"),
-              flush=True)
+              + f" (bound {FLASH_REL_L2:.0e}); mma.sync rel L2 "
+              + " ".join(f"{n} {r:.3e}" for n, (_, _, r) in errs_mma.items())
+              + f"; residuals err {res_err:.1e}; {route} dK/dV {t_dkv:.3f} ms "
+              f"(bound {b_dkv[0]:.3f}) dQ {t_dq:.3f} ms (bound {b_dq[0]:.3f}), "
+              f"pair {t_dkv + t_dq:.3f} against the 7-product bound "
+              f"{b_dkv[0] + b_dq[0]:.3f} and the 5-product bound {b_five[0]:.3f}; "
+              f"mma.sync dK/dV {m_dkv:.3f} dQ {m_dq:.3f} pair {m_dkv + m_dq:.3f}; "
+              f"plain {plain_ms:.3f}; sdpa backward "
+              + ("not timed (masked mode)" if lib_ms is None else f"{lib_ms:.3f}")
+              + verdict, flush=True)
+        del q, k, v, do, o, qk_rot, args
+        torch.cuda.empty_cache()
 
 
 # the S4D kernel against its plain version (absolute, no looser than the
@@ -1193,7 +1256,10 @@ KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
            "qmm_flat:mma_sync", "qmm_act_quant")
 TRAIN_KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
                  "qmm_stacked", "qmm_flat", "qmm_t", "qmm_t_stacked",
-                 "flash_bwd_dkv", "flash_bwd_dq")
+                 "flash_bwd_dkv", "flash_bwd_dkv:wgmma", "flash_bwd_dq",
+                 "flash_bwd_dq:wgmma")
+FLASH_BWD_GROUPS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                    "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
 
 
@@ -1227,8 +1293,7 @@ def device_profile(torch, run):
         us = e.time_range.end - e.time_range.start
         group = next((g for g in ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
                                   "qmm_wgmma_kernel", "flash_fwd_kernel",
-                                  "flash_bwd_dkv_kernel",
-                                  "flash_bwd_dq_kernel", "qmm_t_kernel",
+                                  *FLASH_BWD_GROUPS, "qmm_t_kernel",
                                   "qmm_kernel", "act_quant_kernel")
                       if g in e.name), None)
         if group is None:
@@ -1966,6 +2031,8 @@ def train(torch):
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise Failure(f"train step {i + 1}: loss {loss}, grad norm {norm}")
     launches = {n: cuda_build.LAUNCHES[n] for n in TRAIN_KERNELS}
+    for n in ("flash_bwd_dkv", "flash_bwd_dq"):
+        launches[f"{n}:mma_sync"] = cuda_build.LAUNCHES[f"{n}:mma_sync"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = times[1:]
     print(f"  {sum(steady) / len(steady):.3f} s/step over steps 2-{TRAIN_STEPS} "
@@ -1990,9 +2057,14 @@ def train(torch):
         raise Failure(f"LoRA B factors left unchanged: {still}")
     if changed:
         raise Failure(f"frozen leaves changed: {changed[:5]}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in TRAIN_KERNELS if launches[n] == 0]
     if missing:
         raise Failure(f"kernels not launched while training: {missing}")
+    # head_dim 128: every backward launch on the wgmma route, none on mma.sync
+    for n in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[f"{n}:wgmma"] != launches[n] or launches[f"{n}:mma_sync"]:
+            raise Failure(f"{n}: {launches[n]} launches, {launches[n + ':wgmma']} "
+                          f"wgmma, {launches[n + ':mma_sync']} mma.sync")
     # one more step under the profiler, outside the timings and the counts
     prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
     if prof is None:
@@ -2003,6 +2075,11 @@ def train(torch):
               "{span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
               "{by_group_ms}; largest other {top_other_ms}".format(**prof),
               flush=True)
+        groups = prof["by_group_ms"]
+        print(f"  step flash backward group: "
+              f"{sum(groups.get(g, 0.0) for g in FLASH_BWD_GROUPS):.1f} ms ("
+              + ", ".join(f"{g} {groups[g]:.1f}" for g in FLASH_BWD_GROUPS
+                          if g in groups) + ")", flush=True)
     train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
                    sums0, sum(steady) / len(steady))
     del state, trainable, frozen, pipe

@@ -500,22 +500,24 @@ struct Args {
   float cbias, scale;
 };
 
-// Does key tile [kv0, kv0 + BKV) hold a key that some query row of [q0, q0 + BQ) attends to?
-__device__ __forceinline__ bool tile_visible(int mode, int cs, int S, int q0, int kv0) {
-  const bool rows_main = q0 < cs, rows_cond = q0 + BQ > cs && cs < S;
-  const bool cols_main = kv0 < cs, cols_cond = kv0 + BKV > cs && cs < S;
+// Does key tile [kv0, kv0 + nk) hold a key that some query row of [q0, q0 + nq) attends to?
+__device__ __forceinline__ bool tile_visible(int mode, int cs, int S, int q0, int nq, int kv0,
+                                             int nk) {
+  const bool rows_main = q0 < cs, rows_cond = q0 + nq > cs && cs < S;
+  const bool cols_main = kv0 < cs, cols_cond = kv0 + nk > cs && cs < S;
   if (mode == NO_UNION) return (rows_main && cols_main) || (rows_cond && cols_cond);
   if (mode == INDEPENDENT) return rows_main || cols_cond;
   return true;
 }
 
-// Does every query row of the block see every key of the tile, with no bias (all keys real)?
-// Then the softmax needs no per-element mask.
-__device__ __forceinline__ bool tile_plain(int mode, int cs, int S, int q0, int kv0) {
-  if (kv0 + BKV > S) return false;
+// Does every query row of [q0, q0 + nq) see every key of [kv0, kv0 + nk), with no bias (all
+// keys real)?  Then the softmax needs no per-element mask.
+__device__ __forceinline__ bool tile_plain(int mode, int cs, int S, int q0, int nq, int kv0,
+                                           int nk) {
+  if (kv0 + nk > S) return false;
   if (mode == UNION) return true;
-  const bool rows_main = q0 + BQ <= cs, rows_cond = q0 >= cs;
-  const bool cols_main = kv0 + BKV <= cs, cols_cond = kv0 >= cs;
+  const bool rows_main = q0 + nq <= cs, rows_cond = q0 >= cs;
+  const bool cols_main = kv0 + nk <= cs, cols_cond = kv0 >= cs;
   if (mode == INDEPENDENT) return rows_main || cols_cond;
   return (rows_main && cols_main) || (rows_cond && cols_cond);  // NO_UNION, CFACTOR
 }
@@ -579,7 +581,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       hopper::tma_load_4d(sq + PANEL, &map_q, qfull, 64, q0, h, b);
       int it = 0;
       for (int j = 0; j < ntiles; ++j) {
-        if (!tile_visible(mode, cs, S, q0, j * BKV)) continue;
+        if (!tile_visible(mode, cs, S, q0, BQ, j * BKV, BKV)) continue;
         const int s = it % STAGES;
         hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], 4 * PANEL);
@@ -641,7 +643,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     float m_cur[2] = {MASK_VALUE, MASK_VALUE};
     // a plain tile keeps its raw scores: the row max scales after the max (rounding is
     // monotonic, so it is the max of the scaled scores) and the exponent is one fma
-    const bool plain = tile_plain(mode, cs, S, q0, kv0);
+    const bool plain = tile_plain(mode, cs, S, q0, BQ, kv0, BKV);
     const float mul = plain ? scale_log2 : 1.f;
     if (plain) {
 #pragma unroll
@@ -704,7 +706,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   int it = 0;
   for (int j = 0; j < ntiles; ++j) {
     const int kv0 = j * BKV;
-    if (!tile_visible(mode, cs, S, q0, kv0)) continue;
+    if (!tile_visible(mode, cs, S, q0, BQ, kv0, BKV)) continue;
     const int s = it % STAGES;
     hopper::mbar_wait(&full[s], (it / STAGES) & 1);
     issue_scores(s);
@@ -741,14 +743,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// A 4-D map {D, S, H, B} of bf16 with element strides (sb, ss, sh), boxes of 64 d x 128 rows.
+// A 4-D map {D, S, H, B} of bf16 with element strides (sb, ss, sh), boxes of 64 d x `rows` rows.
 bool qkv_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb, long long ss,
-             long long sh) {
+             long long sh, uint32_t rows = BQ) {
   const uint64_t dims[4] = {D, static_cast<uint64_t>(S), static_cast<uint64_t>(H),
                             static_cast<uint64_t>(B)};
   const uint64_t strides[3] = {static_cast<uint64_t>(ss) * 2, static_cast<uint64_t>(sh) * 2,
                                static_cast<uint64_t>(sb) * 2};
-  const uint32_t box[4] = {64, 128, 1, 1};
+  const uint32_t box[4] = {64, rows, 1, 1};
   return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
                                  box);
 }
@@ -779,7 +781,9 @@ bool qkv_map(CUtensorMap* map, const void* base, int B, int H, int S, long long 
 // in registers and loops over all key tiles (64 per step).  The loop over the sequence
 // runs inside the block, the TPU kernels' sequential grid axis.  mma.sync m16n8k16 with
 // ldmatrix fragments from shared memory; a C fragment of P or dS becomes the A fragment of
-// the next product in registers.  No cp.async/TMA pipeline and no wgmma yet.
+// the next product in registers.  No cp.async/TMA pipeline and no wgmma: these kernels keep
+// head_dim 64; at head_dim 128 (every FLUX shape) the backward runs the wgmma kernels below
+// ("Backward on wgmma"), chosen by flash_bwd_route in Python.
 
 constexpr int BWD_THREADS = 128;  // 4 warps
 constexpr int DKV_KEYS = 64;      // keys per dK/dV block (16 per warp)
@@ -1140,6 +1144,447 @@ int bwd_entry(bool dkv, const void* q, const void* k, const void* v, const void*
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------------------
+// Backward on wgmma (D = 128): the dK/dV and dQ passes, warp-specialised
+// ---------------------------------------------------------------------------------------
+//
+// The two passes above on Hopper's asynchronous machinery, for the same contract.  Both read q
+// and k already rotated (the forward's RoPE pre-pass output, head-major [2, B, H, S, D], which
+// the autograd Function saves; without RoPE the inputs as they lie) and v, do through the
+// forward's 4-D TMA maps (128-byte swizzle, zeros past S), and rotate dK / dQ back on store.
+//
+// flash_bwd_dq_wgmma_kernel: one block per 128 query rows of one (batch, head).  The producer
+// thread loads the Q and dO tiles once and K and V tiles of 128 keys into a ring of DQ_STAGES;
+// two consumer warpgroups own 64 rows each: S = Q.K^T and dP = dO.V^T (wgmma m64n128k16, both
+// operands d-contiguous, K-major) issued as two groups, P rebuilt from the per-row (m2, l) in
+// registers while dP runs, dS = P (dP - di) scale rounded to bf16 in registers as the A operand
+// of dQ += dS.K (K as the MN-major B through the transpose bit, as V in the forward's P.V).
+//
+// flash_bwd_dkv_wgmma_kernel: one block per 128 keys.  K and V are loaded once; Q and dO tiles
+// of 64 query rows stream through a ring of KV_STAGES, and two producer warps write each
+// tile's per-query (-m2, 1/l, di) into its stage (the l == 0 rule and the zero 1/l of padded
+// rows applied once, there).  Two consumer warpgroups own 64 keys each and compute the
+// transposed products S^T = K.Q^T and dP^T = V.dO^T (wgmma m64n64k16), so that P^T and dS^T
+// are C fragments in registers, whose layout is the A fragment's: dV += P^T.dO and
+// dK += dS^T.Q run from registers with dO and Q as the MN-major B, and neither goes through
+// shared memory.  The per-query statistics vary along the fragment's columns and are read from
+// the stage.  Key rows past S are computed on TMA's zeros and not stored; query rows past S
+// have 1/l = 0, so their P is 0.
+//
+// Both skip tiles that the block mask hides from the whole block and take the per-element mask
+// only on tiles that are not plain.  What bounds them is tensor-core work: at S 2560, 24 heads,
+// union, each product is 40 GFLOP, 0.041 ms at the data sheet's bf16 rate; the two passes do
+// seven (dK/dV four, dQ three: S and dP are recomputed so that dQ is written once per query
+// block, with no atomics, and the gradients are deterministic).
+namespace fa3 {
+
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_SMEM_BYTES = (4 + 4 * DQ_STAGES) * PANEL + (1 + 2 * DQ_STAGES) * 8 + 1024;
+constexpr int KV_BQ = 64;                // query rows per dK/dV ring stage
+constexpr int QPANEL = KV_BQ * 128;      // bytes: 64 rows x 64 bf16, one TMA box
+constexpr int KV_STAGES = 4;
+constexpr int KV_STATS = 3 * KV_BQ * 4;  // bytes of one stage's (-m2, 1/l, di)
+constexpr int KV_SMEM_BYTES =
+    4 * PANEL + KV_STAGES * (4 * QPANEL + KV_STATS) + (1 + 2 * KV_STAGES) * 8 + 1024;
+
+struct GradArgs {
+  const float *m2, *l, *di, *cos, *sin;
+  __nv_bfloat16 *dq, *dk, *dv;
+  int H, S;
+  long long sb, ss, sh;  // element strides of v, do and the gradients
+  int cond_start, mode;
+  float scale;
+};
+
+// (-m2, 1/l, di) of query row `row` (l == 0: m2 = 0, l = 1; past S: 1/l = 0, so P = 0).
+__device__ __forceinline__ void row_stats(const GradArgs& p, long long stat, int row,
+                                          float& mneg, float& il, float& di) {
+  mneg = il = di = 0.f;
+  if (row >= p.S) return;
+  const float l = p.l[stat + row];
+  mneg = l == 0.f ? 0.f : -p.m2[stat + row];
+  il = 1.f / (l == 0.f ? 1.f : l);
+  di = p.di[stat + row];
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do, const GradArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = base;               // 2 panels
+  uint8_t* sdo = base + 2 * PANEL;  // 2 panels
+  uint8_t* sk = base + 4 * PANEL;   // DQ_STAGES x 2 panels
+  uint8_t* sv = sk + 2 * DQ_STAGES * PANEL;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(base + (4 + 4 * DQ_STAGES) * PANEL);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int S = p.S, cs = p.cond_start, mode = p.mode;
+  const int ntiles = (S + BKV - 1) / BKV;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qfull, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      hopper::mbar_arrive_expect_tx(qfull, 4 * PANEL);
+      hopper::tma_load_4d(sq, &map_q, qfull, 0, q0, h, b);
+      hopper::tma_load_4d(sq + PANEL, &map_q, qfull, 64, q0, h, b);
+      hopper::tma_load_4d(sdo, &map_do, qfull, 0, q0, h, b);
+      hopper::tma_load_4d(sdo + PANEL, &map_do, qfull, 64, q0, h, b);
+      int it = 0;
+      for (int j = 0; j < ntiles; ++j) {
+        if (!tile_visible(mode, cs, S, q0, BQ, j * BKV, BKV)) continue;
+        const int s = it % DQ_STAGES;
+        hopper::mbar_wait(&empty[s], ((it / DQ_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 4 * PANEL);
+        uint8_t* kt = sk + s * 2 * PANEL;
+        uint8_t* vt = sv + s * 2 * PANEL;
+        hopper::tma_load_4d(kt, &map_k, &full[s], 0, j * BKV, h, b);
+        hopper::tma_load_4d(kt + PANEL, &map_k, &full[s], 64, j * BKV, h, b);
+        hopper::tma_load_4d(vt, &map_v, &full[s], 0, j * BKV, h, b);
+        hopper::tma_load_4d(vt + PANEL, &map_v, &full[s], 64, j * BKV, h, b);
+        ++it;
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float scale_log2 = p.scale * LOG2E;
+  const long long stat = ((long long)b * p.H + h) * S;
+  int row_id[2];
+  bool row_cond[2];
+  float mneg[2], il[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_id[r] = q0 + wgi * 64 + warp * 16 + g + 8 * r;
+    row_cond[r] = row_id[r] >= cs;
+    row_stats(p, stat, row_id[r], mneg[r], il[r], di[r]);
+  }
+
+  float dq[64], sc[64], dp[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  const uint8_t* sq_wg = sq + wgi * 64 * 128;
+  const uint8_t* sdo_wg = sdo + wgi * 64 * 128;
+
+  hopper::mbar_wait(qfull, 0);
+  int it = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * BKV;
+    if (!tile_visible(mode, cs, S, q0, BQ, kv0, BKV)) continue;
+    const int s = it % DQ_STAGES;
+    hopper::mbar_wait(&full[s], (it / DQ_STAGES) & 1);
+    const uint8_t* kt = sk + s * 2 * PANEL;
+    const uint8_t* vt = sv + s * 2 * PANEL;
+    // S = Q K^T, then dP = dO V^T: 8 k-steps of 16 d each, 4 in each 64-wide panel
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * PANEL + (kk % 4) * 32;
+      hopper::wgmma_m64n128k16_bf16_ss(sc, hopper::desc_sw128(sq_wg + off, 16, 1024),
+                                       hopper::desc_sw128(kt + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * PANEL + (kk % 4) * 32;
+      hopper::wgmma_m64n128k16_bf16_ss(dp, hopper::desc_sw128(sdo_wg + off, 16, 1024),
+                                       hopper::desc_sw128(vt + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    // P = 2^(s scale log2 e - m2) / l in place of S (sc[4i + e]: row e / 2, key
+    // kv0 + 8i + 2t + e % 2; masked and padded keys 0), while dP runs
+    hopper::wgmma_wait<1>();
+    hopper::fence_operands(sc);
+    const bool plain = tile_plain(mode, cs, S, q0, BQ, kv0, BKV);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i % 4) / 2;
+      float pv = fast_exp2(fmaf(sc[i], scale_log2, mneg[r])) * il[r];
+      if (!plain) {
+        const int col = kv0 + (i / 4) * 8 + 2 * t + (i % 2);
+        if (col >= S || masked(mode, row_cond[r], col >= cs)) pv = 0.f;
+      }
+      sc[i] = pv;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dp);
+    // dS = P (dP - di) scale, rounded to bf16: the A fragments of the k-steps of 16 keys
+    // ({row g lo, row g+8 lo, row g hi, row g+8 hi}, as the forward's P)
+    uint32_t dsf[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = 8 * kk + e;
+        ds[e] = sc[i] * (dp[i] - di[(e % 4) / 2]) * p.scale;
+      }
+      dsf[kk][0] = pack_bf16(ds[0], ds[1]);
+      dsf[kk][1] = pack_bf16(ds[2], ds[3]);
+      dsf[kk][2] = pack_bf16(ds[4], ds[5]);
+      dsf[kk][3] = pack_bf16(ds[6], ds[7]);
+    }
+    // dQ += dS K: 8 k-steps of 16 keys; K's 64-wide d panels are PANEL bytes apart
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      hopper::wgmma_m64n128k16_bf16_rs_tb(
+          dq, dsf[kk], hopper::desc_sw128(kt + kk * 16 * 128, PANEL, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dq);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    ++it;
+  }
+
+  const long long head = (long long)b * p.sb + (long long)h * p.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row_id[r] >= S) continue;
+    __nv_bfloat16* dqrow = p.dq + head + (long long)row_id[r] * p.ss;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      float x0 = dq[4 * dn + 2 * r], x1 = dq[4 * dn + 2 * r + 1];
+      rope_back(x0, x1, p.cos, p.sin, D, row_id[r], c);
+      *reinterpret_cast<uint32_t*>(dqrow + c) = pack_bf16(x0, x1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do, const GradArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = base;                          // 2 panels
+  uint8_t* sv = base + 2 * PANEL;              // 2 panels
+  uint8_t* sq = base + 4 * PANEL;              // KV_STAGES x 2 query panels
+  uint8_t* sdo = sq + 2 * KV_STAGES * QPANEL;  // KV_STAGES x 2 query panels
+  float* sst = reinterpret_cast<float*>(sdo + 2 * KV_STAGES * QPANEL);  // KV_STAGES x 3 x 64
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sst + KV_STAGES * 3 * KV_BQ);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + KV_STAGES;
+
+  const int k0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z;
+  const int S = p.S, cs = p.cond_start, mode = p.mode;
+  const int ntiles = (S + KV_BQ - 1) / KV_BQ;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kvfull, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], KV_BQ);  // the 64 producer threads that write the stats
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    hopper::setmaxnreg_dec<24>();
+    const int pt = threadIdx.x - CONSUMERS;  // producer warps 0-1: one query row each
+    if (pt < KV_BQ) {
+      if (pt == 0) {
+        hopper::mbar_arrive_expect_tx(kvfull, 4 * PANEL);
+        hopper::tma_load_4d(sk, &map_k, kvfull, 0, k0, h, b);
+        hopper::tma_load_4d(sk + PANEL, &map_k, kvfull, 64, k0, h, b);
+        hopper::tma_load_4d(sv, &map_v, kvfull, 0, k0, h, b);
+        hopper::tma_load_4d(sv + PANEL, &map_v, kvfull, 64, k0, h, b);
+      }
+      const long long stat = ((long long)b * p.H + h) * S;
+      int it = 0;
+      for (int j = 0; j < ntiles; ++j) {
+        const int qs0 = j * KV_BQ;
+        if (!tile_visible(mode, cs, S, qs0, KV_BQ, k0, BKV)) continue;
+        const int s = it % KV_STAGES;
+        hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
+        float* st = sst + s * 3 * KV_BQ;
+        row_stats(p, stat, qs0 + pt, st[pt], st[KV_BQ + pt], st[2 * KV_BQ + pt]);
+        if (pt == 0) {
+          hopper::mbar_arrive_expect_tx(&full[s], 4 * QPANEL);
+          uint8_t* qt = sq + s * 2 * QPANEL;
+          uint8_t* dot = sdo + s * 2 * QPANEL;
+          hopper::tma_load_4d(qt, &map_q, &full[s], 0, qs0, h, b);
+          hopper::tma_load_4d(qt + QPANEL, &map_q, &full[s], 64, qs0, h, b);
+          hopper::tma_load_4d(dot, &map_do, &full[s], 0, qs0, h, b);
+          hopper::tma_load_4d(dot + QPANEL, &map_do, &full[s], 64, qs0, h, b);
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+        ++it;
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float scale_log2 = p.scale * LOG2E;
+  int key_id[2];
+  bool key_cond[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_id[r] = k0 + wgi * 64 + warp * 16 + g + 8 * r;
+    key_cond[r] = key_id[r] >= cs;
+  }
+
+  float dk[64], dv[64], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  const uint8_t* sk_wg = sk + wgi * 64 * 128;
+  const uint8_t* sv_wg = sv + wgi * 64 * 128;
+
+  hopper::mbar_wait(kvfull, 0);
+  int it = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    const int qs0 = j * KV_BQ;
+    if (!tile_visible(mode, cs, S, qs0, KV_BQ, k0, BKV)) continue;
+    const int s = it % KV_STAGES;
+    hopper::mbar_wait(&full[s], (it / KV_STAGES) & 1);
+    const uint8_t* qt = sq + s * 2 * QPANEL;
+    const uint8_t* dot = sdo + s * 2 * QPANEL;
+    const float* stt = sst + s * 3 * KV_BQ;
+    // S^T = K Q^T, then dP^T = V dO^T: 8 k-steps of 16 d each
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int koff = (kk / 4) * PANEL + (kk % 4) * 32;
+      const int qoff = (kk / 4) * QPANEL + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_bf16_ss(st, hopper::desc_sw128(sk_wg + koff, 16, 1024),
+                                      hopper::desc_sw128(qt + qoff, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int koff = (kk / 4) * PANEL + (kk % 4) * 32;
+      const int qoff = (kk / 4) * QPANEL + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_bf16_ss(dpt, hopper::desc_sw128(sv_wg + koff, 16, 1024),
+                                      hopper::desc_sw128(dot + qoff, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    // P^T in place of S^T (st[4i + e]: key row e / 2, query qs0 + 8i + 2t + e % 2), while dP^T
+    // runs; the stats of the thread's two queries of n-tile i are adjacent in the stage
+    hopper::wgmma_wait<1>();
+    hopper::fence_operands(st);
+    const bool plain = tile_plain(mode, cs, S, qs0, KV_BQ, k0, BKV);
+#pragma unroll
+    for (int i = 0; i < KV_BQ / 8; ++i) {
+      const int qc = 8 * i + 2 * t;
+      const float2 mq = *reinterpret_cast<const float2*>(stt + qc);
+      const float2 iq = *reinterpret_cast<const float2*>(stt + KV_BQ + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = fast_exp2(fmaf(st[4 * i + e], scale_log2, e % 2 ? mq.y : mq.x)) *
+                   (e % 2 ? iq.y : iq.x);
+        if (!plain && masked(mode, qs0 + qc + e % 2 >= cs, key_cond[e / 2])) pv = 0.f;
+        st[4 * i + e] = pv;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dpt);
+    // dS^T = P^T (dP^T - di) scale; P^T and dS^T rounded to bf16 as the A fragments of the
+    // k-steps of 16 queries
+    uint32_t pf[KV_BQ / 16][4], dsf[KV_BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KV_BQ / 16; ++kk) {
+      const float2 d0 = *reinterpret_cast<const float2*>(stt + 2 * KV_BQ + 16 * kk + 2 * t);
+      const float2 d1 = *reinterpret_cast<const float2*>(stt + 2 * KV_BQ + 16 * kk + 8 + 2 * t);
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = 8 * kk + e;
+        const float di = e < 4 ? (e % 2 ? d0.y : d0.x) : (e % 2 ? d1.y : d1.x);
+        ds[e] = st[i] * (dpt[i] - di) * p.scale;
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        pf[kk][w] = pack_bf16(st[8 * kk + 2 * w], st[8 * kk + 2 * w + 1]);
+        dsf[kk][w] = pack_bf16(ds[2 * w], ds[2 * w + 1]);
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q: 4 k-steps of 16 queries; the 64-wide d panels of a query
+    // tile are QPANEL bytes apart
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV_BQ / 16; ++kk)
+      hopper::wgmma_m64n128k16_bf16_rs_tb(
+          dv, pf[kk], hopper::desc_sw128(dot + kk * 16 * 128, QPANEL, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < KV_BQ / 16; ++kk)
+      hopper::wgmma_m64n128k16_bf16_rs_tb(
+          dk, dsf[kk], hopper::desc_sw128(qt + kk * 16 * 128, QPANEL, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dv);
+    hopper::fence_operands(dk);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    ++it;
+  }
+
+  const long long head = (long long)b * p.sb + (long long)h * p.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key_id[r] >= S) continue;
+    __nv_bfloat16* dkrow = p.dk + head + (long long)key_id[r] * p.ss;
+    __nv_bfloat16* dvrow = p.dv + head + (long long)key_id[r] * p.ss;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      float x0 = dk[4 * dn + 2 * r], x1 = dk[4 * dn + 2 * r + 1];
+      rope_back(x0, x1, p.cos, p.sin, D, key_id[r], c);
+      *reinterpret_cast<uint32_t*>(dkrow + c) = pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(dvrow + c) =
+          pack_bf16(dv[4 * dn + 2 * r], dv[4 * dn + 2 * r + 1]);
+    }
+  }
+}
+
+// One pass (dkv: dK/dV, else dQ) on wgmma; q, k with strides (qsb, qss, qsh), v, do and the
+// gradients with a.sb, a.ss, a.sh.
+int grad_entry(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+               const GradArgs& a, int B, int H, int S, long long qsb, long long qss,
+               long long qsh, cudaStream_t st) {
+  if (a.mode != UNION && a.mode != NO_UNION && a.mode != INDEPENDENT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t qrows = dkv ? KV_BQ : BQ;  // Q and dO stream in 64-row tiles in the dK/dV pass
+  CUtensorMap mq, mk, mv, mdo;
+  if (!qkv_map(&mq, q, B, H, S, qsb, qss, qsh, qrows) ||
+      !qkv_map(&mk, k, B, H, S, qsb, qss, qsh) || !qkv_map(&mv, v, B, H, S, a.sb, a.ss, a.sh) ||
+      !qkv_map(&mdo, dout, B, H, S, a.sb, a.ss, a.sh, qrows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const bool dkv_regs_ok = hopper::entry_regs_are(flash_bwd_dkv_wgmma_kernel, ENTRY_REGS);
+  static const bool dq_regs_ok = hopper::entry_regs_are(flash_bwd_dq_wgmma_kernel, ENTRY_REGS);
+  if (!(dkv ? dkv_regs_ok : dq_regs_ok)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto* kernel = dkv ? flash_bwd_dkv_wgmma_kernel : flash_bwd_dq_wgmma_kernel;
+  const int bytes = dkv ? KV_SMEM_BYTES : DQ_SMEM_BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + 127) / 128, H, B);  // 128 keys (dK/dV) or 128 query rows (dQ) a block
+  kernel<<<grid, THREADS, bytes, st>>>(mq, mk, mv, mdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fa3
+
 }  // namespace
 
 // q, k, v, o: bf16 with element strides (sb, ss, sh) for (batch, seq, head) and a unit
@@ -1298,4 +1743,67 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
   fa3::flash_fwd_wgmma_kernel<<<grid, fa3::THREADS, fa3::SMEM_BYTES,
                                 static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+fa3::GradArgs grad_args(const float* m2, const float* l, const float* di, const float* cos,
+                        const float* sin, void* dq, void* dk, void* dv, int H, int S,
+                        long long sb, long long ss, long long sh, int cond_start, int mode,
+                        float scale) {
+  fa3::GradArgs a;
+  a.m2 = m2;
+  a.l = l;
+  a.di = di;
+  a.cos = cos;
+  a.sin = sin;
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.H = H;
+  a.S = S;
+  a.sb = sb;
+  a.ss = ss;
+  a.sh = sh;
+  a.cond_start = cond_start;
+  a.mode = mode;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// The dK/dV pass on wgmma, D = 128: q and k with element strides (qsb, qss, qsh) -- rotated
+// (the RoPE pre-pass's head-major buffer) when cos/sin are given, else the inputs as they lie
+// -- v, do, dk, dv with (sb, ss, sh); m2 / l / di fp32 [B, H, S]; cos/sin fp32 [S, 128] or null
+// rotate dk back on store.  Every stride and base must be 16-byte aligned (TMA).  Returns
+// cudaGetLastError().
+extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* m2, const float* l,
+                                             const float* di, const float* cos, const float* sin,
+                                             void* dk, void* dv, int B, int H, int S, int D,
+                                             long long qsb, long long qss, long long qsh,
+                                             long long sb, long long ss, long long sh,
+                                             int cond_start, int mode, float scale,
+                                             void* stream) {
+  if (D != fa3::D) return static_cast<int>(cudaErrorInvalidValue);
+  return fa3::grad_entry(true, q, k, v, dout,
+                         grad_args(m2, l, di, cos, sin, nullptr, dk, dv, H, S, sb, ss, sh,
+                                   cond_start, mode, scale),
+                         B, H, S, qsb, qss, qsh, static_cast<cudaStream_t>(stream));
+}
+
+// The dQ pass on wgmma: the same inputs -> dq bf16 with (sb, ss, sh).
+extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* m2, const float* l,
+                                            const float* di, const float* cos, const float* sin,
+                                            void* dq, int B, int H, int S, int D, long long qsb,
+                                            long long qss, long long qsh, long long sb,
+                                            long long ss, long long sh, int cond_start,
+                                            int mode, float scale, void* stream) {
+  if (D != fa3::D) return static_cast<int>(cudaErrorInvalidValue);
+  return fa3::grad_entry(false, q, k, v, dout,
+                         grad_args(m2, l, di, cos, sin, dq, nullptr, nullptr, H, S, sb, ss, sh,
+                                   cond_start, mode, scale),
+                         B, H, S, qsb, qss, qsh, static_cast<cudaStream_t>(stream));
 }

@@ -204,6 +204,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_tb(float (&d)[64], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+#define HOPPER_D32(p)                                                                      \
+  "+" p(d[0]), "+" p(d[1]), "+" p(d[2]), "+" p(d[3]), "+" p(d[4]), "+" p(d[5]),            \
+      "+" p(d[6]), "+" p(d[7]), "+" p(d[8]), "+" p(d[9]), "+" p(d[10]), "+" p(d[11]),      \
+      "+" p(d[12]), "+" p(d[13]), "+" p(d[14]), "+" p(d[15]), "+" p(d[16]), "+" p(d[17]),  \
+      "+" p(d[18]), "+" p(d[19]), "+" p(d[20]), "+" p(d[21]), "+" p(d[22]), "+" p(d[23]),  \
+      "+" p(d[24]), "+" p(d[25]), "+" p(d[26]), "+" p(d[27]), "+" p(d[28]), "+" p(d[29]),  \
+      "+" p(d[30]), "+" p(d[31])
+
+#define HOPPER_D32_LIST                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[32] (f32) (+)= A (64 x 16 bf16, K-major, smem) . B (64 x 16 bf16, K-major, smem)^T;
+// the fragment is the m64n128 one's first half (columns 0..63).
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t da,
+                                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D32("f")
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef HOPPER_D32
+#undef HOPPER_D32_LIST
 #undef HOPPER_D64
 #undef HOPPER_D64_LIST
 

@@ -108,9 +108,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// gelu_tanh in the operations and order of PyTorch's F.gelu(approximate="tanh") on CUDA (the
+// plain version): x^3 = (x x) x, inner = k (x + 0.044715 x^3) with the sum an fma (as nvcc
+// contracts it there), 0.5 x (1 + tanhf(inner)); each operation rounded as there, so the
+// output equals the plain version's bit for bit.
 __device__ __forceinline__ float gelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
+  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(0.7978845608028654f, __fmaf_rn(0.044715f, x3, x));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
 }
 
 // x tile rows [m0, m0+128) x 64 k-bytes -> shared, zero past M (and past K, weight-only).
@@ -535,9 +540,10 @@ act_quant_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_gr
 // wgmma m64n128k32 s8 x s8 -> s32 over one activation group, then fold
 // facc += float(iacc) * x_scale[row, group] (__fmul_rn, __fadd_rn: _accum_tile's order, as the
 // mma.sync kernel) and restart the integer sums.  Epilogues as qmm_kernel's on the wgmma
-// fragment (mma.sync's C fragment repeated over the 16 n-tiles of 8 columns), gelu by
-// gelu_tanh_fast; the bf16 tile is staged in shared memory and written as whole rows.  One
-// persistent block per SM walks the output tiles, so the next tile's loads overlap the epilogue.
+// fragment (mma.sync's C fragment repeated over the 16 n-tiles of 8 columns), gelu by the
+// exact gelu_tanh (tanhf); the bf16 tile is staged in shared memory and written as whole
+// rows.  One persistent block per SM walks the output tiles, so the next tile's loads overlap
+// the epilogue.
 // What bounds it: with the transpose, each 128-deep stage moves 112 KB through shared memory
 // (TMA 32, transpose 32, wgmma 48) against 491 cycles of int8 tensor work at the data sheet's
 // rate, and 32 KB from L2; the epilogue (gelu) runs unoverlapped on the consumers.
@@ -554,17 +560,6 @@ constexpr int CONSUMERS = 256, TRANSPOSERS = 128, THREADS = CONSUMERS + TRANSPOS
 constexpr int ENTRY_REGS = 128;
 constexpr int OUT_TILE = 64 * BN * 2;  // one consumer warpgroup's bf16 output tile
 constexpr int SMEM_BYTES = 3 * STAGES * TILE + 2 * OUT_TILE + 3 * STAGES * 8 + 1024;
-
-// gelu_tanh with tanh(u) = 1 - 2 / (1 + 2^(2u log2 e)) on the MUFU unit (ex2.approx, fast
-// division): a few ulp of fp32 from gelu_tanh's tanhf, far below the output's bf16 rounding
-// (which it may flip by one step), in fewer instructions (tanhf made the M 2560 K 3072 N 12288
-// gelu call 7 % slower on an H100).
-__device__ __forceinline__ float gelu_tanh_fast(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(2.8853900817779268f * u));
-  return 0.5f * x * (2.f - __fdividef(2.f, 1.f + e));
-}
 
 // 4 rows of 4 int8 (one word each) -> the 4 columns (one word each).
 __device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
@@ -743,8 +738,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
             z1 = __fadd_rn(z1, b1);
           }
           if (GELU) {
-            z0 = gelu_tanh_fast(z0);
-            z1 = gelu_tanh_fast(z1);
+            z0 = gelu_tanh(z0);
+            z1 = gelu_tanh(z1);
           }
           facc[4 * nt + 2 * h] = z0;
           facc[4 * nt + 2 * h + 1] = z1;

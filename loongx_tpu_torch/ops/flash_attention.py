@@ -34,7 +34,14 @@ in JAX: the backward rebuilds P from bf16 scores.
 Under autograd (any of q/k/v requires grad) `flash_attention` runs the
 forward with ``save_residuals`` and its backward launches the dK/dV and dQ
 kernels, with ``di = rowsum(o * do)`` taken in float32 outside them, as the
-JAX package does.  The residuals are base 2 (the kernels' softmax base):
+JAX package does.  Two hand-written pairs take the backward, picked by
+`flash_bwd_route`: at head_dim 128 the wgmma kernels
+(``flash_bwd_dkv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``), which read
+q and k already rotated: the autograd Function saves the forward's RoPE
+pre-pass output in their place, so the backward runs no second pre-pass;
+at head_dim 64 the ``mma.sync`` pair, which rotates q and k as its tiles
+load.  Each launch counts as ``flash_bwd_dkv`` / ``flash_bwd_dq`` and as
+``<name>:<route>``.  The residuals are base 2 (the kernels' softmax base):
 
     s2_ij = fl(q_i . k_j) * fl(scale * log2 e)   (masked: MASK_VALUE)
     m2_i  = max_j s2_ij,   l_i = sum_j 2^(s2_ij - m2_i)
@@ -69,6 +76,8 @@ _DKV_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                   _L, _L, _L, _I, _I, _F, _P]
 _DQ_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                  _L, _L, _I, _I, _F, _P]
+_DKV_WGMMA_SIGNATURE = [_P] * 11 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P]
+_DQ_WGMMA_SIGNATURE = [_P] * 10 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P]
 _KQUANT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                      _P]
 _WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
@@ -97,6 +106,18 @@ def flash_fwd_route(d: int) -> str:
     (its tiles are 64-wide d panels, two per row), ``"mma_sync"``
     otherwise."""
     return "wgmma" if d == 128 else "mma_sync"
+
+
+def flash_bwd_route(d: int) -> str:
+    """The backward kernels for head_dim ``d``: the forward's route, since
+    the wgmma backward reads the wgmma forward's rotated q and k."""
+    return flash_fwd_route(d)
+
+
+def active_route(d: int) -> str:
+    """The route a launch at head_dim ``d`` takes now, forward or backward:
+    the forced route of `cuda_build.mma_sync_only` if any, else the rule."""
+    return cuda_build.FORCED_ROUTE or flash_bwd_route(d)
 
 
 def _scales(d: int) -> Tuple[float, float]:
@@ -201,14 +222,21 @@ def _rope_back(g: torch.Tensor, cos, sin) -> torch.Tensor:
 
 def flash_attention_bwd_plain(q, k, v, do, m2, l, di, *, cond_start: int,
                               mode: str = "union", rope: Rope = None,
-                              layout: str = "bhsd"):
+                              layout: str = "bhsd", qk_rot=None):
     """The backward kernels' contract in plain PyTorch -> (dq, dk, dv) in
-    q's layout and dtype.  P is rebuilt from the residuals (l == 0 rows take
+    v's layout and dtype.  P is rebuilt from the residuals (l == 0 rows take
     m2 = 0, l = 1); P and dS are rounded to the input dtype before their
-    products, as they enter the tensor cores; sums are float32."""
-    dt = q.dtype
-    q, k, v, do = _head_major(layout, q, k, v, do)
-    qr, kr, s2 = _scores2(q, k, cond_start, mode, rope)
+    products, as they enter the tensor cores; sums are float32.  With
+    ``qk_rot`` (the wgmma route's contract: `flash_rope`'s [2, B, H, S, D]
+    output, or q and k head-major without RoPE) q and k are not read and
+    only dq and dk are rotated back."""
+    dt = v.dtype
+    v, do = _head_major(layout, v, do)
+    if qk_rot is None:
+        q, k = _head_major(layout, q, k)
+        qr, kr, s2 = _scores2(q, k, cond_start, mode, rope)
+    else:
+        qr, kr, s2 = _scores2(qk_rot[0], qk_rot[1], cond_start, mode, None)
     empty = l == 0
     m_safe = torch.where(empty, torch.zeros_like(m2), m2)
     inv_l = 1.0 / torch.where(empty, torch.ones_like(l), l)
@@ -216,7 +244,7 @@ def flash_attention_bwd_plain(q, k, v, do, m2, l, di, *, cond_start: int,
     dof, vf = do.float(), v.float()
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = (p * (dp - di[..., None]) * _scales(q.shape[-1])[0]).to(dt).float()
+    ds = (p * (dp - di[..., None]) * _scales(v.shape[-1])[0]).to(dt).float()
     dq = torch.matmul(ds, kr.float())
     dk = torch.matmul(ds.transpose(-1, -2), qr.float())
     if rope is not None:
@@ -318,9 +346,12 @@ def flash_kquant(k, *, span: int, rope: Rope = None, layout: str = "bhsd"):
 
 def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
              rope: Rope, layout: str, save_residuals: bool,
-             int8_attn: bool = False, block_k: Optional[int] = None):
+             int8_attn: bool = False, block_k: Optional[int] = None,
+             qk_rot: Optional[torch.Tensor] = None):
     """o, or (o, m2, l) with ``save_residuals``: the kernel on CUDA tensors,
-    the plain versions on CPU tensors."""
+    the plain versions on CPU tensors.  ``qk_rot``: `flash_rope`'s output
+    for these q and k, which the wgmma route then reads instead of running
+    the pre-pass."""
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
     if int8_attn and save_residuals:
@@ -354,14 +385,14 @@ def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
     if save_residuals:
         m2 = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
         l = torch.empty_like(m2)
-    route = cuda_build.FORCED_ROUTE or flash_fwd_route(d)
+    route = active_route(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = cuda_build.library("flash_attention")
     scale = _scales(d)[0]
     if route == "wgmma":
         qk, qk_strides = (q, k), (sb, ss, sh)
         if rope is not None:
-            qk = flash_rope(q, k, rope, layout)
+            qk = flash_rope(q, k, rope, layout) if qk_rot is None else qk_rot
             qk_strides = (h * s * d, d, s * d)
         fn = lib.flash_attention_fwd_wgmma
         fn.argtypes, fn.restype = _WGMMA_SIGNATURE, ctypes.c_int
@@ -405,44 +436,75 @@ def _forward_int8(q, k, v, cond_start: int, mode: str, cbias: float,
 def flash_attention_bwd(q, k, v, do, m2, l, di, *, cond_start: int,
                         mode: str = "union", rope: Rope = None,
                         layout: str = "bhsd", need_dq: bool = True,
-                        need_dkv: bool = True):
+                        need_dkv: bool = True,
+                        qk_rot: Optional[torch.Tensor] = None):
     """(dq, dk, dv) from the forward's inputs, its base-2 residuals (m2, l)
     and di = rowsum(o * do), all [B, H, S] float32.  On CUDA tensors the
-    dK/dV and the dQ kernels (each only if needed; a pass not run returns
-    None); on CPU tensors `flash_attention_bwd_plain`."""
+    dK/dV and the dQ kernels of `flash_bwd_route` (each only if needed; a
+    pass not run returns None); on CPU tensors `flash_attention_bwd_plain`.
+    ``qk_rot``, `flash_rope`'s output for q and k, is the wgmma route's
+    input with RoPE (made here when it is not given); with it q and k are
+    not read and may be None, and the route must be wgmma."""
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
-    b, h, s, d, (sb, ss, sh) = _dims(q, layout)
-    if q.device.type == "cpu":
+    b, h, s, d, (sb, ss, sh) = _dims(v, layout)
+    if v.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, m2, l, di,
                                          cond_start=cond_start, mode=mode,
-                                         rope=rope, layout=layout)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_cuda_qkv(q, (("q", q), ("k", k), ("v", v), ("do", do)), d)
-    _stats_check(b, h, s, q.device, m2=m2, l=l, di=di)
-    cos_p, sin_p = _cuda_rope(rope, s, d, q.device)
+                                         rope=rope, layout=layout,
+                                         qk_rot=qk_rot)
+    route = active_route(d)
+    if qk_rot is not None and route != "wgmma":
+        raise ValueError("flash_attention backward: rotated q and k (qk_rot) "
+                         "are the wgmma route's input, the route is "
+                         f"{route!r}")
+    if v.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {v.device}")
+    _check_cuda_qkv(v, (("v", v), ("do", do)), d)
+    if qk_rot is None:
+        _check_cuda_qkv(v, (("q", q), ("k", k)), d)
+    _stats_check(b, h, s, v.device, m2=m2, l=l, di=di)
+    cos_p, sin_p = _cuda_rope(rope, s, d, v.device)
     lib = cuda_build.library("flash_attention")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    scale = _scales(d)[0]
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            m2.data_ptr(), l.data_ptr(), di.data_ptr(), cos_p, sin_p)
-    dims = (b, h, s, d, sb, ss, sh, cond_start, _MODE_IDS[mode], scale, stream)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    stats = (m2.data_ptr(), l.data_ptr(), di.data_ptr(), cos_p, sin_p)
+    tail = (cond_start, _MODE_IDS[mode], _scales(d)[0], stream)
+    if route == "wgmma":
+        qk, qk_strides = (q, k), (sb, ss, sh)
+        if rope is not None:
+            if qk_rot is None:
+                qk_rot = flash_rope(q, k, rope, layout)
+            if (qk_rot.dtype != torch.bfloat16 or qk_rot.shape != (2, b, h, s, d)
+                    or not qk_rot.is_contiguous()):
+                raise ValueError("flash_attention backward: qk_rot must be "
+                                 f"contiguous bf16 [2, {b}, {h}, {s}, {d}]")
+            qk, qk_strides = qk_rot, (h * s * d, d, s * d)
+        head = (qk[0].data_ptr(), qk[1].data_ptr(), v.data_ptr(), do.data_ptr(),
+                *stats)
+        dims = (b, h, s, d, *qk_strides, sb, ss, sh, *tail)
+        names = ("flash_attention_bwd_dkv_wgmma", "flash_attention_bwd_dq_wgmma")
+        signatures = (_DKV_WGMMA_SIGNATURE, _DQ_WGMMA_SIGNATURE)
+    else:
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *stats)
+        dims = (b, h, s, d, sb, ss, sh, *tail)
+        names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+        signatures = (_DKV_SIGNATURE, _DQ_SIGNATURE)
     dq = dk = dv = None
     if need_dkv:
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        fn = lib.flash_attention_bwd_dkv
-        fn.argtypes, fn.restype = _DKV_SIGNATURE, ctypes.c_int
+        dk, dv = torch.empty_like(v), torch.empty_like(v)
+        fn = getattr(lib, names[0])
+        fn.argtypes, fn.restype = signatures[0], ctypes.c_int
         cuda_build.check(fn(*head, dk.data_ptr(), dv.data_ptr(), *dims),
-                         "flash_attention_bwd_dkv")
+                         names[0])
         cuda_build.LAUNCHES["flash_bwd_dkv"] += 1
+        cuda_build.LAUNCHES[f"flash_bwd_dkv:{route}"] += 1
     if need_dq:
-        dq = torch.empty_like(q)
-        fn = lib.flash_attention_bwd_dq
-        fn.argtypes, fn.restype = _DQ_SIGNATURE, ctypes.c_int
-        cuda_build.check(fn(*head, dq.data_ptr(), *dims),
-                         "flash_attention_bwd_dq")
+        dq = torch.empty_like(v)
+        fn = getattr(lib, names[1])
+        fn.argtypes, fn.restype = signatures[1], ctypes.c_int
+        cuda_build.check(fn(*head, dq.data_ptr(), *dims), names[1])
         cuda_build.LAUNCHES["flash_bwd_dq"] += 1
+        cuda_build.LAUNCHES[f"flash_bwd_dq:{route}"] += 1
     return dq, dk, dv
 
 
@@ -459,27 +521,35 @@ def _row_dot(o: torch.Tensor, do: torch.Tensor, layout: str) -> torch.Tensor:
 
 class _FlashAttentionFn(torch.autograd.Function):
     """Mask modes: the forward kernel saves (m2, l); the backward runs the
-    dK/dV and dQ kernels (each only when its gradients are needed)."""
+    dK/dV and dQ kernels (each only when its gradients are needed).  On the
+    wgmma route with RoPE the forward's pre-pass output (rotated q and k)
+    is saved in place of q and k and is the backward kernels' input."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, cond_start, mode, layout):
         rope = None if cos is None else (cos, sin)
+        qk_rot = None
+        if (rope is not None and q.device.type == "cuda"
+                and active_route(q.shape[-1]) == "wgmma"):
+            qk_rot = flash_rope(q, k, rope, layout)
         o, m2, l = _forward(q, k, v, cond_start, mode, None, rope, layout,
-                            save_residuals=True)
-        ctx.save_for_backward(q, k, v, o, m2, l, cos, sin)
+                            save_residuals=True, qk_rot=qk_rot)
+        if qk_rot is not None:
+            q = k = None
+        ctx.save_for_backward(q, k, v, o, m2, l, cos, sin, qk_rot)
         ctx.meta = (cond_start, mode, layout)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, m2, l, cos, sin = ctx.saved_tensors
+        q, k, v, o, m2, l, cos, sin, qk_rot = ctx.saved_tensors
         cond_start, mode, layout = ctx.meta
-        do = do.to(q.dtype).contiguous()
+        do = do.to(v.dtype).contiguous()
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
         dq, dk, dv = flash_attention_bwd(
             q, k, v, do, m2, l, _row_dot(o, do, layout), cond_start=cond_start,
             mode=mode, rope=None if cos is None else (cos, sin), layout=layout,
-            need_dq=need_q, need_dkv=need_k or need_v)
+            need_dq=need_q, need_dkv=need_k or need_v, qk_rot=qk_rot)
         return (dq if need_q else None, dk if need_k else None,
                 dv if need_v else None, None, None, None, None, None)
 
