@@ -9,9 +9,11 @@ Phases (each prints one line with the card, its power limit and seconds):
      and training paths give it, with its error, tolerance and times
      (kernel, plain, bound, one library call as a yardstick); the wgmma
      kernels (the flash forward with its RoPE pre-pass, the flash dK/dV and
-     dQ passes, the W8A8 GEMM) also with the mma.sync kernel they replace
+     dQ passes, the W8A8 GEMM, the weight-only GEMM, the transposed GEMM
+     with its pre-scale pass) also with the mma.sync kernel they replace
      checked and timed beside them at the same call
-     (`cuda_build.mma_sync_only`), at batch 1 and 2 in both layouts, the
+     (`cuda_build.mma_sync_only`), a ragged M among the GEMM cases, at
+     batch 1 and 2 in both layouts, the
      flash residuals, the backward pair's two bounds (the five products an
      ideal pass needs, the seven the two passes do), cuBLAS bf16 on the
      dequantised weight, the share of the GEMM's time its B-tile transpose
@@ -54,10 +56,12 @@ Phases (each prints one line with the card, its power limit and seconds):
      is built on the card (int8 FLUX.1-dev, LoRA r 4, CS3 + DGF frozen with
      dropout on, Prodigy, clip 0.5, remat, bf16, batch 1 at 512 px) and
      takes 4 steps: s/step, loss, grad norm and Prodigy's d per step, peak
-     memory, launches per step (every flash backward launch on the wgmma
-     route, none on mma.sync); every LoRA B factor must move, int8 and
-     frozen leaves must not; then a fifth step under the profiler gives
-     the step's device time by kernel group and its flash backward group;
+     memory, launches per step (every flash backward, stacked weight-only
+     GEMM and stacked transposed GEMM launch on the wgmma route, none on
+     mma.sync); every LoRA B factor must move, int8 and frozen leaves must
+     not; then a fifth step under the profiler gives the step's device
+     time by kernel group, its flash backward group and its two int8 GEMM
+     groups (weight-only forward, transposed);
      then two steps with
      ``fuse_ln`` (38 prologue launches a step: ff.in, forward and remat):
      finite loss, LoRA B factors moved, frozen leaves untouched, s/step.
@@ -310,6 +314,15 @@ def check_flash_rope(torch, fa, records, label, q, k, rope):
         raise Failure(f"flash_rope {label}: {n_diff} elements differ")
 
 
+def _case_gen(torch, gen, label):
+    """The generator of a case's inputs: the ragged-M cases (whose weights
+    are the case before's) draw from one of their own, so phase 3's inputs,
+    drawn from ``gen`` after phase 2, stay as they were."""
+    if label.startswith("ragged"):
+        return torch.Generator(device="cuda").manual_seed(5)
+    return gen
+
+
 def qmm_cases():
     # (kernel, label, M, K, N, NB, activation)
     stacked = [
@@ -320,6 +333,7 @@ def qmm_cases():
         ("single mlp gelu", 2560, 3072, 12288, 38, "gelu_tanh"),
         ("single proj K12288", 2560, 12288, 3072, 38, None),
         ("mod matvec", 2, 3072, 18432, 19, None),
+        ("ragged M1000 gelu", 1000, 3072, 12288, 38, "gelu_tanh"),
     ]
     flat = [
         ("x_embedder", 1024, 64, 3072),
@@ -364,6 +378,9 @@ def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
                     for key, v in extra.items()), flush=True)
     if not err <= tol:
         raise Failure(f"{kernel} {label} {mode}: err {err} > {tol}")
+    if not extra.get("mma_sync_err", 0.0) <= tol:
+        raise Failure(f"{kernel} {label} {mode}: mma.sync err "
+                      f"{extra['mma_sync_err']} > {tol}")
     if exact and flips:
         raise Failure(f"{kernel} {label} {mode}: {flips} outputs differ from "
                       "the plain version's")
@@ -404,15 +421,22 @@ def _library_call(torch, x, wq, w8a8):
     return lambda: torch.matmul(x, wb)
 
 
-def _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad, w8a8):
-    """The route `qmm_route` takes, and in W8A8 the mma.sync kernel's time
-    at the same call (`cuda_build.mma_sync_only`) and cuBLAS bf16 on the
-    dequantised weight, a second yardstick beside torch._int_mm."""
+def _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad, w8a8, ref=None):
+    """The route `qmm_route` takes, the mma.sync kernel's time at the same
+    call (`cuda_build.mma_sync_only`; with ``ref``, its error against the
+    plain version's output too), and in W8A8 cuBLAS bf16 on the
+    dequantised weight, a second yardstick beside torch._int_mm (the
+    weight-only library call is cuBLAS bf16 already)."""
     from loongx_tpu_torch.ops import cuda_build
     extra = {"route": qmm.qmm_route(k, n, group, k_pad, w8a8)}
+    with cuda_build.mma_sync_only():
+        extra["mma_sync_ms"] = cuda_time_ms(run)
+        if ref is not None:
+            old = run()
+            if isinstance(old, tuple):
+                old = torch.stack(old)
+            extra["mma_sync_err"] = (old.float() - ref.float()).abs().max().item()
     if w8a8:
-        with cuda_build.mma_sync_only():
-            extra["mma_sync_ms"] = cuda_time_ms(run)
         wb = wq.to(torch.bfloat16)
         extra["cublas_bf16_ms"] = cuda_time_ms(lambda: torch.matmul(x, wb))
     return extra
@@ -463,7 +487,8 @@ def check_qmm(torch, gen, records):
         for label, m, k, n, nb, act in stacked:
             wq, sc, bi = stack(nb, k, n)
             blk = nb - 2
-            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            x = torch.randn(m, k, generator=_case_gen(torch, gen, label),
+                            device="cuda").to(torch.bfloat16)
             kw = dict(bias3=bi, activation=act, w8a8=w8a8)
             run = lambda: qmm.quant_matmul_stacked(x, wq, sc, blk, **kw)
             group, k_pad = qmm.stacked_w8a8_group(k, n)
@@ -473,8 +498,8 @@ def check_qmm(torch, gen, records):
                                           w8a8, group, k_pad)
             out, ref = run(), plain()
             extra = _route_extra(torch, qmm, run, x, wq[blk], k, n, group,
-                                 k_pad, w8a8)
-            if extra["route"] == "wgmma":
+                                 k_pad, w8a8, ref)
+            if w8a8 and extra["route"] == "wgmma":
                 t, t0, share = transpose_share(torch, qmm, x, wq, sc, bi, blk,
                                                act, group, k_pad)
                 extra.update(gemm_ms=t, no_transpose_ms=t0,
@@ -500,7 +525,8 @@ def check_qmm(torch, gen, records):
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
                         m, k, n3, _route_extra(torch, qmm, run, x, wq[blk], k,
-                                               n3, group, k_pad, w8a8))
+                                               n3, group, k_pad, w8a8,
+                                               torch.stack(ref)))
         for label, m, k, n in flat:
             wq = torch.randint(-128, 128, (k, n), dtype=torch.int8,
                                device="cuda", generator=gen)
@@ -518,14 +544,21 @@ def check_qmm(torch, gen, records):
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq, w8a8)),
                         m, k, n, _route_extra(torch, qmm, run, x, wq, k, n,
-                                              group, k_pad, w8a8))
+                                              group, k_pad, w8a8, ref))
     stacks.clear()
+    print_slower(records, ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat"))
+
+
+def print_slower(records, kernels, prefix=""):
+    """Print the wgmma-routed cases of ``kernels`` (labels starting with
+    ``prefix``) at M >= 512 that are not faster than the mma.sync kernel at
+    the same call."""
     slower = [f"{r['kernel']} {r['case']}" for r in records
-              if r.get("route") == "wgmma" and r["kernel"] in (
-                  "qmm_stacked", "qmm_qkv_stacked") and r["m"] >= 512
+              if r.get("route") == "wgmma" and r["kernel"] in kernels
+              and r["case"].startswith(prefix) and r["m"] >= 512
               and not r["ms"] < r["mma_sync_ms"]]
-    print(f"  wgmma GEMM slower than mma.sync at M >= 512 (stacked, qkv): "
-          f"{slower or 'none'}", flush=True)
+    print(f"  wgmma GEMM slower than mma.sync at M >= 512 ({', '.join(kernels)}"
+          f"{' ' + prefix if prefix else ''}): {slower or 'none'}", flush=True)
 
 
 def qmm_t_cases():
@@ -541,15 +574,34 @@ def qmm_t_cases():
         ("sgl qkv", 2560, 3072, 3072, 38),
         ("sgl proj_out", 2560, 15360, 3072, 38),
         ("sgl proj_mlp", 2560, 3072, 12288, 38),
+        ("ragged M1000 proj_mlp", 1000, 3072, 12288, 38),
     ]
     flat = [("proj_out", 1024, 3072, 64),
             ("context_embedder", 512, 4096, 3072)]
     return stacked, flat
 
 
+def prescale_ms(torch, dy, scale):
+    """The transposed wgmma GEMM's pre-scale pass alone (``qmm_t_prescale``,
+    a timing probe of its share)."""
+    import ctypes
+    from loongx_tpu_torch.ops import cuda_build
+    fn = cuda_build.library("quant_matmul_t").qmm_t_prescale
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    a = torch.empty_like(dy)
+    m, n = dy.shape
+    return cuda_time_ms(lambda: cuda_build.check(
+        fn(dy.data_ptr(), scale.data_ptr(), a.data_ptr(), m, n,
+           torch.cuda.current_stream().cuda_stream), "qmm_t_prescale"))
+
+
 def check_qmm_t(torch, gen, records):
-    """Kernels 5 and 6 against their plain version; the yardstick is a
-    cuBLAS bf16 matmul of the pre-scaled dy with the pre-widened weight."""
+    """Kernels 5 and 6 against their plain version, on the route
+    `qmm_t_route` takes and on the mma.sync kernel at the same call; the
+    yardstick is a cuBLAS bf16 matmul of the pre-scaled dy with the
+    pre-widened weight."""
+    from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.ops import quant_matmul as qmm
 
     stacked, flat = qmm_t_cases()
@@ -575,7 +627,8 @@ def check_qmm_t(torch, gen, records):
                 blk = nb - 2
                 w2, s2 = wq[blk], sc[blk]
                 run = lambda: qmm.quant_matmul_t_stacked(dy, wq, sc, blk)
-            dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+            dy = torch.randn(m, n, generator=_case_gen(torch, gen, label),
+                             device="cuda").to(torch.bfloat16)
             plain = lambda: qmm.qmm_t_plain(dy, w2, s2)
             out, ref = run(), plain()
             a = (dy.float() * s2.reshape(-1)).to(torch.bfloat16)
@@ -586,16 +639,28 @@ def check_qmm_t(torch, gen, records):
             bms, by = bound_ms(m * n * 2 + k * n + n * 4 + m * k * 2,
                                2.0 * m * k * n, "bf16")
             ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=2)
+            route = qmm.qmm_t_route(k, n)
+            with cuda_build.mma_sync_only():
+                old_err = (run().float() - ref.float()).abs().max().item()
+                old_ms = cuda_time_ms(run)
+            extra = dict(route=route, mma_sync_ms=old_ms, mma_sync_err=old_err)
+            if route == "wgmma":
+                extra["prescale_ms"] = prescale_ms(torch, dy, s2.reshape(-1))
             records.append(dict(kernel=kernel, case=label, m=m, k=k, n=n,
                                 err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=bms, bound_by=by))
+                                library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                                **extra))
             print(f"  {kernel:15s} {label:20s} dy [{m}, {n}] -> dx [{m}, {k}] "
                   f"err {err:.3e} (tol {tol:.2e}) kernel {ms:.3f} ms plain "
-                  f"{plain_ms:.3f} cublas {lib_ms:.3f} bound {bms:.3f} ({by})",
+                  f"{plain_ms:.3f} cublas {lib_ms:.3f} bound {bms:.3f} ({by})"
+                  + "".join(f" {key} {v:.4f}" if isinstance(v, float) else
+                            f" {key} {v}" for key, v in extra.items()),
                   flush=True)
-            if not err <= tol:
-                raise Failure(f"{kernel} {label}: err {err} > {tol}")
+            if not (err <= tol and old_err <= tol):
+                raise Failure(f"{kernel} {label}: err {err}, mma.sync err "
+                              f"{old_err} (tol {tol})")
     stacks.clear()
+    print_slower(records, ("qmm_t_stacked", "qmm_t"))
 
 
 def flash_bwd_cases():
@@ -863,15 +928,21 @@ def check_flash_int8(torch, gen, records):
         torch.cuda.empty_cache()
 
 
+def t5_cases():
+    # (label, K, N, activation): the T5-XXL block linears at M 512 tokens,
+    # weight-only, a stack of 24 layers
+    return [("t5 q/k/v/o", 4096, 4096, None),
+            ("t5 wi_0 gelu", 4096, 10240, "gelu_tanh"),
+            ("t5 wi_1", 4096, 10240, None),
+            ("t5 wo", 10240, 4096, None)]
+
+
 def check_t5_gemms(torch, gen, records):
     """The stacked kernel at the three T5-XXL shapes (M 512 tokens,
     weight-only, 24 layers), held to one bf16 rounding like every GEMM."""
     from loongx_tpu_torch.ops import quant_matmul as qmm
 
-    for label, k, n, act in (("t5 q/k/v/o", 4096, 4096, None),
-                             ("t5 wi_0 gelu", 4096, 10240, "gelu_tanh"),
-                             ("t5 wi_1", 4096, 10240, None),
-                             ("t5 wo", 10240, 4096, None)):
+    for label, k, n, act in t5_cases():
         m, nb = 512, 24
         wq = torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
                            device="cuda", generator=gen)
@@ -880,10 +951,13 @@ def check_t5_gemms(torch, gen, records):
         blk = nb - 2
         run = lambda: qmm.quant_matmul_stacked(x, wq, sc, blk, activation=act)
         plain = lambda: qmm.qmm_plain(x, wq[blk], sc[blk], None, act)
-        _qmm_record(records, "qmm_stacked", label, False, run(), plain(),
+        ref = plain()
+        _qmm_record(records, "qmm_stacked", label, False, run(), ref,
                     cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                     cuda_time_ms(_library_call(torch, x, wq[blk], False)),
-                    m, k, n)
+                    m, k, n, _route_extra(torch, qmm, run, x, wq[blk], k, n,
+                                          k, k, False, ref))
+    print_slower(records, ("qmm_stacked",), "t5")
 
 
 def fused_cases():
@@ -1031,17 +1105,21 @@ def check_fused(torch, gen, records):
             bms = 1e3 * max(t_ops, t_bytes)
             by = "operations" if t_ops >= t_bytes else "bytes"
             mode = "w8a8" if w8a8 else "wonly"
+            route = qmm.qmm_route(k, n, group, k_pad, w8a8,
+                                  prologue=kernel.endswith("_ln"))
             records.append(dict(kernel=kernel, case=f"{label} {mode}", m=m,
                                 k=k, n=n, err=err, tol=tol, ms=ms,
                                 plain_ms=plain_ms, unfused_ms=unfused_ms,
-                                library_ms=None, bound_ms=bms, bound_by=by))
+                                library_ms=None, bound_ms=bms, bound_by=by,
+                                route=route))
             print(f"  {kernel:18s} {label:18s} {mode:5s} M{m} K{k} N{n} "
                   f"boundary {boundary} err {err:.3e} "
                   + (f"(over one rounding {excess:.3e}, tol {tol:.2e} = 1e-4 "
                      f"max|g z|) " if kernel == "qmm_stacked_gate" else
                      f"(tol {tol:.2e}) ")
-                  + f"kernel {ms:.3f} ms unfused route {unfused_ms:.3f} plain "
-                  f"{plain_ms:.3f} bound {bms:.3f} ({by})", flush=True)
+                  + f"kernel {ms:.3f} ms ({route}) unfused route "
+                  f"{unfused_ms:.3f} plain {plain_ms:.3f} bound {bms:.3f} "
+                  f"({by})", flush=True)
             if not ok:
                 raise Failure(f"{kernel} {label} {mode}: err {err}, tol {tol}")
             if w8a8 and kernel == "qmm_stacked_ln":
@@ -1255,11 +1333,16 @@ KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
            "qmm_qkv_stacked:wgmma", "qmm_flat", "qmm_flat:wgmma",
            "qmm_flat:mma_sync", "qmm_act_quant")
 TRAIN_KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
-                 "qmm_stacked", "qmm_flat", "qmm_t", "qmm_t_stacked",
-                 "flash_bwd_dkv", "flash_bwd_dkv:wgmma", "flash_bwd_dq",
-                 "flash_bwd_dq:wgmma")
+                 "qmm_stacked", "qmm_stacked:wgmma", "qmm_flat", "qmm_t",
+                 "qmm_t_stacked", "qmm_t_stacked:wgmma", "flash_bwd_dkv",
+                 "flash_bwd_dkv:wgmma", "flash_bwd_dq", "flash_bwd_dq:wgmma")
 FLASH_BWD_GROUPS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+# the training step's int8 GEMM groups: the weight-only forward (forward,
+# remat and gelu recompute) and the transposed backward, each by kernel
+WONLY_GROUPS = ("qmm_bf16_wgmma_kernel", "qmm_kernel")
+TRANSPOSED_GROUPS = ("qmm_t_wgmma_kernel", "qmm_t_prescale_kernel",
+                     "qmm_t_kernel")
 GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
 
 
@@ -1293,8 +1376,8 @@ def device_profile(torch, run):
         us = e.time_range.end - e.time_range.start
         group = next((g for g in ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
                                   "qmm_wgmma_kernel", "flash_fwd_kernel",
-                                  *FLASH_BWD_GROUPS, "qmm_t_kernel",
-                                  "qmm_kernel", "act_quant_kernel")
+                                  *FLASH_BWD_GROUPS, *WONLY_GROUPS,
+                                  *TRANSPOSED_GROUPS, "act_quant_kernel")
                       if g in e.name), None)
         if group is None:
             group = "other"
@@ -1415,7 +1498,14 @@ def full_forward(torch, pipe, gen):
         for depth, w8a8, bound, floor_share in comparisons:
             def run(depth=depth, w8a8=w8a8):
                 return flux_forward(params, depth, w8a8=w8a8, **kw)
+            cuda_build.LAUNCHES.clear()
             v_k = run()
+            run_split = gemm_split(cuda_build.LAUNCHES)
+            if not w8a8 and (run_split["qmm_stacked"][2]
+                             or run_split["qmm_qkv_stacked"][2]
+                             or not run_split["qmm_stacked"][1]):
+                raise Failure(f"weight-only forward: stacked / qkv launches "
+                              f"not all on wgmma: {run_split}")
             with plain_versions():
                 v_p = run()
             with plain_versions(attention_fp32_probs):
@@ -1432,7 +1522,8 @@ def full_forward(torch, pipe, gen):
             print(f"  forward {label}: rel L2 {rel:.3e} (bound {bound:.0e}; "
                   f"plain with float32 probabilities vs plain: {floor:.3e}), "
                   f"the blocks move the velocity by {blocks:.3f} (rel L2), "
-                  f"finite {finite}", flush=True)
+                  f"finite {finite}; GEMM launches (total, wgmma, mma.sync) "
+                  f"{run_split}", flush=True)
             if not finite or not rel <= bound:
                 raise Failure(f"forward {label}: rel L2 {rel} (bound {bound}),"
                               f" finite {finite}")
@@ -1632,6 +1723,10 @@ def lora_grads(torch, gen, kw):
     if not all(counts[n] for n in ("flash_bwd_dkv", "flash_bwd_dq",
                                    "qmm_t_stacked", "qmm_t")):
         raise Failure(f"a backward kernel was not launched: {counts}")
+    for n in ("qmm_stacked", "qmm_t_stacked"):
+        if counts[f"{n}:wgmma"] != counts[n]:
+            raise Failure(f"{n}: {counts[n]} launches, {counts[n + ':wgmma']} "
+                          f"on wgmma")
 
 
 STEPS = 28
@@ -1860,18 +1955,21 @@ def serve_text(torch, pipe):
           f"{time.perf_counter() - t0:.1f} s: {text_bytes / 1e9:.3f} GB",
           flush=True)
 
-    times, stacked = {}, []
+    times, stacked, on_wgmma = {}, [], []
 
     def timed(fn, key):
         def wrapper(*a, **k):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            before = cuda_build.LAUNCHES["qmm_stacked"]
+            before = (cuda_build.LAUNCHES["qmm_stacked"],
+                      cuda_build.LAUNCHES["qmm_stacked:wgmma"])
             out = fn(*a, **k)
             torch.cuda.synchronize()
             times[key] = times.get(key, 0.0) + time.perf_counter() - t
             if key == "text_encode_s":
-                stacked.append(cuda_build.LAUNCHES["qmm_stacked"] - before)
+                stacked.append(cuda_build.LAUNCHES["qmm_stacked"] - before[0])
+                on_wgmma.append(cuda_build.LAUNCHES["qmm_stacked:wgmma"]
+                                - before[1])
             return out
         return wrapper
 
@@ -1910,8 +2008,9 @@ def serve_text(torch, pipe):
             print(f"  generate seed {seed}: {dt:.2f} s ({1.0 / dt:.4f} edits/s),"
                   f" {times['denoise_s'] / STEPS * 1e3:.1f} ms/step x {STEPS}, "
                   f"stages " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
-                  + f"; stacked-kernel launches in the text encode "
-                  f"{stacked[-1]}; output {out.shape} [{out.min():.3f}, "
+                  + f"; T5-XXL {times['t5_s'] * 1e3:.1f} ms; stacked-kernel "
+                  f"launches in the text encode {stacked[-1]} ({on_wgmma[-1]} on "
+                  f"wgmma); output {out.shape} [{out.min():.3f}, "
                   f"{out.max():.3f}] ({outside:.2e} outside [-1, 1]) finite "
                   f"{finite}", flush=True)
             if not (finite and out.shape == (1, 512, 512, 3)
@@ -1923,9 +2022,9 @@ def serve_text(torch, pipe):
             setattr(mod, name, fn)
         del pipe.encode_text, pipe.encode_image_tokens
     expected = 7 * pipe.t5_cfg.num_layers
-    if stacked != [expected] * 2:
-        raise Failure(f"stacked-kernel launches per prompt {stacked}, not "
-                      f"{expected}")
+    if stacked != [expected] * 2 or on_wgmma != stacked:
+        raise Failure(f"stacked-kernel launches per prompt {stacked} ({on_wgmma} "
+                      f"on wgmma), not {expected}")
     torch.cuda.synchronize()
     mem1 = torch.cuda.memory_allocated()
     pipe.free_text_encoders()
@@ -2031,8 +2130,10 @@ def train(torch):
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise Failure(f"train step {i + 1}: loss {loss}, grad norm {norm}")
     launches = {n: cuda_build.LAUNCHES[n] for n in TRAIN_KERNELS}
-    for n in ("flash_bwd_dkv", "flash_bwd_dq"):
-        launches[f"{n}:mma_sync"] = cuda_build.LAUNCHES[f"{n}:mma_sync"]
+    for n in ("flash_bwd_dkv", "flash_bwd_dq", "qmm_stacked", "qmm_flat",
+              "qmm_t_stacked", "qmm_t"):
+        for route in ("wgmma", "mma_sync"):
+            launches[f"{n}:{route}"] = cuda_build.LAUNCHES[f"{n}:{route}"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = times[1:]
     print(f"  {sum(steady) / len(steady):.3f} s/step over steps 2-{TRAIN_STEPS} "
@@ -2060,8 +2161,10 @@ def train(torch):
     missing = [n for n in TRAIN_KERNELS if launches[n] == 0]
     if missing:
         raise Failure(f"kernels not launched while training: {missing}")
-    # head_dim 128: every backward launch on the wgmma route, none on mma.sync
-    for n in ("flash_bwd_dkv", "flash_bwd_dq"):
+    # head_dim 128: every flash backward launch on the wgmma route, none on
+    # mma.sync; every stacked weight-only GEMM (M 1 to 2560) and stacked
+    # transposed GEMM likewise (the flat ones with K or N 64 stay on mma.sync)
+    for n in ("flash_bwd_dkv", "flash_bwd_dq", "qmm_stacked", "qmm_t_stacked"):
         if launches[f"{n}:wgmma"] != launches[n] or launches[f"{n}:mma_sync"]:
             raise Failure(f"{n}: {launches[n]} launches, {launches[n + ':wgmma']} "
                           f"wgmma, {launches[n + ':mma_sync']} mma.sync")
@@ -2076,10 +2179,13 @@ def train(torch):
               "{by_group_ms}; largest other {top_other_ms}".format(**prof),
               flush=True)
         groups = prof["by_group_ms"]
-        print(f"  step flash backward group: "
-              f"{sum(groups.get(g, 0.0) for g in FLASH_BWD_GROUPS):.1f} ms ("
-              + ", ".join(f"{g} {groups[g]:.1f}" for g in FLASH_BWD_GROUPS
-                          if g in groups) + ")", flush=True)
+        for what, names in (("flash backward", FLASH_BWD_GROUPS),
+                            ("weight-only int8 GEMM", WONLY_GROUPS),
+                            ("transposed int8 GEMM", TRANSPOSED_GROUPS)):
+            print(f"  step {what} group: "
+                  f"{sum(groups.get(g, 0.0) for g in names):.1f} ms ("
+                  + ", ".join(f"{g} {groups[g]:.1f}" for g in names
+                              if g in groups) + ")", flush=True)
     train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
                    sums0, sum(steady) / len(steady))
     del state, trainable, frozen, pipe
@@ -2140,7 +2246,10 @@ def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
 
 def kernel_table(records, launches):
     """One entry per kernel: the worst error over its cases and the times
-    at its main shape; launches from the run of its path."""
+    at its main shape; launches from the run of its path.  The weight-only
+    GEMM on wgmma has an entry of its own beside its contracts' (its
+    cases: every weight-only case the route sends to it; its launches: the
+    training step's stacked ones)."""
     csrc = "loongx_tpu_torch/csrc/"
     fa_py = "loongx_tpu/ops/flash_attention.py"
     qmm_py = "loongx_tpu/ops/quant_matmul.py"
@@ -2161,6 +2270,10 @@ def kernel_table(records, launches):
         # the activation quantization inside the TPU kernels' W8A8 MAC
         "qmm_act_quant": ("quant_matmul.cu", f"{qmm_py}:39", "single mlp gelu",
                           "serve"),
+        # the weight-only MAC (_accum_tile :53-57) of _qmm_stacked_kernel
+        # (and of :1067 and :75), on bf16 wgmma
+        "qmm_wonly": ("quant_matmul.cu", f"{qmm_py}:422",
+                      "single mlp gelu wonly", "train"),
         "qmm_t": ("quant_matmul_t.cu", f"{qmm_py}:192", "proj_out", "train"),
         "qmm_t_stacked": ("quant_matmul_t.cu", f"{qmm_py}:711", "sgl proj_mlp",
                           "train"),
@@ -2194,25 +2307,34 @@ def kernel_table(records, launches):
     }
     table = []
     for name, (src, replaces, main_case, path) in meta.items():
-        cases = [r for r in records if r["kernel"] == name]
+        if name == "qmm_wonly":
+            counter = "qmm_stacked"
+            cases = [r for r in records if r["case"].endswith(" wonly")
+                     and r.get("route") == "wgmma" and r["kernel"] in (
+                         "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
+                         "qmm_stacked_gate")]
+        else:
+            counter = name
+            cases = [r for r in records if r["kernel"] == name]
         main = next(r for r in cases if r["case"] == main_case)
         table.append({
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": replaces, "launches": launches[path].get(name, 0),
+            "replaces": replaces, "launches": launches[path].get(counter, 0),
             "launches_path": path,
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main_case,
             **{key: main[key] for key in ("unfused_ms", "mma_sync_ms",
-                                          "cublas_bf16_ms", "transpose_share")
+                                          "cublas_bf16_ms", "transpose_share",
+                                          "prescale_ms")
                if key in main},
             **({"kernel": main["route"]} if "route" in main else {}),
             **({"launches_by_route": {
-                r: launches[path].get(f"{name}:{r}", 0)
+                r: launches[path].get(f"{counter}:{r}", 0)
                 for r in ("wgmma", "mma_sync")}}
-               if f"{name}:wgmma" in launches[path]
-               or f"{name}:mma_sync" in launches[path] else {}),
+               if f"{counter}:wgmma" in launches[path]
+               or f"{counter}:mma_sync" in launches[path] else {}),
         })
     return table
 

@@ -148,6 +148,16 @@ __device__ __forceinline__ void fence_operands(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+// A register-sourced A fragment stays live up to the wgmma_wait that retires its product (the
+// compiler sees only the instruction that starts the wgmma, so it could reuse the registers while
+// the wgmma still reads them).
+template <int N, int M>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
 #define HOPPER_D64(p)                                                                      \
   "+" p(d[0]), "+" p(d[1]), "+" p(d[2]), "+" p(d[3]), "+" p(d[4]), "+" p(d[5]),            \
@@ -192,6 +202,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64], uint64_
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64] (f32) (+)= A (64 x 16 bf16, K-major, smem) . B (16 x 128 bf16, MN-major in smem: the
+// transpose bit set).
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss_tb(float (&d)[64], uint64_t da,
+                                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64_LIST
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D64("f")
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64] (f32) (+)= A (64 x 16 bf16 in registers: mma.sync's m16n8k16 A fragment per warp)
+// . B (128 x 16 bf16, K-major, smem)^T.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : HOPPER_D64("f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d[64] (f32) (+)= A (64 x 16 bf16 in registers: mma.sync's m16n8k16 A fragment per warp)
 // . B (16 x 128 bf16, MN-major in smem: the transpose bit set).
 __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
@@ -232,6 +266,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t
 #undef HOPPER_D32_LIST
 #undef HOPPER_D64
 #undef HOPPER_D64_LIST
+
+// ---- int8 -> bf16 -------------------------------------------------------------------------
+
+// Bytes i and j of `wb` (an int8 word already xor 0x80808080, so each byte is v + 128) ->
+// bf16x2 (byte i low), exactly: the byte as the low mantissa byte of 2^23 is 2^23 + v + 128, so
+// one subtraction leaves the int8 value as an fp32 integer; its low 16 bits are zero, so its
+// high half is the exact bf16.  No conversion instruction.  sel_i = 0x7540 | i.
+__device__ __forceinline__ uint32_t widen_pair(uint32_t wb, uint32_t sel_i, uint32_t sel_j) {
+  const float lo = __fsub_rn(__uint_as_float(__byte_perm(wb, 0x4B000000u, sel_i)), 8388736.f);
+  const float hi = __fsub_rn(__uint_as_float(__byte_perm(wb, 0x4B000000u, sel_j)), 8388736.f);
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
 
 // ---- host -------------------------------------------------------------------------------
 

@@ -9,8 +9,8 @@
 //   * W8A8: the activations were quantized per (row, k-group) by qmm_act_quant
 //     (x_scale = absmax/127, q = clip(rint(x / x_scale), -127, 127)); mma.sync m16n8k32
 //     s8 x s8 -> s32 per group, then acc += float(i32) * x_scale in fp32 at each group end;
-//   * weight-only: int8 weights widened to bf16 (exact for -128..127) in shared memory,
-//     mma.sync m16n8k16 bf16 with fp32 accumulation.
+//   * weight-only: bf16 x, int8 weights widened exactly to bf16 (-128..127), bf16 products
+//     with fp32 accumulation (mma.sync m16n8k16, or wgmma with the weight widened in registers).
 // Epilogues (fp32, then one cast to bf16): z = acc * scale (+ bias); optionally gelu_tanh; or
 // the fused-qkv form, per-head RMS (eps 1e-6) times the norm weights on the q and k planes,
 // written into a [3, M, H] output.
@@ -35,14 +35,18 @@
 // What bounds it on this card: at the FLUX shapes (M 2048-2560, K 3072/12288, N 3072-18432)
 // each call does 2*M*K*N operations against K*N weight bytes: ~2000 int8 op/byte, far above
 // the ridge, so it is bound by tensor-core operations; the modulation matvecs (M = 2) are
-// bound by the weight bytes.  Two kernels take the forward:
+// bound by the weight bytes.  Three kernels take the forward (the Python wrapper's qmm_route
+// is the rule):
 //   * qmm_wgmma_kernel (below, "The W8A8 GEMM on wgmma"): every W8A8 shape whose K, N, padded
 //     K and activation group are whole 128-wide tiles, the FLUX stacked, fused-qkv and flat
-//     layers from M 1 to 2560 (the Python wrapper's qmm_route);
+//     layers from M 1 to 2560;
+//   * qmm_bf16_wgmma_kernel (below, "The weight-only GEMM on bf16 wgmma"): every weight-only
+//     shape without the prologue whose K is whole 128-deep stages and N at least 128, the FLUX
+//     training layers and the T5-XXL linears from M 1 to 2560;
 //   * qmm_kernel, kept simple: 128x128 output tiles, 8 warps of 64x32 on mma.sync, k tiles of
 //     64 bytes double-buffered in shared memory (x by cp.async, the weight through registers
 //     because mma needs it k-major: each thread transposes 4x4 int8 blocks with byte_perm);
-//     weight-only mode and the W8A8 layers with K or N of 64.
+//     the layers with K or N of 64 and the weight-only LN + adaLN prologue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +76,9 @@ struct QmmArgs {
   const float* gate;    // fp32 [8, N] (EPI_GATE, EPI_GELU_GATE)
   __nv_bfloat16* out;   // [M, N] or [3, M, H]
   int M, K, Kp, N, group, n_groups, head_dim, plane_h, boundary;
-  int transpose_b;  // wgmma kernel: 0 skips the B transpose (a timing probe; wrong results)
+  // wgmma kernels: 0 skips preparing the weight operand, the W8A8 kernel's B transpose or the
+  // weight-only kernel's widening (a timing probe of its share; wrong results)
+  int prep_b;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -116,6 +122,25 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   const float x3 = __fmul_rn(__fmul_rn(x, x), x);
   const float inner = __fmul_rn(0.7978845608028654f, __fmaf_rn(0.044715f, x3, x));
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
+}
+
+// The epilogue's value of one accumulator: z = acc * scale (+ bias), then gelu_tanh, each
+// operation rounded on its own; every GEMM of this file ends in it.
+template <bool GELU>
+__device__ __forceinline__ float epi_value(float acc, float scale, bool has_bias, float bias) {
+  float z = __fmul_rn(acc, scale);
+  if (has_bias) z = __fadd_rn(z, bias);
+  return GELU ? gelu_tanh(z) : z;
+}
+
+// The gate + residual store's value: float(resid) + g_seg * z on the fp32 z.
+__device__ __forceinline__ float gate_res(float resid, float g, float z) {
+  return __fadd_rn(resid, __fmul_rn(g, z));
+}
+
+// A head's 1 / rms from its sum of squares (eps 1e-6).
+__device__ __forceinline__ float head_rstd(float sum_sq, int head_dim) {
+  return 1.f / sqrtf(sum_sq / static_cast<float>(head_dim) + 1e-6f);
 }
 
 // x tile rows [m0, m0+128) x 64 k-bytes -> shared, zero past M (and past K, weight-only).
@@ -366,18 +391,8 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float z0 = __fmul_rn(facc[mt][nt][2 * h], s0);
-        float z1 = __fmul_rn(facc[mt][nt][2 * h + 1], s1);
-        if (p.bias) {
-          z0 = __fadd_rn(z0, b0);
-          z1 = __fadd_rn(z1, b1);
-        }
-        if (GELU) {
-          z0 = gelu_tanh(z0);
-          z1 = gelu_tanh(z1);
-        }
-        facc[mt][nt][2 * h] = z0;
-        facc[mt][nt][2 * h + 1] = z1;
+        facc[mt][nt][2 * h] = epi_value<GELU>(facc[mt][nt][2 * h], s0, p.bias, b0);
+        facc[mt][nt][2 * h + 1] = epi_value<GELU>(facc[mt][nt][2 * h + 1], s1, p.bias, b1);
       }
   }
 
@@ -398,8 +413,8 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
             // out = resid + g_seg * z on the fp32 z
             const __nv_bfloat162 r =
                 *reinterpret_cast<const __nv_bfloat162*>(p.resid + (long long)row * p.N + col);
-            z0 = __fadd_rn(__low2float(r), __fmul_rn(grow[col], z0));
-            z1 = __fadd_rn(__high2float(r), __fmul_rn(grow[col + 1], z1));
+            z0 = gate_res(__low2float(r), grow[col], z0);
+            z1 = gate_res(__high2float(r), grow[col + 1], z1);
           }
           *reinterpret_cast<uint32_t*>(p.out + (long long)row * p.N + col) = pack_bf16(z0, z1);
         }
@@ -433,7 +448,7 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
       if (row >= p.M) continue;
       float tot = 0.f;
       for (int w = w_first; w < w_first + warps_per_head; ++w) tot += red[r_local][w];
-      const float rstd = 1.f / sqrtf(tot / static_cast<float>(p.head_dim) + 1e-6f);
+      const float rstd = head_rstd(tot, p.head_dim);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = n0 + wn * 32 + nt * 8 + 2 * t;
@@ -608,12 +623,114 @@ __device__ __forceinline__ void transpose_stage(const uint8_t* raw, uint8_t* bt,
   }
 }
 
+// The epilogue of one consumer warpgroup's 64 x 128 fp32 tile `facc` (the wgmma C fragment:
+// mma.sync's C fragment repeated over the 16 n-tiles of 8 columns) at output tile (m0, n0),
+// qmm_kernel's operations in its order: z = acc * scale (+ bias), gelu by the exact gelu_tanh
+// (tanhf), then the gate + residual or the fused-qkv RMS; the bf16 tile is staged in shared
+// memory (`stage`, OUT_TILE bytes) and written as whole rows.  Both wgmma GEMMs end in it.
+template <int EPI>
+__device__ __forceinline__ void epilogue_store(float (&facc)[64], const QmmArgs& p, int m0, int n0,
+                                               uint8_t* stage) {
+  constexpr bool GELU = EPI == EPI_GELU || EPI == EPI_GELU_GATE;
+  constexpr bool GATE = EPI == EPI_GATE || EPI == EPI_GELU_GATE;
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const int row0 = m0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int col = n0 + nt * 8 + 2 * t;
+    if (col >= p.N) continue;
+    const float s0 = p.scale[col], s1 = p.scale[col + 1];
+    const float b0 = p.bias ? p.bias[col] : 0.f, b1 = p.bias ? p.bias[col + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      facc[4 * nt + 2 * h] = epi_value<GELU>(facc[4 * nt + 2 * h], s0, p.bias, b0);
+      facc[4 * nt + 2 * h + 1] = epi_value<GELU>(facc[4 * nt + 2 * h + 1], s1, p.bias, b1);
+    }
+  }
+  int plane = 0;
+  if (EPI != EPI_QKV) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row1 : row0;
+      if (!GATE || row >= p.M) continue;
+      const float* grow = p.gate + (row >= p.boundary ? p.N : 0);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int col = n0 + nt * 8 + 2 * t;
+        if (col >= p.N) continue;
+        // out = resid + g_seg * z on the fp32 z
+        const __nv_bfloat162 r =
+            *reinterpret_cast<const __nv_bfloat162*>(p.resid + (long long)row * p.N + col);
+        float& z0 = facc[4 * nt + 2 * h];
+        float& z1 = facc[4 * nt + 2 * h + 1];
+        z0 = gate_res(__low2float(r), grow[col], z0);
+        z1 = gate_res(__high2float(r), grow[col + 1], z1);
+      }
+    }
+  } else {
+    // fused qkv: this warp holds whole rows of the tile, so each head's sum of squares is a
+    // sum over its n-tiles and the quad (H is a multiple of BN: one plane per block)
+    plane = n0 / p.plane_h;
+    const int tiles_per_head = p.head_dim / 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float rstd[4];
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) {
+        float ss = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const float a = facc[4 * nt + 2 * h], b = facc[4 * nt + 2 * h + 1];
+          if (nt / tiles_per_head == hh) ss += a * a + b * b;
+        }
+        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+        rstd[hh] = head_rstd(ss, p.head_dim);
+      }
+      if (plane >= 2) continue;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int hh = nt / tiles_per_head;
+        const float r = hh == 0 ? rstd[0] : hh == 1 ? rstd[1] : hh == 2 ? rstd[2] : rstd[3];
+        const int hc = n0 + nt * 8 + 2 * t - plane * p.plane_h;
+        facc[4 * nt + 2 * h] =
+            __fmul_rn(__fmul_rn(facc[4 * nt + 2 * h], r), p.norm_w[plane * p.plane_h + hc]);
+        facc[4 * nt + 2 * h + 1] = __fmul_rn(__fmul_rn(facc[4 * nt + 2 * h + 1], r),
+                                             p.norm_w[plane * p.plane_h + hc + 1]);
+      }
+    }
+  }
+  // Stage the warpgroup's 64 x 128 bf16 results in shared memory (16-byte chunk c of row r
+  // at c ^ (r % 8): conflict-free both ways), then write whole 256-byte rows.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+      *reinterpret_cast<uint32_t*>(stage + r * 256 + ((nt ^ (r % 8)) * 16) + 4 * t) =
+          pack_bf16(facc[4 * nt + 2 * h], facc[4 * nt + 2 * h + 1]);
+  }
+  hopper::named_barrier_sync(1 + wgi, 128);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int idx = tid + 128 * i, r = idx / 16, c = idx % 16;
+    const int row = m0 + wgi * 64 + r, col = n0 + 8 * c;
+    if (row >= p.M || col >= p.N) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(stage + r * 256 + ((c ^ (r % 8)) * 16));
+    __nv_bfloat16* dst = EPI == EPI_QKV
+                             ? p.out + ((long long)plane * p.M + row) * p.plane_h +
+                                   (col - plane * p.plane_h)
+                             : p.out + (long long)row * p.N + col;
+    *reinterpret_cast<uint4*>(dst) = v;
+  }
+  hopper::named_barrier_sync(1 + wgi, 128);  // the stage is free for the next tile
+}
+
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b, const QmmArgs p) {
-  constexpr bool GELU = EPI == EPI_GELU || EPI == EPI_GELU_GATE;
-  constexpr bool GATE = EPI == EPI_GATE || EPI == EPI_GELU_GATE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sa = base;
@@ -666,7 +783,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int j = 0; j < nk; ++j, ++it) {
         const int s = it % STAGES;
         hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-        if (p.transpose_b) transpose_stage(sraw + s * TILE, sbt + s * TILE, t);
+        if (p.prep_b) transpose_stage(sraw + s * TILE, sbt + s * TILE, t);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(&ready[s]);
       }
@@ -674,7 +791,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     hopper::setmaxnreg_inc<208>();
     const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+    const int g = lane / 4;
     const int per_group = p.group / BK;
     uint8_t* stage = sout + wgi * OUT_TILE;
     int it = 0;
@@ -722,106 +839,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                                  (i % 4) < 2 ? xs0 : xs1));
       }
 
-      // epilogue: z = acc * scale (+ bias) in fp32, then gelu / gate / the qkv RMS
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const int col = n0 + nt * 8 + 2 * t;
-        if (col >= p.N) continue;
-        const float s0 = p.scale[col], s1 = p.scale[col + 1];
-        const float b0 = p.bias ? p.bias[col] : 0.f, b1 = p.bias ? p.bias[col + 1] : 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float z0 = __fmul_rn(facc[4 * nt + 2 * h], s0);
-          float z1 = __fmul_rn(facc[4 * nt + 2 * h + 1], s1);
-          if (p.bias) {
-            z0 = __fadd_rn(z0, b0);
-            z1 = __fadd_rn(z1, b1);
-          }
-          if (GELU) {
-            z0 = gelu_tanh(z0);
-            z1 = gelu_tanh(z1);
-          }
-          facc[4 * nt + 2 * h] = z0;
-          facc[4 * nt + 2 * h + 1] = z1;
-        }
-      }
-      int plane = 0;
-      if (EPI != EPI_QKV) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = h ? row1 : row0;
-          if (!GATE || row >= p.M) continue;
-          const float* grow = p.gate + (row >= p.boundary ? p.N : 0);
-#pragma unroll
-          for (int nt = 0; nt < 16; ++nt) {
-            const int col = n0 + nt * 8 + 2 * t;
-            if (col >= p.N) continue;
-            // out = resid + g_seg * z on the fp32 z
-            const __nv_bfloat162 r =
-                *reinterpret_cast<const __nv_bfloat162*>(p.resid + (long long)row * p.N + col);
-            float& z0 = facc[4 * nt + 2 * h];
-            float& z1 = facc[4 * nt + 2 * h + 1];
-            z0 = __fadd_rn(__low2float(r), __fmul_rn(grow[col], z0));
-            z1 = __fadd_rn(__high2float(r), __fmul_rn(grow[col + 1], z1));
-          }
-        }
-      } else {
-        // fused qkv: this warp holds whole rows of the tile, so each head's sum of squares is a
-        // sum over its n-tiles and the quad (H is a multiple of BN: one plane per block)
-        plane = n0 / p.plane_h;
-        const int tiles_per_head = p.head_dim / 8;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float rstd[4];
-#pragma unroll
-          for (int hh = 0; hh < 4; ++hh) {
-            float ss = 0.f;
-#pragma unroll
-            for (int nt = 0; nt < 16; ++nt) {
-              const float a = facc[4 * nt + 2 * h], b = facc[4 * nt + 2 * h + 1];
-              if (nt / tiles_per_head == hh) ss += a * a + b * b;
-            }
-            ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-            ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-            rstd[hh] = 1.f / sqrtf(ss / static_cast<float>(p.head_dim) + 1e-6f);
-          }
-          if (plane >= 2) continue;
-#pragma unroll
-          for (int nt = 0; nt < 16; ++nt) {
-            const int hh = nt / tiles_per_head;
-            const float r = hh == 0 ? rstd[0] : hh == 1 ? rstd[1] : hh == 2 ? rstd[2] : rstd[3];
-            const int hc = n0 + nt * 8 + 2 * t - plane * p.plane_h;
-            facc[4 * nt + 2 * h] =
-                __fmul_rn(__fmul_rn(facc[4 * nt + 2 * h], r), p.norm_w[plane * p.plane_h + hc]);
-            facc[4 * nt + 2 * h + 1] = __fmul_rn(__fmul_rn(facc[4 * nt + 2 * h + 1], r),
-                                                 p.norm_w[plane * p.plane_h + hc + 1]);
-          }
-        }
-      }
-      // Stage the warpgroup's 64 x 128 bf16 results in shared memory (16-byte chunk c of row r
-      // at c ^ (r % 8): conflict-free both ways), then write whole 256-byte rows.
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + g + 8 * h;
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt)
-          *reinterpret_cast<uint32_t*>(stage + r * 256 + ((nt ^ (r % 8)) * 16) + 4 * t) =
-              pack_bf16(facc[4 * nt + 2 * h], facc[4 * nt + 2 * h + 1]);
-      }
-      hopper::named_barrier_sync(1 + wgi, 128);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int idx = tid + 128 * i, r = idx / 16, c = idx % 16;
-        const int row = m0 + wgi * 64 + r, col = n0 + 8 * c;
-        if (row >= p.M || col >= p.N) continue;
-        const uint4 v = *reinterpret_cast<const uint4*>(stage + r * 256 + ((c ^ (r % 8)) * 16));
-        __nv_bfloat16* dst = EPI == EPI_QKV
-                                 ? p.out + ((long long)plane * p.M + row) * p.plane_h +
-                                       (col - plane * p.plane_h)
-                                 : p.out + (long long)row * p.N + col;
-        *reinterpret_cast<uint4*>(dst) = v;
-      }
-      hopper::named_barrier_sync(1 + wgi, 128);  // the stage is free for the next tile
+      epilogue_store<EPI>(facc, p, m0, n0, stage);
     }
   }
 }
@@ -875,6 +893,311 @@ cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
     default: return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------------------
+// The weight-only GEMM on bf16 wgmma (kernels 2, 3 and 4 in weight-only mode at every shape the
+// tiles take; `qmm_route` names the rule).  The TPU kernels' weight-only MAC (_accum_tile
+// :53-57): x rounded to bf16, each int8 weight widened exactly to bf16, fp32 sums, then
+// qmm_kernel's epilogues.  The mixed-input arrangement: y^T = W^T . x^T, so the int8 weight is
+// the register-sourced A operand of wgmma m64n128k16 bf16 (rs) and is widened in registers, x
+// the K-major B operand in shared memory as TMA lands it.  One producer thread keeps a ring of
+// STAGES in flight by TMA: x (128 m rows x 128 k, two 64-wide k panels) and the raw weight tile
+// as it is stored ([K, N], 128 k rows x 128 n bytes).  Two consumer warpgroups own 64 weight
+// columns each; a warp takes the A fragments of four k-steps with two ldmatrix .trans (a b16
+// element is a pair of adjacent weight columns, so a thread receives columns n, n + 1 of rows
+// k, k + 1: slot g of warp w is column 16w + 2g, slot g + 8 the column after it) and widens them
+// without a conversion instruction (hopper::widen_pair) while the other half-stage's products
+// run.  The y^T tile goes through the epilogue (epilogue_store_t: qmm_kernel's operations in
+// its order on the transposed fragment), is staged in shared memory and written as rows of y.
+// Persistent blocks walk the output tiles with M fastest, as the W8A8 kernel does.
+// What bounds it: each 128-deep stage is 1024 cycles of bf16 tensor work an SM at the data
+// sheet's rate against 128 KB through shared memory (TMA 48, the two warpgroups' wgmma reads of
+// x 64, their ldmatrix reads of the weight 16): near the SM's 128 bytes a cycle, so shared
+// memory and the tensor cores bind together; the widening, about 2.5 integer and fp32
+// instructions a weight, runs between the products of each warpgroup.  (A widening warpgroup
+// that wrote a bf16 B tile for ss wgmma moved 1.5x the shared-memory bytes a FLOP and measured
+// slower at every FLUX and T5 shape; PERF.md.)
+namespace wo {
+
+constexpr int BK = 128;                 // k elements per stage
+constexpr int X_PANEL = BM * 128;       // 128 m rows x 64 k bf16: one TMA box
+constexpr int X_TILE = 2 * X_PANEL;
+constexpr int W_TILE = BK * BN;         // the int8 weight: 128 k rows x 128 n bytes
+constexpr int STAGES_WO = 3;
+constexpr int OUT_WO = BM * 64 * 2;     // one warpgroup's [128 m][64 n] bf16 tile
+// warpgroups: two consumers and the producer; entry registers 65536 / 384 = 168, then 240 for
+// the consumers and 24 for the producer (2 x 72 = 144)
+constexpr int CONSUMERS_WO = 256, THREADS_WO = CONSUMERS_WO + 128, ENTRY_REGS_WO = 168;
+constexpr int SMEM_WO = STAGES_WO * (X_TILE + W_TILE) + 2 * OUT_WO + BM * 8 * 4 +
+                        2 * STAGES_WO * 8 + 1024;
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_u32(p)));
+}
+
+// The A fragments of k-steps s0 .. s0 + 3 of a stage for the warp's 16-byte column chunk of the
+// raw tile (row k at k * 128, chunk c at c ^ (k % 8)): matrix q of each x4 is rows
+// 16 (s + q / 2) + 8 (q % 2) + 0..7, and a thread receives bytes (k 2t: n, n + 1), (k 2t + 1:
+// n, n + 1) with n = 2g, so slot g takes bytes 0 and 2, slot g + 8 bytes 1 and 3.  widen = 0
+// passes the raw words on unwidened (the timing probe of QmmArgs::prep_b).
+__device__ __forceinline__ void load_fragments(uint32_t (&f)[4][4], const uint8_t* wt, int chunk,
+                                               int s0, int lane, int widen) {
+  const int q = lane / 8, r = lane % 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = 16 * (s0 + 2 * h + q / 2) + 8 * (q % 2) + r;
+    uint32_t m[4];
+    ldsm_x4_trans(m, wt + k * 128 + ((chunk ^ (k % 8)) * 16));
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss) {
+      if (!widen) {
+        f[2 * h + ss][0] = f[2 * h + ss][1] = m[2 * ss];
+        f[2 * h + ss][2] = f[2 * h + ss][3] = m[2 * ss + 1];
+        continue;
+      }
+      const uint32_t ab = m[2 * ss] ^ 0x80808080u, cd = m[2 * ss + 1] ^ 0x80808080u;
+      f[2 * h + ss][0] = hopper::widen_pair(ab, 0x7540, 0x7542);
+      f[2 * h + ss][1] = hopper::widen_pair(ab, 0x7541, 0x7543);
+      f[2 * h + ss][2] = hopper::widen_pair(cd, 0x7540, 0x7542);
+      f[2 * h + ss][3] = hopper::widen_pair(cd, 0x7541, 0x7543);
+    }
+  }
+}
+
+// The epilogue of one consumer warpgroup's y^T tile: acc[4i + e] is y[m0 + 8i + 2t + e][col],
+// acc[4i + 2 + e] the next column, col = n0 + 64 wgi + 16 warp + 2g.  qmm_kernel's operations
+// in its order: z = acc * scale (+ bias), gelu by the exact gelu_tanh, then the gate + residual
+// or the fused-qkv RMS (a head's sum of squares over its warps through `red`, [128][8] floats
+// shared by both warpgroups: the 128-column tile lies in one plane); the bf16 tile is staged in
+// shared memory (`stage`, [128 m][64 n]) and written as 128-byte row pieces.
+template <int EPI>
+__device__ __forceinline__ void epilogue_store_t(float (&acc)[64], const QmmArgs& p, int m0,
+                                                 int n0, uint8_t* stage, float* red) {
+  constexpr bool GELU = EPI == EPI_GELU || EPI == EPI_GELU_GATE;
+  constexpr bool GATE = EPI == EPI_GATE || EPI == EPI_GELU_GATE;
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const int nloc = warp * 16 + 2 * g, col = n0 + wgi * 64 + nloc;
+  const bool col_ok = col < p.N;
+  const float s0 = col_ok ? p.scale[col] : 0.f, s1 = col_ok ? p.scale[col + 1] : 0.f;
+  const float b0 = col_ok && p.bias ? p.bias[col] : 0.f;
+  const float b1 = col_ok && p.bias ? p.bias[col + 1] : 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      acc[4 * i + e] = epi_value<GELU>(acc[4 * i + e], s0, p.bias, b0);
+      acc[4 * i + 2 + e] = epi_value<GELU>(acc[4 * i + 2 + e], s1, p.bias, b1);
+    }
+  if (GATE && col_ok) {
+    // out = resid + g_seg * z on the fp32 z
+    const float gm0 = p.gate[col], gm1 = p.gate[col + 1];
+    const float gc0 = p.gate[p.N + col], gc1 = p.gate[p.N + col + 1];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m0 + 8 * i + 2 * t + e;
+        if (row >= p.M) continue;
+        const bool cond = row >= p.boundary;
+        const __nv_bfloat162 r =
+            *reinterpret_cast<const __nv_bfloat162*>(p.resid + (long long)row * p.N + col);
+        acc[4 * i + e] = gate_res(__low2float(r), cond ? gc0 : gm0, acc[4 * i + e]);
+        acc[4 * i + 2 + e] = gate_res(__high2float(r), cond ? gc1 : gm1, acc[4 * i + 2 + e]);
+      }
+  }
+  int plane = 0;
+  if (EPI == EPI_QKV) {
+    // per row: each warp's sum of squares over its 16 columns, then over the head's warps
+    plane = n0 / p.plane_h;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float ss = acc[4 * i + e] * acc[4 * i + e] + acc[4 * i + 2 + e] * acc[4 * i + 2 + e];
+        ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 8);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 16);
+        if (g == 0) red[(8 * i + 2 * t + e) * 8 + wgi * 4 + warp] = ss;
+      }
+    hopper::named_barrier_sync(3, CONSUMERS_WO);
+    const int per_head = p.head_dim / 16, first = ((wgi * 4 + warp) / per_head) * per_head;
+    const int hc = col - plane * p.plane_h;
+    const float w0 = plane < 2 && col_ok ? p.norm_w[plane * p.plane_h + hc] : 1.f;
+    const float w1 = plane < 2 && col_ok ? p.norm_w[plane * p.plane_h + hc + 1] : 1.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float* rr = red + (8 * i + 2 * t + e) * 8;
+        float tot = 0.f;
+        for (int w = first; w < first + per_head; ++w) tot += rr[w];
+        const float rstd = head_rstd(tot, p.head_dim);
+        if (plane < 2) {
+          acc[4 * i + e] = __fmul_rn(__fmul_rn(acc[4 * i + e], rstd), w0);
+          acc[4 * i + 2 + e] = __fmul_rn(__fmul_rn(acc[4 * i + 2 + e], rstd), w1);
+        }
+      }
+    hopper::named_barrier_sync(3, CONSUMERS_WO);  // red is free for the next tile
+  }
+  // Stage the 128 x 64 tile (16-byte chunk c of row r at c ^ (r % 8): conflict-free both ways)
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * i + 2 * t + e;
+      *reinterpret_cast<uint32_t*>(stage + r * 128 + (((nloc / 8) ^ (r % 8)) * 16) +
+                                   2 * (nloc % 8)) = pack_bf16(acc[4 * i + e], acc[4 * i + 2 + e]);
+    }
+  hopper::named_barrier_sync(1 + wgi, 128);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int idx = tid + 128 * i, r = idx / 8, c = idx % 8;
+    const int row = m0 + r, cc = n0 + wgi * 64 + 8 * c;
+    if (row >= p.M || cc >= p.N) continue;
+    __nv_bfloat16* dst = EPI == EPI_QKV ? p.out + ((long long)plane * p.M + row) * p.plane_h +
+                                              (cc - plane * p.plane_h)
+                                        : p.out + (long long)row * p.N + cc;
+    *reinterpret_cast<uint4*>(dst) =
+        *reinterpret_cast<const uint4*>(stage + r * 128 + ((c ^ (r % 8)) * 16));
+  }
+  hopper::named_barrier_sync(1 + wgi, 128);  // the stage is free for the next tile
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(THREADS_WO, 1)
+qmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w, const QmmArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sx = base;
+  uint8_t* sw = base + STAGES_WO * X_TILE;
+  uint8_t* sout = base + STAGES_WO * (X_TILE + W_TILE);
+  float* red = reinterpret_cast<float*>(sout + 2 * OUT_WO);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + BM * 8);
+  uint64_t* empty = full + STAGES_WO;
+
+  const int mtiles = (p.M + BM - 1) / BM;
+  const int tiles = mtiles * ((p.N + BN - 1) / BN);
+  const int nk = p.K / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_WO; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS_WO / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS_WO) {
+    // producer warpgroup: one thread starts the TMA loads
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS_WO) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % mtiles) * BM, n0 = (tile / mtiles) * BN;
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int s = it % STAGES_WO;
+          hopper::mbar_wait(&empty[s], ((it / STAGES_WO) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], X_TILE + W_TILE);
+          hopper::tma_load_2d(sx + s * X_TILE, &map_x, &full[s], j * BK, m0);
+          hopper::tma_load_2d(sx + s * X_TILE + X_PANEL, &map_x, &full[s], j * BK + 64, m0);
+          hopper::tma_load_2d(sw + s * W_TILE, &map_w, &full[s], n0, j * BK);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int chunk = wgi * 4 + warp;  // the warp's 16 weight columns in the raw tile's rows
+  uint8_t* stage = sout + wgi * OUT_WO;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % mtiles) * BM, n0 = (tile / mtiles) * BN;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    uint32_t fa[4][4], fb[4][4];
+    int pending = -1;  // the stage whose second half's products may still read it
+    for (int j = 0; j < nk; ++j, ++it) {
+      const int s = it % STAGES_WO;
+      hopper::mbar_wait(&full[s], (it / STAGES_WO) & 1);
+      const uint8_t* xt = sx + s * X_TILE;
+      const uint8_t* wt = sw + s * W_TILE;
+      load_fragments(fa, wt, chunk, 0, lane, p.prep_b);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128k16_bf16_rs(acc, fa[kk], hopper::desc_sw128(xt + kk * 32, 16, 1024),
+                                         j > 0 || kk > 0);
+      hopper::wgmma_commit();
+      // the previous stage's second half is done: fb is free and that stage too
+      hopper::wgmma_wait<1>();
+      hopper::fence_operands(fb);
+      if (pending >= 0 && lane == 0) hopper::mbar_arrive(&empty[pending]);
+      load_fragments(fb, wt, chunk, 4, lane, p.prep_b);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128k16_bf16_rs(
+            acc, fb[kk], hopper::desc_sw128(xt + X_PANEL + kk * 32, 16, 1024), 1);
+      hopper::wgmma_commit();
+      // this stage's first half is done: fa is free
+      hopper::wgmma_wait<1>();
+      hopper::fence_operands(fa);
+      pending = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(fb);
+    hopper::fence_operands(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[pending]);
+    epilogue_store_t<EPI>(acc, p, m0, n0, stage, red);
+  }
+}
+
+template <int EPI>
+cudaError_t launch_one(const CUtensorMap& mx, const CUtensorMap& mw, const QmmArgs& p,
+                       cudaStream_t st) {
+  static const bool regs_ok = hopper::entry_regs_are(qmm_bf16_wgmma_kernel<EPI>, ENTRY_REGS_WO);
+  if (!regs_ok || num_sms() == 0) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(qmm_bf16_wgmma_kernel<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_WO);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  const int blocks = tiles < num_sms() ? tiles : num_sms();
+  qmm_bf16_wgmma_kernel<EPI><<<blocks, THREADS_WO, SMEM_WO, st>>>(mx, mw, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
+  if (p.M < 1 || p.K % BK || p.K < BK || p.N < BN || p.N % 16) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(p.K), static_cast<uint64_t>(p.M)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(p.K) * 2};
+  const uint32_t x_box[2] = {64, BM};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(p.N), static_cast<uint64_t>(p.K)};
+  const uint64_t w_strides[1] = {static_cast<uint64_t>(p.N)};
+  const uint32_t w_box[2] = {BN, BK};
+  if (!hopper::make_tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.a, x_dims, x_strides,
+                               x_box) ||
+      !hopper::make_tensor_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w, w_dims, w_strides,
+                               w_box))
+    return cudaErrorInvalidValue;
+  switch (epilogue) {
+    case EPI_BIAS: return launch_one<EPI_BIAS>(mx, mw, p, st);
+    case EPI_GELU: return launch_one<EPI_GELU>(mx, mw, p, st);
+    case EPI_QKV: return launch_one<EPI_QKV>(mx, mw, p, st);
+    case EPI_GATE: return launch_one<EPI_GATE>(mx, mw, p, st);
+    case EPI_GELU_GATE: return launch_one<EPI_GELU_GATE>(mx, mw, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wo
 
 }  // namespace wg
 
@@ -953,7 +1276,7 @@ QmmArgs make_args(const void* a, const float* xs, const void* w, const float* sc
   p.head_dim = head_dim;
   p.plane_h = plane_h;
   p.boundary = boundary;
-  p.transpose_b = 1;
+  p.prep_b = 1;
   return p;
 }
 
@@ -999,6 +1322,22 @@ extern "C" int qmm_gemm_wgmma(int epilogue, const void* a, const float* xs, cons
   if (!gated_ok(epilogue, resid, gate)) return static_cast<int>(cudaErrorInvalidValue);
   QmmArgs p = make_args(a, xs, w, scale, bias, norm_w, nullptr, nullptr, resid, gate, out, M, K,
                         Kp, N, group, n_groups, head_dim, plane_h, boundary);
-  p.transpose_b = transpose_b;
+  p.prep_b = transpose_b;
   return static_cast<int>(wg::launch(epilogue, p, static_cast<cudaStream_t>(stream)));
+}
+
+// The weight-only GEMM on bf16 wgmma: the arguments of qmm_gemm in weight-only mode without the
+// prologue (x bf16 [M, K], 16-byte aligned base; w int8 [K, N]).  Takes K a multiple of 128 and
+// N >= 128 (a multiple of 16); anything else returns cudaErrorInvalidValue.  widen = 0 leaves
+// the weight fragments unwidened (wrong results): it measures what the widening costs.
+extern "C" int qmm_gemm_bf16_wgmma(int epilogue, const void* x, const void* w, const float* scale,
+                                   const float* bias, const float* norm_w, const void* resid,
+                                   const float* gate, void* out, int M, int K, int N,
+                                   int head_dim, int plane_h, int boundary, int widen,
+                                   void* stream) {
+  if (!gated_ok(epilogue, resid, gate)) return static_cast<int>(cudaErrorInvalidValue);
+  QmmArgs p = make_args(x, nullptr, w, scale, bias, norm_w, nullptr, nullptr, resid, gate, out, M,
+                        K, K, N, 0, 0, head_dim, plane_h, boundary);
+  p.prep_b = widen;
+  return static_cast<int>(wg::wo::launch(epilogue, p, static_cast<cudaStream_t>(stream)));
 }

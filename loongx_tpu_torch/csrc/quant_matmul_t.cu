@@ -13,17 +13,21 @@
 // it does 2*M*N*K operations against K*N int8 weight bytes plus the bf16 dy and dx, about
 // 1000 bf16 op/byte at M 2048, far above the ridge (~295): tensor-core operations bound
 // it.  The one exception is the final proj_out (N 64), which is bound by its bytes.
-// Design, kept simple: 128x128 output tiles (dy rows x weight rows), 8 warps of 64x32,
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate).  The contraction runs over N in steps of
-// 32, double-buffered in shared memory through registers: the dy tile is scaled and
-// rounded to bf16 on its way in, the weight tile widened to bf16.  The stored [K, N]
-// weight is already contiguous along the contraction, which is the layout the mma B
-// operand ("col") wants, so unlike the forward no transpose is needed: each weight row
-// of 32 bytes becomes one shared row of 32 bf16.  No wgmma/TMA pipeline yet.
+// Two kernels share the contract (the Python wrapper's qmm_t_route is the rule):
+//   * qmm_t_wgmma_kernel (below, "The transposed GEMM on wgmma"): K and N whole 128 tiles;
+//   * qmm_t_kernel, kept simple: 128x128 output tiles (dy rows x weight rows), 8 warps of
+//     64x32, mma.sync m16n8k16 (bf16 in, fp32 accumulate).  The contraction runs over N in
+//     steps of 32, double-buffered in shared memory through registers: the dy tile is scaled
+//     and rounded to bf16 on its way in, the weight tile widened to bf16.  The stored [K, N]
+//     weight is already contiguous along the contraction, which is the layout the mma B
+//     operand ("col") wants, so unlike the forward no transpose is needed: each weight row
+//     of 32 bytes becomes one shared row of 32 bf16.  The proj_out backward (N 64) runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -185,6 +189,222 @@ qmm_t_kernel(const __nv_bfloat16* __restrict__ dy, const int8_t* __restrict__ w,
     }
 }
 
+// ---------------------------------------------------------------------------------------
+// The transposed GEMM on wgmma.  dx^T = W . a^T with a = bf16(dy * scale): the stored weight
+// rows are contiguous along the contraction, so the weight is the register-sourced A operand
+// of wgmma m64n128k16 bf16 (rs), read from its TMA-landed raw int8 tile and widened in
+// registers (hopper::widen_pair, no conversion instruction), and `a` the K-major B operand in
+// shared memory.  `a` comes from qmm_t_prescale_kernel, one pass over dy (2 M N bytes in and
+// out): each dy * scale rounded to bf16 (__fmul_rn, then round to nearest even: the order of
+// qmm_t_kernel and the TPU kernels), with the contraction permuted inside each 64-wide group
+// so that a thread's A fragment of a whole stage is one 16-byte load of each of its two weight
+// rows: the logical k = 2u + e of step s of a group is n = 16u + 4s + e and k = 8 + 2u + e is
+// n = 16u + 4s + 2 + e (u < 4, e < 2), i.e. word s of the 16 bytes at 16u.  The fragment's rows
+// are permuted too: slot g of warp w holds weight row 16w + 2 sigma(g) and slot g + 8 the row
+// after it, so each dx element pair is one 32-bit store (sigma spreads a quarter-warp's loads
+// over distinct banks).  One producer thread keeps a ring of STAGES in flight by TMA (a: 128 m
+// rows x 128 n, two 64-wide panels; the raw weight: 128 rows x 128 n bytes); two consumer
+// warpgroups own 64 weight rows each and widen each 64-n half-stage while the other half's
+// products run.  dx^T tiles are staged in shared memory and written as whole rows of dx.
+// Persistent blocks walk the tiles with M fastest.
+// What bounds it: each 128-deep stage is 1024 cycles of bf16 tensor work an SM against 128 KB
+// through shared memory (TMA 48, the weight fragments 16, the wgmma reads of a 64): near the
+// SM's 128 bytes a cycle, so tensor cores and shared memory bind together; the pre-pass moves
+// 4 M N bytes of device memory.
+namespace wg {
+
+constexpr int BM = 128;                 // dy rows (the wgmma's N) per tile
+constexpr int BK = 128;                 // weight rows (dx columns) per tile: 2 x 64
+constexpr int BN = 128;                 // contraction elements per stage
+constexpr int STAGES = 3;
+constexpr int PANEL = BM * 128;         // 128 rows of a x 64 bf16: one TMA box
+constexpr int A_TILE = 2 * PANEL;
+constexpr int W_TILE = BK * BN;         // raw int8 weight: 128 rows x 128 bytes
+constexpr int OUT_TILE = BM * 64 * 2;   // one warpgroup's dx tile: 128 m x 64 k bf16
+// warpgroups: two consumers and the producer (one thread starts the TMA loads); entry registers
+// 65536 / 384 = 168, then 240 for the consumers and 24 for the producer (2 x 72 = 144)
+constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128, ENTRY_REGS = 168;
+constexpr int SMEM_BYTES = STAGES * (A_TILE + W_TILE) + 2 * OUT_TILE + 2 * STAGES * 8 + 1024;
+
+// a[m, 64G + 16s + 8h + 2u + e] = bf16(dy[m, n] * scale[n]), n = 64G + 16u + 4s + 2h + e: one
+// thread per 16-byte chunk (s, h) of a 64-wide group, gathering four bf16 pairs (u = 0..3).
+__global__ void __launch_bounds__(256)
+qmm_t_prescale_kernel(const __nv_bfloat16* __restrict__ dy, const float* __restrict__ scale,
+                      __nv_bfloat16* __restrict__ a, int M, int N) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int chunks = N / 8;
+  if (idx >= (long long)M * chunks) return;
+  const long long m = idx / chunks;
+  const int c = static_cast<int>(idx % chunks);
+  const int g64 = (c / 8) * 64, s = (c % 8) / 2, h = c % 2;
+  const __nv_bfloat16* row = dy + m * N;
+  uint32_t out[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int n = g64 + 16 * u + 4 * s + 2 * h;
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(row + n);
+    const float2 sc = __ldg(reinterpret_cast<const float2*>(scale + n));
+    out[u] = pack_bf16(__fmul_rn(__low2float(v), sc.x), __fmul_rn(__high2float(v), sc.y));
+  }
+  *reinterpret_cast<uint4*>(a + m * N + g64 + 16 * s + 8 * h) =
+      make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// The A fragments of one 64-wide group of a stage, four k-steps of 16: rows r0 and r0 + 1 of
+// the raw weight tile (row r at r * 128, chunk c at c ^ (r % 8)), 16 bytes each at 64 grp + 16 t.
+// widen = 0 passes the raw words on unwidened (a timing probe).
+__device__ __forceinline__ void load_fragments(uint32_t (&f)[4][4], const uint8_t* wt, int r0,
+                                               int grp, int t, int widen) {
+  const int c = 4 * grp + t;
+  const uint4 v0 = *reinterpret_cast<const uint4*>(wt + r0 * 128 + ((c ^ (r0 % 8)) * 16));
+  const uint4 v1 =
+      *reinterpret_cast<const uint4*>(wt + (r0 + 1) * 128 + ((c ^ ((r0 + 1) % 8)) * 16));
+  const uint32_t w0[4] = {v0.x ^ 0x80808080u, v0.y ^ 0x80808080u, v0.z ^ 0x80808080u,
+                          v0.w ^ 0x80808080u};
+  const uint32_t w1[4] = {v1.x ^ 0x80808080u, v1.y ^ 0x80808080u, v1.z ^ 0x80808080u,
+                          v1.w ^ 0x80808080u};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (!widen) {
+      f[s][0] = f[s][2] = w0[s];
+      f[s][1] = f[s][3] = w1[s];
+      continue;
+    }
+    f[s][0] = hopper::widen_pair(w0[s], 0x7540, 0x7541);
+    f[s][1] = hopper::widen_pair(w1[s], 0x7540, 0x7541);
+    f[s][2] = hopper::widen_pair(w0[s], 0x7542, 0x7543);
+    f[s][3] = hopper::widen_pair(w1[s], 0x7542, 0x7543);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_t_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_w, __nv_bfloat16* __restrict__ dx,
+                   int M, int K, int N, int widen) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = base;
+  uint8_t* sw = base + STAGES * A_TILE;
+  uint8_t* sout = base + STAGES * (A_TILE + W_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sout + 2 * OUT_TILE);
+  uint64_t* empty = full + STAGES;
+
+  const int mtiles = (M + BM - 1) / BM;
+  const int tiles = mtiles * (K / BK);
+  const int nk = N / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % mtiles) * BM, k0 = (tile / mtiles) * BK;
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], A_TILE + W_TILE);
+          hopper::tma_load_2d(sa + s * A_TILE, &map_a, &full[s], j * BN, m0);
+          hopper::tma_load_2d(sa + s * A_TILE + PANEL, &map_a, &full[s], j * BN + 64, m0);
+          hopper::tma_load_2d(sw + s * W_TILE, &map_w, &full[s], j * BN, k0);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const int sigma = ((g & 1) << 1) | ((g >> 1) & 1) | (g & 4);
+  const int r0 = wgi * 64 + warp * 16 + 2 * sigma;  // the tile's weight row of slot g
+  uint8_t* stage = sout + wgi * OUT_TILE;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % mtiles) * BM, k0 = (tile / mtiles) * BK;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    uint32_t fa[4][4], fb[4][4];
+    int pending = -1;  // the stage whose second half's products may still read it
+    for (int j = 0; j < nk; ++j, ++it) {
+      const int s = it % STAGES;
+      hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+      const uint8_t* at = sa + s * A_TILE;
+      const uint8_t* wt = sw + s * W_TILE;
+      load_fragments(fa, wt, r0, 0, t, widen);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128k16_bf16_rs(acc, fa[kk],
+                                         hopper::desc_sw128(at + kk * 32, 16, 1024),
+                                         j > 0 || kk > 0);
+      hopper::wgmma_commit();
+      // the previous stage's second half is done: fb is free and that stage too
+      hopper::wgmma_wait<1>();
+      hopper::fence_operands(fb);
+      if (pending >= 0 && lane == 0) hopper::mbar_arrive(&empty[pending]);
+      load_fragments(fb, wt, r0, 1, t, widen);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128k16_bf16_rs(acc, fb[kk],
+                                         hopper::desc_sw128(at + PANEL + kk * 32, 16, 1024), 1);
+      hopper::wgmma_commit();
+      // this stage's first half is done: fa is free
+      hopper::wgmma_wait<1>();
+      hopper::fence_operands(fa);
+      pending = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(fb);
+    hopper::fence_operands(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[pending]);
+
+    // acc[4i + e] is dx[m0 + 8i + 2t + e][k0 + r0], acc[4i + 2 + e] the next column: one word.
+    // Stage the warpgroup's 128 x 64 tile (16-byte chunk c of row r at c ^ (r % 8): conflict-
+    // free both ways), then write whole 128-byte row pieces.
+    const int cbyte = 2 * (warp * 16 + 2 * sigma);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * i + 2 * t + e;
+        *reinterpret_cast<uint32_t*>(stage + r * 128 + (((cbyte / 16) ^ (r % 8)) * 16) +
+                                     cbyte % 16) = pack_bf16(acc[4 * i + e], acc[4 * i + 2 + e]);
+      }
+    hopper::named_barrier_sync(1 + wgi, 128);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + 128 * i, r = idx / 8, c = idx % 8, row = m0 + r;
+      if (row >= M) continue;
+      *reinterpret_cast<uint4*>(dx + (long long)row * K + k0 + wgi * 64 + 8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * 128 + ((c ^ (r % 8)) * 16));
+    }
+    hopper::named_barrier_sync(1 + wgi, 128);  // the stage is free for the next tile
+  }
+}
+
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // dy bf16 [M, N], w int8 [K, N] (block already offset), scale fp32 [N] -> dx bf16 [M, K].
@@ -196,5 +416,55 @@ extern "C" int qmm_t_gemm(const void* dy, const void* w, const float* scale, voi
   qmm_t_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(dy), static_cast<const int8_t*>(w), scale,
       static_cast<__nv_bfloat16*>(dx), M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transposed GEMM on wgmma: the arguments of qmm_t_gemm plus `a`, scratch bf16 [M, N] for
+// the pre-scaled dy (16-byte aligned).  Takes K and N multiples of 128; anything else returns
+// cudaErrorInvalidValue.  Launches qmm_t_prescale_kernel, then qmm_t_wgmma_kernel.  widen = 0
+// leaves the weight fragments unwidened (wrong results): it measures what the widening costs.
+extern "C" int qmm_t_gemm_wgmma(const void* dy, const void* w, const float* scale, void* a,
+                                void* dx, int M, int K, int N, int widen, void* stream) {
+  if (M < 1 || K % wg::BK || N % wg::BN || K < wg::BK || N < wg::BN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const bool regs_ok = hopper::entry_regs_are(wg::qmm_t_wgmma_kernel, wg::ENTRY_REGS);
+  if (!regs_ok || wg::num_sms() == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long chunks = (long long)M * (N / 8);
+  wg::qmm_t_prescale_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(dy), scale, static_cast<__nv_bfloat16*>(a), M, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap ma, mw;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+  const uint64_t a_strides[1] = {static_cast<uint64_t>(N) * 2};
+  const uint32_t a_box[2] = {64, wg::BM};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t w_strides[1] = {static_cast<uint64_t>(N)};
+  const uint32_t w_box[2] = {wg::BN, wg::BK};
+  if (!hopper::make_tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_dims, a_strides,
+                               a_box) ||
+      !hopper::make_tensor_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, w_dims, w_strides,
+                               w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(wg::qmm_t_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((M + wg::BM - 1) / wg::BM) * (K / wg::BK);
+  const int blocks = tiles < wg::num_sms() ? tiles : wg::num_sms();
+  wg::qmm_t_wgmma_kernel<<<blocks, wg::THREADS, wg::SMEM_BYTES, st>>>(
+      ma, mw, static_cast<__nv_bfloat16*>(dx), M, K, N, widen);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pre-scale pass of qmm_t_gemm_wgmma alone (dy, scale, a as there; N a multiple of 64): a
+// timing probe of its share of the transposed GEMM.
+extern "C" int qmm_t_prescale(const void* dy, const float* scale, void* a, int M, int N,
+                              void* stream) {
+  if (M < 1 || N % 64) return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = (long long)M * (N / 8);
+  wg::qmm_t_prescale_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dy), scale, static_cast<__nv_bfloat16*>(a), M, N);
   return static_cast<int>(cudaGetLastError());
 }

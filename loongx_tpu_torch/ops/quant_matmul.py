@@ -14,7 +14,7 @@ Counterpart of ``loongx_tpu/ops/quant_matmul.py``.  Forward contracts:
     ``_qmm_qkv_stacked_kernel``).
 
 Backward contracts (TPU kernels ``_qmm_t_kernel`` / ``_qmm_t_stacked_kernel``,
-CUDA kernel ``csrc/quant_matmul_t.cu``):
+CUDA kernels ``csrc/quant_matmul_t.cu``):
 
   * `quant_matmul_t` / `quant_matmul_t_stacked` -- dx[m, k] = sum_n
     cast(dy[m, n] * scale[n]) * Wq[k, n] with the weight in its stored
@@ -23,12 +23,18 @@ CUDA kernel ``csrc/quant_matmul_t.cu``):
 The forward and transposed kernels run on CUDA tensors and their plain
 versions on CPU tensors; nothing falls back.
 In W8A8 mode the GEMM is preceded by `act_quant`, a small kernel of the
-same source that quantizes the activations.  Two hand-written forward GEMMs
+same source that quantizes the activations.  Hand-written forward GEMMs
 share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
-warpgroup, ``qmm_wgmma_kernel``) takes every W8A8 shape its 128 x 128 x 128
-tiling covers, the ``mma.sync`` kernel (``qmm_kernel``) the rest and the
-weight-only mode; `qmm_route` is the rule, a dispatch by shape.  Each launch
-counts under its entry's name and under ``"<name>:<route>"``.
+warpgroup, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
+(TMA ring, the int8 weight widened in registers as the operand of y^T =
+W^T x^T, ``qmm_bf16_wgmma_kernel``) take every shape their 128 x 128 tiles
+cover, the ``mma.sync`` kernel (``qmm_kernel``) the rest and the
+weight-only LN + adaLN prologue; `qmm_route` is the rule, a
+dispatch by shape.  The transposed products likewise: ``qmm_t_wgmma_kernel``
+(bf16 wgmma with the weight widened in registers, after a pre-scale pass
+over dy) where `qmm_t_route` says so, ``qmm_t_kernel`` on ``mma.sync`` the
+rest.  Each launch counts under its entry's name and under
+``"<name>:<route>"``.
 
 Two MAC modes, chosen by ``w8a8``:
 
@@ -105,6 +111,9 @@ _T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
 _STATS_SIGNATURE = [_P, _I, _I, _I, _P, _P]
 _WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _P]
+_BF16_WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _P]
+_T_WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -155,18 +164,42 @@ def stacked_w8a8_group(k: int, n: int) -> Tuple[int, int]:
     return flat_w8a8_group(k, n)
 
 
-WGMMA_TILE = 128  # the wgmma GEMM's M, N and k-byte tile
+WGMMA_TILE = 128  # the wgmma GEMMs' M and N tile and their k stage
 
 
-def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
-    """The forward GEMM that takes a [K, N] weight: ``"wgmma"`` (W8A8 with
-    K and N of at least one tile and k_pad and the activation group whole
-    k tiles) or ``"mma_sync"`` (weight-only, and the W8A8 shapes the tiling
-    cannot take: K 64 of x_embedder, N 64 of proj_out)."""
+def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool,
+              prologue: bool = False) -> str:
+    """The forward GEMM that takes a [K, N] weight, a rule on shapes:
+    ``"wgmma"`` where K and N are at least one 128 tile and the 128-deep k
+    stages are whole (W8A8: k_pad and the activation group multiples of
+    128; weight-only: K a multiple of 128), at every M (the M 1-2
+    modulation matvecs included: the wgmma kernels are faster there too);
+    ``"mma_sync"`` for the shapes the tiles cannot take (K 64 of
+    x_embedder, N 64 of proj_out) and for the weight-only LN + adaLN
+    ``prologue`` (W8A8 takes it in its activation pass)."""
     t = WGMMA_TILE
-    if (w8a8 and k >= t and n >= t and group % t == 0 and k_pad % t == 0):
-        return "wgmma"
-    return "mma_sync"
+    if k < t or n < t:
+        return "mma_sync"
+    if w8a8:
+        return "wgmma" if group % t == 0 and k_pad % t == 0 else "mma_sync"
+    return "wgmma" if k % t == 0 and not prologue else "mma_sync"
+
+
+def qmm_t_route(k: int, n: int) -> str:
+    """The transposed GEMM that takes a [K, N] weight (dy [M, N] -> dx
+    [M, K]), a rule on shapes: ``"wgmma"`` where K (its 128 weight rows a
+    tile) and N (its 128-deep stages) are whole 128 tiles, at every M;
+    ``"mma_sync"`` for the rest (N 64 of the proj_out backward)."""
+    t = WGMMA_TILE
+    return "wgmma" if k % t == 0 and n % t == 0 and k >= t and n >= t \
+        else "mma_sync"
+
+
+def active_route(rule: str) -> str:
+    """The route a launch takes now: the forced route of
+    `cuda_build.mma_sync_only` if any, else ``rule`` (`qmm_route`'s or
+    `qmm_t_route`'s)."""
+    return cuda_build.FORCED_ROUTE or rule
 
 
 def qkv_supported(k: int, n3: int, head_dim: int) -> bool:
@@ -422,7 +455,8 @@ def _launch(name: str, x, w_ptr: int, k: int, n: int, scale_ptr: int,
     m = x.shape[0]
     lib = cuda_build.library("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    route = cuda_build.FORCED_ROUTE or qmm_route(k, n, group, k_pad, w8a8)
+    route = active_route(
+        qmm_route(k, n, group, k_pad, w8a8, prologue=ab is not None))
     xs = None
     if w8a8:
         a, xs = act_quant(x, group, k_pad, ab, seg_boundary, stats)
@@ -431,7 +465,13 @@ def _launch(name: str, x, w_ptr: int, k: int, n: int, scale_ptr: int,
         _check(k % 8 == 0, f"weight-only kernel: K {k} not a multiple of 8")
         a = x
     n_groups = k_pad // group if w8a8 else 0
-    if route == "wgmma":
+    if route == "wgmma" and not w8a8:
+        fn = lib.qmm_gemm_bf16_wgmma
+        fn.argtypes, fn.restype = _BF16_WGMMA_SIGNATURE, ctypes.c_int
+        code = fn(epilogue, a.data_ptr(), w_ptr, scale_ptr, bias_ptr,
+                  norm_w_ptr, _ptr(resid), _ptr(gate), out.data_ptr(), m, k, n,
+                  head_dim, plane_h, seg_boundary, 1, stream)
+    elif route == "wgmma":
         fn = lib.qmm_gemm_wgmma
         fn.argtypes, fn.restype = _WGMMA_SIGNATURE, ctypes.c_int
         code = fn(epilogue, a.data_ptr(), _ptr(xs), w_ptr, scale_ptr, bias_ptr,
@@ -642,16 +682,30 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
 def _launch_t(name: str, dy: torch.Tensor, w_ptr: int, k: int, n: int,
               scale_ptr: int) -> torch.Tensor:
     dy = dy.to(torch.bfloat16).contiguous()
+    if dy.data_ptr() % 16:  # the kernels read dy in bf16 pairs or 16-byte chunks
+        dy = dy.clone()
     _check(n % 16 == 0 and k % 2 == 0,
            f"transposed kernel: N {n} must be a multiple of 16, K {k} even")
-    out = torch.empty(dy.shape[0], k, dtype=torch.bfloat16, device=dy.device)
-    fn = cuda_build.library("quant_matmul_t").qmm_t_gemm
-    fn.argtypes, fn.restype = _T_SIGNATURE, ctypes.c_int
-    cuda_build.check(fn(dy.data_ptr(), w_ptr, scale_ptr, out.data_ptr(),
-                        dy.shape[0], k, n,
-                        torch.cuda.current_stream(dy.device).cuda_stream),
-                     f"qmm_t_gemm ({name})")
+    m = dy.shape[0]
+    out = torch.empty(m, k, dtype=torch.bfloat16, device=dy.device)
+    lib = cuda_build.library("quant_matmul_t")
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    route = active_route(qmm_t_route(k, n))
+    if route == "wgmma":
+        # the pre-scaled, contraction-permuted dy the wgmma kernel reads
+        a = torch.empty(m, n, dtype=torch.bfloat16, device=dy.device)
+        fn = lib.qmm_t_gemm_wgmma
+        fn.argtypes, fn.restype = _T_WGMMA_SIGNATURE, ctypes.c_int
+        code = fn(dy.data_ptr(), w_ptr, scale_ptr, a.data_ptr(),
+                  out.data_ptr(), m, k, n, 1, stream)
+    else:
+        fn = lib.qmm_t_gemm
+        fn.argtypes, fn.restype = _T_SIGNATURE, ctypes.c_int
+        code = fn(dy.data_ptr(), w_ptr, scale_ptr, out.data_ptr(), m, k, n,
+                  stream)
+    cuda_build.check(code, f"qmm_t_gemm ({name}, {route})")
     cuda_build.LAUNCHES[name] += 1
+    cuda_build.LAUNCHES[f"{name}:{route}"] += 1
     return out
 
 

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Quick card check of the port's two wgmma kernels, much shorter than
+"""Quick card check of the port's wgmma kernels, much shorter than
 ``chip_smoke.py``: each against its plain version at a few small shapes
-and one serving shape, and timed beside the ``mma.sync`` kernel it
-replaces at one serving shape.  Needs one CUDA card and nvcc.
+and one serving or training shape, and timed beside the ``mma.sync``
+kernel it replaces at one or two of those shapes.  Needs one CUDA card and
+nvcc.
 
     python3 scripts/wgmma_check.py build   # nvcc -Xptxas -v: registers, spills
     python3 scripts/wgmma_check.py qmm     # the W8A8 GEMM
+    python3 scripts/wgmma_check.py wo      # the weight-only GEMM on bf16 wgmma
+    python3 scripts/wgmma_check.py qmm_t   # the transposed GEMM on bf16 wgmma
     python3 scripts/wgmma_check.py flash   # the flash forward (+ RoPE pre-pass)
     python3 scripts/wgmma_check.py bwd     # the flash backward (dK/dV and dQ)
 """
@@ -18,13 +21,13 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import cuda_time_ms  # noqa: E402
+from chip_smoke import cuda_time_ms, prescale_ms  # noqa: E402
 from loongx_tpu_torch.ops import cuda_build  # noqa: E402
 
 
 def build():
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("quant_matmul", "flash_attention"):
+    for name in ("quant_matmul", "quant_matmul_t", "flash_attention"):
         out = cuda_build.BUILD_DIR / f"{name}-ptxas-check.so"
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas=-v", "-o", str(out),
                str(cuda_build.CSRC_DIR / f"{name}.cu")]
@@ -35,7 +38,8 @@ def build():
         for i, line in enumerate(lines):
             if "error" in line.lower() or "warning" in line.lower():
                 print("  ", line)
-            if "Compiling entry function" in line and ("wgmma" in line or "rope" in line):
+            if "Compiling entry function" in line and any(
+                    w in line for w in ("wgmma", "rope", "prescale")):
                 print("  ", line.split("'")[1])
                 print("\n".join("     " + x for x in lines[i + 1:i + 3]))
 
@@ -66,6 +70,184 @@ def check_qmm(gen):
     with cuda_build.mma_sync_only():
         t_old = cuda_time_ms(run)
     print(f"M{m} K{k} N{n} {act}: wgmma {t_new:.3f} ms, mma.sync {t_old:.3f} ms", flush=True)
+
+
+FAILED = []
+
+
+def device_ms(fn, reps=20):
+    """Mean device time per call of the kernels ``fn`` launches, from
+    torch.profiler's CUDA activity (no host time in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def tile_waves(run_at, label):
+    """Device ms at M 512 (96 output tiles of 128 x 128 at N 3072: under one
+    wave on 132 SMs) and at M 2048 (384 tiles), each per tile."""
+    for m in (512, 2048):
+        t = device_ms(run_at(m))
+        tiles = (m // 128) * 24
+        print(f"   {label} M{m} K3072 N3072: {t:.4f} ms device time, {tiles} tiles, "
+              f"{t / tiles * 1e3:.3f} us per tile", flush=True)
+
+
+def _report(what, out, ref):
+    """Print the error against one bf16 rounding of the plain version's output."""
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
+    if not err <= tol:
+        FAILED.append(what)
+    print(f"{what}: err {err:.3e} (tol {tol:.3e}){'' if err <= tol else '  FAILED'}",
+          flush=True)
+
+
+def check_wo(gen):
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    cases = [(256, 512, 256, None, "bias"), (300, 3072, 384, "gelu_tanh", "bias"),
+             (1000, 3072, 1024, "gelu_tanh", "gate"), (2, 3072, 1024, None, "bias"),
+             (200, 256, 3072, None, "flat"), (300, 3072, 3 * 256, None, "qkv"),
+             (2560, 3072, 12288, "gelu_tanh", "bias"), (512, 4096, 10240, "gelu_tanh", "bias")]
+    for m, k, n, act, form in cases:
+        wq = torch.randint(-128, 128, (2, k, n), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        sc = torch.rand(2, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        bi = torch.randn(2, 1, n, generator=gen, device="cuda") * 0.02
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        if form == "qkv":
+            norm_w = torch.rand(3, n // 3, generator=gen, device="cuda") + 0.5
+
+            def run():
+                return torch.stack(qmm.quant_qkv_stacked(x, wq, sc, bi, norm_w, 1, 128))
+            ref = torch.stack(qmm.quant_qkv_plain(x, wq[1], sc[1], bi[1], norm_w, 128))
+        elif form == "gate":
+            resid = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+            gate = torch.randn(8, n, generator=gen, device="cuda") * 0.5
+
+            def run():
+                return qmm.quant_matmul_stacked(x, wq, sc, 1, bias3=bi, activation=act,
+                                                resid=resid, gate=gate, seg_boundary=m // 3)
+            ref = qmm.qmm_plain(x, wq[1], sc[1], bi[1], act, resid=resid, gate=gate,
+                                seg_boundary=m // 3)
+        elif form == "flat":
+            def run():
+                return qmm.quant_matmul(x, wq[0], sc[0], bias=bi[0])
+            ref = qmm.qmm_plain(x, wq[0], sc[0], bi[0])
+        else:
+            def run():
+                return qmm.quant_matmul_stacked(x, wq, sc, 1, bias3=bi, activation=act)
+            ref = qmm.qmm_plain(x, wq[1], sc[1], bi[1], act)
+        out = run()
+        with cuda_build.mma_sync_only():
+            old = run()
+        torch.cuda.synchronize()
+        _report(f"wo M{m} K{k} N{n} {act} {form} route {qmm.qmm_route(k, n, k, k, False)}",
+                out, ref)
+        _report("   mma.sync", old, ref)
+        if m >= 512 or m == 2:
+            t_new = cuda_time_ms(run)
+            with cuda_build.mma_sync_only():
+                t_old = cuda_time_ms(run)
+            wb = wq[1].to(torch.bfloat16)
+            t_lib = cuda_time_ms(lambda: torch.matmul(x, wb))
+            print(f"   wgmma {t_new:.3f} ms, mma.sync {t_old:.3f} ms, cuBLAS bf16 "
+                  f"{t_lib:.3f} ms", flush=True)
+    # the widening's share at the main shape: the same GEMM with the weight fragments left
+    # unwidened (qmm_gemm_bf16_wgmma's widen = 0; its output is wrong and not read)
+    import ctypes
+    fn = cuda_build.library("quant_matmul").qmm_gemm_bf16_wgmma
+    fn.argtypes, fn.restype = qmm._BF16_WGMMA_SIGNATURE, ctypes.c_int
+
+    def gemm(x, wq, sc, out, widen, epi=qmm.EPI_BIAS):
+        m, k = x.shape
+        cuda_build.check(fn(epi, x.data_ptr(), wq.data_ptr(), sc.data_ptr(), None, None, None,
+                            None, out.data_ptr(), m, k, wq.shape[1], 0, 0, 0, widen,
+                            torch.cuda.current_stream().cuda_stream), "qmm_gemm_bf16_wgmma")
+    m, k, n = 2560, 3072, 12288
+    wq = torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+    sc = torch.rand(n, generator=gen, device="cuda")
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+    t1, t0 = (device_ms(lambda: gemm(x, wq, sc, out, w)) for w in (1, 0))
+    print(f"   M{m} K{k} N{n} device time {t1:.3f} ms, unwidened {t0:.3f} ms: widening share "
+          f"{1 - t0 / t1:.2f}", flush=True)
+
+    def at(m):
+        xm = torch.randn(m, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+        w3 = torch.randint(-128, 128, (3072, 3072), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        om = torch.empty(m, 3072, dtype=torch.bfloat16, device="cuda")
+        return lambda: gemm(xm, w3, sc, om, 1)
+    tile_waves(at, "wo")
+
+
+def check_qmm_t(gen):
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    for m, k, n in [(256, 256, 384), (300, 512, 1024), (1000, 3072, 12288),
+                    (2560, 3072, 12288), (2560, 15360, 3072), (1024, 3072, 64)]:
+        wq = torch.randint(-128, 128, (2, k, n), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        sc = torch.rand(2, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def run():
+            return qmm.quant_matmul_t_stacked(dy, wq, sc, 1)
+        ref = qmm.qmm_t_plain(dy, wq[1], sc[1])
+        out = run()
+        with cuda_build.mma_sync_only():
+            old = run()
+        torch.cuda.synchronize()
+        _report(f"qmm_t dy [{m}, {n}] -> dx [{m}, {k}] route {qmm.qmm_t_route(k, n)}",
+                out, ref)
+        _report("   mma.sync", old, ref)
+        if m >= 1000:
+            t_new = cuda_time_ms(run)
+            with cuda_build.mma_sync_only():
+                t_old = cuda_time_ms(run)
+            a = (dy.float() * sc[1].reshape(-1)).to(torch.bfloat16)
+            wb = wq[1].to(torch.bfloat16)
+            t_lib = cuda_time_ms(lambda: torch.matmul(a, wb.t()))
+            t_pre = prescale_ms(torch, dy, sc[1]) if n % 64 == 0 else float("nan")
+            print(f"   wgmma {t_new:.3f} ms (its pre-scale pass {t_pre:.4f}), mma.sync "
+                  f"{t_old:.3f} ms, cuBLAS bf16 {t_lib:.3f} ms", flush=True)
+    # the widening's share at proj_mlp: the same call with the weight fragments left unwidened
+    # (qmm_t_gemm_wgmma's widen = 0; its output is wrong and not read)
+    import ctypes
+    fn = cuda_build.library("quant_matmul_t").qmm_t_gemm_wgmma
+    fn.argtypes, fn.restype = qmm._T_WGMMA_SIGNATURE, ctypes.c_int
+
+    def gemm(dy, wq, sc, widen):
+        m, n = dy.shape
+        k = wq.shape[0]
+        a = torch.empty_like(dy)
+        dx = torch.empty(m, k, dtype=torch.bfloat16, device="cuda")
+        return lambda: cuda_build.check(fn(
+            dy.data_ptr(), wq.data_ptr(), sc.data_ptr(), a.data_ptr(), dx.data_ptr(), m, k, n,
+            widen, torch.cuda.current_stream().cuda_stream), "qmm_t_gemm_wgmma")
+    m, k, n = 2560, 3072, 12288
+    wq = torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+    sc = torch.rand(n, generator=gen, device="cuda")
+    dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    t1, t0 = (device_ms(gemm(dy, wq, sc, w)) for w in (1, 0))
+    print(f"   dy [{m}, {n}] -> dx [{m}, {k}] device time (pre-scale pass included) {t1:.3f} "
+          f"ms, unwidened {t0:.3f} ms: widening share {1 - t0 / t1:.2f}", flush=True)
+
+    def at(m):
+        d = torch.randn(m, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+        w3 = torch.randint(-128, 128, (3072, 3072), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        return gemm(d, w3, sc[:3072], 1)
+    tile_waves(at, "qmm_t (pre-scale pass included)")
+
 
 
 def check_flash(gen):
@@ -150,10 +332,13 @@ if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "build":
         build()
-    elif what in ("qmm", "flash", "bwd"):
+    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd"):
         if not torch.cuda.is_available():
             sys.exit("wgmma_check: no CUDA device")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        {"qmm": check_qmm, "flash": check_flash, "bwd": check_bwd}[what](gen)
+        {"qmm": check_qmm, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
+         "bwd": check_bwd}[what](gen)
+        if FAILED:
+            sys.exit(f"wgmma_check: {len(FAILED)} checks failed")
     else:
         sys.exit(__doc__)

@@ -27,11 +27,11 @@ def test_every_source_has_a_stable_path(csrc):
 
 
 def test_the_sources_include_the_hopper_header(csrc):
-    for name in ("quant_matmul", "flash_attention"):
+    for name in ("quant_matmul", "quant_matmul_t", "flash_attention"):
         assert '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
 
 
-@pytest.mark.parametrize("name", ["quant_matmul", "flash_attention"])
+@pytest.mark.parametrize("name", ["quant_matmul", "quant_matmul_t", "flash_attention"])
 def test_header_edit_changes_the_library_path(csrc, name):
     before = cuda_build._lib_path(name, csrc)
     header = csrc / "hopper.cuh"

@@ -6,7 +6,8 @@
   bf16, in both layouts; on CPU tensors the wrapper is the plain version.
 * The shape rules that pick between the two hand-written forward kernels
   of a contract: ``qmm_route`` over every main-path shape of
-  ``chip_smoke.qmm_cases`` (W8A8 and weight-only) and at its edges,
+  ``chip_smoke.qmm_cases`` (W8A8 and weight-only, both on wgmma wherever
+  the 128 x 128 tiles fit) and at its edges,
   ``flash_fwd_route`` by head_dim, and ``cuda_build.mma_sync_only``.
 """
 
@@ -95,7 +96,7 @@ def _main_path_shapes():
     return out
 
 
-# the flat layers the 128 x 128 x 128 tiling cannot take: K 64, N 64
+# the flat layers the 128 x 128 tiles cannot take: K 64, N 64 (both modes)
 _MMA_SYNC_W8A8 = {("qmm_flat", "x_embedder"), ("qmm_flat", "proj_out")}
 
 
@@ -108,26 +109,35 @@ def test_qmm_route_main_path(entry, label, m, k, n, w8a8):
     else:
         group, k_pad = qmm.stacked_w8a8_group(k, n)
     route = qmm.qmm_route(k, n, group, k_pad, w8a8)
-    if not w8a8 or (entry, label) in _MMA_SYNC_W8A8:
+    if (entry, label) in _MMA_SYNC_W8A8:
         assert route == "mma_sync"
     else:
         assert route == "wgmma"
-        # the wgmma kernel's own preconditions (csrc/quant_matmul.cu wg::launch)
-        assert k_pad % 128 == 0 and group % 128 == 0 and k >= 128 and n >= 128
-        assert n % 16 == 0
+        # the wgmma kernels' own preconditions (csrc/quant_matmul.cu wg::launch,
+        # wg::wo::launch)
+        assert k >= 128 and n >= 128 and n % 16 == 0
+        if w8a8:
+            assert k_pad % 128 == 0 and group % 128 == 0
+        else:
+            assert k % 128 == 0
 
 
-@pytest.mark.parametrize("k,n,group,k_pad,want", [
-    (128, 128, 128, 128, "wgmma"),      # one tile
-    (64, 3072, 128, 128, "mma_sync"),   # K below a tile
-    (3072, 64, 1536, 3072, "mma_sync"),  # N below a tile
-    (3072, 3072, 1536, 3072, "wgmma"),
-    (192, 3072, 192, 192, "mma_sync"),  # the group is not whole k tiles
-    (256, 3072, 256, 320, "mma_sync"),  # k_pad is not whole k tiles
+@pytest.mark.parametrize("k,n,group,k_pad,want,want_wonly", [
+    (128, 128, 128, 128, "wgmma", "wgmma"),         # one tile
+    (64, 3072, 128, 128, "mma_sync", "mma_sync"),   # K below a tile
+    (3072, 64, 1536, 3072, "mma_sync", "mma_sync"),  # N below a tile
+    (3072, 3072, 1536, 3072, "wgmma", "wgmma"),
+    (192, 3072, 192, 192, "mma_sync", "mma_sync"),  # not whole k tiles
+    (256, 3072, 256, 320, "mma_sync", "wgmma"),  # k_pad is not whole k tiles
+    (200, 3072, 256, 256, "wgmma", "mma_sync"),  # K not whole k tiles
 ])
-def test_qmm_route_edges(k, n, group, k_pad, want):
+def test_qmm_route_edges(k, n, group, k_pad, want, want_wonly):
     assert qmm.qmm_route(k, n, group, k_pad, True) == want
-    assert qmm.qmm_route(k, n, group, k_pad, False) == "mma_sync"
+    assert qmm.qmm_route(k, n, group, k_pad, False) == want_wonly
+    # the weight-only LN + adaLN prologue stays on mma.sync; W8A8 takes it
+    # in its activation pass, so its route does not change
+    assert qmm.qmm_route(k, n, group, k_pad, False, prologue=True) == "mma_sync"
+    assert qmm.qmm_route(k, n, group, k_pad, True, prologue=True) == want
 
 
 @pytest.mark.parametrize("d,want", [(128, "wgmma"), (64, "mma_sync")])
