@@ -23,7 +23,14 @@ Phases (each prints one line with the card, its power limit and seconds):
      weight-only, stacked and fused-qkv; the gate + residual epilogue)
      also beside their unfused route, the W8A8 prologue's int8 codes
      exactly equal to the plain version's, and both fused autograd
-     Functions' gradients at the training shape;
+     Functions' gradients at the training shape; the int8 QK^T forward on
+     s8 wgmma (every `flash_cases` case, its pre-pass's q and k codes
+     exactly, the outputs that differ from the mma.sync int8 kernel's,
+     both timed at the same call) and the W8A8 activation pass's warp
+     kernel at every (K, group) pair of the served forward, a ragged K and
+     the LN form (codes and scales exactly, beside the block kernel it
+     replaces); kernels under about 0.05 ms are timed by device time too
+     (`device_ms`, torch.profiler), since their wrapper time is host cost;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
@@ -34,7 +41,10 @@ Phases (each prints one line with the card, its power limit and seconds):
      launches by kernel), a device profile and a host profile; the same
      57 blocks with ``fuse_ln`` and
      ``fuse_gate`` (kernels vs plain beside the floor, 114 prologue and
-     114 gate launches, its device profile); then the gradients of every
+     114 gate launches, its device profile); the int8_attn forward's
+     device profile (its flash group: the s8 wgmma kernel and its pre-pass;
+     all 57 launches on wgmma) and the activation pass's group; then the
+     gradients of every
      LoRA factor of the training tree's first double and single block
      (unit gain, LoRA on), kernels vs plain, beside their rounding floor;
   4. serve: ``neural_edit`` at 512x512 for two requests (28 steps, W8A8),
@@ -45,7 +55,8 @@ Phases (each prints one line with the card, its power limit and seconds):
      with ``s4_mode="pallas"`` (the S4D recurrence kernel: its launches and
      the brain embeds against the conv mode's, and the plain recurrence's)
      and with ``int8_attn=True`` (int8 QK^T: ms/step and the image against
-     the bf16-score one) and with ``fuse_ln`` + ``fuse_gate`` (ms/step
+     the bf16-score one; every int8 launch on the s8 wgmma kernel) and
+     with ``fuse_ln`` + ``fuse_gate`` (ms/step
      beside the first request's, 3192 prologue and 3192 gate launches);
   generate: random int8 T5-XXL and CLIP-L join the serving bundle, and
      ``generate()`` serves two text-prompt edits in fuse mode (infer wiring,
@@ -164,6 +175,31 @@ def cuda_time_ms(fn, iters=None, budget_ms=300.0):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, reps=20, match=None):
+    """Mean device milliseconds per ``fn()`` of the kernels it launches
+    (those whose name contains ``match``, if given), from torch.profiler's
+    CUDA activity after a warm-up call: no host time in it, so it reads
+    kernels too short for `cuda_time_ms` (whose calls under about 0.05 ms
+    measure the wrapper).  NaN when three profiler sessions saw no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no activity
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            us = sum(e.time_range.end - e.time_range.start for e in events
+                     if match is None or match in e.name)
+            return us / 1e3 / reps
+    return float("nan")
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
@@ -297,6 +333,7 @@ def check_flash_rope(torch, fa, records, label, q, k, rope):
     ref = fa.flash_rope_plain(q, k, rope, "bshd")
     n_diff = int((out != ref).sum().item())
     ms = cuda_time_ms(lambda: fa.flash_rope(q, k, rope, "bshd"))
+    dev = device_ms(lambda: fa.flash_rope(q, k, rope, "bshd"))
     plain_ms = cuda_time_ms(lambda: fa.flash_rope_plain(q, k, rope, "bshd"),
                             iters=2)
     _, s, h, d = q.shape
@@ -305,11 +342,11 @@ def check_flash_rope(torch, fa, records, label, q, k, rope):
     bms, by = bound_ms(4 * s * h * d * 2 + 2 * s * d * 4, 3.0 * 2 * s * h * d,
                        "fp32")
     records.append(dict(kernel="flash_rope", case=label, err=float(n_diff),
-                        tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                        bound_ms=bms, bound_by=by))
+                        tol=0.0, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                        library_ms=None, bound_ms=bms, bound_by=by))
     print(f"  flash_rope {label:17s} elements differing {n_diff} of "
-          f"{out.numel()} (tol 0) kernel {ms:.4f} ms plain {plain_ms:.3f} "
-          f"bound {bms:.4f} ({by})", flush=True)
+          f"{out.numel()} (tol 0) kernel {ms:.4f} ms (device {dev:.4f}) plain "
+          f"{plain_ms:.3f} bound {bms:.4f} ({by})", flush=True)
     if n_diff:
         raise Failure(f"flash_rope {label}: {n_diff} elements differ")
 
@@ -386,28 +423,97 @@ def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
                       "the plain version's")
 
 
-def _check_act_quant(qmm, records, label, x, group, k_pad):
-    """The W8A8 activation pass against its plain version: int8 values and
-    scales must be equal (tolerance 0)."""
-    q, xs = qmm.act_quant(x, group, k_pad)
-    q_ref, xs_ref = qmm.act_quant_plain(x, group, k_pad)
-    err = max((q.float() - q_ref).abs().max().item(),
-              (xs - xs_ref).abs().max().item())
-    ms = cuda_time_ms(lambda: qmm.act_quant(x, group, k_pad))
-    plain_ms = cuda_time_ms(lambda: qmm.act_quant_plain(x, group, k_pad),
-                            iters=2)
-    m, k = x.shape
-    # read bf16 x, write int8 q and fp32 scales; abs, max, divide, round
-    bms, by = bound_ms(m * k * 2 + m * k_pad + m * (k_pad // group) * 4,
-                       4.0 * m * k, "fp32")
-    records.append(dict(kernel="qmm_act_quant", case=label, m=m, k=k,
-                        err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
-                        library_ms=None, bound_ms=bms, bound_by=by))
-    print(f"  {'qmm_act_quant':15s} {label:20s} M{m} K{k} group {group} err "
-          f"{err:.3e} (tol 0) kernel {ms:.3f} ms plain {plain_ms:.3f} bound "
-          f"{bms:.3f} ({by})", flush=True)
-    if err != 0.0:
-        raise Failure(f"qmm_act_quant {label}: err {err} != 0")
+def act_quant_cases():
+    """(label, M, K, group, k_pad, ln): the W8A8 activation pass at every
+    (K, group) pair of the served forward (`stacked_w8a8_group` /
+    `flat_w8a8_group` over the FLUX.1-dev linears), at the M the edit gives
+    each, and ragged M, a ragged K in its last group, a K the warp kernel
+    cannot take (the block route), group 1024 (the flat policy's, at no
+    FLUX site) and the LN + adaLN form.  The first two are the main shapes
+    (a block's K 3072 sites and its K 12288 ones)."""
+    return [
+        ("M2560 K3072 group 3072", 2560, 3072, 3072, 3072, False),
+        ("M2560 K12288 group 3072", 2560, 12288, 3072, 12288, False),
+        ("ragged M1000 K3072", 1000, 3072, 3072, 3072, False),
+        ("mod matvec M2", 2, 3072, 3072, 3072, False),
+        ("context_embedder", 512, 4096, 1536, 4608, False),
+        ("proj_out K3072 group 1536", 1024, 3072, 1536, 3072, False),
+        ("time out_layer M1", 1, 3072, 1536, 3072, False),
+        ("vector in_layer", 1, 768, 768, 768, False),
+        ("time in_layer", 1, 256, 256, 256, False),
+        ("x_embedder", 2048, 64, 128, 128, False),
+        ("group 1024", 300, 2048, 1024, 2048, False),
+        ("ragged K4000", 300, 4000, 1536, 4608, False),
+        ("ragged K1001 (block route)", 64, 1001, 1024, 1024, False),
+        ("LN M2560 K3072", 2560, 3072, 3072, 3072, True),
+        ("LN ragged M300 K4000", 300, 4000, 1536, 4608, True),
+    ]
+
+
+def check_act_quant(torch, gen, records, cases):
+    """The W8A8 activation pass against its plain version: int8 codes and
+    scales equal (tolerance 0; a tie at +-absmax/2 planted in each group
+    with room for one, and an all-zero group); timed through the wrapper
+    and by device time, beside the block-per-group kernel it replaces
+    (`cuda_build.mma_sync_only`, device time) and the byte bound."""
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    for label, m, k, group, k_pad, ln in cases:
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+        x[0, :min(k, group)] = 0.0  # x_scale 1
+        if m > 1 and k >= 3:
+            # absmax 3.25 and 1.625 in row 1's first group: 1.625 / fl(3.25 / 127)
+            # lands just off the tie in IEEE division and rounds to 63
+            x[1, :3] = torch.tensor([3.25, 1.625, -1.625])
+            x[1, 3:min(k, group)] = x[1, 3:min(k, group)].clamp(-3.0, 3.0)
+        ab = stats = None
+        boundary = m // 2
+        if ln:
+            ab = torch.zeros(8, k, device="cuda")
+            ab[0] = 1.0 + torch.randn(k, generator=gen, device="cuda") * 0.1
+            ab[2] = 1.0 + torch.randn(k, generator=gen, device="cuda") * 0.1
+            ab[1] = torch.randn(k, generator=gen, device="cuda") * 0.1
+            ab[3] = torch.randn(k, generator=gen, device="cuda") * 0.1
+            stats = qmm.ln_row_stats(x)
+
+        def run():
+            return qmm.act_quant(x, group, k_pad, ab, boundary, stats)
+
+        q, xs = run()
+        q_ref, xs_ref = qmm.act_quant_plain(x, group, k_pad, ab, boundary, stats)
+        n_diff = int((q.float() != q_ref).sum().item())
+        scale_err = (xs - xs_ref).abs().max().item()
+        with cuda_build.mma_sync_only():
+            q_old, xs_old = run()
+            old_dev = device_ms(run)
+        old_diff = int((q_old != q).sum().item()) + int((xs_old != xs).sum().item())
+        ms, dev = cuda_time_ms(run), device_ms(run)
+        plain_ms = cuda_time_ms(lambda: qmm.act_quant_plain(
+            x, group, k_pad, ab, boundary, stats), iters=2)
+        # read bf16 x (and with LN its row stats and the ab rows), write int8
+        # codes and fp32 scales; abs, max, divide, round (and the prologue's
+        # 4 operations) per element
+        nbytes = m * k * 2 + m * k_pad + m * (k_pad // group) * 4
+        if ln:
+            nbytes += m * 8 + 8 * k * 4
+        bms, by = bound_ms(nbytes, (8.0 if ln else 4.0) * m * k, "fp32")
+        route = qmm.act_quant_route(k, group)
+        name = "qmm_act_quant_ln" if ln else "qmm_act_quant"
+        records.append(dict(kernel=name, case=label, m=m, k=k,
+                            err=float(n_diff) + scale_err, tol=0.0, ms=ms,
+                            device_ms=dev, block_device_ms=old_dev,
+                            plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                            bound_by=by, route=route))
+        print(f"  {name:16s} {label:26s} M{m} K{k} group {group} k_pad {k_pad} "
+              f"{route}: codes differing {n_diff} of {q.numel()}, scale err "
+              f"{scale_err:.1e} (tol 0), block kernel's codes differing "
+              f"{old_diff}; wrapper {ms:.4f} ms, device {dev:.4f} (block "
+              f"kernel {old_dev:.4f}), plain {plain_ms:.3f}, bound {bms:.4f} "
+              f"({by})", flush=True)
+        if n_diff or scale_err or old_diff:
+            raise Failure(f"{name} {label}: {n_diff} codes differ, scale err "
+                          f"{scale_err}, block kernel differs in {old_diff}")
 
 
 def _library_call(torch, x, wq, w8a8):
@@ -492,8 +598,6 @@ def check_qmm(torch, gen, records):
             kw = dict(bias3=bi, activation=act, w8a8=w8a8)
             run = lambda: qmm.quant_matmul_stacked(x, wq, sc, blk, **kw)
             group, k_pad = qmm.stacked_w8a8_group(k, n)
-            if w8a8:
-                _check_act_quant(qmm, records, label, x, group, k_pad)
             plain = lambda: qmm.qmm_plain(x, wq[blk], sc[blk], bi[blk], act,
                                           w8a8, group, k_pad)
             out, ref = run(), plain()
@@ -535,8 +639,6 @@ def check_qmm(torch, gen, records):
             x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
             run = lambda: qmm.quant_matmul(x, wq, sc, bias=bi, w8a8=w8a8)
             group, k_pad = qmm.flat_w8a8_group(k, n)
-            if w8a8:
-                _check_act_quant(qmm, records, label, x, group, k_pad)
             plain = lambda: qmm.qmm_plain(x, wq, sc, bi, None, w8a8, group,
                                           k_pad)
             out, ref = run(), plain()
@@ -853,78 +955,105 @@ INT8_RMS, INT8_CORR = 0.03, 0.999
 
 
 def check_flash_int8(torch, gen, records):
-    """The k-quantization pass (codes and scales equal to the plain
-    version's) and the int8 QK^T forward (within kernel 1's bound of its
-    plain version, within JAX's int8 bar of the bf16-score kernel)."""
+    """The int8 QK^T forward in every case of `flash_cases` (batch 1 and 2,
+    both layouts, a ragged S, every mode, the c_factor form): the kernel of
+    `flash_int8_route` (s8 wgmma at every FLUX shape) within kernel 1's
+    bounds of its plain version and within JAX's int8 bar of the bf16-score
+    kernel, its pre-pass (q and k codes and scales) equal to the plain
+    version's, the outputs that differ from the mma.sync int8 kernel's
+    (with its k pass, timed beside at the same call); times through the
+    wrapper and by device time, the pre-pass's alone too."""
     import torch.nn.functional as F
+    from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.ops import flash_attention as fa
     from loongx_tpu_torch.ops.attention import int8_key_span
     from loongx_tpu_torch.ops.rope import apply_rope, rope_embed
 
     h, d = 24, 128
-    for label, s, c in (("S2560 union", 2560, 1024), ("S8704 union", 8704, 4096)):
-        q, k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+    for label, b, s, c, mode, cf, layout in flash_cases():
+        q, k, v = _qkv(torch, gen, b, s, h, d, layout)
         ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
         rope = rope_embed(ids.floor())
         span = int8_key_span(s)
-        kq = dict(span=span, rope=rope, layout="bshd")
-        codes, scales = fa.flash_kquant(k, **kq)
-        codes_p, scales_p = fa.flash_kquant_plain(k, **kq)
-        n_diff = int((codes != codes_p).sum().item())
-        scale_err = (scales - scales_p).abs().max().item()
-        kw = dict(cond_start=s - c, rope=rope, layout="bshd")
-        out = fa.flash_attention(q, k, v, int8_attn=True, **kw).float()
+        route = fa.flash_int8_route(d, span)
+        pq = dict(span=span, rope=rope, layout=layout)
+        pre = fa.flash_int8_prepass(q, k, **pq)
+        pre_p = fa.flash_int8_prepass_plain(q, k, **pq)
+        n_diff = sum(int((x != y).sum().item()) for x, y in zip(pre, pre_p))
+        kq_diff = sum(int((x != y).sum().item()) for x, y in
+                      zip(fa.flash_kquant(k, **pq), pre_p[2:]))
+        kw = dict(cond_start=s - c, mode=mode, c_factor=cf, rope=rope, layout=layout)
+
+        def run():
+            return fa.flash_attention(q, k, v, int8_attn=True, **kw)
+
+        out = run().float()
+        with cuda_build.mma_sync_only():
+            old = run().float()
+            mma_ms, mma_dev = cuda_time_ms(run), device_ms(run)
+            kq_dev = device_ms(lambda: fa.flash_kquant(k, **pq))
         ref = fa.flash_attention_plain(q, k, v, int8_attn=True, **kw).float()
         bf = fa.flash_attention(q, k, v, **kw).float()
-        err = (out - ref).abs().max().item()
+        err = max((out - ref).abs().max().item(), (old - ref).abs().max().item())
         tol = 2.0 ** -5 * ref.abs().max().item()
-        rel = rel_l2(out, ref)
+        rel = max(rel_l2(out, ref), rel_l2(old, ref))
         rms = ((out - bf).pow(2).mean().sqrt() / bf.pow(2).mean().sqrt()).item()
         corr = torch.corrcoef(torch.stack([out.flatten(), bf.flatten()]))[0, 1].item()
-        ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, int8_attn=True, **kw))
+        n_out = int((out != old).sum().item())
+        ms, dev = cuda_time_ms(run), device_ms(run)
+        pre_ms = cuda_time_ms(lambda: fa.flash_int8_prepass(q, k, **pq))
+        pre_dev = device_ms(lambda: fa.flash_int8_prepass(q, k, **pq))
         bf_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
-        kq_ms = cuda_time_ms(lambda: fa.flash_kquant(k, **kq))
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
             q, k, v, int8_attn=True, **kw), iters=2)
-        kq_plain_ms = cuda_time_ms(lambda: fa.flash_kquant_plain(k, **kq), iters=2)
-        qr, kr = (apply_rope(t.transpose(1, 2), *rope) for t in (q, k))
-        vr = v.transpose(1, 2).contiguous()
+        pre_plain_ms = cuda_time_ms(lambda: fa.flash_int8_prepass_plain(q, k, **pq),
+                                    iters=2)
+        qr, kr = (apply_rope(t, *rope) for t in fa._head_major(layout, q, k))
+        vr = fa._head_major(layout, v)[0].contiguous()
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
-        # the k pass and the forward together: q, k, v read, o written (bf16),
-        # the rope tables; S.S.D MACs of int8 scores and of bf16 P.V per head
-        t_ops = 2.0 * h * s * s * d / PEAK_OPS["int8"] + 2.0 * h * s * s * d / PEAK_OPS["bf16"]
-        t_bytes = (4 * s * h * d * 2 + 2 * s * d * 4) / HBM_BYTES_PER_S
+        pairs = {"union": s * s, "no_union": (s - c) ** 2 + c * c,
+                 "independent": s * s - c * (s - c)}[mode]
+        # the pre-pass and the forward together: q, k, v read, o written
+        # (bf16), the rope tables; the visible pairs' D MACs of int8 scores
+        # and of bf16 P.V per head
+        t_ops = 2.0 * b * h * pairs * d * (1 / PEAK_OPS["int8"] + 1 / PEAK_OPS["bf16"])
+        t_bytes = (4 * b * s * h * d * 2 + 2 * s * d * 4) / HBM_BYTES_PER_S
         bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-        # the k pass alone: k and the rope tables read, codes and scales
-        # written; about 10 fp32 operations an element (rotate, abs, max,
-        # divide, round)
-        kq_bms, kq_by = bound_ms(s * h * d * 2 + 2 * s * d * 4 + s * h * d
-                                 + h * scales.shape[-1] * 4, 10.0 * s * h * d,
-                                 "fp32")
+        # the pre-pass alone: q, k and the rope tables read, codes and
+        # scales written; about 10 fp32 operations an element (rotate, abs,
+        # max, divide, round)
+        pre_bms, pre_by = bound_ms(2 * b * s * h * d * 2 + 2 * s * d * 4
+                                   + 2 * b * s * h * d + b * h * (s + pre[3].shape[-1]) * 4,
+                                   20.0 * b * s * h * d, "fp32")
         records.append(dict(kernel="flash_attention_int8", case=label, err=err,
-                            tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bf16_ms=bf_ms, bound_ms=bms, bound_by=by))
+                            tol=tol, ms=ms, device_ms=dev, mma_sync_ms=mma_ms,
+                            mma_sync_device_ms=mma_dev, plain_ms=plain_ms,
+                            library_ms=lib_ms, bf16_ms=bf_ms, bound_ms=bms,
+                            bound_by=by, route=route, outputs_differing=n_out))
         records.append(dict(kernel="flash_kquant", case=label,
-                            err=float(n_diff) + scale_err, tol=0.0, ms=kq_ms,
-                            plain_ms=kq_plain_ms, library_ms=None,
-                            bound_ms=kq_bms, bound_by=kq_by))
-        print(f"  flash int8 {label:12s} k pass: codes differing {n_diff} of "
-              f"{codes.numel()}, scale err {scale_err:.1e}, {kq_ms:.4f} ms "
-              f"(plain {kq_plain_ms:.3f}, bound {kq_bms:.4f} {kq_by}); forward "
-              f"err {err:.3e} (tol {tol:.2e}) rel L2 {rel:.3e} (bound "
-              f"{FLASH_REL_L2:.0e}); vs bf16 scores rms {rms:.4f} (bound "
-              f"{INT8_RMS}) corr {corr:.6f} (bound {INT8_CORR}); int8 {ms:.3f} "
-              f"ms (k pass included) bf16 {bf_ms:.3f} plain {plain_ms:.3f} sdpa "
-              f"{lib_ms:.3f} bound {bms:.3f} ({by})", flush=True)
-        if n_diff or scale_err:
-            raise Failure(f"flash_kquant {label}: {n_diff} codes differ, scale "
-                          f"err {scale_err}")
+                            err=float(n_diff + kq_diff), tol=0.0, ms=pre_ms,
+                            device_ms=pre_dev, mma_sync_device_ms=kq_dev,
+                            plain_ms=pre_plain_ms, library_ms=None,
+                            bound_ms=pre_bms, bound_by=pre_by))
+        print(f"  flash int8 {label:22s} {route}: pre-pass values differing "
+              f"{n_diff} (k pass alone {kq_diff}), wrapper {pre_ms:.4f} ms, device "
+              f"{pre_dev:.4f} (the k pass alone {kq_dev:.4f}; plain {pre_plain_ms:.3f},"
+              f" bound {pre_bms:.4f} {pre_by}); forward err {err:.3e} (tol {tol:.2e})"
+              f" rel L2 {rel:.3e} (bound {FLASH_REL_L2:.0e}), both routes; vs bf16 "
+              f"scores rms {rms:.4f} (bound {INT8_RMS}) corr {corr:.6f} (bound "
+              f"{INT8_CORR}); outputs differing from mma.sync {n_out} of "
+              f"{out.numel()}; int8 {ms:.3f} ms (passes included; device {dev:.4f}),"
+              f" mma.sync {mma_ms:.3f} (device {mma_dev:.4f}), bf16 scores {bf_ms:.3f}"
+              f", plain {plain_ms:.3f}, sdpa {lib_ms:.3f}, bound {bms:.3f} ({by})",
+              flush=True)
+        if n_diff or kq_diff:
+            raise Failure(f"flash int8 pre-pass {label}: {n_diff} values differ "
+                          f"({kq_diff} in the k pass alone)")
         if not (err <= tol and rel <= FLASH_REL_L2 and rms < INT8_RMS
                 and corr > INT8_CORR):
             raise Failure(f"flash int8 {label}: err {err} (tol {tol}), rel L2 "
                           f"{rel}, rms {rms}, corr {corr}")
-        del q, k, v, out, ref, bf, qr, kr, vr
+        del q, k, v, out, old, ref, bf, qr, kr, vr, pre, pre_p
         torch.cuda.empty_cache()
 
 
@@ -1144,7 +1273,8 @@ def _check_act_quant_ln(qmm, records, label, x, ab, boundary, group, k_pad):
     rstd = stats_ref[:, 1]
     stats_err = max(((stats[:, 0] - stats_ref[:, 0]).abs() * rstd).max().item(),
                     ((stats[:, 1] - rstd).abs() / rstd).max().item())
-    s_ms = cuda_time_ms(lambda: qmm.ln_row_stats(x))
+    s_ms, s_dev = cuda_time_ms(lambda: qmm.ln_row_stats(x)), device_ms(
+        lambda: qmm.ln_row_stats(x))
     s_plain_ms = cuda_time_ms(lambda: qmm.ln_row_stats_plain(x), iters=2)
     m, k = x.shape
     # read bf16 x (twice: the second time from L2), write the stats; a sum,
@@ -1152,11 +1282,12 @@ def _check_act_quant_ln(qmm, records, label, x, ab, boundary, group, k_pad):
     s_bms, s_by = bound_ms(m * k * 2 + m * 8, 4.0 * m * k, "fp32")
     records.append(dict(kernel="qmm_ln_stats", case=label, m=m, k=k,
                         err=stats_err, tol=LN_STATS_TOL, ms=s_ms,
-                        plain_ms=s_plain_ms, library_ms=None, bound_ms=s_bms,
-                        bound_by=s_by))
+                        device_ms=s_dev, plain_ms=s_plain_ms, library_ms=None,
+                        bound_ms=s_bms, bound_by=s_by))
     print(f"  {'qmm_ln_stats':18s} {label:18s} M{m} K{k} err {stats_err:.2e} "
           f"(tol {LN_STATS_TOL:.0e}, of the row's scale) kernel {s_ms:.4f} ms "
-          f"plain {s_plain_ms:.3f} bound {s_bms:.4f} ({s_by})", flush=True)
+          f"(device {s_dev:.4f}) plain {s_plain_ms:.3f} bound {s_bms:.4f} "
+          f"({s_by})", flush=True)
     if not stats_err <= LN_STATS_TOL:
         raise Failure(f"qmm_ln_stats {label}: err {stats_err}")
     q, xs = qmm.act_quant(x, group, k_pad, ab, boundary, stats)
@@ -1165,6 +1296,7 @@ def _check_act_quant_ln(qmm, records, label, x, ab, boundary, group, k_pad):
     scale_err = (xs - xs_ref).abs().max().item()
     ms = cuda_time_ms(lambda: qmm.act_quant(x, group, k_pad, ab, boundary,
                                             stats))
+    dev = device_ms(lambda: qmm.act_quant(x, group, k_pad, ab, boundary, stats))
     plain_ms = cuda_time_ms(lambda: qmm.act_quant_plain(
         x, group, k_pad, ab, boundary, stats), iters=2)
     # read bf16 x, the row stats and the ab rows, write int8 codes and fp32
@@ -1173,12 +1305,13 @@ def _check_act_quant_ln(qmm, records, label, x, ab, boundary, group, k_pad):
                        + m * (k_pad // group) * 4, 8.0 * m * k, "fp32")
     records.append(dict(kernel="qmm_act_quant_ln", case=label, m=m, k=k,
                         err=float(n_diff) + scale_err, tol=0.0, ms=ms,
-                        plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                        bound_by=by))
+                        device_ms=dev, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bms, bound_by=by,
+                        route=qmm.act_quant_route(k, group)))
     print(f"  {'qmm_act_quant_ln':18s} {label:18s} M{m} K{k} group {group} "
           f"codes differing {n_diff} of {q.numel()}, scale err {scale_err:.1e} "
-          f"(tol 0) kernel {ms:.3f} ms plain {plain_ms:.3f} bound {bms:.4f} "
-          f"({by})", flush=True)
+          f"(tol 0) kernel {ms:.3f} ms (device {dev:.4f}) plain {plain_ms:.3f} "
+          f"bound {bms:.4f} ({by})", flush=True)
     if n_diff or scale_err:
         raise Failure(f"qmm_act_quant_ln {label}: {n_diff} codes differ, "
                       f"scale err {scale_err}")
@@ -1331,7 +1464,7 @@ def plain_versions(attention=None):
 KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
            "qmm_stacked", "qmm_stacked:wgmma", "qmm_qkv_stacked",
            "qmm_qkv_stacked:wgmma", "qmm_flat", "qmm_flat:wgmma",
-           "qmm_flat:mma_sync", "qmm_act_quant")
+           "qmm_flat:mma_sync", "qmm_act_quant", "qmm_act_quant:warp")
 TRAIN_KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
                  "qmm_stacked", "qmm_stacked:wgmma", "qmm_flat", "qmm_t",
                  "qmm_t_stacked", "qmm_t_stacked:wgmma", "flash_bwd_dkv",
@@ -1344,6 +1477,13 @@ WONLY_GROUPS = ("qmm_bf16_wgmma_kernel", "qmm_kernel")
 TRANSPOSED_GROUPS = ("qmm_t_wgmma_kernel", "qmm_t_prescale_kernel",
                      "qmm_t_kernel")
 GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
+# the int8 QK^T forward's kernels and its pre-pass (kquant_max_kernel,
+# kquant_codes_kernel), then the activation pass (act_quant_warp_kernel,
+# act_quant_block_kernel)
+INT8_ATTN_GROUPS = ("flash_fwd_int8_wgmma_kernel", "flash_fwd_kernel", "kquant_")
+PROFILE_GROUPS = ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
+                  "qmm_wgmma_kernel", *INT8_ATTN_GROUPS, *FLASH_BWD_GROUPS,
+                  *WONLY_GROUPS, *TRANSPOSED_GROUPS, "act_quant_")
 
 
 def gemm_split(counts):
@@ -1374,11 +1514,7 @@ def device_profile(torch, run):
     groups, other = {}, {}
     for e in events:
         us = e.time_range.end - e.time_range.start
-        group = next((g for g in ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
-                                  "qmm_wgmma_kernel", "flash_fwd_kernel",
-                                  *FLASH_BWD_GROUPS, *WONLY_GROUPS,
-                                  *TRANSPOSED_GROUPS, "act_quant_kernel")
-                      if g in e.name), None)
+        group = next((g for g in PROFILE_GROUPS if g in e.name), None)
         if group is None:
             group = "other"
             other[e.name] = other.get(e.name, 0.0) + us
@@ -1549,6 +1685,11 @@ def full_forward(torch, pipe, gen):
               flush=True)
         if not finite or not rel <= 5e-2:
             raise Failure(f"forward int8_attn: rel L2 {rel}, finite {finite}")
+        cuda_build.LAUNCHES.clear()
+        prof_int8 = device_profile(torch, lambda: flux_forward(
+            params, cfg, w8a8=True, int8_attn=True, **kw))
+        int8_counts = {n: cuda_build.LAUNCHES[n] for n in (
+            "flash_attention_int8", "flash_attention_int8:wgmma", "flash_kquant")}
         fused = fused_forward(torch, params, cfg, kw, v_bf16, t_kernel)
     print(f"  forward host profile (cProfile, its own overhead included): "
           f"{host}", flush=True)
@@ -1560,7 +1701,30 @@ def full_forward(torch, pipe, gen):
               "{span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
               "{by_group_ms}; largest other {top_other_ms}".format(**prof),
               flush=True)
+    if prof_int8 is None:
+        print("  int8_attn forward device profile: not measured (no device "
+              "activity in the profiler)", flush=True)
+    else:
+        groups = prof_int8["by_group_ms"]
+        print("  int8_attn forward device profile: busy {busy_ms:.1f} ms over a "
+              "span of {span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
+              "{by_group_ms}; largest other {top_other_ms}".format(**prof_int8),
+              flush=True)
+        print(f"  int8_attn forward: its flash group (forward kernels and "
+              f"pre-pass) {sum(groups.get(g, 0.0) for g in INT8_ATTN_GROUPS):.2f} "
+              f"ms (" + ", ".join(f"{g} {groups[g]:.2f}" for g in INT8_ATTN_GROUPS
+                                  if g in groups)
+              + f"); launches {int8_counts}", flush=True)
+    if prof is not None:
+        print(f"  forward activation pass group (act_quant_warp_kernel / "
+              f"act_quant_block_kernel): "
+              f"{prof['by_group_ms'].get('act_quant_', 0.0):.2f} ms", flush=True)
     blocks = cfg.num_double_blocks + cfg.num_single_blocks
+    if not (int8_counts["flash_attention_int8"]
+            == int8_counts["flash_attention_int8:wgmma"]
+            == int8_counts["flash_kquant"] == blocks):
+        raise Failure(f"int8_attn forward launches {int8_counts}: want {blocks} "
+                      f"on wgmma, each after its pre-pass")
     if not (counts["flash_attention"] == counts["flash_attention:wgmma"]
             == counts["flash_rope"] == blocks):
         raise Failure(f"flash launches {counts}: want {blocks} on wgmma, each "
@@ -1569,6 +1733,9 @@ def full_forward(torch, pipe, gen):
     # the flat ones that the tiling cannot take (K 64, N 64) on mma.sync
     if split["qmm_stacked"][2] or split["qmm_qkv_stacked"][2]:
         raise Failure(f"stacked / qkv launches on mma.sync: {split}")
+    # every activation pass of the forward on the warp kernel
+    if counts["qmm_act_quant"] != counts["qmm_act_quant:warp"]:
+        raise Failure(f"activation passes not all on the warp kernel: {counts}")
     if not all(counts.values()):
         raise Failure(f"a kernel was not launched: {counts}")
     fused_launch_check(cfg, fused, 1, "forward")
@@ -1889,7 +2056,9 @@ def serve_options(torch, pipe, req, img_ref, times, ms_unfused):
               f"{bool(np.isfinite(img).all())}, launches "
               + ", ".join(f"{k} {out[label].get(k, 0)}" for k in
                           ("s4d_scan", "flash_attention", "flash_attention_int8",
-                           "flash_kquant") + FUSED_KERNELS), flush=True)
+                           "flash_attention_int8:wgmma",
+                           "flash_attention_int8:mma_sync", "flash_kquant")
+                          + FUSED_KERNELS), flush=True)
         if not (np.isfinite(img).all() and img.shape == img_ref.shape):
             raise Failure(f"request {label}: output {img.shape} not finite")
     print(f"  brain embeds (prompt, pooled) rel L2: "
@@ -1905,8 +2074,11 @@ def serve_options(torch, pipe, req, img_ref, times, ms_unfused):
         raise Failure(f"brain embeds through the S4D recurrence: {rels}")
     blocks = pipe.flux_cfg.num_double_blocks + pipe.flux_cfg.num_single_blocks
     int8 = out["int8_attn"]
+    # every int8 forward on the s8 wgmma kernel, each after its pre-pass
     if not (int8.get("flash_attention_int8") == int8.get("flash_kquant")
-            == STEPS * blocks and not int8.get("flash_attention")):
+            == int8.get("flash_attention_int8:wgmma") == STEPS * blocks
+            and not int8.get("flash_attention")
+            and not int8.get("flash_attention_int8:mma_sync")):
         raise Failure(f"int8_attn request launches {int8}")
     fused_launch_check(pipe.flux_cfg, out["fuse_ln+fuse_gate"], STEPS,
                        "fuse_ln+fuse_gate request")
@@ -2268,8 +2440,8 @@ def kernel_table(records, launches):
         "qmm_flat": ("quant_matmul.cu", f"{qmm_py}:75", "context_embedder w8a8",
                      "serve"),
         # the activation quantization inside the TPU kernels' W8A8 MAC
-        "qmm_act_quant": ("quant_matmul.cu", f"{qmm_py}:39", "single mlp gelu",
-                          "serve"),
+        "qmm_act_quant": ("quant_matmul.cu", f"{qmm_py}:39",
+                          "M2560 K3072 group 3072", "serve"),
         # the weight-only MAC (_accum_tile :53-57) of _qmm_stacked_kernel
         # (and of :1067 and :75), on bf16 wgmma
         "qmm_wonly": ("quant_matmul.cu", f"{qmm_py}:422",
@@ -2283,7 +2455,8 @@ def kernel_table(records, launches):
                          "train"),
         "s4d_scan": ("s4d_scan.cu", "loongx_tpu/ops/s4_pallas.py:30",
                      "EEG wide", "serve s4_mode=pallas"),
-        # the int8 QK^T mode of _fwd_kernel (:228-291) and its k quantization
+        # the int8 QK^T mode of _fwd_kernel (:228-291) and its pre-pass (the
+        # q and k quantization of _quant :228)
         "flash_attention_int8": ("flash_attention.cu", f"{fa_py}:193",
                                  "S2560 union", "serve int8_attn"),
         "flash_kquant": ("flash_attention.cu", f"{fa_py}:228", "S2560 union",
@@ -2297,7 +2470,7 @@ def kernel_table(records, launches):
         "qmm_qkv_stacked_ln": ("quant_matmul.cu", f"{qmm_py}:1086",
                                "img+cond w8a8", "serve fuse_ln+fuse_gate"),
         "qmm_act_quant_ln": ("quant_matmul.cu", f"{qmm_py}:447",
-                             "single mlp gelu", "serve fuse_ln+fuse_gate"),
+                             "LN M2560 K3072", "serve fuse_ln+fuse_gate"),
         "qmm_stacked_gate": ("quant_matmul.cu", f"{qmm_py}:413",
                              "single proj K12288 w8a8",
                              "serve fuse_ln+fuse_gate"),
@@ -2317,6 +2490,9 @@ def kernel_table(records, launches):
             counter = name
             cases = [r for r in records if r["kernel"] == name]
         main = next(r for r in cases if r["case"] == main_case)
+        routes = {r: launches[path].get(f"{counter}:{r}", 0)
+                  for r in ("wgmma", "mma_sync", "warp", "block")
+                  if f"{counter}:{r}" in launches[path]}
         table.append({
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": launches[path].get(counter, 0),
@@ -2325,16 +2501,13 @@ def kernel_table(records, launches):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main_case,
-            **{key: main[key] for key in ("unfused_ms", "mma_sync_ms",
+            **{key: main[key] for key in ("device_ms", "unfused_ms", "mma_sync_ms",
+                                          "mma_sync_device_ms", "block_device_ms",
                                           "cublas_bf16_ms", "transpose_share",
                                           "prescale_ms")
                if key in main},
             **({"kernel": main["route"]} if "route" in main else {}),
-            **({"launches_by_route": {
-                r: launches[path].get(f"{counter}:{r}", 0)
-                for r in ("wgmma", "mma_sync")}}
-               if f"{counter}:wgmma" in launches[path]
-               or f"{counter}:mma_sync" in launches[path] else {}),
+            **({"launches_by_route": routes} if any(routes.values()) else {}),
         })
     return table
 
@@ -2372,6 +2545,9 @@ def main() -> int:
         with Phase("2 kernels vs plain", card):
             check_flash(torch, gen, records)
             check_qmm(torch, gen, records)
+            # a generator of its own keeps phase 3's inputs as they were
+            check_act_quant(torch, torch.Generator(device="cuda").manual_seed(4),
+                            records, act_quant_cases())
             check_qmm_t(torch, gen, records)
             check_flash_bwd(torch, gen, records)
             # a generator of their own keeps phase 3's inputs as they were

@@ -13,17 +13,17 @@
 // is the same sum.
 //
 // int8 QK^T mode (serving only; the TPU kernel's int8_qk path, flash_attention.py:228-291):
-// the scores are (q_codes . k_codes) * (q_scale[row] * k_scale[span]), s8 x s8 -> s32 on
-// mma.sync m16n8k32, then the same fp32 softmax and bf16 P.V.  Codes follow the TPU kernel's
-// _quant: sc = absmax / 127 (1 when absmax is 0, IEEE division), code = clip(rint(x / sc),
-// -127, 127), taken after RoPE and its rounding to bf16.  q is quantized per row as its tile
-// loads.  The k scale spans the TPU kernel's key tile block_k (the whole padded row at every
-// FLUX length), wider than any block's view here, so a pre-pass of two small kernels
-// (kquant_absmax_kernel: rotate, round, absmax per span by atomicMax on the float's bits,
-// exact and order-free for non-negative floats; kquant_codes_kernel: rotate again and write
-// the codes, head-major [B, H, S, D] int8, and one fp32 scale per span) runs first.  The int8
-// K tile halves the K bytes the forward reads and its score product runs at twice the bf16
-// tensor rate; P.V stays bf16, so at most about a third of the work moves to the faster path.
+// the scores are (q_codes . k_codes) * (q_scale[row] * k_scale[span]), s8 x s8 -> s32, then the
+// same fp32 softmax and bf16 P.V.  Codes follow the TPU kernel's _quant: sc = absmax / 127 (1
+// when absmax is 0, IEEE division), code = clip(rint(x / sc), -127, 127), taken after RoPE and
+// its rounding to bf16.  The k scale spans the TPU kernel's key tile block_k (the whole padded
+// row at every FLUX length), wider than any block's view here, so a pre-pass of two small
+// kernels (kquant_max_kernel, kquant_codes_kernel below) writes k's codes, head-major
+// [B, H, S, D] int8, and one fp32 scale per span first.  At head_dim 128 (every FLUX shape) the
+// forward runs on wgmma (flash_fwd_int8_wgmma_kernel, "Forward on wgmma"), and the pre-pass
+// writes q's codes and per-row scales too; this mma.sync kernel (flash_fwd_kernel<D, true>, on
+// mma.sync m16n8k32) keeps head_dim 64 and spans that split a 128-key tile, and quantizes each
+// q row as its tile loads.  flash_int8_route in Python picks the kernel.
 //
 // What bounds it on this card: at the FLUX shapes (S = 2560 or 8704, D = 128, 24 heads) the
 // two matmuls are 4*S*S*D flops per head, about 80 GFLOP at S = 2560 against ~80 MB of
@@ -38,8 +38,9 @@
 // base 2 (scores prescaled by log2 e).  q/k/v/o are read and written through strides, so the
 // [B, S, H, D] projection layout needs no transpose.  Loads are plain (no cp.async/TMA
 // pipeline, no wgmma): two blocks per SM hide part of the latency.  This kernel keeps head_dim
-// 64 and the int8 QK^T mode; at head_dim 128 (every FLUX shape) the bf16-score forward runs
-// flash_fwd_wgmma_kernel below ("Forward on wgmma"), chosen by flash_fwd_route in Python.
+// 64 in both score modes; at head_dim 128 (every FLUX shape) the forward runs
+// flash_fwd_wgmma_kernel below ("Forward on wgmma"), chosen by flash_fwd_route and
+// flash_int8_route in Python.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +48,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "quant8.cuh"
 
 namespace {
 
@@ -128,13 +130,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
   }
 }
 
-// int8 codes of x with scale sc (IEEE division, round half to even, clip to +-127).
-__device__ __forceinline__ int quant8(float x, float sc) {
-  return max(-127, min(127, __float2int_rn(__fdiv_rn(x, sc))));
-}
-__device__ __forceinline__ float scale8(float absmax) {
-  return absmax == 0.f ? 1.f : __fdiv_rn(absmax, 127.f);
-}
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
   return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
          ((uint32_t)(d & 0xff) << 24);
@@ -212,8 +207,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         a = fmaxf(a, fabsf(__bfloat162float(ks[(wr + r) * LD + c])));
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
-      if (r == g) qsc[0] = scale8(a);
-      if (r == g + 8) qsc[1] = scale8(a);
+      if (r == g) qsc[0] = quant8::scale_of(a);
+      if (r == g + 8) qsc[1] = quant8::scale_of(a);
     }
 #pragma unroll
     for (int kk = 0; kk < KSTEPS8; ++kk) {
@@ -221,8 +216,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       for (int j = 0; j < 4; ++j) {
         const __nv_bfloat16* x = ks + (wr + g + 8 * (j % 2)) * LD + kk * 32 + 16 * (j / 2) + 4 * t;
         const float sc = qsc[j % 2];
-        qf8[kk][j] = pack4(quant8(__bfloat162float(x[0]), sc), quant8(__bfloat162float(x[1]), sc),
-                           quant8(__bfloat162float(x[2]), sc), quant8(__bfloat162float(x[3]), sc));
+        qf8[kk][j] = pack4(quant8::code_div(__bfloat162float(x[0]), sc),
+                           quant8::code_div(__bfloat162float(x[1]), sc),
+                           quant8::code_div(__bfloat162float(x[2]), sc),
+                           quant8::code_div(__bfloat162float(x[3]), sc));
       }
     }
   } else {
@@ -383,82 +380,128 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-// The int8 mode's k pre-pass: one block per 64 keys of one head.  Pass 1 folds the absmax
-// of the rotated, bf16-rounded keys into amax[b, h, span] (the float's bits, atomicMax: exact
-// for non-negative floats in any order); pass 2 rotates again and writes the codes and, from
-// the block that starts a span, that span's scale.
+// The int8 mode's pre-pass (flash_kquant), two kernels of one block per 64 rows of one head.
+// kquant_max_kernel: the absmax of the block's rotated, bf16-rounded keys into kmax[b, h, block]
+// (no atomics, so no buffer to clear first); with q (the wgmma route, blockIdx.z >= B) it also
+// writes q's codes [B, H, S, D] and per-row scales [B, H, S]: a row's absmax is a shuffle over the
+// D / 8 neighbouring threads that load it.  kquant_codes_kernel: a span's scale from its blocks'
+// absmaxes (the block that starts the span writes it), then k rotated again (cheaper than a bf16
+// round trip through memory) and its codes [B, H, S, D].  Codes are quant8::codes8's.  What
+// bounds it: bytes (q and k read, k twice, the codes written); each element is read by one
+// thread as part of a 16-byte load.  (Blocks of four heads that read each cos/sin row once
+// for the four measured slower.)
 constexpr int KQ_ROWS = 64;
 constexpr int KQ_THREADS = 256;
 
 template <int D>
 __global__ void __launch_bounds__(KQ_THREADS)
-kquant_absmax_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ cos,
-                     const float* __restrict__ sin, unsigned* __restrict__ amax, int H, int S,
-                     long long sb, long long ss, long long sh, int span, int nspan) {
-  constexpr int CHUNKS = D / 8;
-  const int r0 = blockIdx.x * KQ_ROWS;
-  const long long head = (long long)blockIdx.z * sb + (long long)blockIdx.y * sh;
-  float a = 0.f;
-  for (int c = threadIdx.x; c < KQ_ROWS * CHUNKS; c += KQ_THREADS) {
-    const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8, s = r0 + r;
-    if (s >= S) continue;
-    const uint4 raw = rope8<D>(*reinterpret_cast<const uint4*>(k + head + (long long)s * ss + c8),
-                               cos, sin, s, c8);
-    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) a = fmaxf(a, fabsf(__bfloat162float(x[j])));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+kquant_max_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ q,
+                  const float* __restrict__ cos, const float* __restrict__ sin,
+                  float* __restrict__ kmax, int8_t* __restrict__ qcodes,
+                  float* __restrict__ qscale, int B, int H, int S, long long sb, long long ss,
+                  long long sh) {
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks of a row
   __shared__ float wmax[KQ_THREADS / 32];
-  if (threadIdx.x % 32 == 0) wmax[threadIdx.x / 32] = a;
+  const int r0 = blockIdx.x * KQ_ROWS, h = blockIdx.y, b = blockIdx.z % B;
+  const bool is_q = blockIdx.z >= B;
+  const long long bh = (long long)b * H + h;
+  const __nv_bfloat16* src = (is_q ? q : k) + (long long)b * sb + (long long)h * sh;
+  float kabs = 0.f;
+#pragma unroll
+  for (int i = 0; i < KQ_ROWS * CHUNKS / KQ_THREADS; ++i) {
+    const int c = threadIdx.x + i * KQ_THREADS;
+    const int s = r0 + c / CHUNKS, c8 = (c % CHUNKS) * 8;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (s < S)
+      raw = rope8<D>(*reinterpret_cast<const uint4*>(src + (long long)s * ss + c8), cos, sin, s,
+                     c8);
+    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    float xf[8], a = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      xf[j] = __bfloat162float(x[j]);
+      a = fmaxf(a, fabsf(xf[j]));
+    }
+    if (!is_q) {
+      kabs = fmaxf(kabs, a);
+      continue;
+    }
+#pragma unroll
+    for (int off = CHUNKS / 2; off > 0; off >>= 1)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    const float sc = quant8::scale_of(a);
+    const uint2 codes = quant8::codes8(xf, sc, __frcp_rn(sc));
+    if (s < S) {
+      *reinterpret_cast<uint2*>(qcodes + (bh * S + s) * D + c8) = codes;
+      if (c8 == 0) qscale[bh * S + s] = sc;
+    }
+  }
+  if (is_q) return;  // uniform over the block
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    kabs = fmaxf(kabs, __shfl_xor_sync(0xffffffffu, kabs, off));
+  if (threadIdx.x % 32 == 0) wmax[threadIdx.x / 32] = kabs;
   __syncthreads();
   if (threadIdx.x == 0) {
     float m = 0.f;
     for (int w = 0; w < KQ_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
-    const long long bh = (long long)blockIdx.z * H + blockIdx.y;
-    atomicMax(amax + bh * nspan + r0 / span, __float_as_uint(m));
+    kmax[bh * gridDim.x + blockIdx.x] = m;
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(KQ_THREADS)
 kquant_codes_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ cos,
-                    const float* __restrict__ sin, const unsigned* __restrict__ amax,
+                    const float* __restrict__ sin, const float* __restrict__ kmax,
                     int8_t* __restrict__ codes, float* __restrict__ scales, int H, int S,
                     long long sb, long long ss, long long sh, int span, int nspan) {
   constexpr int CHUNKS = D / 8;
-  const int r0 = blockIdx.x * KQ_ROWS;
-  const long long head = (long long)blockIdx.z * sb + (long long)blockIdx.y * sh;
-  const long long bh = (long long)blockIdx.z * H + blockIdx.y;
-  const float sc = scale8(__uint_as_float(amax[bh * nspan + r0 / span]));
-  if (threadIdx.x == 0 && r0 % span == 0) scales[bh * nspan + r0 / span] = sc;
-  for (int c = threadIdx.x; c < KQ_ROWS * CHUNKS; c += KQ_THREADS) {
-    const int r = c / CHUNKS, c8 = (c % CHUNKS) * 8, s = r0 + r;
-    if (s >= S) continue;
-    const uint4 raw = rope8<D>(*reinterpret_cast<const uint4*>(k + head + (long long)s * ss + c8),
-                               cos, sin, s, c8);
-    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    int qv[8];
+  __shared__ float span_sc;
+  const int r0 = blockIdx.x * KQ_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const int sp = r0 / span, per_span = span / KQ_ROWS;
+  if (threadIdx.x < 32) {
+    const float* m = kmax + bh * gridDim.x;
+    const int first = sp * per_span, last = min(first + per_span, (int)gridDim.x);
+    float a = 0.f;
+    for (int i = first + threadIdx.x; i < last; i += 32) a = fmaxf(a, m[i]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) qv[j] = quant8(__bfloat162float(x[j]), sc);
-    *reinterpret_cast<uint2*>(codes + (bh * S + s) * D + c8) =
-        make_uint2(pack4(qv[0], qv[1], qv[2], qv[3]), pack4(qv[4], qv[5], qv[6], qv[7]));
+    for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    if (threadIdx.x == 0) {
+      span_sc = quant8::scale_of(a);
+      if (r0 % span == 0) scales[bh * nspan + sp] = span_sc;
+    }
+  }
+  __syncthreads();
+  const float sc = span_sc, rc = __frcp_rn(sc);
+  const __nv_bfloat16* src = k + (long long)b * sb + (long long)h * sh;
+#pragma unroll
+  for (int i = 0; i < KQ_ROWS * CHUNKS / KQ_THREADS; ++i) {
+    const int c = threadIdx.x + i * KQ_THREADS;
+    const int s = r0 + c / CHUNKS, c8 = (c % CHUNKS) * 8;
+    if (s >= S) continue;
+    const uint4 raw =
+        rope8<D>(*reinterpret_cast<const uint4*>(src + (long long)s * ss + c8), cos, sin, s, c8);
+    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    float xf[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xf[j] = __bfloat162float(x[j]);
+    *reinterpret_cast<uint2*>(codes + (bh * S + s) * D + c8) = quant8::codes8(xf, sc, rc);
   }
 }
 
 template <int D>
-cudaError_t launch_kquant(const __nv_bfloat16* k, const float* cos, const float* sin,
-                          unsigned* amax, int8_t* codes, float* scales, int B, int H, int S,
-                          long long sb, long long ss, long long sh, int span, int nspan,
-                          cudaStream_t st) {
-  const dim3 grid((S + KQ_ROWS - 1) / KQ_ROWS, H, B);
-  kquant_absmax_kernel<D><<<grid, KQ_THREADS, 0, st>>>(k, cos, sin, amax, H, S, sb, ss, sh,
-                                                       span, nspan);
+cudaError_t launch_kquant(const __nv_bfloat16* k, const __nv_bfloat16* q, const float* cos,
+                          const float* sin, float* kmax, int8_t* codes, float* scales,
+                          int8_t* qcodes, float* qscale, int B, int H, int S, long long sb,
+                          long long ss, long long sh, int span, int nspan, cudaStream_t st) {
+  const int blocks = (S + KQ_ROWS - 1) / KQ_ROWS;
+  kquant_max_kernel<D><<<dim3(blocks, H, q ? 2 * B : B), KQ_THREADS, 0, st>>>(
+      k, q, cos, sin, kmax, qcodes, qscale, B, H, S, sb, ss, sh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kquant_codes_kernel<D><<<grid, KQ_THREADS, 0, st>>>(k, cos, sin, amax, codes, scales, H, S,
-                                                      sb, ss, sh, span, nspan);
+  kquant_codes_kernel<D><<<dim3(blocks, H, B), KQ_THREADS, 0, st>>>(
+      k, cos, sin, kmax, codes, scales, H, S, sb, ss, sh, span, nspan);
   return cudaGetLastError();
 }
 
@@ -481,15 +524,36 @@ cudaError_t launch_kquant(const __nv_bfloat16* k, const float* cos, const float*
 // on the raw scores and each probability is one fma and one ex2.approx, which halves the
 // softmax's instructions (it runs between the two products of each warpgroup, unoverlapped:
 // a software-pipelined loop and ping-pong scheduling of the two warpgroups measured slower).
+//
+// The int8 QK^T mode on wgmma (flash_fwd_int8_wgmma_kernel; D = 128, every FLUX shape): the
+// pre-pass (flash_attention_kquant with q) writes q's codes and per-row scales beside k's codes
+// and span scales, all head-major [B, H, S, 128] int8, so one TMA box of 128 rows x 128 bytes
+// (128-byte swizzle) is a whole Q or K tile, half a bf16 one: the ring holds four stages.
+// S = Q_c.K_c^T runs on s8 wgmma m64n128k32 (four k-steps, both operands K-major as 8-bit wgmma
+// requires) into an int32 fragment with the fp32 one's layout; each score is then
+// __fmul_rn(float(acc), q_scale[row] * k_scale[span]), the mma.sync kernel's order (the int32
+// sums are exact, |acc| <= 127^2 * 128 < 2^24, and the codes are the same, so the scores equal
+// its scores bit for bit), and the softmax and bf16 P.V are the bf16 kernel's.  The S product
+// takes half the bf16 one's tensor time; the softmax between the two products does not shrink.
+// A 128-key tile lies in one span (span % 128 == 0: flash_int8_route in Python).
 namespace fa3 {
 
-constexpr int D = 128, BQ = 128, BKV = 128, STAGES = 3;
-constexpr int PANEL = 128 * 128;  // bytes: 128 rows x 64 bf16, one TMA box
+constexpr int D = 128, BQ = 128, BKV = 128;
+constexpr int PANEL = 128 * 128;  // bytes: 128 rows x 64 bf16 (or 128 int8), one TMA box
 // warpgroups: two consumers and the producer (one thread issues TMA); entry registers
 // 65536 / 384 = 168, then 240 for the consumers and 24 for the producer (2 x 72 = 144)
 constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128, ENTRY_REGS = 168;
-constexpr int SMEM_BYTES = (2 + 4 * STAGES) * PANEL + (1 + 2 * STAGES) * 8 + 1024;
 constexpr int ROPE_ROWS = 64;
+
+// Shared memory of the forward: the Q tile, then a ring of STAGES (K tile, V tile); a bf16 Q
+// or K tile is two panels, an int8 one a single panel.
+template <bool INT8>
+struct FwdSmem {
+  static constexpr int QK_PANELS = INT8 ? 1 : 2;
+  static constexpr int STAGES = INT8 ? 4 : 3;
+  static constexpr int BYTES =
+      (QK_PANELS + (QK_PANELS + 2) * STAGES) * PANEL + (1 + 2 * STAGES) * 8 + 1024;
+};
 
 struct Args {
   __nv_bfloat16* o;
@@ -498,6 +562,9 @@ struct Args {
   long long sb, ss, sh;  // o's element strides (v's too)
   int cond_start, mode;
   float cbias, scale;
+  // int8 mode: per-row q scales [B, H, S], per-span k scales [B, H, nspan]
+  const float *qscale, *kscale;
+  int span, nspan;
 };
 
 // Does key tile [kv0, kv0 + nk) hold a key that some query row of [q0, q0 + nq) attends to?
@@ -547,16 +614,19 @@ rope_prepass_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                       const __grid_constant__ CUtensorMap map_k,
-                       const __grid_constant__ CUtensorMap map_v, const Args p) {
+// The body of both forward kernels (flash_fwd_wgmma_kernel, flash_fwd_int8_wgmma_kernel: two
+// names, so that a profile tells them apart).
+template <bool INT8>
+__device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                               const CUtensorMap& map_v, const Args& p) {
+  using L = FwdSmem<INT8>;
+  constexpr int STAGES = L::STAGES, QK = L::QK_PANELS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sq = base;                          // 2 panels
-  uint8_t* sk = base + 2 * PANEL;              // STAGES x 2 panels
-  uint8_t* sv = base + (2 + 2 * STAGES) * PANEL;
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(base + (2 + 4 * STAGES) * PANEL);
+  uint8_t* sq = base;                          // QK panels
+  uint8_t* sk = base + QK * PANEL;             // STAGES x QK panels
+  uint8_t* sv = sk + QK * STAGES * PANEL;      // STAGES x 2 panels
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sv + 2 * STAGES * PANEL);
   uint64_t* full = qfull + 1;
   uint64_t* empty = full + STAGES;
 
@@ -576,19 +646,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x >= CONSUMERS) {
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == CONSUMERS) {
-      hopper::mbar_arrive_expect_tx(qfull, 2 * PANEL);
-      hopper::tma_load_4d(sq, &map_q, qfull, 0, q0, h, b);
-      hopper::tma_load_4d(sq + PANEL, &map_q, qfull, 64, q0, h, b);
+      // a bf16 tile is two 64-wide d panels; an int8 tile is one box of 128 bytes a row
+      hopper::mbar_arrive_expect_tx(qfull, QK * PANEL);
+      for (int i = 0; i < QK; ++i)
+        hopper::tma_load_4d(sq + i * PANEL, &map_q, qfull, 64 * i, q0, h, b);
       int it = 0;
       for (int j = 0; j < ntiles; ++j) {
         if (!tile_visible(mode, cs, S, q0, BQ, j * BKV, BKV)) continue;
         const int s = it % STAGES;
         hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], 4 * PANEL);
-        uint8_t* kt = sk + s * 2 * PANEL;
+        hopper::mbar_arrive_expect_tx(&full[s], (QK + 2) * PANEL);
+        uint8_t* kt = sk + s * QK * PANEL;
         uint8_t* vt = sv + s * 2 * PANEL;
-        hopper::tma_load_4d(kt, &map_k, &full[s], 0, j * BKV, h, b);
-        hopper::tma_load_4d(kt + PANEL, &map_k, &full[s], 64, j * BKV, h, b);
+        for (int i = 0; i < QK; ++i)
+          hopper::tma_load_4d(kt + i * PANEL, &map_k, &full[s], 64 * i, j * BKV, h, b);
         hopper::tma_load_4d(vt, &map_v, &full[s], 0, j * BKV, h, b);
         hopper::tma_load_4d(vt + PANEL, &map_v, &full[s], 64, j * BKV, h, b);
         ++it;
@@ -610,19 +681,53 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
   const uint8_t* sq_wg = sq + wgi * 64 * 128;
-
-  // S = Q K^T of the tile in stage s: 8 k-steps of 16 d, 4 in each 64-wide panel
-  auto issue_scores = [&](int s) {
-    const uint8_t* kt = sk + s * 2 * PANEL;
-    hopper::wgmma_fence();
+  const long long bh = (long long)b * p.H + h, stat = bh * S;
+  // int8: the q scales of rows g and g + 8
+  float qsc[2] = {1.f, 1.f};
+  if constexpr (INT8) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int panel = kk / 4, off = (kk % 4) * 32;
-      const uint64_t dq = hopper::desc_sw128(sq_wg + panel * PANEL + off, 16, 1024);
-      const uint64_t dk = hopper::desc_sw128(kt + panel * PANEL + off, 16, 1024);
-      hopper::wgmma_m64n128k16_bf16_ss(sc, dq, dk, kk > 0);
+    for (int r = 0; r < 2; ++r)
+      if (row_id[r] < S) qsc[r] = p.qscale[stat + row_id[r]];
+  }
+
+  // S = Q K^T of the tile in stage s (key tile kv0) into sc, complete on return.  bf16: 8
+  // k-steps of 16 d, 4 in each 64-wide panel.  int8: 4 k-steps of 32 d on s8 wgmma, then each
+  // score float(acc) * (q_scale * k_scale) as the mma.sync kernel rounds it.
+  auto scores = [&](int s, int kv0) {
+    if constexpr (INT8) {
+      const uint8_t* kt = sk + s * PANEL;
+      const uint64_t dq = hopper::desc_sw128(sq_wg, 16, 1024);
+      const uint64_t dk = hopper::desc_sw128(kt, 16, 1024);
+      int si[64];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        hopper::wgmma_m64n128k32_s8(si, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(si);
+      const float ksc = p.kscale[bh * p.nspan + kv0 / p.span];
+      const float qk[2] = {qsc[0] * ksc, qsc[1] * ksc};
+      // float(acc) without the quarter-rate I2F: acc's bits added to those of 1.5 * 2^23 give
+      // 1.5 * 2^23 + acc exactly (|acc| < 2^22), one subtraction leaves acc
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        sc[i] = __fmul_rn(__fsub_rn(__int_as_float(0x4B400000 + si[i]), 12582912.f),
+                          qk[(i % 4) / 2]);
+    } else {
+      const uint8_t* kt = sk + s * 2 * PANEL;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int panel = kk / 4, off = (kk % 4) * 32;
+        const uint64_t dq = hopper::desc_sw128(sq_wg + panel * PANEL + off, 16, 1024);
+        const uint64_t dk = hopper::desc_sw128(kt + panel * PANEL + off, 16, 1024);
+        hopper::wgmma_m64n128k16_bf16_ss(sc, dq, dk, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(sc);
     }
-    hopper::wgmma_commit();
   };
   // O += P V of the tile in stage s: 8 k-steps of 16 keys; V's 64-wide d panels are PANEL
   // bytes apart
@@ -709,9 +814,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (!tile_visible(mode, cs, S, q0, BQ, kv0, BKV)) continue;
     const int s = it % STAGES;
     hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-    issue_scores(s);
-    hopper::wgmma_wait<0>();
-    hopper::fence_operands(sc);
+    scores(s, kv0);
     softmax(kv0, pf, alpha);
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] *= alpha[(i % 4) / 2];
@@ -723,7 +826,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // normalise (l == 0 guarded) and store; the residuals once per row
-  const long long stat = ((long long)b * p.H + h) * S;
   const long long head = (long long)b * p.sb + (long long)h * p.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -743,6 +845,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, const Args p) {
+  fwd_wgmma_body<false>(map_q, map_k, map_v, p);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const Args p) {
+  fwd_wgmma_body<true>(map_q, map_k, map_v, p);
+}
+
 // A 4-D map {D, S, H, B} of bf16 with element strides (sb, ss, sh), boxes of 64 d x `rows` rows.
 bool qkv_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb, long long ss,
              long long sh, uint32_t rows = BQ) {
@@ -753,6 +869,52 @@ bool qkv_map(CUtensorMap* map, const void* base, int B, int H, int S, long long 
   const uint32_t box[4] = {64, rows, 1, 1};
   return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
                                  box);
+}
+
+// A 4-D map {D, S, H, B} of the head-major int8 codes [B, H, S, D], boxes of 128 bytes x BQ rows.
+bool codes_map(CUtensorMap* map, const void* base, int B, int H, int S) {
+  const uint64_t dims[4] = {D, static_cast<uint64_t>(S), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {D, static_cast<uint64_t>(S) * D, static_cast<uint64_t>(H) * S * D};
+  const uint32_t box[4] = {D, BQ, 1, 1};
+  return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box);
+}
+
+// Launch the forward of either score mode on its three maps (one block per 128 query rows of
+// one (batch, head)), after checking the entry register count its setmaxnreg targets balance.
+template <bool INT8>
+int launch_fwd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+               const Args& a, int B, cudaStream_t st) {
+  auto* kernel = INT8 ? flash_fwd_int8_wgmma_kernel : flash_fwd_wgmma_kernel;
+  static const bool regs_ok = hopper::entry_regs_are(kernel, ENTRY_REGS);
+  if (!regs_ok) return static_cast<int>(cudaErrorInvalidConfiguration);
+  constexpr int bytes = FwdSmem<INT8>::BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + BQ - 1) / BQ, a.H, B);
+  kernel<<<grid, THREADS, bytes, st>>>(mq, mk, mv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args fwd_args(void* o, float* m_out, float* l_out, int H, int S, long long sb, long long ss,
+              long long sh, int cond_start, int mode, float cbias, float scale) {
+  Args a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.m_out = m_out;
+  a.l_out = l_out;
+  a.H = H;
+  a.S = S;
+  a.sb = sb;
+  a.ss = ss;
+  a.sh = sh;
+  a.cond_start = cond_start;
+  a.mode = mode;
+  a.cbias = cbias;
+  a.scale = scale;
+  a.qscale = a.kscale = nullptr;
+  a.span = a.nspan = 1;
+  return a;
 }
 
 }  // namespace fa3
@@ -1615,24 +1777,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The int8 mode's k pre-pass: k bf16 (strides as above), cos/sin fp32 [S, D] or null, amax an
-// int32 [B, H, nspan] buffer of zeros -> codes int8 [B, H, S, D] (head-major), scales fp32
-// [B, H, nspan], one per span of `span` keys (a multiple of 64).  Returns cudaGetLastError().
-extern "C" int flash_attention_kquant(const void* k, const float* cos, const float* sin,
-                                      void* amax, void* codes, float* scales, int B, int H,
-                                      int S, int D, long long sb, long long ss, long long sh,
-                                      int span, int nspan, void* stream) {
+// The int8 mode's pre-pass: k bf16 (strides as above), cos/sin fp32 [S, D] or null, kmax an fp32
+// [B, H, ceil(S / 64)] scratch -> codes int8 [B, H, S, D] (head-major), scales fp32 [B, H, nspan],
+// one per span of `span` keys (a multiple of 64); with q (same strides; null for none) also q's
+// codes int8 [B, H, S, D] and per-row scales fp32 [B, H, S].  Returns cudaGetLastError().
+extern "C" int flash_attention_kquant(const void* k, const void* q, const float* cos,
+                                      const float* sin, float* kmax, void* codes, float* scales,
+                                      void* qcodes, float* qscale, int B, int H, int S, int D,
+                                      long long sb, long long ss, long long sh, int span,
+                                      int nspan, void* stream) {
   if (span <= 0 || span % KQ_ROWS || nspan != (S + span - 1) / span)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  auto* am = static_cast<unsigned*>(amax);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* cp = static_cast<int8_t*>(codes);
+  auto* qcp = static_cast<int8_t*>(qcodes);
   cudaError_t err;
   if (D == 128) {
-    err = launch_kquant<128>(kp, cos, sin, am, cp, scales, B, H, S, sb, ss, sh, span, nspan, st);
+    err = launch_kquant<128>(kp, qp, cos, sin, kmax, cp, scales, qcp, qscale, B, H, S, sb, ss, sh,
+                             span, nspan, st);
   } else if (D == 64) {
-    err = launch_kquant<64>(kp, cos, sin, am, cp, scales, B, H, S, sb, ss, sh, span, nspan, st);
+    err = launch_kquant<64>(kp, qp, cos, sin, kmax, cp, scales, qcp, qscale, B, H, S, sb, ss, sh,
+                            span, nspan, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1719,30 +1886,36 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
   if (!fa3::qkv_map(&mq, q, B, H, S, qsb, qss, qsh) ||
       !fa3::qkv_map(&mk, k, B, H, S, qsb, qss, qsh) || !fa3::qkv_map(&mv, v, B, H, S, sb, ss, sh))
     return static_cast<int>(cudaErrorInvalidValue);
-  fa3::Args a;
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.m_out = m_out;
-  a.l_out = l_out;
-  a.H = H;
-  a.S = S;
-  a.sb = sb;
-  a.ss = ss;
-  a.sh = sh;
-  a.cond_start = cond_start;
-  a.mode = mode;
-  a.cbias = cbias;
-  a.scale = scale;
-  static const bool regs_ok =
-      hopper::entry_regs_are(fa3::flash_fwd_wgmma_kernel, fa3::ENTRY_REGS);
-  if (!regs_ok) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(fa3::flash_fwd_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         fa3::SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + fa3::BQ - 1) / fa3::BQ, H, B);
-  fa3::flash_fwd_wgmma_kernel<<<grid, fa3::THREADS, fa3::SMEM_BYTES,
-                                static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, a);
-  return static_cast<int>(cudaGetLastError());
+  return fa3::launch_fwd<false>(mq, mk, mv,
+                                fa3::fwd_args(o, m_out, l_out, H, S, sb, ss, sh, cond_start, mode,
+                                              cbias, scale),
+                                B, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 QK^T forward on wgmma, D = 128: the pre-pass's q codes and scales, k codes and
+// scales (span a multiple of 128), v and o bf16 with element strides (sb, ss, sh).  No
+// residuals (serving only).  Every stride and base must be 16-byte aligned (TMA).  Returns
+// cudaGetLastError().
+extern "C" int flash_attention_fwd_int8_wgmma(const void* qcodes, const float* qscale,
+                                              const void* kcodes, const float* kscale,
+                                              const void* v, void* o, int B, int H, int S, int D,
+                                              long long sb, long long ss, long long sh,
+                                              int cond_start, int mode, float cbias, float scale,
+                                              int span, int nspan, void* stream) {
+  if (D != fa3::D || mode < UNION || mode > CFACTOR || span <= 0 || span % fa3::BKV ||
+      nspan != (S + span - 1) / span)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!fa3::codes_map(&mq, qcodes, B, H, S) || !fa3::codes_map(&mk, kcodes, B, H, S) ||
+      !fa3::qkv_map(&mv, v, B, H, S, sb, ss, sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  fa3::Args a = fa3::fwd_args(o, nullptr, nullptr, H, S, sb, ss, sh, cond_start, mode, cbias,
+                              scale);
+  a.qscale = qscale;
+  a.kscale = kscale;
+  a.span = span;
+  a.nspan = nspan;
+  return fa3::launch_fwd<true>(mq, mk, mv, a, B, static_cast<cudaStream_t>(stream));
 }
 
 namespace {

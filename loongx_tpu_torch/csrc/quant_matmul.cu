@@ -20,7 +20,7 @@
 // every operation below is rounded on its own (__f*_rn), so no fma contraction changes a bit:
 //   * LN + adaLN prologue, x' = ((x - mean) * rstd) * a_seg + b_seg in fp32 from the bf16 x, the
 //     per-row (mean, rstd) precomputed (stats [M, 2]) and ab [8, K] (rows a_main, b_main,
-//     a_cond, b_cond).  W8A8: act_quant_kernel<true> quantizes x' itself (no bf16 rounding
+//     a_cond, b_cond).  W8A8: the activation pass (LN = true) quantizes x' itself (no bf16 rounding
 //     first).  Weight-only: the A tile goes global -> registers during the k tile's MMAs, then
 //     through the prologue into shared memory as bf16 (the TPU kernel's cast before its MXU);
 //   * gate + residual epilogue, out = bf16(float(resid) + g_seg * z) on the fp32 z (after the
@@ -53,6 +53,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "quant8.cuh"
 
 namespace {
 
@@ -500,13 +501,18 @@ ln_stats_kernel(const T* __restrict__ x, int K, float* __restrict__ stats) {
   }
 }
 
-// One block per (group, row): x_scale = absmax/127 (1 when absmax == 0) and
-// q = clip(rint(v / x_scale), -127, 127); zero past K up to n_groups * group.  v is the bf16 x,
-// or with LN the fp32 prologue value ln_mod(x) of the row's segment (recomputed in the second
-// pass, bit for bit the same).
+// The W8A8 activation pass (the TPU kernels' _accum_tile :39, its W8A8 half), per (row, group):
+// x_scale = absmax/127 (1 when absmax == 0) and q = clip(rint(v / x_scale), -127, 127) (IEEE
+// division, ties to even); zero past K up to n_groups * group.  v is the bf16 x, or with LN the
+// fp32 prologue value ln_mod(x) of the row's segment (never rounded to bf16).  What bounds it:
+// bytes (2 read and 1 written per element; at M 2560 K 3072, 0.0070 ms at 3.35 TB/s).
+//
+// act_quant_block_kernel, one block of 256 threads per (group, row), takes every shape (the
+// "block" route): a __syncthreads reduction, then a second read (and ln_mod) of every element.
+
 template <bool LN>
 __global__ void __launch_bounds__(256)
-act_quant_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_groups,
+act_quant_block_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_groups,
                  int8_t* __restrict__ xq, float* __restrict__ xs, const float* __restrict__ stats,
                  const float* __restrict__ ab, int boundary) {
   __shared__ float wmax[8];
@@ -543,6 +549,120 @@ act_quant_kernel(const __nv_bfloat16* __restrict__ x, int K, int group, int n_gr
     qrow[j] = static_cast<int8_t>(q);
   }
   if (threadIdx.x == 0) xs[(long long)m * n_groups + gi] = scale;
+}
+
+// act_quant_warp_kernel, the "warp" route (K and group multiples of 8, group <= 3072: every
+// FLUX shape): one warp per (row, group), ACTQ_WARPS of them a block.  Lane l loads the group's
+// 16-byte chunks l, l + 32, ... (8 bf16 each, at most NC), all before the first use, and keeps
+// them in registers (with LN their fp32 ln_mod values, computed once); the absmax is a shuffle
+// reduction (no shared memory, no barrier); the codes come from the registers, 8 a lane stored
+// as one 8-byte word, so a warp writes 256 contiguous bytes a step; lane 0 writes the scale.
+// The codes are quant8::codes8's (csrc/quant8.cuh): IEEE division's, with no division an
+// element.
+// (The explicit minimum of one block a SM changes ptxas's register choice, 80 -> 84 at NC 12,
+// and measured 0.046 -> 0.040 ms at M 2560 K 12288, the same at K 3072.)
+constexpr int ACTQ_WARPS = 4;
+
+template <bool LN, int NC>
+__global__ void __launch_bounds__(ACTQ_WARPS * 32, 1)
+act_quant_warp_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, int group, int n_groups,
+                      int8_t* __restrict__ xq, float* __restrict__ xs,
+                      const float* __restrict__ stats, const float* __restrict__ ab,
+                      int boundary) {
+  const int w = blockIdx.x * ACTQ_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (w >= M * n_groups) return;  // whole warps
+  const int m = w / n_groups, gi = w % n_groups, k0 = gi * group, nchunks = group / 8;
+  const __nv_bfloat16* row = x + (long long)m * K;
+  uint4 raw[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = lane + 32 * j, k = k0 + 8 * c;
+    raw[j] = (c < nchunks && k < K) ? __ldg(reinterpret_cast<const uint4*>(row + k))
+                                    : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float v[LN ? 8 * NC : 1];
+  float amax = 0.f;
+  if constexpr (LN) {
+    const float mean = stats[2 * (long long)m], rstd = stats[2 * (long long)m + 1];
+    const float* arow = ab + (m >= boundary ? 2 : 0) * (long long)K;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j, k = k0 + 8 * c;
+      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw[j]);
+      if (c < nchunks && k < K) {
+        const float4 a0 = __ldg(reinterpret_cast<const float4*>(arow + k));
+        const float4 a1 = __ldg(reinterpret_cast<const float4*>(arow + k + 4));
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(arow + K + k));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(arow + K + k + 4));
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[8 * j + e] = ln_mod(__bfloat162float(xv[e]), mean, rstd, a[e], bb[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[8 * j + e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[8 * j + e]));
+    }
+  } else {
+    // on bf16 pairs (exact): no fp32 copy of the group stays live up to the codes
+    __nv_bfloat162 m2 = __float2bfloat162_rn(0.f);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m2 = __hmax2(m2, __habs2(xv[e]));
+    }
+    amax = fmaxf(__low2float(m2), __high2float(m2));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = quant8::scale_of(amax), r = __frcp_rn(scale);
+  int8_t* qrow = xq + (long long)m * n_groups * group + k0;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = lane + 32 * j;
+    if (c >= nchunks) continue;
+    const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw[j]);
+    float val[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if constexpr (LN)
+        val[e] = v[8 * j + e];
+      else
+        val[e] = __bfloat162float(xv[e]);
+    }
+    *reinterpret_cast<uint2*>(qrow + 8 * c) = quant8::codes8(val, scale, r);
+  }
+  if (lane == 0) xs[(long long)m * n_groups + gi] = scale;
+}
+
+template <bool LN>
+cudaError_t launch_act_quant_warp(const __nv_bfloat16* x, int M, int K, int group, int n_groups,
+                                  int8_t* xq, float* xs, const float* stats, const float* ab,
+                                  int boundary, cudaStream_t st) {
+  const int chunks_per_lane = (group / 8 + 31) / 32;
+  const dim3 grid((M * n_groups + ACTQ_WARPS - 1) / ACTQ_WARPS);
+#define ACTQ_LAUNCH(NC)                                                                     \
+  act_quant_warp_kernel<LN, NC><<<grid, ACTQ_WARPS * 32, 0, st>>>(x, M, K, group, n_groups, \
+                                                                  xq, xs, stats, ab, boundary)
+  if (chunks_per_lane <= 1)
+    ACTQ_LAUNCH(1);
+  else if (chunks_per_lane <= 2)
+    ACTQ_LAUNCH(2);
+  else if (chunks_per_lane <= 4)
+    ACTQ_LAUNCH(4);
+  else if (chunks_per_lane <= 6)
+    ACTQ_LAUNCH(6);
+  else if (chunks_per_lane <= 12)
+    ACTQ_LAUNCH(12);
+  else
+    return cudaErrorInvalidValue;
+#undef ACTQ_LAUNCH
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------------------
@@ -1230,22 +1350,30 @@ extern "C" int qmm_ln_stats(const void* x, int x_fp32, int M, int K, float* stat
 }
 
 // x bf16 [M, K] -> xq int8 [M, n_groups * group], xs fp32 [M, n_groups]; with ab (fp32
-// [8, K]) and stats (fp32 [M, 2]) the LN + adaLN prologue's value is quantized instead.
+// [8, K]) and stats (fp32 [M, 2]) the LN + adaLN prologue's value is quantized instead.  warp != 0
+// takes act_quant_warp_kernel (K and group multiples of 8, group <= 3072, x and ab 16-byte
+// aligned), else act_quant_block_kernel.  Returns cudaGetLastError().
 extern "C" int qmm_act_quant(const void* x, int M, int K, int group, int n_groups, void* xq,
                              float* xs, const float* stats, const float* ab, int boundary,
-                             void* stream) {
-  const dim3 grid(n_groups, M);
+                             int warp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  int8_t* q = static_cast<int8_t*>(xq);
   if (ab != nullptr && stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (warp) {
+    if (K % 8 || group % 8 || group > 3072) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        ab ? launch_act_quant_warp<true>(xb, M, K, group, n_groups, q, xs, stats, ab, boundary, st)
+           : launch_act_quant_warp<false>(xb, M, K, group, n_groups, q, xs, nullptr, nullptr, 0,
+                                          st));
+  }
+  const dim3 grid(n_groups, M);
   if (ab)
-    act_quant_kernel<true><<<grid, 256, 0, st>>>(xb, K, group, n_groups,
-                                                 static_cast<int8_t*>(xq), xs, stats, ab,
-                                                 boundary);
+    act_quant_block_kernel<true><<<grid, 256, 0, st>>>(xb, K, group, n_groups, q, xs, stats, ab,
+                                                       boundary);
   else
-    act_quant_kernel<false><<<grid, 256, 0, st>>>(xb, K, group, n_groups,
-                                                  static_cast<int8_t*>(xq), xs, nullptr,
-                                                  nullptr, 0);
+    act_quant_block_kernel<false><<<grid, 256, 0, st>>>(xb, K, group, n_groups, q, xs, nullptr,
+                                                        nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,7 +16,10 @@ Where two hand-written kernels share a contract (the flash forward and
 backward, the W8A8 and weight-only GEMMs and the transposed GEMM on wgmma
 or on ``mma.sync``), the wrapper picks one by shape with a named rule;
 ``mma_sync_only()`` sends every such launch to the ``mma.sync`` kernel,
-which takes every shape, to time it beside the other.
+which takes every shape, to time it beside the other; the W8A8
+activation pass, whose warp-per-group kernel replaced a block-per-group
+one, goes to that older kernel under it too.  `entry` gives a C entry
+point with its ctypes signature set once.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,6 +48,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 FORCED_ROUTE: Optional[str] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Any] = {}
 _lock = threading.Lock()
 
 
@@ -111,6 +115,18 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(lib: str, name: str, argtypes: Sequence[Any]):
+    """The C entry point ``name`` of library ``lib`` with its signature
+    (``argtypes``, an int return) set once, at first use, not on every
+    launch."""
+    fn = _entries.get((lib, name))
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _entries[(lib, name)] = fn
+    return fn
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {code}")
@@ -118,8 +134,8 @@ def check(code: int, what: str) -> None:
 
 @contextlib.contextmanager
 def mma_sync_only():
-    """Route every launch that has a choice to its ``mma.sync`` kernel while
-    the block runs."""
+    """Route every launch that has a choice to its ``mma.sync`` kernel (the
+    activation pass to its block-per-group kernel) while the block runs."""
     global FORCED_ROUTE
     saved, FORCED_ROUTE = FORCED_ROUTE, "mma_sync"
     try:

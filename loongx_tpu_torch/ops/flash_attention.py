@@ -23,13 +23,19 @@ load.  Each launch counts as ``flash_attention`` and as
 
 ``int8_attn`` (serving only) selects the int8 QK^T mode of the TPU kernel
 (``_fwd_kernel`` :228-291, the JAX package's LOONGX_INT8_ATTN=1): a
-k-quantization pass (`flash_kquant`, a kernel of the same source) rotates k,
-rounds it to bf16 and writes int8 codes with one scale per span of the TPU
-kernel's key tile (`ops.attention.int8_key_span`); the forward kernel
-quantizes each q row on load and takes the scores from an s8 x s8 -> s32
-product, (q_codes . k_codes) * (q_scale * k_scale).  The softmax and the
-bf16 P.V are the bf16-score kernel's.  Under autograd the mode is off, as
-in JAX: the backward rebuilds P from bf16 scores.
+k-quantization pass (`flash_kquant`, two kernels of the same source)
+rotates k, rounds it to bf16 and writes int8 codes with one scale per span
+of the TPU kernel's key tile (`ops.attention.int8_key_span`); the scores
+come from an s8 x s8 -> s32 product, (q_codes . k_codes) * (q_scale *
+k_scale).  Two forward kernels, picked by `flash_int8_route`: at head_dim
+128 with a span that is a multiple of 128 (every FLUX length) the wgmma
+kernel in its int8 mode (s8 wgmma for the scores), after the pass has
+also quantized q per row (`flash_int8_prepass`); otherwise the
+``mma.sync`` kernel, which quantizes each q row on load.  Each launch
+counts as ``flash_attention_int8`` and ``flash_attention_int8:<route>``,
+the pass as ``flash_kquant``.  The softmax and the bf16 P.V are the
+bf16-score kernel's.  Under autograd the mode is off, as in JAX: the
+backward rebuilds P from bf16 scores.
 
 Under autograd (any of q/k/v requires grad) `flash_attention` runs the
 forward with ``save_residuals`` and its backward launches the dK/dV and dQ
@@ -64,7 +70,8 @@ import torch
 
 from loongx_tpu_torch.ops import cuda_build
 from loongx_tpu_torch.ops.attention import (
-    MODES, _block_bias, int8_key_span, quantize_spans, unified_attention,
+    MODES, _block_bias, int8_key_span, quantize_rows, quantize_spans,
+    unified_attention,
 )
 from loongx_tpu_torch.ops.rope import apply_rope
 
@@ -78,13 +85,14 @@ _DQ_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                  _L, _L, _I, _I, _F, _P]
 _DKV_WGMMA_SIGNATURE = [_P] * 11 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P]
 _DQ_WGMMA_SIGNATURE = [_P] * 10 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P]
-_KQUANT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
-                     _P]
+_KQUANT_SIGNATURE = [_P] * 9 + [_I] * 4 + [_L] * 3 + [_I, _I, _P]
 _WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                     _L, _I, _I, _F, _F, _P]
 _ROPE_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P]
 _FWD_INT8_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                        _I, _I, _F, _F, _I, _I, _P]
+_FWD_INT8_WGMMA_SIGNATURE = ([_P] * 6 + [_I] * 4 + [_L] * 3
+                             + [_I, _I, _F, _F, _I, _I, _P])
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LOG2E = 1.4426950408889634
 
@@ -112,6 +120,19 @@ def flash_bwd_route(d: int) -> str:
     """The backward kernels for head_dim ``d``: the forward's route, since
     the wgmma backward reads the wgmma forward's rotated q and k."""
     return flash_fwd_route(d)
+
+
+def flash_int8_route(d: int, span: int) -> str:
+    """The int8 QK^T forward for head_dim ``d`` and k-scale span ``span``:
+    ``"wgmma"`` at 128 where a 128-key tile lies in one span (``span`` a
+    multiple of 128: every FLUX length), ``"mma_sync"`` otherwise."""
+    return "wgmma" if d == 128 and span % 128 == 0 else "mma_sync"
+
+
+def active_int8_route(d: int, span: int) -> str:
+    """The route an int8 QK^T launch takes now: the forced route of
+    `cuda_build.mma_sync_only` if any, else `flash_int8_route`."""
+    return cuda_build.FORCED_ROUTE or flash_int8_route(d, span)
 
 
 def active_route(d: int) -> str:
@@ -153,6 +174,20 @@ def flash_kquant_plain(k, *, span: int, rope: Rope = None,
         k = apply_rope(k, *rope)
     codes, scales = quantize_spans(k, span)
     return codes.to(torch.int8).contiguous(), scales
+
+
+def flash_int8_prepass_plain(q, k, *, span: int, rope: Rope = None,
+                             layout: str = "bhsd"):
+    """The int8 wgmma route's pre-pass in plain PyTorch: q and k rotated and
+    rounded to their dtype -> (q codes int8 [B, H, S, D], q scales float32
+    [B, H, S], k codes int8 [B, H, S, D], k scales float32 [B, H, ceil(S /
+    span)])."""
+    (q,) = _head_major(layout, q)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+    qc, qs = quantize_rows(q)
+    kc, ks = flash_kquant_plain(k, span=span, rope=rope, layout=layout)
+    return qc.to(torch.int8).contiguous(), qs[..., 0].contiguous(), kc, ks
 
 
 def flash_rope_plain(q, k, rope: Rope, layout: str = "bhsd") -> torch.Tensor:
@@ -316,15 +351,34 @@ def _stats_check(b: int, h: int, s: int, device, **stats) -> None:
 
 def flash_kquant(k, *, span: int, rope: Rope = None, layout: str = "bhsd"):
     """The int8 mode's k-quantization pass -> (int8 codes [B, H, S, D],
-    float32 scales [B, H, ceil(S / span)]): the CUDA kernel on a CUDA
+    float32 scales [B, H, ceil(S / span)]): the CUDA kernels on a CUDA
     tensor (bf16, ``span`` a multiple of 64), `flash_kquant_plain` on a CPU
     tensor."""
-    b, h, s, d, (sb, ss, sh) = _dims(k, layout)
     if k.device.type == "cpu":
         return flash_kquant_plain(k, span=span, rope=rope, layout=layout)
+    return _kquant(None, k, span, rope, layout)[2:]
+
+
+def flash_int8_prepass(q, k, *, span: int, rope: Rope = None,
+                       layout: str = "bhsd"):
+    """The int8 wgmma route's pre-pass, the k pass that also quantizes q per
+    row -> (q codes int8 [B, H, S, D], q scales float32 [B, H, S], k codes,
+    k scales as `flash_kquant`'s): the CUDA kernels on CUDA tensors,
+    `flash_int8_prepass_plain` on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_int8_prepass_plain(q, k, span=span, rope=rope,
+                                        layout=layout)
+    return _kquant(q, k, span, rope, layout)
+
+
+def _kquant(q, k, span: int, rope: Rope, layout: str):
+    """One launch of the pre-pass's two kernels on CUDA tensors -> (q codes,
+    q scales, k codes, k scales); the q parts are None without q.  Counts
+    as ``flash_kquant``."""
+    b, h, s, d, (sb, ss, sh) = _dims(k, layout)
     if k.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {k.device}")
-    _check_cuda_qkv(k, (("k", k),), d)
+    _check_cuda_qkv(k, (("k", k),) + ((("q", q),) if q is not None else ()), d)
     if span <= 0 or span % 64:
         raise ValueError(f"flash_kquant: span {span} is not a positive "
                          "multiple of 64")
@@ -332,16 +386,20 @@ def flash_kquant(k, *, span: int, rope: Rope = None, layout: str = "bhsd"):
     nspan = -(-s // span)
     codes = torch.empty(b, h, s, d, dtype=torch.int8, device=k.device)
     scales = torch.empty(b, h, nspan, dtype=torch.float32, device=k.device)
-    amax = torch.zeros(b, h, nspan, dtype=torch.int32, device=k.device)
-    fn = cuda_build.library("flash_attention").flash_attention_kquant
-    fn.argtypes, fn.restype = _KQUANT_SIGNATURE, ctypes.c_int
-    cuda_build.check(fn(k.data_ptr(), cos_p, sin_p, amax.data_ptr(),
-                        codes.data_ptr(), scales.data_ptr(), b, h, s, d, sb,
-                        ss, sh, span, nspan,
+    kmax = torch.empty(b, h, -(-s // 64), dtype=torch.float32, device=k.device)
+    qc = qs = None
+    if q is not None:
+        qc = torch.empty_like(codes)
+        qs = torch.empty(b, h, s, dtype=torch.float32, device=k.device)
+    fn = cuda_build.entry("flash_attention", "flash_attention_kquant",
+                          _KQUANT_SIGNATURE)
+    cuda_build.check(fn(k.data_ptr(), _ptr(q), cos_p, sin_p, kmax.data_ptr(),
+                        codes.data_ptr(), scales.data_ptr(), _ptr(qc), _ptr(qs),
+                        b, h, s, d, sb, ss, sh, span, nspan,
                         torch.cuda.current_stream(k.device).cuda_stream),
                      "flash_attention_kquant")
     cuda_build.LAUNCHES["flash_kquant"] += 1
-    return codes, scales
+    return qc, qs, codes, scales
 
 
 def _forward(q, k, v, cond_start: int, mode: str, c_factor: Optional[float],
@@ -417,19 +475,34 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _forward_int8(q, k, v, cond_start: int, mode: str, cbias: float,
                   rope: Rope, layout: str, span: int, rope_ptrs):
-    """The int8 QK^T forward on CUDA tensors: the k-quantization pass, then
-    the forward kernel in its int8 mode."""
+    """The int8 QK^T forward on CUDA tensors: the pre-pass, then the forward
+    kernel of `flash_int8_route` (the wgmma one reads q's codes from the
+    pre-pass; the mma.sync one quantizes q itself).  Each launch counts as
+    ``flash_attention_int8`` and ``flash_attention_int8:<route>``."""
     b, h, s, d, (sb, ss, sh) = _dims(q, layout)
-    codes, scales = flash_kquant(k, span=span, rope=rope, layout=layout)
     out = torch.empty_like(q)
-    fn = cuda_build.library("flash_attention").flash_attention_fwd_int8
-    fn.argtypes, fn.restype = _FWD_INT8_SIGNATURE, ctypes.c_int
-    code = fn(q.data_ptr(), codes.data_ptr(), scales.data_ptr(), v.data_ptr(),
-              out.data_ptr(), *rope_ptrs, b, h, s, d, sb, ss, sh, cond_start,
-              _MODE_IDS[mode], cbias, _scales(d)[0], span, scales.shape[-1],
-              torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(code, "flash_attention_fwd_int8")
+    route = active_int8_route(d, span)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (cond_start, _MODE_IDS[mode], cbias, _scales(d)[0], span)
+    if route == "wgmma":
+        qc, qs, codes, scales = flash_int8_prepass(q, k, span=span, rope=rope,
+                                                   layout=layout)
+        fn = cuda_build.entry("flash_attention",
+                              "flash_attention_fwd_int8_wgmma",
+                              _FWD_INT8_WGMMA_SIGNATURE)
+        code = fn(qc.data_ptr(), qs.data_ptr(), codes.data_ptr(),
+                  scales.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
+                  sb, ss, sh, *tail, scales.shape[-1], stream)
+    else:
+        codes, scales = flash_kquant(k, span=span, rope=rope, layout=layout)
+        fn = cuda_build.entry("flash_attention", "flash_attention_fwd_int8",
+                              _FWD_INT8_SIGNATURE)
+        code = fn(q.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), *rope_ptrs, b, h, s, d, sb, ss,
+                  sh, *tail, scales.shape[-1], stream)
+    cuda_build.check(code, f"flash_attention_fwd_int8 ({route})")
     cuda_build.LAUNCHES["flash_attention_int8"] += 1
+    cuda_build.LAUNCHES[f"flash_attention_int8:{route}"] += 1
     return out
 
 

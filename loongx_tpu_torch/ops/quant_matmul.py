@@ -23,8 +23,9 @@ CUDA kernels ``csrc/quant_matmul_t.cu``):
 The forward and transposed kernels run on CUDA tensors and their plain
 versions on CPU tensors; nothing falls back.
 In W8A8 mode the GEMM is preceded by `act_quant`, a small kernel of the
-same source that quantizes the activations.  Hand-written forward GEMMs
-share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
+same source that quantizes the activations (one warp per (row, group)
+where `act_quant_route` says so: every FLUX shape).  Hand-written forward
+GEMMs share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
 warpgroup, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
 (TMA ring, the int8 weight widened in registers as the operand of y^T =
 W^T x^T, ``qmm_bf16_wgmma_kernel``) take every shape their 128 x 128 tiles
@@ -106,7 +107,7 @@ _LN_EPS = 1e-6  # the FLUX layer norm's epsilon, as the JAX package's _LN_EPS
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMM_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _I, _I, _I, _I, _I, _I, _I, _P]
-_QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]
+_QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]
 _T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
 _STATS_SIGNATURE = [_P, _I, _I, _I, _P, _P]
 _WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -193,6 +194,25 @@ def qmm_t_route(k: int, n: int) -> str:
     t = WGMMA_TILE
     return "wgmma" if k % t == 0 and n % t == 0 and k >= t and n >= t \
         else "mma_sync"
+
+
+# the warp kernel keeps a whole group in its lanes' registers
+ACT_QUANT_MAX_GROUP = 3072
+
+
+def act_quant_route(k: int, group: int) -> str:
+    """The W8A8 activation pass's kernel, a rule on shapes: ``"warp"`` (one
+    warp per (row, group), 16-byte loads and a group in registers) where K
+    and the group are multiples of 8 and the group is at most 3072 (every
+    FLUX shape); ``"block"`` (one block per (row, group)) for the rest."""
+    ok = k % 8 == 0 and group % 8 == 0 and group <= ACT_QUANT_MAX_GROUP
+    return "warp" if ok else "block"
+
+
+def active_act_quant_route(k: int, group: int) -> str:
+    """The activation pass's kernel now: the block-per-group one under
+    `cuda_build.mma_sync_only`, else `act_quant_route`."""
+    return "block" if cuda_build.FORCED_ROUTE else act_quant_route(k, group)
 
 
 def active_route(rule: str) -> str:
@@ -414,8 +434,10 @@ def act_quant(x: torch.Tensor, group: int, k_pad: int,
     x_scale [M, k_pad // group]), K zero-padded to k_pad.  With ``ab`` [8,
     K] the pass quantizes the LN + adaLN prologue's float32 output instead
     (``stats``: x's `ln_row_stats`, computed here when not given).
-    Launches ``act_quant_kernel`` on a CUDA tensor; `act_quant_plain` on
-    CPU."""
+    Launches the kernel of `act_quant_route` on a CUDA tensor (the
+    block-per-group one under `cuda_build.mma_sync_only`); `act_quant_plain`
+    on CPU.  Each launch counts as ``qmm_act_quant`` (``qmm_act_quant_ln``
+    with ``ab``) and as ``<name>:<route>``."""
     if x.device.type == "cpu":
         q, xs = act_quant_plain(x, group, k_pad, ab, seg_boundary, stats)
         return q.to(torch.int8), xs
@@ -428,15 +450,20 @@ def act_quant(x: torch.Tensor, group: int, k_pad: int,
            f"k_pad {k_pad} >= K {k}")
     _cuda_vec(ab, (8, k), "ab", x.device)
     _cuda_vec(stats, (m, 2), "LN row stats", x.device)
+    if ab is not None and ab.data_ptr() % 16:
+        ab = ab.clone()  # the warp kernel loads ab in 16-byte chunks
+    route = active_act_quant_route(k, group)
     a = torch.empty(m, k_pad, dtype=torch.int8, device=x.device)
     xs = torch.empty(m, k_pad // group, dtype=torch.float32, device=x.device)
-    fn = cuda_build.library("quant_matmul").qmm_act_quant
-    fn.argtypes, fn.restype = _QUANT_SIGNATURE, ctypes.c_int
+    fn = cuda_build.entry("quant_matmul", "qmm_act_quant", _QUANT_SIGNATURE)
     name = "qmm_act_quant" if ab is None else "qmm_act_quant_ln"
     cuda_build.check(fn(x.data_ptr(), m, k, group, k_pad // group, a.data_ptr(),
                         xs.data_ptr(), _ptr(stats), _ptr(ab), seg_boundary,
-                        torch.cuda.current_stream(x.device).cuda_stream), name)
+                        int(route == "warp"),
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     f"{name} ({route})")
     cuda_build.LAUNCHES[name] += 1
+    cuda_build.LAUNCHES[f"{name}:{route}"] += 1
     return a, xs
 
 

@@ -11,6 +11,8 @@ nvcc.
     python3 scripts/wgmma_check.py qmm_t   # the transposed GEMM on bf16 wgmma
     python3 scripts/wgmma_check.py flash   # the flash forward (+ RoPE pre-pass)
     python3 scripts/wgmma_check.py bwd     # the flash backward (dK/dV and dQ)
+    python3 scripts/wgmma_check.py int8    # the int8 QK^T forward on s8 wgmma (+ its pre-pass)
+    python3 scripts/wgmma_check.py actq    # the W8A8 activation pass (warp per group)
 """
 
 import subprocess
@@ -21,7 +23,9 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import cuda_time_ms, prescale_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    act_quant_cases, check_act_quant, cuda_time_ms, device_ms, prescale_ms,
+)
 from loongx_tpu_torch.ops import cuda_build  # noqa: E402
 
 
@@ -39,9 +43,9 @@ def build():
             if "error" in line.lower() or "warning" in line.lower():
                 print("  ", line)
             if "Compiling entry function" in line and any(
-                    w in line for w in ("wgmma", "rope", "prescale")):
+                    w in line for w in ("wgmma", "rope", "prescale", "kquant", "act_quant")):
                 print("  ", line.split("'")[1])
-                print("\n".join("     " + x for x in lines[i + 1:i + 3]))
+                print("\n".join("     " + x for x in lines[i + 1:i + 4]))
 
 
 def check_qmm(gen):
@@ -73,22 +77,6 @@ def check_qmm(gen):
 
 
 FAILED = []
-
-
-def device_ms(fn, reps=20):
-    """Mean device time per call of the kernels ``fn`` launches, from
-    torch.profiler's CUDA activity (no host time in it)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps
 
 
 def tile_waves(run_at, label):
@@ -328,16 +316,86 @@ def check_bwd(gen):
           f"mma.sync dK/dV {o_dkv:.3f}, dQ {o_dq:.3f}", flush=True)
 
 
+def check_int8(gen):
+    """The int8 QK^T forward: each route against the plain version (flash bound 2^-5 max|ref|,
+    rel L2 1e-2) and the outputs that differ between the two routes, at small shapes in every
+    mode (the last two with explicit key tiles: spans of 128, the wgmma route, and of 192, the
+    mma.sync route); the pre-pass's codes and scales exactly; then the times at S 2560 and
+    8704, 24 heads: each route through the wrapper and by device time, split into its
+    pre-pass and its forward kernel."""
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops.attention import int8_key_span
+    from loongx_tpu_torch.ops.rope import rope_embed
+    h, d = 4, 128
+    for b, s, c, mode, cf, layout, bk in [(1, 256, 0, "union", None, "bhsd", None),
+                                          (1, 300, 77, "no_union", None, "bshd", None),
+                                          (2, 1000, 300, "independent", None, "bhsd", None),
+                                          (2, 640, 256, "union", 0.5, "bshd", None),
+                                          (1, 384, 128, "union", None, "bhsd", 128),
+                                          (1, 384, 128, "no_union", None, "bshd", 192)]:
+        shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        rope = rope_embed((torch.rand(s, 3, generator=gen, device="cuda") * 64).floor())
+        span = int8_key_span(s, bk)
+        pre = fa.flash_int8_prepass(q, k, span=span, rope=rope, layout=layout)
+        pre_ref = fa.flash_int8_prepass_plain(q, k, span=span, rope=rope, layout=layout)
+        n_diff = sum(int((a != r).sum().item()) for a, r in zip(pre, pre_ref))
+        kw = dict(cond_start=s - c, mode=mode, c_factor=cf, rope=rope, layout=layout,
+                  int8_attn=True, block_k=bk)
+        out = fa.flash_attention(q, k, v, **kw).float()
+        with cuda_build.mma_sync_only():
+            old = fa.flash_attention(q, k, v, **kw).float()
+        ref = fa.flash_attention_plain(q, k, v, **kw).float()
+        tol = 2.0 ** -5 * ref.abs().max().item()
+        errs = [(x - ref).abs().max().item() for x in (out, old)]
+        rels = [((x - ref).norm() / ref.norm()).item() for x in (out, old)]
+        ok = n_diff == 0 and max(errs) <= tol and max(rels) <= 1e-2
+        if not ok:
+            FAILED.append(f"int8 B{b} S{s} {mode}")
+        print(f"int8 B{b} S{s} {mode} c_factor {cf} {layout} span {span} route "
+              f"{fa.flash_int8_route(d, span)}: pre-pass values differing {n_diff}; err "
+              f"{errs[0]:.3e} (mma.sync {errs[1]:.3e}, tol {tol:.3e}), rel L2 {rels[0]:.2e} "
+              f"({rels[1]:.2e}); outputs differing from mma.sync "
+              f"{int((out != old).sum().item())} of {out.numel()}{'' if ok else '  FAILED'}",
+              flush=True)
+    h = 24
+    for s, c in ((2560, 1024), (8704, 4096)):
+        q, k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        rope = rope_embed((torch.rand(s, 3, generator=gen, device="cuda") * 64).floor())
+        kw = dict(cond_start=s - c, rope=rope, layout="bshd")
+
+        def run():
+            return fa.flash_attention(q, k, v, int8_attn=True, **kw)
+        t = cuda_time_ms(run)
+        dev, dev_pre = device_ms(run), device_ms(run, match="kquant")
+        with cuda_build.mma_sync_only():
+            t_old = cuda_time_ms(run)
+            old, old_pre = device_ms(run), device_ms(run, match="kquant")
+        t_bf16 = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        print(f"int8 S{s} H{h} union bshd rope: wgmma {t:.3f} ms (passes included; device "
+              f"{dev:.4f}, of which the pre-pass {dev_pre:.4f}), mma.sync {t_old:.3f} (device "
+              f"{old:.4f}, k pass {old_pre:.4f}), bf16 scores on wgmma {t_bf16:.3f}", flush=True)
+
+
+def check_actq(gen):
+    """The W8A8 activation pass at every (K, group) pair of the served forward, ragged M and K
+    and the LN form, exactly (chip_smoke's phase-2 check), with device times of both kernels."""
+    records = []
+    check_act_quant(torch, gen, records, act_quant_cases())
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "build":
         build()
-    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd"):
+    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq"):
         if not torch.cuda.is_available():
             sys.exit("wgmma_check: no CUDA device")
         gen = torch.Generator(device="cuda").manual_seed(0)
         {"qmm": check_qmm, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
-         "bwd": check_bwd}[what](gen)
+         "bwd": check_bwd, "int8": check_int8, "actq": check_actq}[what](gen)
         if FAILED:
             sys.exit(f"wgmma_check: {len(FAILED)} checks failed")
     else:
