@@ -29,8 +29,14 @@ Phases (each prints one line with the card, its power limit and seconds):
      both timed at the same call) and the W8A8 activation pass's warp
      kernel at every (K, group) pair of the served forward, a ragged K and
      the LN form (codes and scales exactly, beside the block kernel it
-     replaces); kernels under about 0.05 ms are timed by device time too
-     (`device_ms`, torch.profiler), since their wrapper time is host cost;
+     replaces); the row stats' warp kernel beside the block kernel it
+     replaces and ``torch.var_mean`` (`check_ln_stats`), and the weight-only
+     prologue pass (`check_ln_mod_pass`: x' exactly the plain version's fed
+     the pass's own stats, beside ``F.layer_norm``); the weight-only
+     prologue forms on that pass + the wgmma GEMM beside the ``mma.sync``
+     form and their unfused route; kernels under about 0.05 ms are timed by
+     device time too (`device_ms`, torch.profiler), since their wrapper
+     time is host cost;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
@@ -41,7 +47,8 @@ Phases (each prints one line with the card, its power limit and seconds):
      launches by kernel), a device profile and a host profile; the same
      57 blocks with ``fuse_ln`` and
      ``fuse_gate`` (kernels vs plain beside the floor, 114 prologue and
-     114 gate launches, its device profile); the int8_attn forward's
+     114 gate launches, all 114 row stats on the warp kernel, its device
+     profile); the int8_attn forward's
      device profile (its flash group: the s8 wgmma kernel and its pre-pass;
      all 57 launches on wgmma) and the activation pass's group; then the
      gradients of every
@@ -74,8 +81,11 @@ Phases (each prints one line with the card, its power limit and seconds):
      time by kernel group, its flash backward group and its two int8 GEMM
      groups (weight-only forward, transposed);
      then two steps with
-     ``fuse_ln`` (38 prologue launches a step: ff.in, forward and remat):
-     finite loss, LoRA B factors moved, frozen leaves untouched, s/step.
+     ``fuse_ln`` (38 prologue passes and 38 prologue GEMMs on wgmma a step:
+     ff.in, forward and remat; 19 row stats in the backward): finite loss,
+     LoRA B factors moved, frozen leaves untouched, s/step, and one more
+     step under the profiler (its prologue group beside the unfused
+     step's profile).
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
 launch counts from phase 4 for the forward kernels -- the S4D, int8
@@ -642,11 +652,16 @@ def check_qmm(torch, gen, records):
             plain = lambda: qmm.qmm_plain(x, wq, sc, bi, None, w8a8, group,
                                           k_pad)
             out, ref = run(), plain()
+            extra = _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad,
+                                 w8a8, ref)
+            if extra["route"] == "mma_sync":
+                # x_embedder and proj_out: short calls, read by device time
+                # (the W8A8 activation pass included)
+                extra["device_ms"] = device_ms(run)
             _qmm_record(records, "qmm_flat", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq, w8a8)),
-                        m, k, n, _route_extra(torch, qmm, run, x, wq, k, n,
-                                              group, k_pad, w8a8, ref))
+                        m, k, n, extra)
     stacks.clear()
     print_slower(records, ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat"))
 
@@ -1126,12 +1141,15 @@ def _fused_operands(torch, gen, m, k, n, boundary):
 
 def check_fused(torch, gen, records):
     """The LN + adaLN prologue (W8A8: in the activation pass, whose codes
-    must equal the plain version's exactly; weight-only: on the A tile)
-    and the gate + residual epilogue against their plain versions at the
-    FLUX shapes, beside the unfused route (PyTorch LN + affine, then the
-    same kernel; the kernel, then PyTorch gate + residual) and the bound;
-    then both autograd Functions' gradients at the training shape."""
+    must equal the plain version's exactly; weight-only: in its pass ahead
+    of the wgmma GEMM, beside the mma.sync form that applies it on the A
+    tile) and the gate + residual epilogue against their plain versions at
+    the FLUX shapes, beside the unfused route (PyTorch LN + affine, then
+    the same kernel; the kernel, then PyTorch gate + residual) and the
+    bound; then both autograd Functions' gradients at the training
+    shape."""
     from loongx_tpu_torch.models.flux.model import _ln_mod, _seg_affine
+    from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.ops import quant_matmul as qmm
 
     for kernel, label, m, k, n, nb, boundary, act in fused_cases():
@@ -1220,6 +1238,16 @@ def check_fused(torch, gen, records):
                 ok = err <= tol
             ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=2)
             unfused_ms = cuda_time_ms(unfused)
+            extra = {}
+            if kernel.endswith("_ln") and not w8a8:
+                # the mma.sync form (the prologue on its A tile), same call
+                with cuda_build.mma_sync_only():
+                    old = run()
+                    extra["mma_sync_ms"] = cuda_time_ms(run)
+                old = torch.stack(old) if qkv else old
+                extra["mma_sync_err"] = (old.float()
+                                         - ref.float()).abs().max().item()
+                ok = ok and extra["mma_sync_err"] <= tol
             # x, the weight, scale and bias, ab and the row stats read once,
             # out written once (plus resid and gate for the gate form);
             # the GEMM's 2MKN operations at the MAC mode's rate and about
@@ -1234,13 +1262,12 @@ def check_fused(torch, gen, records):
             bms = 1e3 * max(t_ops, t_bytes)
             by = "operations" if t_ops >= t_bytes else "bytes"
             mode = "w8a8" if w8a8 else "wonly"
-            route = qmm.qmm_route(k, n, group, k_pad, w8a8,
-                                  prologue=kernel.endswith("_ln"))
+            route = qmm.qmm_route(k, n, group, k_pad, w8a8)
             records.append(dict(kernel=kernel, case=f"{label} {mode}", m=m,
                                 k=k, n=n, err=err, tol=tol, ms=ms,
                                 plain_ms=plain_ms, unfused_ms=unfused_ms,
                                 library_ms=None, bound_ms=bms, bound_by=by,
-                                route=route))
+                                route=route, **extra))
             print(f"  {kernel:18s} {label:18s} {mode:5s} M{m} K{k} N{n} "
                   f"boundary {boundary} err {err:.3e} "
                   + (f"(over one rounding {excess:.3e}, tol {tol:.2e} = 1e-4 "
@@ -1248,7 +1275,10 @@ def check_fused(torch, gen, records):
                      f"(tol {tol:.2e}) ")
                   + f"kernel {ms:.3f} ms ({route}) unfused route "
                   f"{unfused_ms:.3f} plain {plain_ms:.3f} bound {bms:.3f} "
-                  f"({by})", flush=True)
+                  f"({by})" + "".join(f" {key} {v:.3f}"
+                                      for key, v in extra.items())
+                  + ("" if ms < unfused_ms else
+                     " (not faster than the unfused route)"), flush=True)
             if not ok:
                 raise Failure(f"{kernel} {label} {mode}: err {err}, tol {tol}")
             if w8a8 and kernel == "qmm_stacked_ln":
@@ -1315,6 +1345,133 @@ def _check_act_quant_ln(qmm, records, label, x, ab, boundary, group, k_pad):
     if n_diff or scale_err:
         raise Failure(f"qmm_act_quant_ln {label}: {n_diff} codes differ, "
                       f"scale err {scale_err}")
+
+
+def ln_stats_cases():
+    """(label, M, K, dtype, boundary): the row stats and the weight-only
+    prologue pass at the fused sites' rows (the single blocks' M 2560 and
+    the double blocks' img+cond M 2048, K 3072, bf16: the warp route), a
+    ragged M and K the warp kernels take with part of a lane's chunks
+    empty, and two rows on the block route (float32 x; K 4096, longer
+    than the warp kernels' registers)."""
+    return [("M2560 K3072", 2560, 3072, "bfloat16", 1536),
+            ("M2048 K3072", 2048, 3072, "bfloat16", 1024),
+            ("ragged M300 K1000", 300, 1000, "bfloat16", 7),
+            ("fp32 M2048 K3072", 2048, 3072, "float32", 1024),
+            ("M512 K4096", 512, 4096, "bfloat16", 128)]
+
+
+def _ln_rows_input(torch, gen, m, k, dtype):
+    """A residual-stream-like x and ab near (1 + scale, shift), as
+    `_fused_operands` makes them."""
+    x = (torch.randn(m, k, generator=gen, device="cuda") * 3.0 + 0.5).to(
+        getattr(torch, dtype))
+    ab = torch.zeros(8, k, device="cuda")
+    for row, base in ((0, 1.0), (1, 0.0), (2, 1.0), (3, 0.0)):
+        ab[row] = base + torch.randn(k, generator=gen, device="cuda") * 0.1
+    return x, ab
+
+
+def _stats_err(stats, ref):
+    """The stats' error as a share of the row's scale: |d mean| * rstd and
+    |d rstd| / rstd."""
+    rstd = ref[:, 1]
+    return max(((stats[:, 0] - ref[:, 0]).abs() * rstd).max().item(),
+               ((stats[:, 1] - rstd).abs() / rstd).max().item())
+
+
+def check_ln_stats(torch, gen, records):
+    """The row stats (`ln_row_stats`, the kernel of `ln_stats_route`)
+    against their plain version within `LN_STATS_TOL`, timed by device time
+    beside the block-per-row kernel (`cuda_build.mma_sync_only`), the byte
+    bound and ``torch.var_mean`` as a one-call yardstick."""
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    for label, m, k, dtype, _ in ln_stats_cases():
+        x, _ = _ln_rows_input(torch, gen, m, k, dtype)
+
+        def run():
+            return qmm.ln_row_stats(x)
+
+        err = _stats_err(run(), qmm.ln_row_stats_plain(x))
+        with cuda_build.mma_sync_only():
+            block_err = _stats_err(run(), qmm.ln_row_stats_plain(x))
+            block_dev = device_ms(run)
+        ms, dev = cuda_time_ms(run), device_ms(run)
+        plain_ms = cuda_time_ms(lambda: qmm.ln_row_stats_plain(x), iters=2)
+
+        def library():
+            return torch.var_mean(x.float(), -1, correction=0)
+
+        lib_ms, lib_dev = cuda_time_ms(library), device_ms(library)
+        # x read once, the stats written; a sum, a subtract, a multiply
+        # and a sum an element
+        bms, by = bound_ms(m * k * x.element_size() + m * 8, 4.0 * m * k,
+                           "fp32")
+        route = qmm.ln_stats_route(k, x.dtype)
+        records.append(dict(kernel="qmm_ln_stats", case=label, m=m, k=k,
+                            err=max(err, block_err), tol=LN_STATS_TOL, ms=ms,
+                            device_ms=dev, block_device_ms=block_dev,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            library_device_ms=lib_dev, bound_ms=bms,
+                            bound_by=by, route=route))
+        print(f"  {'qmm_ln_stats':16s} {label:18s} M{m} K{k} {dtype} {route}: "
+              f"err {err:.2e} (block kernel {block_err:.2e}; tol "
+              f"{LN_STATS_TOL:.0e} of the row's scale); wrapper {ms:.4f} ms, "
+              f"device {dev:.4f} (block kernel {block_dev:.4f}), plain "
+              f"{plain_ms:.3f}, var_mean {lib_ms:.4f} (device {lib_dev:.4f}), "
+              f"bound {bms:.4f} ({by})", flush=True)
+        if not max(err, block_err) <= LN_STATS_TOL:
+            raise Failure(f"qmm_ln_stats {label}: err {err}, block kernel "
+                          f"{block_err}")
+
+
+def check_ln_mod_pass(torch, gen, records):
+    """The weight-only prologue pass (`ln_mod_pass`): x' equal to the
+    plain prologue fed the pass's own stats (tolerance 0), those stats
+    within `LN_STATS_TOL` of the plain ones; device time beside its byte
+    bound and ``F.layer_norm`` at the same shape as a yardstick."""
+    import torch.nn.functional as F
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+
+    for label, m, k, dtype, boundary in ln_stats_cases():
+        x, ab = _ln_rows_input(torch, gen, m, k, dtype)
+
+        def run():
+            return qmm.ln_mod_pass(x, ab, boundary)
+
+        xp, stats = run()
+        want = qmm.ln_mod_plain(x, ab, stats, boundary).to(torch.bfloat16)
+        n_diff = int((xp != want).sum().item())
+        err = _stats_err(stats, qmm.ln_row_stats_plain(x))
+        ms, dev = cuda_time_ms(run), device_ms(run)
+        plain_ms = cuda_time_ms(lambda: qmm.ln_mod_pass_plain(x, ab, boundary),
+                                iters=2)
+
+        def library():
+            return F.layer_norm(x, (k,))
+
+        lib_ms, lib_dev = cuda_time_ms(library), device_ms(library)
+        # x read once, the four ab rows and x' and its stats written once;
+        # the stats' 4 and the prologue's 4 fp32 operations an element
+        bms, by = bound_ms(m * k * (x.element_size() + 2) + 4 * k * 4 + m * 8,
+                           8.0 * m * k, "fp32")
+        route = qmm.ln_stats_route(k, x.dtype)
+        records.append(dict(kernel="qmm_ln_mod_pass", case=label, m=m, k=k,
+                            err=float(n_diff) + err, tol=LN_STATS_TOL, ms=ms,
+                            device_ms=dev, plain_ms=plain_ms,
+                            library_ms=lib_ms, library_device_ms=lib_dev,
+                            bound_ms=bms, bound_by=by, route=route))
+        print(f"  {'qmm_ln_mod_pass':16s} {label:18s} M{m} K{k} {dtype} "
+              f"boundary {boundary} {route}: x' differing {n_diff} of "
+              f"{xp.numel()} (tol 0), stats err {err:.2e} (tol "
+              f"{LN_STATS_TOL:.0e}); wrapper {ms:.4f} ms, device {dev:.4f}, "
+              f"plain {plain_ms:.3f}, layer_norm {lib_ms:.4f} (device "
+              f"{lib_dev:.4f}), bound {bms:.4f} ({by})", flush=True)
+        if n_diff or not err <= LN_STATS_TOL:
+            raise Failure(f"qmm_ln_mod_pass {label}: {n_diff} of x' differ, "
+                          f"stats err {err}")
 
 
 def check_fused_grads(torch, gen):
@@ -1481,9 +1638,13 @@ GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
 # kquant_codes_kernel), then the activation pass (act_quant_warp_kernel,
 # act_quant_block_kernel)
 INT8_ATTN_GROUPS = ("flash_fwd_int8_wgmma_kernel", "flash_fwd_kernel", "kquant_")
+# the row stats and the weight-only prologue pass (the warp kernels, then
+# the block route's)
+LN_GROUPS = ("ln_mod_pass_kernel", "ln_stats_warp_kernel",
+             "ln_mod_apply_kernel", "ln_stats_kernel")
 PROFILE_GROUPS = ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
                   "qmm_wgmma_kernel", *INT8_ATTN_GROUPS, *FLASH_BWD_GROUPS,
-                  *WONLY_GROUPS, *TRANSPOSED_GROUPS, "act_quant_")
+                  *WONLY_GROUPS, *TRANSPOSED_GROUPS, "act_quant_", *LN_GROUPS)
 
 
 def gemm_split(counts):
@@ -1742,22 +1903,27 @@ def full_forward(torch, pipe, gen):
     return kw
 
 
-FUSED_KERNELS = ("qmm_stacked_ln", "qmm_qkv_stacked_ln", "qmm_stacked_gate",
-                 "qmm_act_quant_ln", "qmm_ln_stats")
+FUSED_KERNELS = ("qmm_stacked_ln", "qmm_stacked_ln:wgmma",
+                 "qmm_qkv_stacked_ln", "qmm_stacked_gate", "qmm_act_quant_ln",
+                 "qmm_ln_stats", "qmm_ln_stats:warp", "qmm_ln_mod_pass",
+                 "qmm_ln_mod_pass:warp")
 
 
 def fused_launch_check(cfg, counts, forwards, what):
     """Per forward at B 1: one prologue in each block's qkv and MLP-in
     projection (2 x 57 = 114; W8A8: as many activation passes with the
-    prologue and row stats launches), one gate epilogue in each block's two
-    gated projections (114); the unfused qkv kernel only for the double
-    blocks' text stream."""
+    prologue and row stats launches, every stats launch on the warp
+    kernel, no weight-only prologue pass), one gate epilogue in each
+    block's two gated projections (114); the unfused qkv kernel only for
+    the double blocks' text stream."""
     blocks = cfg.num_double_blocks + cfg.num_single_blocks
     ln = counts.get("qmm_stacked_ln", 0) + counts.get("qmm_qkv_stacked_ln", 0)
     want = 2 * blocks * forwards
     if not (ln == counts.get("qmm_stacked_gate", 0)
             == counts.get("qmm_act_quant_ln", 0)
-            == counts.get("qmm_ln_stats", 0) == want
+            == counts.get("qmm_ln_stats", 0)
+            == counts.get("qmm_ln_stats:warp", 0) == want
+            and not counts.get("qmm_ln_mod_pass")
             and counts.get("qmm_qkv_stacked", 0)
             == cfg.num_double_blocks * forwards):
         raise Failure(f"{what}: fused launches {counts}, want {want} prologues"
@@ -2358,22 +2524,24 @@ def train(torch):
                   f"{sum(groups.get(g, 0.0) for g in names):.1f} ms ("
                   + ", ".join(f"{g} {groups[g]:.1f}" for g in names
                               if g in groups) + ")", flush=True)
-    train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
-                   sums0, sum(steady) / len(steady))
+    fused = train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names,
+                           lora, sums0, sum(steady) / len(steady), prof)
     del state, trainable, frozen, pipe
-    return launches
+    return launches, fused
 
 
 FUSED_TRAIN_STEPS = 2
 
 
 def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
-                   sums0, s_unfused):
+                   sums0, s_unfused, prof_unfused):
     """Two more steps with ``fuse_ln`` (the same state and optimizer): with
     DEFAULT_TARGETS LoRA only the double blocks' ff.in is fusable, so its
     prologue runs 19 times in the forward and 19 in the remat; finite loss,
     every LoRA B factor moves, frozen leaves untouched, s/step beside the
-    unfused steps'."""
+    unfused steps', then one more step under the profiler beside the
+    unfused step's profile ``prof_unfused``.  Returns the launch counts of
+    the last timed step."""
     from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.train.optim import build_optimizer
     from loongx_tpu_torch.train.step import make_train_step
@@ -2398,10 +2566,17 @@ def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
               flush=True)
         if not math.isfinite(loss):
             raise Failure(f"fuse_ln train step {i + 1}: loss {loss}")
-        # row stats: the forward's and the remat's prologues, and the
-        # backward's layer norm
-        if (launches["qmm_stacked_ln"] != 2 * cfg.num_double_blocks
-                or launches["qmm_ln_stats"] != 3 * cfg.num_double_blocks
+        # the forward's and the remat's prologues (19 + 19): each a pass
+        # that computes its row stats in registers (the warp route), then
+        # the weight-only GEMM on wgmma; the backward's layer norm takes
+        # the row stats once a block (19, the warp route)
+        nd = cfg.num_double_blocks
+        if (launches["qmm_stacked_ln"] != 2 * nd
+                or launches["qmm_stacked_ln:wgmma"] != 2 * nd
+                or launches["qmm_ln_mod_pass"] != 2 * nd
+                or launches["qmm_ln_mod_pass:warp"] != 2 * nd
+                or launches["qmm_ln_stats"] != nd
+                or launches["qmm_ln_stats:warp"] != nd
                 or launches["qmm_stacked_gate"] or launches["qmm_act_quant_ln"]
                 or launches["qmm_qkv_stacked_ln"]):
             raise Failure(f"fuse_ln train step: launches {launches}")
@@ -2414,6 +2589,26 @@ def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
     if still or changed:
         raise Failure(f"fuse_ln steps: LoRA B unmoved {still}, frozen changed "
                       f"{changed[:5]}")
+    prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
+    if prof is None or prof_unfused is None:
+        print("  fuse_ln step device profile: not measured (no device "
+              "activity in the profiler)", flush=True)
+        return launches
+    print("  fuse_ln step device profile: busy {busy_ms:.1f} ms over a span "
+          "of {span_ms:.1f} ms, idle share {idle_share:.3f}; by group "
+          "{by_group_ms}; largest other {top_other_ms}".format(**prof),
+          flush=True)
+    for what, names in (("prologue pass and row stats", LN_GROUPS),
+                        ("weight-only int8 GEMM", WONLY_GROUPS)):
+        fused_g, unfused_g = (sum(p["by_group_ms"].get(g, 0.0) for g in names)
+                              for p in (prof, prof_unfused))
+        print(f"  fuse_ln step {what} group: {fused_g:.1f} ms ("
+              + ", ".join(f"{g} {prof['by_group_ms'][g]:.1f}" for g in names
+                          if g in prof["by_group_ms"])
+              + f"); unfused step {unfused_g:.1f}", flush=True)
+    print(f"  fuse_ln step busy {prof['busy_ms']:.1f} ms, unfused step "
+          f"{prof_unfused['busy_ms']:.1f}", flush=True)
+    return launches
 
 
 def kernel_table(records, launches):
@@ -2474,9 +2669,15 @@ def kernel_table(records, launches):
         "qmm_stacked_gate": ("quant_matmul.cu", f"{qmm_py}:413",
                              "single proj K12288 w8a8",
                              "serve fuse_ln+fuse_gate"),
-        # the prologue's row stats (_ln_mean_rstd, in XLA beside the kernel)
-        "qmm_ln_stats": ("quant_matmul.cu", f"{qmm_py}:566", "single mlp gelu",
+        # the prologue's row stats (_ln_mean_rstd, in XLA beside the kernel),
+        # both routes (launches_by_route), the block kernel's device time
+        # beside
+        "qmm_ln_stats": ("quant_matmul.cu", f"{qmm_py}:566", "M2560 K3072",
                          "serve fuse_ln+fuse_gate"),
+        # the weight-only prologue (_ln_mod_prologue :392, run at :447 and
+        # :1086) as a pass ahead of the weight-only GEMM on wgmma
+        "qmm_ln_mod_pass": ("quant_matmul.cu", f"{qmm_py}:392", "M2560 K3072",
+                            "train fuse_ln"),
     }
     table = []
     for name, (src, replaces, main_case, path) in meta.items():
@@ -2485,7 +2686,8 @@ def kernel_table(records, launches):
             cases = [r for r in records if r["case"].endswith(" wonly")
                      and r.get("route") == "wgmma" and r["kernel"] in (
                          "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
-                         "qmm_stacked_gate")]
+                         "qmm_stacked_gate", "qmm_stacked_ln",
+                         "qmm_qkv_stacked_ln")]
         else:
             counter = name
             cases = [r for r in records if r["kernel"] == name]
@@ -2503,8 +2705,8 @@ def kernel_table(records, launches):
             "library_ms": main["library_ms"], "shape": main_case,
             **{key: main[key] for key in ("device_ms", "unfused_ms", "mma_sync_ms",
                                           "mma_sync_device_ms", "block_device_ms",
-                                          "cublas_bf16_ms", "transpose_share",
-                                          "prescale_ms")
+                                          "library_device_ms", "cublas_bf16_ms",
+                                          "transpose_share", "prescale_ms")
                if key in main},
             **({"kernel": main["route"]} if "route" in main else {}),
             **({"launches_by_route": routes} if any(routes.values()) else {}),
@@ -2556,6 +2758,9 @@ def main() -> int:
             check_flash_int8(torch, gen_new, records)
             check_t5_gemms(torch, gen_new, records)
             check_fused(torch, gen_new, records)
+            gen_ln = torch.Generator(device="cuda").manual_seed(6)
+            check_ln_stats(torch, gen_ln, records)
+            check_ln_mod_pass(torch, gen_ln, records)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
@@ -2574,7 +2779,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         with Phase("5 train", card):
-            launches["train"] = train(torch)
+            launches["train"], launches["train fuse_ln"] = train(torch)
     except Failure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -21,16 +21,17 @@
 //   * LN + adaLN prologue, x' = ((x - mean) * rstd) * a_seg + b_seg in fp32 from the bf16 x, the
 //     per-row (mean, rstd) precomputed (stats [M, 2]) and ab [8, K] (rows a_main, b_main,
 //     a_cond, b_cond).  W8A8: the activation pass (LN = true) quantizes x' itself (no bf16 rounding
-//     first).  Weight-only: the A tile goes global -> registers during the k tile's MMAs, then
-//     through the prologue into shared memory as bf16 (the TPU kernel's cast before its MXU);
+//     first).  Weight-only: on the wgmma route ln_mod_pass_kernel writes bf16(x') (the TPU
+//     kernel's cast before its MXU) ahead of qmm_bf16_wgmma_kernel; on qmm_kernel the A tile goes
+//     global -> registers during the k tile's MMAs, then through the prologue into shared memory;
 //   * gate + residual epilogue, out = bf16(float(resid) + g_seg * z) on the fp32 z (after the
 //     bias and any gelu), gate [8, N] (rows gate_main, gate_cond), resid bf16 [M, N].
 // Their cost on this card: the prologue adds reads of the ab rows (L2-resident) and a few fp32
 // operations per element of x, the epilogue one bf16 read of resid per output; both ride on
 // passes that already read x or write out, so they move no extra bytes of device memory beyond
-// resid, stats and ab.  The row stats come from ln_stats_kernel, one block per row reading the
-// row twice (the second time from L2): mean = sum / K, then rstd = 1 / sqrt(mean((x - mean)^2)
-// + 1e-6), the JAX package's recipe (_ln_mean_rstd) in one pass over x instead of PyTorch's six.
+// resid, stats and ab (the weight-only pass moves x' once more).  The row stats are the JAX
+// package's recipe (_ln_mean_rstd): mean = sum / K, then rstd = 1 / sqrt(mean((x - mean)^2) +
+// 1e-6), from ln_stats_warp_kernel (the row read once, kept in registers) or ln_stats_kernel.
 //
 // What bounds it on this card: at the FLUX shapes (M 2048-2560, K 3072/12288, N 3072-18432)
 // each call does 2*M*K*N operations against K*N weight bytes: ~2000 int8 op/byte, far above
@@ -41,12 +42,12 @@
 //     K and activation group are whole 128-wide tiles, the FLUX stacked, fused-qkv and flat
 //     layers from M 1 to 2560;
 //   * qmm_bf16_wgmma_kernel (below, "The weight-only GEMM on bf16 wgmma"): every weight-only
-//     shape without the prologue whose K is whole 128-deep stages and N at least 128, the FLUX
-//     training layers and the T5-XXL linears from M 1 to 2560;
+//     shape whose K is whole 128-deep stages and N at least 128 (the prologue form after its
+//     pass), the FLUX training layers and the T5-XXL linears from M 1 to 2560;
 //   * qmm_kernel, kept simple: 128x128 output tiles, 8 warps of 64x32 on mma.sync, k tiles of
 //     64 bytes double-buffered in shared memory (x by cp.async, the weight through registers
 //     because mma needs it k-major: each thread transposes 4x4 int8 blocks with byte_perm);
-//     the layers with K or N of 64 and the weight-only LN + adaLN prologue.
+//     the layers with K or N of 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,6 +183,27 @@ __device__ __forceinline__ void load_a_raw(uint4 (&r)[2], const QmmArgs& p, int 
   }
 }
 
+// x' = bf16(ln_mod(x)) of one 16-byte chunk of 8 bf16 values, `a` and `b` the segment's 8
+// values of each at the chunk's k (fp32, 16-byte aligned).
+__device__ __forceinline__ uint4 ln_mod8(const uint4& r, const float* a, const float* b,
+                                         float mean, float rstd) {
+  const float4 a0 = *reinterpret_cast<const float4*>(a);
+  const float4 a1 = *reinterpret_cast<const float4*>(a + 4);
+  const float4 b0 = *reinterpret_cast<const float4*>(b);
+  const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&r);
+  uint32_t packed[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int e = 2 * j;
+    packed[j] = pack_bf16(ln_mod(__bfloat162float(xv[e]), mean, rstd, av[e], bv[e]),
+                          ln_mod(__bfloat162float(xv[e + 1]), mean, rstd, av[e + 1], bv[e + 1]));
+  }
+  return make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
 // Second half: x' = ln_mod(x) of the segment's (a, b) in fp32 -> bf16 -> shared.  `mean` and
 // `rstd` are this thread's two rows' stats.
 __device__ __forceinline__ void store_a_ln(uint8_t* sa, const uint4 (&r)[2], const QmmArgs& p,
@@ -191,24 +213,12 @@ __device__ __forceinline__ void store_a_ln(uint8_t* sa, const uint4 (&r)[2], con
   for (int i = 0; i < 2; ++i) {
     const int c = threadIdx.x + i * NTHREADS;
     const int row = c >> 2, ch = c & 3, gm = m0 + row, k = kt * 32 + ch * 8;
-    uint32_t packed[4] = {0u, 0u, 0u, 0u};
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (gm < p.M && k < p.K) {
       const float* arow = p.ab + (gm >= p.boundary ? 2 : 0) * (long long)p.K + k;
-      const float4 a0 = *reinterpret_cast<const float4*>(arow);
-      const float4 a1 = *reinterpret_cast<const float4*>(arow + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(arow + p.K);
-      const float4 b1 = *reinterpret_cast<const float4*>(arow + p.K + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&r[i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        packed[j] = pack_bf16(
-            ln_mod(__bfloat162float(xv[2 * j]), mean[i], rstd[i], a[2 * j], b[2 * j]),
-            ln_mod(__bfloat162float(xv[2 * j + 1]), mean[i], rstd[i], a[2 * j + 1], b[2 * j + 1]));
+      v = ln_mod8(r[i], arow, arow + p.K, mean[i], rstd[i]);
     }
-    *reinterpret_cast<uint4*>(sa + row * RS + ch * 16) =
-        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    *reinterpret_cast<uint4*>(sa + row * RS + ch * 16) = v;
   }
 }
 
@@ -465,9 +475,14 @@ __global__ void __launch_bounds__(NTHREADS) qmm_kernel(const QmmArgs p) {
     }
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
   __syncthreads();  // red may still be read from a previous call
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
@@ -479,7 +494,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// One block per row of x [M, K] (bf16 or fp32) -> stats [M, 2] = (mean, rstd).
+// One block per row of x [M, K] (bf16 or fp32) -> stats [M, 2] = (mean, rstd): the "block"
+// route of the row stats (fp32 x, a K the warp kernels below cannot hold).
 template <typename T>
 __global__ void __launch_bounds__(256)
 ln_stats_kernel(const T* __restrict__ x, int K, float* __restrict__ stats) {
@@ -499,6 +515,141 @@ ln_stats_kernel(const T* __restrict__ x, int K, float* __restrict__ stats) {
     stats[2 * m] = mean;
     stats[2 * m + 1] = 1.f / sqrtf(var + 1e-6f);
   }
+}
+
+// The row stats and the weight-only LN + adaLN prologue pass, one warp a row: the "warp" route
+// (bf16 x, K a multiple of 8 and at most LN_ROW_MAX: every FLUX fused site).  Lane l loads the
+// row's 16-byte chunks l, l + 32, ... (8 bf16 each, at most NC a lane) before the first use and
+// keeps them in registers as bf16 (K 3072: 12 chunks, 48 registers); the JAX recipe's two
+// passes, mean = sum / K and then var = mean((x - mean)^2), run over the registers (8 partial
+// sums a lane, one per place in a chunk, then a shuffle sum), never over memory again; lane 0
+// stores (mean, rstd) as one 8-byte word.  What bounds it: bytes, 2 read per element (M 2560
+// K 3072: 0.0047 ms at 3.35 TB/s).  ln_stats_warp_kernel stops there (it replaces the block
+// kernel above wherever it can take the row); ln_mod_pass_kernel, the weight-only prologue
+// ahead of qmm_bf16_wgmma_kernel, goes on to write x' = bf16(ln_mod(x)) from the same registers,
+// each operation rounded as store_a_ln rounds it, and 2 more bytes an element (0.0094 ms).  A
+// pass instead of a prologue in the GEMM's producer: a warpgroup rewriting a B tile in shared
+// memory would need more shared-memory bandwidth than the SM has (the weight-only GEMM's own
+// widening measured so), and the pass's extra read and write of x is under 3 % of that GEMM.
+constexpr int LN_WARPS = 4;
+constexpr int LN_ROW_MAX = 3072;
+
+template <bool MOD, int NC>
+__device__ __forceinline__ void ln_row_warp(const __nv_bfloat16* __restrict__ x, int M, int K,
+                                            float* __restrict__ stats,
+                                            const float* __restrict__ ab, int boundary,
+                                            __nv_bfloat16* __restrict__ out) {
+  const int m = blockIdx.x * LN_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (m >= M) return;  // whole warps
+  const int nchunks = K / 8;
+  const __nv_bfloat16* row = x + (long long)m * K;
+  uint4 raw[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = lane + 32 * j;
+    raw[j] = c < nchunks ? __ldg(reinterpret_cast<const uint4*>(row + 8 * c))
+                         : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float part[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {  // the zeros past K add nothing
+    const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw[j]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[e] += __bfloat162float(xv[e]);
+  }
+  const float mean =
+      warp_sum(((part[0] + part[1]) + (part[2] + part[3])) +
+               ((part[4] + part[5]) + (part[6] + part[7]))) / static_cast<float>(K);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    if (lane + 32 * j >= nchunks) continue;
+    const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw[j]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = __bfloat162float(xv[e]) - mean;
+      part[e] = fmaf(d, d, part[e]);
+    }
+  }
+  const float var =
+      warp_sum(((part[0] + part[1]) + (part[2] + part[3])) +
+               ((part[4] + part[5]) + (part[6] + part[7]))) / static_cast<float>(K);
+  const float rstd = 1.f / sqrtf(var + 1e-6f);
+  if (lane == 0) *reinterpret_cast<float2*>(stats + 2 * (long long)m) = make_float2(mean, rstd);
+  if constexpr (MOD) {
+    const float* arow = ab + (m >= boundary ? 2 : 0) * (long long)K;
+    __nv_bfloat16* orow = out + (long long)m * K;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j;
+      if (c < nchunks)
+        *reinterpret_cast<uint4*>(orow + 8 * c) =
+            ln_mod8(raw[j], arow + 8 * c, arow + K + 8 * c, mean, rstd);
+    }
+  }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_stats_warp_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+                     float* __restrict__ stats) {
+  ln_row_warp<false, NC>(x, M, K, stats, nullptr, 0, nullptr);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_mod_pass_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, float* __restrict__ stats,
+                   const float* __restrict__ ab, int boundary, __nv_bfloat16* __restrict__ out) {
+  ln_row_warp<true, NC>(x, M, K, stats, ab, boundary, out);
+}
+
+// The prologue pass with the stats given (ln_stats_kernel's: fp32 x, or a row longer than
+// LN_ROW_MAX): one warp a row streams its 16-byte chunks through ln_mod.
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_mod_apply_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+                    const float* __restrict__ stats, const float* __restrict__ ab, int boundary,
+                    __nv_bfloat16* __restrict__ out) {
+  const int m = blockIdx.x * LN_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (m >= M) return;
+  const float mean = stats[2 * (long long)m], rstd = stats[2 * (long long)m + 1];
+  const float* arow = ab + (m >= boundary ? 2 : 0) * (long long)K;
+  const __nv_bfloat16* row = x + (long long)m * K;
+  __nv_bfloat16* orow = out + (long long)m * K;
+  for (int c = lane; c < K / 8; c += 32)
+    *reinterpret_cast<uint4*>(orow + 8 * c) =
+        ln_mod8(__ldg(reinterpret_cast<const uint4*>(row + 8 * c)), arow + 8 * c,
+                arow + K + 8 * c, mean, rstd);
+}
+
+template <bool MOD, int NC>
+void launch_ln_rows_nc(const __nv_bfloat16* x, int M, int K, float* stats, const float* ab,
+                       int boundary, __nv_bfloat16* out, cudaStream_t st) {
+  const dim3 grid((M + LN_WARPS - 1) / LN_WARPS);
+  if constexpr (MOD)
+    ln_mod_pass_kernel<NC><<<grid, LN_WARPS * 32, 0, st>>>(x, M, K, stats, ab, boundary, out);
+  else
+    ln_stats_warp_kernel<NC><<<grid, LN_WARPS * 32, 0, st>>>(x, M, K, stats);
+}
+
+template <bool MOD>
+cudaError_t launch_ln_rows(const __nv_bfloat16* x, int M, int K, float* stats, const float* ab,
+                           int boundary, __nv_bfloat16* out, cudaStream_t st) {
+  if (K % 8 || K > LN_ROW_MAX) return cudaErrorInvalidValue;
+  const int chunks_per_lane = (K / 8 + 31) / 32;
+  if (chunks_per_lane <= 1)
+    launch_ln_rows_nc<MOD, 1>(x, M, K, stats, ab, boundary, out, st);
+  else if (chunks_per_lane <= 2)
+    launch_ln_rows_nc<MOD, 2>(x, M, K, stats, ab, boundary, out, st);
+  else if (chunks_per_lane <= 4)
+    launch_ln_rows_nc<MOD, 4>(x, M, K, stats, ab, boundary, out, st);
+  else if (chunks_per_lane <= 6)
+    launch_ln_rows_nc<MOD, 6>(x, M, K, stats, ab, boundary, out, st);
+  else
+    launch_ln_rows_nc<MOD, 12>(x, M, K, stats, ab, boundary, out, st);
+  return cudaGetLastError();
 }
 
 // The W8A8 activation pass (the TPU kernels' _accum_tile :39, its W8A8 half), per (row, group):
@@ -1337,15 +1488,40 @@ cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
 
 }  // namespace
 
-// x [M, K] (fp32 if x_fp32, else bf16) -> stats fp32 [M, 2]: each row's (mean, rstd).
-extern "C" int qmm_ln_stats(const void* x, int x_fp32, int M, int K, float* stats,
+// x [M, K] (fp32 if x_fp32, else bf16) -> stats fp32 [M, 2]: each row's (mean, rstd).  warp != 0
+// takes ln_stats_warp_kernel (bf16 x, 16-byte aligned, K a multiple of 8 and at most 3072), else
+// ln_stats_kernel.  Returns cudaGetLastError().
+extern "C" int qmm_ln_stats(const void* x, int x_fp32, int M, int K, float* stats, int warp,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warp)
+    return static_cast<int>(
+        x_fp32 ? cudaErrorInvalidValue
+               : launch_ln_rows<false>(static_cast<const __nv_bfloat16*>(x), M, K, stats,
+                                       nullptr, 0, nullptr, st));
   if (x_fp32)
     ln_stats_kernel<float><<<M, 256, 0, st>>>(static_cast<const float*>(x), K, stats);
   else
     ln_stats_kernel<__nv_bfloat16><<<M, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x), K,
                                                        stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight-only LN + adaLN prologue as a pass: x bf16 [M, K] -> out bf16 [M, K] = bf16(ln_mod(x))
+// with ab fp32 [8, K] (rows >= boundary take the cond rows); x, ab and out 16-byte aligned, K a
+// multiple of 8.  stats_given = 0: ln_mod_pass_kernel computes each row's (mean, rstd) itself
+// (K at most 3072) and writes them to stats fp32 [M, 2]; else ln_mod_apply_kernel reads them
+// there.  Returns cudaGetLastError().
+extern "C" int qmm_ln_mod_pass(const void* x, int M, int K, float* stats, int stats_given,
+                               const float* ab, int boundary, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  if (K % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (!stats_given)
+    return static_cast<int>(launch_ln_rows<true>(xb, M, K, stats, ab, boundary, ob, st));
+  ln_mod_apply_kernel<<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(xb, M, K, stats, ab,
+                                                                           boundary, ob);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,8 +17,9 @@ backward, the W8A8 and weight-only GEMMs and the transposed GEMM on wgmma
 or on ``mma.sync``), the wrapper picks one by shape with a named rule;
 ``mma_sync_only()`` sends every such launch to the ``mma.sync`` kernel,
 which takes every shape, to time it beside the other; the W8A8
-activation pass, whose warp-per-group kernel replaced a block-per-group
-one, goes to that older kernel under it too.  `entry` gives a C entry
+activation pass and the LN row stats, whose warp kernels replaced
+block-per-group and block-per-row ones, go to those older kernels under it
+too (and the weight-only LN prologue form back to ``mma.sync``).  `entry` gives a C entry
 point with its ctypes signature set once.
 """
 
@@ -135,7 +136,8 @@ def check(code: int, what: str) -> None:
 @contextlib.contextmanager
 def mma_sync_only():
     """Route every launch that has a choice to its ``mma.sync`` kernel (the
-    activation pass to its block-per-group kernel) while the block runs."""
+    activation pass to its block-per-group kernel, the row stats to their
+    block-per-row one) while the block runs."""
     global FORCED_ROUTE
     saved, FORCED_ROUTE = FORCED_ROUTE, "mma_sync"
     try:

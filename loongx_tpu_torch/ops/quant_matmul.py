@@ -29,13 +29,12 @@ GEMMs share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
 warpgroup, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
 (TMA ring, the int8 weight widened in registers as the operand of y^T =
 W^T x^T, ``qmm_bf16_wgmma_kernel``) take every shape their 128 x 128 tiles
-cover, the ``mma.sync`` kernel (``qmm_kernel``) the rest and the
-weight-only LN + adaLN prologue; `qmm_route` is the rule, a
-dispatch by shape.  The transposed products likewise: ``qmm_t_wgmma_kernel``
-(bf16 wgmma with the weight widened in registers, after a pre-scale pass
-over dy) where `qmm_t_route` says so, ``qmm_t_kernel`` on ``mma.sync`` the
-rest.  Each launch counts under its entry's name and under
-``"<name>:<route>"``.
+cover, the ``mma.sync`` kernel (``qmm_kernel``) the rest; `qmm_route` is
+the rule, a dispatch by shape.  The transposed products likewise:
+``qmm_t_wgmma_kernel`` (bf16 wgmma with the weight widened in registers,
+after a pre-scale pass over dy) where `qmm_t_route` says so,
+``qmm_t_kernel`` on ``mma.sync`` the rest.  Each launch counts under its
+entry's name and under ``"<name>:<route>"``.
 
 Two MAC modes, chosen by ``w8a8``:
 
@@ -60,9 +59,12 @@ the JAX package through LOONGX_FUSE_LN / LOONGX_FUSE_GATE):
     prologue x' = ((bf16(x) - mean) * rstd) * a_seg + b_seg in float32,
     each operation rounded on its own, with the per-row (mean, rstd) of x
     computed ahead of the GEMM (`ln_row_stats`: a small kernel of the same
-    source on CUDA, the JAX recipe in PyTorch on CPU).  W8A8 quantizes
-    the float32 x' as it is (`act_quant` with ``ab``: the prologue runs in
-    the activation pass); weight-only rounds x' to bf16 on the A-tile load;
+    source on CUDA, one warp a row where `ln_stats_route` says so; the JAX
+    recipe in PyTorch on CPU).  W8A8 quantizes the float32 x' as it is
+    (`act_quant` with ``ab``: the prologue runs in the activation pass);
+    weight-only rounds x' to bf16: on the wgmma route in a pass of its own
+    ahead of the GEMM (`ln_mod_pass`, which computes the stats itself on
+    the warp route), on ``mma.sync`` on the A-tile load;
   * ``resid`` [M, N] + ``gate`` [8, N] (rows gate_main / gate_cond): the
     store becomes out = bf16(float(bf16(resid)) + g_seg * z), z the float32
     epilogue value (never rounded before the gate);
@@ -109,7 +111,8 @@ _GEMM_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _I, _I, _I, _I, _I, _I, _I, _P]
 _QUANT_SIGNATURE = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]
 _T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
-_STATS_SIGNATURE = [_P, _I, _I, _I, _P, _P]
+_STATS_SIGNATURE = [_P, _I, _I, _I, _P, _I, _P]
+_PASS_SIGNATURE = [_P, _I, _I, _P, _I, _P, _I, _P, _P]
 _WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _P]
 _BF16_WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -168,22 +171,22 @@ def stacked_w8a8_group(k: int, n: int) -> Tuple[int, int]:
 WGMMA_TILE = 128  # the wgmma GEMMs' M and N tile and their k stage
 
 
-def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool,
-              prologue: bool = False) -> str:
+def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
     """The forward GEMM that takes a [K, N] weight, a rule on shapes:
     ``"wgmma"`` where K and N are at least one 128 tile and the 128-deep k
     stages are whole (W8A8: k_pad and the activation group multiples of
     128; weight-only: K a multiple of 128), at every M (the M 1-2
     modulation matvecs included: the wgmma kernels are faster there too);
     ``"mma_sync"`` for the shapes the tiles cannot take (K 64 of
-    x_embedder, N 64 of proj_out) and for the weight-only LN + adaLN
-    ``prologue`` (W8A8 takes it in its activation pass)."""
+    x_embedder, N 64 of proj_out).  The LN + adaLN prologue form takes the
+    same rule: W8A8 runs it in its activation pass, weight-only on the
+    wgmma route in `ln_mod_pass` ahead of the GEMM."""
     t = WGMMA_TILE
     if k < t or n < t:
         return "mma_sync"
     if w8a8:
         return "wgmma" if group % t == 0 and k_pad % t == 0 else "mma_sync"
-    return "wgmma" if k % t == 0 and not prologue else "mma_sync"
+    return "wgmma" if k % t == 0 else "mma_sync"
 
 
 def qmm_t_route(k: int, n: int) -> str:
@@ -213,6 +216,27 @@ def active_act_quant_route(k: int, group: int) -> str:
     """The activation pass's kernel now: the block-per-group one under
     `cuda_build.mma_sync_only`, else `act_quant_route`."""
     return "block" if cuda_build.FORCED_ROUTE else act_quant_route(k, group)
+
+
+# the warp row kernels keep a whole row in their lanes' registers
+LN_ROW_MAX = 3072
+
+
+def ln_stats_route(k: int, dtype: torch.dtype) -> str:
+    """The row stats' kernel, a rule on the row: ``"warp"`` (one warp a
+    row, 16-byte loads and the row in registers) for bf16 x whose K is a
+    multiple of 8 and at most 3072 (every FLUX fused site); ``"block"``
+    (one block a row) for the rest, float32 x included.  `ln_mod_pass`
+    takes the same rule: on ``"warp"`` it computes the stats itself, else
+    it applies `ln_row_stats`'s."""
+    ok = dtype == torch.bfloat16 and k % 8 == 0 and k <= LN_ROW_MAX
+    return "warp" if ok else "block"
+
+
+def active_ln_stats_route(k: int, dtype: torch.dtype) -> str:
+    """The row stats' kernel now: the block-per-row one under
+    `cuda_build.mma_sync_only`, else `ln_stats_route`."""
+    return "block" if cuda_build.FORCED_ROUTE else ln_stats_route(k, dtype)
 
 
 def active_route(rule: str) -> str:
@@ -271,6 +295,14 @@ def ln_mod_plain(x: torch.Tensor, ab: torch.Tensor, stats: torch.Tensor,
     return _ln_affine(x.to(torch.bfloat16).float(), ab, stats, boundary)
 
 
+def ln_mod_pass_plain(x: torch.Tensor, ab: torch.Tensor,
+                      boundary: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the weight-only prologue pass: (bf16 x' =
+    bf16(`ln_mod_plain` of x's `ln_row_stats_plain`), those stats)."""
+    stats = ln_row_stats_plain(x)
+    return ln_mod_plain(x, ab, stats, boundary).to(torch.bfloat16), stats
+
+
 def gate_res_plain(z: torch.Tensor, resid: torch.Tensor, gate: torch.Tensor,
                    boundary: int) -> torch.Tensor:
     """The gate + residual epilogue on the float32 z: float(bf16(resid)) +
@@ -317,8 +349,7 @@ def _plain_acc(x, w_q, scale, bias, w8a8: bool, group: int, k_pad: int,
     ``ab`` the MAC takes the prologue's output (weight-only: rounded to
     bf16, the kernel's A tile)."""
     if ab is not None and not w8a8:
-        x = ln_mod_plain(x, ab, ln_row_stats_plain(x),
-                         seg_boundary).to(torch.bfloat16)
+        x = ln_mod_pass_plain(x, ab, seg_boundary)[0]
     if w8a8:
         xq, xs = act_quant_plain(x, group, k_pad, ab, seg_boundary)
         wf = F.pad(w_q.float(), (0, 0, 0, k_pad - w_q.shape[0]))
@@ -403,9 +434,11 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def ln_row_stats(x: torch.Tensor) -> torch.Tensor:
-    """Each row's (mean, rstd) of x [M, K] as float32 [M, 2]: launches
-    ``ln_stats_kernel`` on a CUDA tensor (bf16 or float32 as given; other
-    dtypes as float32), `ln_row_stats_plain` on CPU."""
+    """Each row's (mean, rstd) of x [M, K] as float32 [M, 2]: launches the
+    kernel of `ln_stats_route` on a CUDA tensor (bf16 or float32 as given;
+    other dtypes as float32; the block-per-row kernel under
+    `cuda_build.mma_sync_only`), `ln_row_stats_plain` on CPU.  Each launch
+    counts as ``qmm_ln_stats`` and ``qmm_ln_stats:<route>``."""
     if x.device.type == "cpu":
         return ln_row_stats_plain(x)
     _check(x.ndim == 2 and x.is_floating_point(),
@@ -415,15 +448,51 @@ def ln_row_stats(x: torch.Tensor) -> torch.Tensor:
         x = x.float()
     x = x.contiguous()
     m, k = x.shape
+    route = active_ln_stats_route(k, x.dtype)
+    if route == "warp" and x.data_ptr() % 16:
+        x = x.clone()  # the warp kernel loads x in 16-byte chunks
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
-    fn = cuda_build.library("quant_matmul").qmm_ln_stats
-    fn.argtypes, fn.restype = _STATS_SIGNATURE, ctypes.c_int
+    fn = cuda_build.entry("quant_matmul", "qmm_ln_stats", _STATS_SIGNATURE)
     cuda_build.check(fn(x.data_ptr(), int(x.dtype == torch.float32), m, k,
-                        stats.data_ptr(),
+                        stats.data_ptr(), int(route == "warp"),
                         torch.cuda.current_stream(x.device).cuda_stream),
-                     "qmm_ln_stats")
+                     f"qmm_ln_stats ({route})")
     cuda_build.LAUNCHES["qmm_ln_stats"] += 1
+    cuda_build.LAUNCHES[f"qmm_ln_stats:{route}"] += 1
     return stats
+
+
+def ln_mod_pass(x: torch.Tensor, ab: torch.Tensor,
+                seg_boundary: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight-only LN + adaLN prologue as a pass ahead of the GEMM:
+    x [M, K] -> (x' = bf16(ln_mod(x)) [M, K], the float32 row stats [M, 2]
+    it used).  On a CUDA tensor one launch, of ``ln_mod_pass_kernel``
+    (the stats computed in its registers) where `ln_stats_route` says
+    ``"warp"``, else of ``ln_mod_apply_kernel`` on `ln_row_stats`'s; each
+    counts as ``qmm_ln_mod_pass`` and ``qmm_ln_mod_pass:<route>``.
+    `ln_mod_pass_plain` on CPU."""
+    if x.device.type == "cpu":
+        return ln_mod_pass_plain(x, ab, seg_boundary)
+    _check(x.ndim == 2, f"x must be [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    xb = _cuda_x(x, k)
+    _check(k % 8 == 0, f"prologue pass: K {k} not a multiple of 8")
+    _cuda_vec(ab, (8, k), "ab", xb.device)
+    if ab.data_ptr() % 16:
+        ab = ab.clone()  # the kernels load ab in 16-byte chunks
+    route = active_ln_stats_route(k, x.dtype)
+    stats = (ln_row_stats(x) if route == "block" else
+             torch.empty(m, 2, dtype=torch.float32, device=xb.device))
+    out = torch.empty(m, k, dtype=torch.bfloat16, device=xb.device)
+    fn = cuda_build.entry("quant_matmul", "qmm_ln_mod_pass", _PASS_SIGNATURE)
+    cuda_build.check(fn(xb.data_ptr(), m, k, stats.data_ptr(),
+                        int(route == "block"), ab.data_ptr(), seg_boundary,
+                        out.data_ptr(),
+                        torch.cuda.current_stream(xb.device).cuda_stream),
+                     f"qmm_ln_mod_pass ({route})")
+    cuda_build.LAUNCHES["qmm_ln_mod_pass"] += 1
+    cuda_build.LAUNCHES[f"qmm_ln_mod_pass:{route}"] += 1
+    return out, stats
 
 
 def act_quant(x: torch.Tensor, group: int, k_pad: int,
@@ -471,19 +540,30 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, x, w_ptr: int, k: int, n: int, scale_ptr: int,
-            bias_ptr: Optional[int], epilogue: int, w8a8: bool, group: int,
-            k_pad: int, out: torch.Tensor, norm_w_ptr: Optional[int] = None,
-            head_dim: int = 0, plane_h: int = 0, ab=None, stats=None,
-            resid=None, gate=None, seg_boundary: int = 0) -> None:
-    """One GEMM launch (after the W8A8 activation pass, which takes the
-    prologue in that mode); ``x`` is the bf16 operand, ``stats`` the
-    prologue's row stats of the caller's x."""
+def _prologue(x, ab, seg_boundary: int, route: str, w8a8: bool):
+    """(x, ab, stats) for `_launch` of a prologue form: the weight-only
+    wgmma route runs the prologue as its own pass (x becomes x', no ``ab``
+    left); the W8A8 activation pass and the weight-only ``mma.sync``
+    kernel apply ``ab`` with the row stats of the caller's x."""
+    if ab is None:
+        return x, None, None
+    if route == "wgmma" and not w8a8:
+        return ln_mod_pass(x, ab, seg_boundary)[0], None, None
+    return x, ab, ln_row_stats(x)
+
+
+def _launch(name: str, x, route: str, w_ptr: int, k: int, n: int,
+            scale_ptr: int, bias_ptr: Optional[int], epilogue: int,
+            w8a8: bool, group: int, k_pad: int, out: torch.Tensor,
+            norm_w_ptr: Optional[int] = None, head_dim: int = 0,
+            plane_h: int = 0, ab=None, stats=None, resid=None, gate=None,
+            seg_boundary: int = 0) -> None:
+    """One GEMM launch on ``route`` (after the W8A8 activation pass, which
+    takes the prologue in that mode); ``x`` is the bf16 operand, ``stats``
+    the prologue's row stats of the caller's x."""
     m = x.shape[0]
     lib = cuda_build.library("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    route = active_route(
-        qmm_route(k, n, group, k_pad, w8a8, prologue=ab is not None))
     xs = None
     if w8a8:
         a, xs = act_quant(x, group, k_pad, ab, seg_boundary, stats)
@@ -586,7 +666,8 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     _cuda_vec(scale, (1, n), "scale", x.device)
     _cuda_vec(bias, (1, n), "bias", x.device)
     out = torch.empty(x.shape[0], n, dtype=torch.bfloat16, device=x.device)
-    _launch("qmm_flat", x, w_q.data_ptr(), k, n, scale.data_ptr(),
+    route = active_route(qmm_route(k, n, group, k_pad, w8a8))
+    _launch("qmm_flat", x, route, w_q.data_ptr(), k, n, scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             EPI_GELU if activation == "gelu_tanh" else EPI_BIAS, w8a8, group,
             k_pad, out)
@@ -631,7 +712,10 @@ def quant_matmul_stacked(x: torch.Tensor, w_q3: torch.Tensor,
                          None if bias3 is None else bias3[blk], activation,
                          w8a8, group, k_pad, ab, resid, gate, seg_boundary)
     m = x.shape[0]
-    stats = None if ab is None else ln_row_stats(x)
+    name = ("qmm_stacked" + ("_ln" if ab is not None else "")
+            + ("_gate" if resid is not None else ""))
+    route = active_route(qmm_route(k, n, group, k_pad, w8a8))
+    x, ab, stats = _prologue(x, ab, seg_boundary, route, w8a8)
     x = _cuda_x(x, k)
     _cuda_weight(w_q3, x.device)
     _cuda_vec(scale3, (nb, 1, n), "scale", x.device)
@@ -646,9 +730,8 @@ def quant_matmul_stacked(x: torch.Tensor, w_q3: torch.Tensor,
         epilogue = EPI_GELU_GATE if gelu else EPI_GATE
     else:
         epilogue = EPI_GELU if gelu else EPI_BIAS
-    name = ("qmm_stacked" + ("_ln" if ab is not None else "")
-            + ("_gate" if resid is not None else ""))
-    _launch(name, x, _stack_ptr(w_q3, blk), k, n, _stack_ptr(scale3, blk),
+    _launch(name, x, route, _stack_ptr(w_q3, blk), k, n,
+            _stack_ptr(scale3, blk),
             None if bias3 is None else _stack_ptr(bias3, blk), epilogue, w8a8,
             group, k_pad, out, ab=ab, stats=stats, resid=resid, gate=gate,
             seg_boundary=seg_boundary)
@@ -683,7 +766,9 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
     if x.device.type == "cpu":
         return quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk], norm_w,
                                head_dim, w8a8, group, k_pad, ab, seg_boundary)
-    stats = None if ab is None else ln_row_stats(x)
+    name = "qmm_qkv_stacked" + ("_ln" if ab is not None else "")
+    route = active_route(qmm_route(k, n3, group, k_pad, w8a8))
+    x, ab, stats = _prologue(x, ab, seg_boundary, route, w8a8)
     x = _cuda_x(x, k)
     _cuda_weight(w_q3, x.device)
     _cuda_vec(scale3, (nb, 1, n3), "scale", x.device)
@@ -693,9 +778,9 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
     _check(h % 128 == 0, f"qkv kernel: H {h} not a multiple of 128")
     _check(head_dim in (32, 64, 128), f"qkv kernel: head_dim {head_dim}")
     out = torch.empty(3, x.shape[0], h, dtype=torch.bfloat16, device=x.device)
-    _launch("qmm_qkv_stacked" + ("_ln" if ab is not None else ""), x,
-            _stack_ptr(w_q3, blk), k, n3, _stack_ptr(scale3, blk),
-            _stack_ptr(bias3, blk), EPI_QKV, w8a8, group, k_pad, out,
+    _launch(name, x, route, _stack_ptr(w_q3, blk), k, n3,
+            _stack_ptr(scale3, blk), _stack_ptr(bias3, blk), EPI_QKV, w8a8,
+            group, k_pad, out,
             norm_w_ptr=norm_w.data_ptr(), head_dim=head_dim, plane_h=h, ab=ab,
             stats=stats, seg_boundary=seg_boundary)
     return out[0], out[1], out[2]

@@ -13,6 +13,7 @@ nvcc.
     python3 scripts/wgmma_check.py bwd     # the flash backward (dK/dV and dQ)
     python3 scripts/wgmma_check.py int8    # the int8 QK^T forward on s8 wgmma (+ its pre-pass)
     python3 scripts/wgmma_check.py actq    # the W8A8 activation pass (warp per group)
+    python3 scripts/wgmma_check.py ln      # the row stats, the prologue pass, the fused forms
 """
 
 import subprocess
@@ -24,7 +25,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    act_quant_cases, check_act_quant, cuda_time_ms, device_ms, prescale_ms,
+    act_quant_cases, check_act_quant, check_fused, check_ln_mod_pass, check_ln_stats,
+    cuda_time_ms, device_ms, prescale_ms,
 )
 from loongx_tpu_torch.ops import cuda_build  # noqa: E402
 
@@ -43,7 +45,7 @@ def build():
             if "error" in line.lower() or "warning" in line.lower():
                 print("  ", line)
             if "Compiling entry function" in line and any(
-                    w in line for w in ("wgmma", "rope", "prescale", "kquant", "act_quant")):
+                    w in line for w in ("wgmma", "rope", "prescale", "kquant", "act_quant", "ln_")):
                 print("  ", line.split("'")[1])
                 print("\n".join("     " + x for x in lines[i + 1:i + 4]))
 
@@ -386,16 +388,26 @@ def check_actq(gen):
     check_act_quant(torch, gen, records, act_quant_cases())
 
 
+def check_ln(gen):
+    """The row stats' warp kernel, the weight-only prologue pass and every fused form with its
+    gradients (chip_smoke's phase-2 checks): the weight-only prologue forms on the pass + the
+    wgmma GEMM beside the mma.sync form and the unfused route."""
+    records = []
+    check_ln_stats(torch, gen, records)
+    check_ln_mod_pass(torch, gen, records)
+    check_fused(torch, gen, records)
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "build":
         build()
-    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq"):
+    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln"):
         if not torch.cuda.is_available():
             sys.exit("wgmma_check: no CUDA device")
         gen = torch.Generator(device="cuda").manual_seed(0)
         {"qmm": check_qmm, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
-         "bwd": check_bwd, "int8": check_int8, "actq": check_actq}[what](gen)
+         "bwd": check_bwd, "int8": check_int8, "actq": check_actq, "ln": check_ln}[what](gen)
         if FAILED:
             sys.exit(f"wgmma_check: {len(FAILED)} checks failed")
     else:

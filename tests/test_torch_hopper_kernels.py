@@ -134,10 +134,15 @@ def test_qmm_route_main_path(entry, label, m, k, n, w8a8):
 def test_qmm_route_edges(k, n, group, k_pad, want, want_wonly):
     assert qmm.qmm_route(k, n, group, k_pad, True) == want
     assert qmm.qmm_route(k, n, group, k_pad, False) == want_wonly
-    # the weight-only LN + adaLN prologue stays on mma.sync; W8A8 takes it
-    # in its activation pass, so its route does not change
-    assert qmm.qmm_route(k, n, group, k_pad, False, prologue=True) == "mma_sync"
-    assert qmm.qmm_route(k, n, group, k_pad, True, prologue=True) == want
+    # the LN + adaLN prologue forms take the same rule: W8A8 applies the
+    # prologue in its activation pass, weight-only in a pass of its own
+    # ahead of the wgmma GEMM (`_prologue` leaves the GEMM no ab), on the A
+    # tile of the mma.sync kernel
+    x, ab = torch.randn(3, k), torch.randn(8, k)
+    for w8a8, route in ((True, want), (False, want_wonly)):
+        _, ab_left, stats = qmm._prologue(x, ab, 1, route, w8a8)
+        assert (ab_left is None) == (route == "wgmma" and not w8a8)
+        assert (stats is None) == (ab_left is None)
 
 
 @pytest.mark.parametrize("d,want", [(128, "wgmma"), (64, "mma_sync")])

@@ -5,8 +5,9 @@ host-side logic on the CPU.
   every training, T5 and serving shape that ``chip_smoke.py`` checks
   (``qmm_cases``, ``qmm_t_cases``, ``t5_cases``, ``fused_cases``) and at
   their edges: the shapes that stay on ``mma.sync`` are the ones the rules
-  name (K 64 of x_embedder, N 64 of proj_out and of its backward, the
-  weight-only LN + adaLN prologue).
+  name (K 64 of x_embedder, N 64 of proj_out and of its backward); the
+  weight-only LN + adaLN prologue forms take the plain weight-only rule,
+  their prologue a pass of its own ahead of the wgmma GEMM.
 * ``cuda_build.mma_sync_only`` sends both new routes back to ``mma.sync``
   and restores them.
 * The plain versions the card holds the kernels to (`qmm_plain` with
@@ -76,10 +77,20 @@ def _forward_cases():
 
 
 # what the rules send to mma.sync: the flat layers whose K or N is below
-# one 128 tile, and the weight-only prologue forms
-_WONLY_MMA_SYNC = {("qmm_flat", "x_embedder"), ("qmm_flat", "proj_out"),
-                   ("qmm_stacked_ln", "single mlp gelu"),
-                   ("qmm_qkv_stacked_ln", "img+cond")}
+# one 128 tile
+_WONLY_MMA_SYNC = {("qmm_flat", "x_embedder"), ("qmm_flat", "proj_out")}
+
+
+def _prologue_is_a_pass(k: int, route: str) -> bool:
+    """Does the weight-only prologue form on ``route`` run its prologue as
+    a pass of its own (`qmm._prologue` hands the GEMM x' and no ``ab``)?"""
+    x, ab = torch.randn(3, k), torch.randn(8, k)
+    xp, ab_left, stats = qmm._prologue(x, ab, 1, route, False)
+    if ab_left is None:
+        assert stats is None and xp.dtype == torch.bfloat16
+    else:
+        assert xp is x and stats.shape == (3, 2)
+    return ab_left is None
 
 
 @pytest.mark.parametrize(
@@ -88,13 +99,15 @@ _WONLY_MMA_SYNC = {("qmm_flat", "x_embedder"), ("qmm_flat", "proj_out"),
 def test_qmm_route_weight_only_cases(entry, label, k, n, prologue):
     group, k_pad = (qmm.flat_w8a8_group(k, n) if entry == "qmm_flat"
                     else qmm.stacked_w8a8_group(k, n))
-    route = qmm.qmm_route(k, n, group, k_pad, False, prologue=prologue)
+    route = qmm.qmm_route(k, n, group, k_pad, False)
     if (entry, label) in _WONLY_MMA_SYNC:
         assert route == "mma_sync"
     else:
         assert route == "wgmma"
         # wg::wo::launch's preconditions
         assert k % 128 == 0 and n >= 128 and n % 16 == 0
+    if prologue:
+        assert _prologue_is_a_pass(k, route)
 
 
 def _t_cases():
@@ -137,7 +150,9 @@ def test_qmm_t_route_edges(k, n, want):
 def test_qmm_route_weight_only_edges(k, n, want):
     group, k_pad = qmm.stacked_w8a8_group(k, n)
     assert qmm.qmm_route(k, n, group, k_pad, False) == want
-    assert qmm.qmm_route(k, n, group, k_pad, False, prologue=True) == "mma_sync"
+    # the prologue form: a pass ahead of the wgmma GEMM, on the A tile of
+    # the mma.sync kernel
+    assert _prologue_is_a_pass(k, want) == (want == "wgmma")
 
 
 def test_mma_sync_only_forces_and_restores_the_new_routes():
