@@ -34,9 +34,14 @@ Phases (each prints one line with the card, its power limit and seconds):
      prologue pass (`check_ln_mod_pass`: x' exactly the plain version's fed
      the pass's own stats, beside ``F.layer_norm``); the weight-only
      prologue forms on that pass + the wgmma GEMM beside the ``mma.sync``
-     form and their unfused route; kernels under about 0.05 ms are timed by
-     device time too (`device_ms`, torch.profiler), since their wrapper
-     time is host cost;
+     form and their unfused route; the final proj_out's N 64 GEMMs at M
+     1024 and a ragged M 1000: the split-K forward (both modes; its W8A8
+     outputs equal to the mma.sync kernel's, every one, its device time
+     beside its GEMM's alone, the mma.sync kernel's, the library call's and
+     cuBLAS bf16's) and the narrow transposed kernel (device time beside
+     the mma.sync kernel's and cuBLAS bf16 on the pre-scaled dy); kernels
+     under about 0.05 ms are timed by device time too (`device_ms`,
+     torch.profiler), since their wrapper time is host cost;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
@@ -44,7 +49,9 @@ Phases (each prints one line with the card, its power limit and seconds):
      (W8A8), each beside its rounding floor, the launch count of each
      kernel (57 wgmma flash forwards after 57 RoPE pre-passes; every
      stacked and fused-qkv GEMM on wgmma, the split of all 397 GEMM
-     launches by kernel), a device profile and a host profile; the same
+     launches by kernel, the flat ones by route: proj_out on split-K and
+     only x_embedder's two on mma.sync), a device profile and a host
+     profile; the same
      57 blocks with ``fuse_ln`` and
      ``fuse_gate`` (kernels vs plain beside the floor, 114 prologue and
      114 gate launches, all 114 row stats on the warp kernel, its device
@@ -76,7 +83,10 @@ Phases (each prints one line with the card, its power limit and seconds):
      takes 4 steps: s/step, loss, grad norm and Prodigy's d per step, peak
      memory, launches per step (every flash backward, stacked weight-only
      GEMM and stacked transposed GEMM launch on the wgmma route, none on
-     mma.sync); every LoRA B factor must move, int8 and frozen leaves must
+     mma.sync; the flat GEMMs and the flat transposed one by route: the
+     proj_out forward on split-K, its backward on the narrow kernel, no
+     transposed GEMM on mma.sync); every LoRA B factor must move, int8 and
+     frozen leaves must
      not; then a fifth step under the profiler gives the step's device
      time by kernel group, its flash backward group and its two int8 GEMM
      groups (weight-only forward, transposed);
@@ -390,6 +400,7 @@ def qmm_cases():
         ("vector in_layer", 1, 768, 3072),
         ("norm_out", 1, 3072, 6144),
         ("proj_out", 1024, 3072, 64),
+        ("ragged M1000 proj_out", 1000, 3072, 64),
     ]
     qkv = [("txt", 512, 19), ("img+cond", 2048, 19), ("single", 2560, 38)]
     return stacked, flat, qkv
@@ -421,7 +432,7 @@ def _qmm_record(records, kernel, label, w8a8, out, ref, ms, plain_ms, lib_ms,
           f"(tol {tol:.2e}) differing {flips}" + (" (tol 0)" if exact else "")
           + f" kernel {ms:.3f} ms plain {plain_ms:.3f} lib "
           f"{lib_ms:.3f} bound {bms:.3f} ({by})"
-          + "".join(f" {key} {v:.3f}" if isinstance(v, float) else f" {key} {v}"
+          + "".join(f" {key} {v:.4f}" if isinstance(v, float) else f" {key} {v}"
                     for key, v in extra.items()), flush=True)
     if not err <= tol:
         raise Failure(f"{kernel} {label} {mode}: err {err} > {tol}")
@@ -642,11 +653,12 @@ def check_qmm(torch, gen, records):
                                                n3, group, k_pad, w8a8,
                                                torch.stack(ref)))
         for label, m, k, n in flat:
+            g = _case_gen(torch, gen, label)
             wq = torch.randint(-128, 128, (k, n), dtype=torch.int8,
-                               device="cuda", generator=gen)
-            sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
-            bi = torch.randn(1, n, generator=gen, device="cuda") * 0.02
-            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+                               device="cuda", generator=g)
+            sc = torch.rand(1, n, generator=g, device="cuda") * 2e-5 + 1e-5
+            bi = torch.randn(1, n, generator=g, device="cuda") * 0.02
+            x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
             run = lambda: qmm.quant_matmul(x, wq, sc, bias=bi, w8a8=w8a8)
             group, k_pad = qmm.flat_w8a8_group(k, n)
             plain = lambda: qmm.qmm_plain(x, wq, sc, bi, None, w8a8, group,
@@ -654,27 +666,57 @@ def check_qmm(torch, gen, records):
             out, ref = run(), plain()
             extra = _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad,
                                  w8a8, ref)
+            library = _library_call(torch, x, wq, w8a8)
             if extra["route"] == "mma_sync":
-                # x_embedder and proj_out: short calls, read by device time
-                # (the W8A8 activation pass included)
+                # x_embedder: a short call, read by device time (the W8A8
+                # activation pass included)
                 extra["device_ms"] = device_ms(run)
+            elif extra["route"] == "splitk":
+                extra.update(_splitk_extra(torch, run, out, library, x, wq,
+                                           w8a8))
             _qmm_record(records, "qmm_flat", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
-                        cuda_time_ms(_library_call(torch, x, wq, w8a8)),
-                        m, k, n, extra)
+                        cuda_time_ms(library), m, k, n, extra)
     stacks.clear()
     print_slower(records, ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat"))
 
 
+def _splitk_extra(torch, run, out, library, x, wq, w8a8):
+    """Device times of the split-K forward at proj_out (its route with the
+    W8A8 activation pass, its GEMM alone, the mma.sync kernel it replaces,
+    the library call; in W8A8 cuBLAS bf16 too) and the count of its outputs
+    that differ from the mma.sync kernel's, which must be 0 in W8A8 (the same
+    s32 group sums, folded in the same order)."""
+    from loongx_tpu_torch.ops import cuda_build
+    extra = dict(device_ms=device_ms(run), gemm_device_ms=device_ms(run, match="splitk"),
+                 library_device_ms=device_ms(library))
+    with cuda_build.mma_sync_only():
+        extra["mma_sync_device_ms"] = device_ms(run)
+        old = run()
+    extra["mma_sync_flips"] = int((out != old).sum().item())
+    if w8a8:
+        wb = wq.to(torch.bfloat16)
+        extra["cublas_bf16_device_ms"] = device_ms(lambda: torch.matmul(x, wb))
+        if extra["mma_sync_flips"]:
+            raise Failure(f"split-K W8A8: {extra['mma_sync_flips']} outputs differ "
+                          "from the mma.sync kernel's")
+    return extra
+
+
 def print_slower(records, kernels, prefix=""):
-    """Print the wgmma-routed cases of ``kernels`` (labels starting with
-    ``prefix``) at M >= 512 that are not faster than the mma.sync kernel at
-    the same call."""
+    """Print the cases of ``kernels`` (labels starting with ``prefix``) at
+    M >= 512 on a route other than mma.sync that are not faster than the
+    mma.sync kernel at the same call (by device time where the case has it:
+    a short call's wrapper time is host cost)."""
+    def slower_than_mma_sync(r):
+        if "mma_sync_device_ms" in r:
+            return not r["device_ms"] < r["mma_sync_device_ms"]
+        return not r["ms"] < r["mma_sync_ms"]
     slower = [f"{r['kernel']} {r['case']}" for r in records
-              if r.get("route") == "wgmma" and r["kernel"] in kernels
+              if r.get("route", "mma_sync") != "mma_sync" and r["kernel"] in kernels
               and r["case"].startswith(prefix) and r["m"] >= 512
-              and not r["ms"] < r["mma_sync_ms"]]
-    print(f"  wgmma GEMM slower than mma.sync at M >= 512 ({', '.join(kernels)}"
+              and slower_than_mma_sync(r)]
+    print(f"  new kernels slower than mma.sync at M >= 512 ({', '.join(kernels)}"
           f"{' ' + prefix if prefix else ''}): {slower or 'none'}", flush=True)
 
 
@@ -694,6 +736,7 @@ def qmm_t_cases():
         ("ragged M1000 proj_mlp", 1000, 3072, 12288, 38),
     ]
     flat = [("proj_out", 1024, 3072, 64),
+            ("ragged M1000 proj_out", 1000, 3072, 64),
             ("context_embedder", 512, 4096, 3072)]
     return stacked, flat
 
@@ -727,9 +770,10 @@ def check_qmm_t(torch, gen, records):
                           ("qmm_t", [(*c, None) for c in flat])):
         for label, m, k, n, nb in cases:
             if nb is None:
+                g = _case_gen(torch, gen, label)
                 wq = torch.randint(-128, 128, (k, n), dtype=torch.int8,
-                                   device="cuda", generator=gen)
-                sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+                                   device="cuda", generator=g)
+                sc = torch.rand(1, n, generator=g, device="cuda") * 2e-5 + 1e-5
                 w2, s2 = wq, sc
                 run = lambda: qmm.quant_matmul_t(dy, wq, sc)
             else:
@@ -763,6 +807,12 @@ def check_qmm_t(torch, gen, records):
             extra = dict(route=route, mma_sync_ms=old_ms, mma_sync_err=old_err)
             if route == "wgmma":
                 extra["prescale_ms"] = prescale_ms(torch, dy, s2.reshape(-1))
+            elif route == "narrow":
+                # a short call (the proj_out backward), read by device time
+                extra["device_ms"] = device_ms(run)
+                extra["library_device_ms"] = device_ms(lambda: torch.matmul(a, wb.t()))
+                with cuda_build.mma_sync_only():
+                    extra["mma_sync_device_ms"] = device_ms(run)
             records.append(dict(kernel=kernel, case=label, m=m, k=k, n=n,
                                 err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
@@ -1621,18 +1671,22 @@ def plain_versions(attention=None):
 KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
            "qmm_stacked", "qmm_stacked:wgmma", "qmm_qkv_stacked",
            "qmm_qkv_stacked:wgmma", "qmm_flat", "qmm_flat:wgmma",
-           "qmm_flat:mma_sync", "qmm_act_quant", "qmm_act_quant:warp")
+           "qmm_flat:mma_sync", "qmm_flat:splitk", "qmm_act_quant",
+           "qmm_act_quant:warp")
 TRAIN_KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
-                 "qmm_stacked", "qmm_stacked:wgmma", "qmm_flat", "qmm_t",
-                 "qmm_t_stacked", "qmm_t_stacked:wgmma", "flash_bwd_dkv",
-                 "flash_bwd_dkv:wgmma", "flash_bwd_dq", "flash_bwd_dq:wgmma")
+                 "qmm_stacked", "qmm_stacked:wgmma", "qmm_flat",
+                 "qmm_flat:splitk", "qmm_t", "qmm_t:narrow", "qmm_t_stacked",
+                 "qmm_t_stacked:wgmma", "flash_bwd_dkv", "flash_bwd_dkv:wgmma",
+                 "flash_bwd_dq", "flash_bwd_dq:wgmma")
+# the routes a launch of the int8 GEMM entries can take
+GEMM_ROUTES = ("wgmma", "splitk", "narrow", "mma_sync")
 FLASH_BWD_GROUPS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 # the training step's int8 GEMM groups: the weight-only forward (forward,
 # remat and gelu recompute) and the transposed backward, each by kernel
-WONLY_GROUPS = ("qmm_bf16_wgmma_kernel", "qmm_kernel")
+WONLY_GROUPS = ("qmm_bf16_wgmma_kernel", "qmm_splitk_kernel", "qmm_kernel")
 TRANSPOSED_GROUPS = ("qmm_t_wgmma_kernel", "qmm_t_prescale_kernel",
-                     "qmm_t_kernel")
+                     "qmm_t_narrow_kernel", "qmm_t_kernel")
 GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
 # the int8 QK^T forward's kernels and its pre-pass (kquant_max_kernel,
 # kquant_codes_kernel), then the activation pass (act_quant_warp_kernel,
@@ -1648,14 +1702,22 @@ PROFILE_GROUPS = ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
 
 
 def gemm_split(counts):
-    """{entry: (launches, wgmma, mma_sync)} of the int8 GEMM entries; each
-    launch goes to exactly one of the two kernels."""
+    """{entry: (launches, wgmma, mma_sync, splitk)} of the int8 GEMM
+    entries; each launch goes to exactly one of the kernels."""
     out = {e: (counts.get(e, 0), counts.get(f"{e}:wgmma", 0),
-               counts.get(f"{e}:mma_sync", 0)) for e in GEMM_ENTRIES}
-    for e, (total, wg, ms) in out.items():
-        if total != wg + ms:
-            raise Failure(f"{e}: {total} launches, {wg} wgmma + {ms} mma.sync")
+               counts.get(f"{e}:mma_sync", 0), counts.get(f"{e}:splitk", 0))
+           for e in GEMM_ENTRIES}
+    for e, (total, wg, ms, sk) in out.items():
+        if total != wg + ms + sk:
+            raise Failure(f"{e}: {total} launches, {wg} wgmma + {ms} mma.sync "
+                          f"+ {sk} split-K")
     return out
+
+
+def routes(counts, entry):
+    """{route: launches} of one GEMM entry (`GEMM_ROUTES`, those taken)."""
+    return {r: counts[f"{entry}:{r}"] for r in GEMM_ROUTES
+            if counts.get(f"{entry}:{r}")}
 
 
 def device_profile(torch, run):
@@ -1780,6 +1842,7 @@ def full_forward(torch, pipe, gen):
         t_kernel = time.perf_counter() - t0
         counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
         split = gemm_split(cuda_build.LAUNCHES)
+        flat_routes = routes(cuda_build.LAUNCHES, "qmm_flat")
         prof = device_profile(torch, lambda: flux_forward(
             params, cfg, w8a8=True, **kw))
         host = host_profile(torch, lambda: flux_forward(
@@ -1791,7 +1854,14 @@ def full_forward(torch, pipe, gen):
             t_plain = time.perf_counter() - t0
         print(f"  forward S{s_txt + 2 * s_img}: kernels {t_kernel * 1e3:.1f} "
               f"ms, plain {t_plain * 1e3:.1f} ms, launches {counts}; GEMM "
-              f"launches (total, wgmma, mma.sync) {split}", flush=True)
+              f"launches (total, wgmma, mma.sync, split-K) {split}; qmm_flat "
+              f"by route {flat_routes}", flush=True)
+        # the final proj_out (N 64) on the split-K kernel; only x_embedder's
+        # K 64 (img and cond) left on mma.sync
+        if not split["qmm_flat"][3] or split["qmm_flat"][2] > 2:
+            raise Failure(f"W8A8 forward: qmm_flat launches {split['qmm_flat']} "
+                          "(total, wgmma, mma.sync, split-K): proj_out not on "
+                          "split-K or more than x_embedder's two on mma.sync")
         for depth, w8a8, bound, floor_share in comparisons:
             def run(depth=depth, w8a8=w8a8):
                 return flux_forward(params, depth, w8a8=w8a8, **kw)
@@ -1819,8 +1889,8 @@ def full_forward(torch, pipe, gen):
             print(f"  forward {label}: rel L2 {rel:.3e} (bound {bound:.0e}; "
                   f"plain with float32 probabilities vs plain: {floor:.3e}), "
                   f"the blocks move the velocity by {blocks:.3f} (rel L2), "
-                  f"finite {finite}; GEMM launches (total, wgmma, mma.sync) "
-                  f"{run_split}", flush=True)
+                  f"finite {finite}; GEMM launches (total, wgmma, mma.sync, "
+                  f"split-K) {run_split}", flush=True)
             if not finite or not rel <= bound:
                 raise Failure(f"forward {label}: rel L2 {rel} (bound {bound}),"
                               f" finite {finite}")
@@ -2052,7 +2122,9 @@ def lora_grads(torch, gen, kw):
           f"{len(zero)} zero in both: {zero}): rel L2 kernels vs plain at most "
           f"{worst[0]:.3e} ({worst[1]}; bound {GRAD_REL_L2:.0e}); plain with "
           f"float32 probabilities vs plain at most {worst_floor[0]:.3e} "
-          f"({worst_floor[1]}); launches {counts}", flush=True)
+          f"({worst_floor[1]}); launches {counts}; by route qmm_flat "
+          f"{routes(cuda_build.LAUNCHES, 'qmm_flat')}, qmm_t "
+          f"{routes(cuda_build.LAUNCHES, 'qmm_t')}", flush=True)
     if not all(counts[n] for n in ("flash_bwd_dkv", "flash_bwd_dq",
                                    "qmm_t_stacked", "qmm_t")):
         raise Failure(f"a backward kernel was not launched: {counts}")
@@ -2144,7 +2216,8 @@ def serve(torch, pipe):
             setattr(generate, name, fn)
     print(f"  launches over {served} requests: "
           f"{ {n: counts.get(n, 0) for n in KERNELS} }; GEMM launches (total, "
-          f"wgmma, mma.sync) {gemm_split(counts)}", flush=True)
+          f"wgmma, mma.sync, split-K) {gemm_split(counts)}; qmm_flat by route "
+          f"{routes(counts, 'qmm_flat')}", flush=True)
     missing = [n for n in KERNELS if not counts.get(n)]
     if missing:
         raise Failure(f"kernels not launched while serving: {missing}")
@@ -2470,7 +2543,7 @@ def train(torch):
     launches = {n: cuda_build.LAUNCHES[n] for n in TRAIN_KERNELS}
     for n in ("flash_bwd_dkv", "flash_bwd_dq", "qmm_stacked", "qmm_flat",
               "qmm_t_stacked", "qmm_t"):
-        for route in ("wgmma", "mma_sync"):
+        for route in GEMM_ROUTES:
             launches[f"{n}:{route}"] = cuda_build.LAUNCHES[f"{n}:{route}"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = times[1:]
@@ -2479,7 +2552,9 @@ def train(torch):
           flush=True)
     print(f"  launches per step {per_step[-1]} (remat: every block's forward "
           f"kernels run twice, once in the forward and once recomputed in the "
-          f"backward); over {TRAIN_STEPS} steps {launches}", flush=True)
+          f"backward); over {TRAIN_STEPS} steps {launches}; by route qmm_flat "
+          f"{routes(launches, 'qmm_flat')}, qmm_t {routes(launches, 'qmm_t')}",
+          flush=True)
     moved = {name: not torch.equal(a, b)
              for name, a, b in zip(lora_names, lora, lora0)}
     delta = sum(float((a.detach().float() - b.float()).abs().sum())
@@ -2506,6 +2581,11 @@ def train(torch):
         if launches[f"{n}:wgmma"] != launches[n] or launches[f"{n}:mma_sync"]:
             raise Failure(f"{n}: {launches[n]} launches, {launches[n + ':wgmma']} "
                           f"wgmma, {launches[n + ':mma_sync']} mma.sync")
+    # the proj_out backward (N 64) on the narrow kernel: no transposed GEMM
+    # on mma.sync; its forward on split-K
+    if launches["qmm_t:mma_sync"] or launches["qmm_t:narrow"] != launches["qmm_t"]:
+        raise Failure(f"qmm_t: {launches['qmm_t']} launches, by route "
+                      f"{routes(launches, 'qmm_t')}")
     # one more step under the profiler, outside the timings and the counts
     prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
     if prof is None:
@@ -2641,6 +2721,10 @@ def kernel_table(records, launches):
         # (and of :1067 and :75), on bf16 wgmma
         "qmm_wonly": ("quant_matmul.cu", f"{qmm_py}:422",
                       "single mlp gelu wonly", "train"),
+        # the flat GEMM at N below one tile (proj_out), split K over a
+        # thread-block cluster: its cases are qmm_flat's on that route
+        "qmm_splitk": ("quant_matmul.cu", f"{qmm_py}:75", "proj_out w8a8",
+                       "serve"),
         "qmm_t": ("quant_matmul_t.cu", f"{qmm_py}:192", "proj_out", "train"),
         "qmm_t_stacked": ("quant_matmul_t.cu", f"{qmm_py}:711", "sgl proj_mlp",
                           "train"),
@@ -2688,28 +2772,36 @@ def kernel_table(records, launches):
                          "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
                          "qmm_stacked_gate", "qmm_stacked_ln",
                          "qmm_qkv_stacked_ln")]
+        elif name == "qmm_splitk":
+            counter = "qmm_flat"
+            cases = [r for r in records if r["kernel"] == "qmm_flat"
+                     and r.get("route") == "splitk"]
         else:
             counter = name
             cases = [r for r in records if r["kernel"] == name]
         main = next(r for r in cases if r["case"] == main_case)
-        routes = {r: launches[path].get(f"{counter}:{r}", 0)
-                  for r in ("wgmma", "mma_sync", "warp", "block")
-                  if f"{counter}:{r}" in launches[path]}
+        by_route = {r: launches[path].get(f"{counter}:{r}", 0)
+                    for r in (*GEMM_ROUTES, "warp", "block")
+                    if f"{counter}:{r}" in launches[path]}
+        n_launches = (by_route.get("splitk", 0) if name == "qmm_splitk"
+                      else launches[path].get(counter, 0))
         table.append({
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": replaces, "launches": launches[path].get(counter, 0),
+            "replaces": replaces, "launches": n_launches,
             "launches_path": path,
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main_case,
-            **{key: main[key] for key in ("device_ms", "unfused_ms", "mma_sync_ms",
-                                          "mma_sync_device_ms", "block_device_ms",
+            **{key: main[key] for key in ("device_ms", "gemm_device_ms", "unfused_ms",
+                                          "mma_sync_ms", "mma_sync_device_ms",
+                                          "mma_sync_flips", "block_device_ms",
                                           "library_device_ms", "cublas_bf16_ms",
-                                          "transpose_share", "prescale_ms")
+                                          "cublas_bf16_device_ms", "transpose_share",
+                                          "prescale_ms")
                if key in main},
             **({"kernel": main["route"]} if "route" in main else {}),
-            **({"launches_by_route": routes} if any(routes.values()) else {}),
+            **({"launches_by_route": by_route} if any(by_route.values()) else {}),
         })
     return table
 

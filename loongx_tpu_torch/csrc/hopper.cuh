@@ -11,7 +11,11 @@
 //     desc_sw128(tile, stride between 64-element n panels, 1024);
 //   * the host describes a global tensor with make_tensor_map (cuTensorMapEncodeTiled, taken
 //     through cudaGetDriverEntryPoint so that nothing links libcuda) and passes it to the
-//     kernel as a `const __grid_constant__ CUtensorMap`.
+//     kernel as a `const __grid_constant__ CUtensorMap`;
+//   * a block of a thread-block cluster writes another block's shared memory with st_dsmem_v4,
+//     counted on the receiver's mbarrier, after a cluster barrier (cluster_arrive, cluster_wait)
+//     that follows the barrier's initialisation; a second one keeps every block alive until
+//     its stores are done.
 #pragma once
 
 #include <cuda.h>
@@ -76,7 +80,48 @@ __device__ __forceinline__ void named_barrier_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// ---- thread-block clusters ---------------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The cluster barrier in two halves: every thread of every block arrives (release: its
+// shared-memory writes before it are visible to reads after the wait), then waits for all
+// (acquire); work between the two overlaps the barrier.  Not .aligned: a warp may reach it
+// diverged.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// Stores 16 bytes at `p` (an address in this block's shared memory) in the shared memory of
+// block `rank` of the cluster (distributed shared memory; `rank` may be this block's own) and
+// counts them as transaction bytes of that block's mbarrier at `bar` (an address here too): a
+// one-way store, no round trip.  The receiver expects the bytes (mbar_arrive_expect_tx) and
+// waits on its barrier; its barrier must be initialised before the store (a cluster barrier
+// between the two).
+__device__ __forceinline__ void st_dsmem_v4(void* p, uint64_t* bar, uint32_t rank, uint4 v) {
+  uint32_t ra, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rb) : "r"(smem_u32(bar)),
+               "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(ra),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rb)
+      : "memory");
+}
+
 // ---- TMA ---------------------------------------------------------------------------------
+
+// Fetches a tensor map into the cache ahead of its first TMA load.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
@@ -262,6 +307,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[32] (s32) (+)= A (64 x 32 int8, K-major, smem) . B (64 x 32 int8, K-major, smem)^T; the
+// fragment is the m64n128 one's first half (columns 0..63).
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HOPPER_D32_LIST
+      ", %32, %33, p;\n}\n"
+      : HOPPER_D32("r")
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] (f32) (+)= A (64 x 16 bf16 in registers: mma.sync's m16n8k16 A fragment per warp)
+// . B (64 x 16 bf16, K-major, smem)^T; the fragment is the m64n128 one's first half.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : HOPPER_D32("f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef HOPPER_D32
 #undef HOPPER_D32_LIST
 #undef HOPPER_D64
@@ -315,10 +384,12 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tiled map of `rank` dims (innermost first: dims[0] elements are contiguous), strides in
-// bytes of dims 1.., boxes of `box` elements, 128-byte swizzle, zeros outside the tensor.
+// bytes of dims 1.., boxes of `box` elements, 128-byte swizzle unless `swizzle` says otherwise
+// (SWIZZLE_NONE lands a box row-major, its rows box[0] elements apart), zeros outside the tensor.
 inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                             const void* base, const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+                            const uint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t gd[5], gs[4];
@@ -330,7 +401,7 @@ inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank
     if (i + 1 < rank) gs[i] = strides[i];
   }
   return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), gd, gs, bx, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

@@ -44,10 +44,12 @@
 //   * qmm_bf16_wgmma_kernel (below, "The weight-only GEMM on bf16 wgmma"): every weight-only
 //     shape whose K is whole 128-deep stages and N at least 128 (the prologue form after its
 //     pass), the FLUX training layers and the T5-XXL linears from M 1 to 2560;
+//   * qmm_splitk_kernel (below, "The flat GEMM at N below one 128 tile"): both MAC modes at N
+//     16..112 with K whole slices of a cluster of 8 blocks (the final proj_out, N 64);
 //   * qmm_kernel, kept simple: 128x128 output tiles, 8 warps of 64x32 on mma.sync, k tiles of
 //     64 bytes double-buffered in shared memory (x by cp.async, the weight through registers
 //     because mma needs it k-major: each thread transposes 4x4 int8 blocks with byte_perm);
-//     the layers with K or N of 64.
+//     the layers with K of 64 (x_embedder) and the shapes no other kernel takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1472,6 +1474,473 @@ cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------------------
+// The flat GEMM at N below one 128 tile (kernel 4, _qmm_kernel :75, pallas_call :127, at the
+// final proj_out: M 1024 K 3072 N 64), both MAC modes, split K over a thread-block cluster
+// (`qmm_route`'s "splitk"; the wrapper's `splitk_plan` gives the cluster size, the slice of K
+// a block takes and the rows a block).
+// What bounds it: bytes.  It does 2 M K N operations against x's M K elements (2 bytes each
+// weight-only, 1 byte of codes W8A8): 64 operations a bf16 byte at N 64, far below the ridge,
+// so the design's job is to put the whole card on reading x.  qmm_kernel's 128 x 128 tiles give
+// M / 128 = 8 blocks at M 1024, each walking K 3072 alone.  Here the CLUSTER (8, the portable
+// maximum) blocks of a cluster share one 64-row tile and split K into equal slices, so M 1024
+// runs 16 x 8 = 128 blocks, two of which fit an SM.  Lane 0 of each warp starts the TMA loads of
+// its share of the slice's panels at once (x in panels 128 bytes wide, 64 bf16 or 128 codes,
+// 128-byte swizzle; the raw weight rows of each panel as 128-byte rows), one mbarrier a panel,
+// so the whole slice is in flight and the products start as the first panel lands.
+//   * W8A8: 8-bit wgmma takes B only K-major, so the warpgroup transposes each raw weight panel
+//     into a ring of two K-major B slots (the rows past N zero), then runs wgmma m64nNTk32 s8
+//     ss on it while it transposes the next; NT (64 or 128) is the N tile.
+//   * Weight-only: qmm_bf16_wgmma_kernel's y^T = W^T x^T: the weight is the register operand of
+//     wgmma m64n64k16 bf16 (rs), read from the raw panel by ldmatrix .trans and widened in
+//     registers (hopper::widen_pair), the x panel the K-major B; two fragment buffers, so a
+//     panel's fragments load while the other's products run, and no panel waits on a shared-
+//     memory write or a block barrier (the transposing form measured 0.0093 ms against this
+//     form's 0.0077 at proj_out).
+// The reduction: each block stages its fp32 (W8A8: s32) partial tile in its shared memory, then
+// pushes row r to block r / (64 / CLUSTER) of the cluster, 16 bytes a store (st.async into the
+// receiver's slot for this block, counted on the receiver's mbarrier: one-way, no round trip);
+// each block sums its rows over the blocks in rank order and runs the epilogue on them, its
+// epilogue operands loaded while the partial tiles travel.  No partial goes to device memory and
+// no atomic is used: the result does not depend on timing.  W8A8: no slice straddles an
+// activation group (`splitk_plan`), so a group's s32 partials sum exactly to qmm_kernel's i32,
+// and facc = fadd(facc, fmul(float(i32), x_scale)) runs in group order and the epilogue in
+// qmm_kernel's operations: the output equals the mma.sync kernel's bit for bit.  Weight-only:
+// fixed-order fp32 sums, within one bf16 rounding of qmm_plain.  Ragged M: TMA zero-fills the rows
+// past M (and, W8A8, the weight rows past K up to Kp) and the store masks them.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): 0.0072-0.0079 ms W8A8 (0.0126-0.0131 with
+// its activation pass) and 0.0075-0.0080 weight-only at proj_out, against 0.059-0.063 and
+// 0.083-0.087 on qmm_kernel; a single cluster (M 64) takes 0.0055-0.0062, so the latency chain
+// (launch, first panel, cluster exchange), not the bytes, holds it above its 0.002 bound.
+namespace sk {
+
+constexpr int ROWS = 64;      // rows of x a block: one m64 wgmma
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int CLUSTER = 8;    // blocks a cluster, each one slice of K: the portable maximum
+constexpr int X_PANEL = ROWS * 128;
+constexpr int MAX_PANELS = 16;
+constexpr int SMEM_LIMIT = 232448;  // the dynamic shared memory a block may take
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Bytes of the x panels and, W8A8, the ring of two K-major B panels, which the partial tile
+// (ROWS rows of nt + 8 words) reuses after the products.
+__host__ __device__ inline int tile_bytes(bool w8a8, int panels, int nt) {
+  const int tiles = panels * X_PANEL + (w8a8 ? (panels < 2 ? panels : 2) * nt * 128 : 0);
+  const int red = ROWS * (nt + 8) * 4;
+  return round_up(tiles > red ? tiles : red, 1024);
+}
+
+// Bytes of the receive buffer: the block's ROWS / CLUSTER rows of every block's partial tile,
+// rows nt + 4 words apart.
+__host__ __device__ constexpr int recv_bytes(int nt) { return CLUSTER * (ROWS / CLUSTER) * (nt + 4) * 4; }
+
+// Shared memory a block takes: the tiles above, the raw weight slice, the receive buffer, one
+// mbarrier a panel and one for the receive buffer, and the slack that aligns the base to 1024
+// bytes.  `splitk_smem` in ops/quant_matmul.py computes the same.
+__host__ __device__ inline int smem_bytes(bool w8a8, int slice_k, int nt, int n) {
+  const int panels = slice_k / (w8a8 ? 128 : 64);
+  return 1024 + tile_bytes(w8a8, panels, nt) + round_up(slice_k * n, 1024) +
+         round_up(recv_bytes(nt), 1024) + 8 * (panels + 1);
+}
+
+// W8A8: one raw weight panel (128 rows of n_cols bytes, row-major) -> the K-major B tile (8-bit
+// wgmma takes B only K-major): NT rows of 128 codes, 16-byte chunk c of row n at c ^ (n % 8),
+// the rows past n_cols zero.  A task is 4 weight columns x 16 rows.
+template <int NT>
+__device__ __forceinline__ void transpose_panel(const uint8_t* raw, uint8_t* bt, int n_cols,
+                                                int tid) {
+  constexpr int TASKS = 8 * (NT / 4);
+  for (int task = tid; task < TASKS; task += THREADS) {
+    const int n4 = task % (NT / 4), kc = task / (NT / 4);
+    uint4 out[4];
+    if (4 * n4 < n_cols) {
+      uint32_t w[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        w[i] = *reinterpret_cast<const uint32_t*>(raw + (16 * kc + i) * n_cols + 4 * n4);
+      uint32_t col[4][4];  // [n][k word]
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t c[4];
+        wg::transpose4x4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3], c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) col[j][q] = c[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j] = make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j] = make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * n4 + j;
+      *reinterpret_cast<uint4*>(bt + n * 128 + ((kc ^ (n % 8)) * 16)) = out[j];
+    }
+  }
+}
+
+// One W8A8 k-step of 32 bytes of a panel: wgmma m64nNTk32 s8, A and B K-major.
+template <int NT>
+__device__ __forceinline__ void mma_step_s8(int (&acc)[NT / 2], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  if constexpr (NT == 64)
+    hopper::wgmma_m64n64k32_s8(acc, da, db, accumulate);
+  else
+    hopper::wgmma_m64n128k32_s8(acc, da, db, accumulate);
+}
+
+// Weight-only: the A fragments (the y^T = W^T x^T form of qmm_bf16_wgmma_kernel, the weight the
+// register operand) of a 64-k panel's four k-steps for the warp's 16 weight columns `chunk` of
+// the raw panel as TMA lands it (k row k at byte k * n_cols, 128-byte swizzled: byte L at
+// L ^ ((L >> 7) % 8) << 4).  ldmatrix .trans takes a b16 element as two adjacent weight
+// columns, so slot g of the warp is column 16 chunk + 2g and slot g + 8 the column after it;
+// hopper::widen_pair widens them exactly (wg::wo::load_fragments' arrangement).
+__device__ __forceinline__ void wonly_fragments(uint32_t (&f)[4][4], const uint8_t* raw,
+                                                int n_cols, int chunk, int lane) {
+  const int q = lane / 8, r = lane % 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lin = (16 * (2 * h + q / 2) + 8 * (q % 2) + r) * n_cols + 16 * chunk;
+    uint32_t m[4];
+    wg::wo::ldsm_x4_trans(m, raw + (lin ^ (((lin >> 7) & 7) << 4)));
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss) {
+      const uint32_t ab = m[2 * ss] ^ 0x80808080u, cd = m[2 * ss + 1] ^ 0x80808080u;
+      f[2 * h + ss][0] = hopper::widen_pair(ab, 0x7540, 0x7542);
+      f[2 * h + ss][1] = hopper::widen_pair(ab, 0x7541, 0x7543);
+      f[2 * h + ss][2] = hopper::widen_pair(cd, 0x7540, 0x7542);
+      f[2 * h + ss][3] = hopper::widen_pair(cd, 0x7541, 0x7543);
+    }
+  }
+}
+
+
+template <bool W8A8, int NT, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_splitk_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w, const QmmArgs p, int slice_k) {
+  static_assert(EPI != EPI_QKV, "the fused-qkv planes are never narrower than one tile");
+  constexpr bool GELU = EPI == EPI_GELU || EPI == EPI_GELU_GATE;
+  constexpr bool GATE = EPI == EPI_GATE || EPI == EPI_GELU_GATE;
+  constexpr int PANEL_K = W8A8 ? 128 : 64;  // k elements of a 128-byte panel row
+  constexpr int W_PANEL = NT * 128;
+  constexpr int RS = NT + 8;                // row stride of the partial tile, in 32-bit words
+  constexpr int RR = NT + 4;                // row stride of the receive buffer
+  constexpr int RPR = ROWS / CLUSTER, PER_ROW = NT / 4;
+  constexpr int ITEMS = RPR * PER_ROW / THREADS;  // 4-column pieces a thread reduces
+  static_assert(ITEMS * THREADS == RPR * PER_ROW, "whole pieces a thread");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  const int panels = slice_k / PANEL_K;
+  uint8_t* sx = base;
+  uint8_t* sbt = base + panels * X_PANEL;  // W8A8: a ring of two K-major B panels
+  uint8_t* sraw = base + tile_bytes(W8A8, panels, NT);
+  uint32_t* recv = reinterpret_cast<uint32_t*>(sraw + round_up(slice_k * p.N, 1024));
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(recv) +
+                                               round_up(recv_bytes(NT), 1024));
+  uint64_t* got = full + panels;                      // the receive buffer's barrier
+  uint32_t* red = reinterpret_cast<uint32_t*>(base);  // the partial tile, after the products
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rank = static_cast<int>(hopper::cluster_ctarank());
+  const int m0 = blockIdx.y * ROWS, k0 = rank * slice_k;
+  if (tid == 0) {
+    hopper::prefetch_tensor_map(&map_x);
+    hopper::prefetch_tensor_map(&map_w);
+    for (int i = 0; i < panels; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::mbar_init(got, 1);
+    hopper::fence_barrier_init();
+    hopper::mbar_arrive_expect_tx(got, CLUSTER * RPR * NT * 4);
+  }
+  __syncthreads();
+  // lane 0 of warp w starts the loads of panels w, w + 4, ...; the weight as 128-byte rows
+  if (lane == 0)
+    for (int i = warp; i < panels; i += THREADS / 32) {
+      const int k = k0 + i * PANEL_K;
+      hopper::mbar_arrive_expect_tx(&full[i], X_PANEL + PANEL_K * p.N);
+      hopper::tma_load_2d(sx + i * X_PANEL, &map_x, &full[i], k, m0);
+      hopper::tma_load_2d(sraw + i * PANEL_K * p.N, &map_w, &full[i], 0, k * p.N / 128);
+    }
+  hopper::cluster_arrive();  // this block's barriers are initialised
+
+  if constexpr (W8A8) {
+    // each raw weight panel transposed into a ring slot, then its s8 products
+    int acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
+    for (int i = 0; i < panels; ++i) {
+      uint8_t* bt = sbt + (i % 2) * W_PANEL;
+      if (i >= 2) hopper::wgmma_wait<1>();  // panel i - 2's products are done with this slot
+      hopper::mbar_wait(&full[i], 0);
+      transpose_panel<NT>(sraw + i * PANEL_K * p.N, bt, p.N, tid);
+      hopper::fence_proxy_async();
+      __syncthreads();  // the whole B tile is written
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_step_s8<NT>(acc, hopper::desc_sw128(sx + i * X_PANEL + kk * 32, 16, 1024),
+                        hopper::desc_sw128(bt + kk * 32, 16, 1024), i > 0 || kk > 0);
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    __syncthreads();  // every product has read its tiles: the partial tile goes over them
+    // acc[4i + e] is the partial sum at row 16 warp + g + 8 (e / 2), column 8i + 2t + e % 2
+#pragma unroll
+    for (int i = 0; i < NT / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint2*>(red + (warp * 16 + g + 8 * h) * RS + 8 * i + 2 * t) =
+            make_uint2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+  } else {
+    // y^T = W^T x^T: MT tiles of 64 weight columns, each wgmma m64n64k16 (rs) with the
+    // fragments of one panel in registers while the other buffer's products run
+    constexpr int MT = NT / 64;
+    float acc[MT][32];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+    uint32_t fa[MT][4][4], fb[MT][4][4];
+    auto fence_frags = [](uint32_t (&f)[MT][4][4]) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) hopper::fence_operands(f[mt]);
+    };
+    auto panel = [&](uint32_t (&f)[MT][4][4], int i) {
+      const uint8_t* raw = sraw + i * PANEL_K * p.N;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int chunk = 4 * mt + warp;
+        if (16 * chunk < p.N) {
+          wonly_fragments(f[mt], raw, p.N, chunk, lane);
+        } else {
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) f[mt][s][j] = 0u;
+        }
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          hopper::wgmma_m64n64k16_bf16_rs(acc[mt], f[mt][kk],
+                                          hopper::desc_sw128(sx + i * X_PANEL + kk * 32, 16, 1024),
+                                          i > 0 || kk > 0);
+      hopper::wgmma_commit();
+    };
+    for (int i = 0; i < panels; i += 2) {
+      hopper::mbar_wait(&full[i], 0);
+      if (i >= 2) {
+        hopper::wgmma_wait<1>();  // panel i - 2's products are done with fa
+        fence_frags(fa);
+      }
+      panel(fa, i);
+      if (i + 1 < panels) {
+        hopper::mbar_wait(&full[i + 1], 0);
+        hopper::wgmma_wait<1>();  // panel i - 1's products are done with fb
+        fence_frags(fb);
+        panel(fb, i + 1);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    fence_frags(fa);
+    fence_frags(fb);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) hopper::fence_operands(acc[mt]);
+    __syncthreads();  // every product has read the x panels: the partial tile goes over them
+    // acc[mt][4i + e] is the partial sum at row (x) 8i + 2t + e % 2, column (weight)
+    // 64 mt + 16 warp + 2g + e / 2
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<uint2*>(red + (8 * i + 2 * t + e) * RS + 64 * mt + 16 * warp + 2 * g) =
+              make_uint2(__float_as_uint(acc[mt][4 * i + e]),
+                         __float_as_uint(acc[mt][4 * i + 2 + e]));
+  }
+
+  // This block's pieces of the cluster's tile: rows [rank RPR, (rank + 1) RPR), 4 columns a
+  // piece; their epilogue operands load while the partial tiles travel.
+  int row[ITEMS], col[ITEMS];
+  bool live[ITEMS];
+  float sc[ITEMS][4], bi[ITEMS][4], gt[ITEMS][4];
+  float xsq[ITEMS][CLUSTER];  // W8A8: the x_scale of block q's activation group
+  uint2 rsd[ITEMS];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int idx = tid + it * THREADS;
+    row[it] = m0 + rank * RPR + idx / PER_ROW;
+    col[it] = 4 * (idx % PER_ROW);
+    live[it] = row[it] < p.M && col[it] < p.N;
+    if (!live[it]) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[it][e] = __ldg(p.scale + col[it] + e);
+      bi[it][e] = p.bias ? __ldg(p.bias + col[it] + e) : 0.f;
+    }
+    if constexpr (W8A8) {
+#pragma unroll
+      for (int q = 0; q < CLUSTER; ++q)
+        xsq[it][q] = __ldg(p.xs + (long long)row[it] * p.n_groups + q * slice_k / p.group);
+    }
+    if constexpr (GATE) {
+      const float* grow = p.gate + (row[it] >= p.boundary ? p.N : 0) + col[it];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gt[it][e] = __ldg(grow + e);
+      rsd[it] = *reinterpret_cast<const uint2*>(p.resid + (long long)row[it] * p.N + col[it]);
+    }
+  }
+  __syncthreads();         // the partial tile is whole
+  hopper::cluster_wait();  // every block's receive barrier is initialised
+  // Send row r of the partial tile to block r / RPR, into its slot for this block: 16 bytes a
+  // store, counted on the receiver's barrier.
+#pragma unroll
+  for (int j = 0; j < ROWS * PER_ROW / THREADS; ++j) {
+    const int idx = tid + j * THREADS, r = idx / PER_ROW, c = 4 * (idx % PER_ROW);
+    hopper::st_dsmem_v4(recv + (rank * RPR + r % RPR) * RR + c, got, r / RPR,
+                        *reinterpret_cast<const uint4*>(red + r * RS + c));
+  }
+  hopper::cluster_arrive();  // this block's stores are issued
+  hopper::mbar_wait(got, 0);  // every block's rows for this one have landed
+
+  // Each value summed over the cluster's blocks in rank order (W8A8: the s32 partials of an
+  // activation group, then at the group's last slice facc = fadd(facc, fmul(float(i32),
+  // x_scale)), in group order from facc = 0), then the epilogue, one 8-byte store a piece.
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    if (!live[it]) continue;
+    const uint32_t* src = recv + (row[it] - m0 - rank * RPR) * RR + col[it];
+    uint4 v[CLUSTER];
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) v[q] = *reinterpret_cast<const uint4*>(src + q * RPR * RR);
+    float z[4];
+    if constexpr (W8A8) {
+      int isum[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[e] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CLUSTER; ++q) {
+        isum[0] += static_cast<int>(v[q].x);
+        isum[1] += static_cast<int>(v[q].y);
+        isum[2] += static_cast<int>(v[q].z);
+        isum[3] += static_cast<int>(v[q].w);
+        if ((q + 1) * slice_k % p.group == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            z[e] = __fadd_rn(z[e], __fmul_rn(static_cast<float>(isum[e]), xsq[it][q]));
+            isum[e] = 0;
+          }
+        }
+      }
+    } else {
+      z[0] = __uint_as_float(v[0].x);
+      z[1] = __uint_as_float(v[0].y);
+      z[2] = __uint_as_float(v[0].z);
+      z[3] = __uint_as_float(v[0].w);
+#pragma unroll
+      for (int q = 1; q < CLUSTER; ++q) {
+        z[0] = __fadd_rn(z[0], __uint_as_float(v[q].x));
+        z[1] = __fadd_rn(z[1], __uint_as_float(v[q].y));
+        z[2] = __fadd_rn(z[2], __uint_as_float(v[q].z));
+        z[3] = __fadd_rn(z[3], __uint_as_float(v[q].w));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[e] = epi_value<GELU>(z[e], sc[it][e], p.bias, bi[it][e]);
+    if constexpr (GATE) {
+      // out = resid + g_seg * z on the fp32 z
+      const __nv_bfloat162 r01 = *reinterpret_cast<const __nv_bfloat162*>(&rsd[it].x);
+      const __nv_bfloat162 r23 = *reinterpret_cast<const __nv_bfloat162*>(&rsd[it].y);
+      z[0] = gate_res(__low2float(r01), gt[it][0], z[0]);
+      z[1] = gate_res(__high2float(r01), gt[it][1], z[1]);
+      z[2] = gate_res(__low2float(r23), gt[it][2], z[2]);
+      z[3] = gate_res(__high2float(r23), gt[it][3], z[3]);
+    }
+    *reinterpret_cast<uint2*>(p.out + (long long)row[it] * p.N + col[it]) =
+        make_uint2(pack_bf16(z[0], z[1]), pack_bf16(z[2], z[3]));
+  }
+  hopper::cluster_wait();  // no block leaves while its stores to another may be in flight
+}
+
+template <bool W8A8, int NT, int EPI>
+cudaError_t launch_one(const CUtensorMap& mx, const CUtensorMap& mw, const QmmArgs& p,
+                       int cluster, int slice_k, int smem, cudaStream_t st) {
+  auto* kernel = qmm_splitk_kernel<W8A8, NT, EPI>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (p.M + ROWS - 1) / ROWS, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, mx, mw, p, slice_k);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool W8A8, int NT>
+cudaError_t launch_nt(int epilogue, const CUtensorMap& mx, const CUtensorMap& mw,
+                      const QmmArgs& p, int cluster, int slice_k, int smem, cudaStream_t st) {
+  switch (epilogue) {
+    case EPI_BIAS: return launch_one<W8A8, NT, EPI_BIAS>(mx, mw, p, cluster, slice_k, smem, st);
+    case EPI_GELU: return launch_one<W8A8, NT, EPI_GELU>(mx, mw, p, cluster, slice_k, smem, st);
+    case EPI_GATE: return launch_one<W8A8, NT, EPI_GATE>(mx, mw, p, cluster, slice_k, smem, st);
+    case EPI_GELU_GATE:
+      return launch_one<W8A8, NT, EPI_GELU_GATE>(mx, mw, p, cluster, slice_k, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch(bool w8a8, int epilogue, const QmmArgs& p, int cluster, int slice_k, int rows,
+                   cudaStream_t st) {
+  const int panel_k = w8a8 ? 128 : 64, kloop = w8a8 ? p.Kp : p.K;
+  if (rows != ROWS || cluster != CLUSTER || p.M < 1 ||
+      p.N < 16 || p.N > 128 || p.N % 16 || p.K % 128 || slice_k < panel_k || slice_k % panel_k ||
+      slice_k / panel_k > MAX_PANELS || cluster * slice_k != kloop ||
+      (w8a8 && p.group % slice_k))
+    return cudaErrorInvalidValue;
+  const int nt = p.N <= 64 ? 64 : 128;
+  const int smem = smem_bytes(w8a8, slice_k, nt, p.N);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(kloop), static_cast<uint64_t>(p.M)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(kloop) * (w8a8 ? 1 : 2)};
+  const uint32_t x_box[2] = {static_cast<uint32_t>(panel_k), ROWS};
+  // the weight [K, N] as rows of 128 bytes (N a multiple of 16 and K of 128: whole rows), a
+  // panel of panel_k weight rows one box; W8A8 unswizzled for transpose_panel, weight-only
+  // 128-byte swizzled for ldmatrix
+  const uint64_t w_dims[2] = {128, static_cast<uint64_t>(p.K) * p.N / 128};
+  const uint64_t w_strides[1] = {128};
+  const uint32_t w_box[2] = {128, static_cast<uint32_t>(panel_k * p.N / 128)};
+  if (!hopper::make_tensor_map(&mx, w8a8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                               2, p.a, x_dims, x_strides, x_box) ||
+      !hopper::make_tensor_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w, w_dims, w_strides,
+                               w_box, w8a8 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                           : CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  if (w8a8)
+    return nt == 64 ? launch_nt<true, 64>(epilogue, mx, mw, p, cluster, slice_k, smem, st)
+                    : launch_nt<true, 128>(epilogue, mx, mw, p, cluster, slice_k, smem, st);
+  return nt == 64 ? launch_nt<false, 64>(epilogue, mx, mw, p, cluster, slice_k, smem, st)
+                  : launch_nt<false, 128>(epilogue, mx, mw, p, cluster, slice_k, smem, st);
+}
+
+}  // namespace sk
+
 template <bool W8A8, bool LN>
 cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
@@ -1644,4 +2113,23 @@ extern "C" int qmm_gemm_bf16_wgmma(int epilogue, const void* x, const void* w, c
                         K, K, N, 0, 0, head_dim, plane_h, boundary);
   p.prep_b = widen;
   return static_cast<int>(wg::wo::launch(epilogue, p, static_cast<cudaStream_t>(stream)));
+}
+
+// The flat GEMM at N below one 128 tile, split K over a thread-block cluster: the arguments of
+// qmm_gemm without the fused-qkv planes and the prologue (W8A8: a int8 [M, Kp] with xs; weight-
+// only: x bf16 [M, K]; 16-byte aligned bases, w int8 [K, N]), plus `splitk_plan`'s cluster size
+// (1..8, dividing 64), slice of K a block (W8A8: of Kp; whole 128-byte panels, inside one
+// activation group) and rows a block (64).  Takes N 16..128 a multiple of 16 and cluster *
+// slice_k = K (W8A8: Kp); anything else returns cudaErrorInvalidValue.
+extern "C" int qmm_gemm_splitk(int w8a8, int epilogue, const void* a, const float* xs,
+                               const void* w, const float* scale, const float* bias,
+                               const void* resid, const float* gate, void* out, int M, int K,
+                               int Kp, int N, int group, int n_groups, int boundary, int cluster,
+                               int slice_k, int rows, void* stream) {
+  if (!gated_ok(epilogue, resid, gate) || (w8a8 && xs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QmmArgs p = make_args(a, xs, w, scale, bias, nullptr, nullptr, nullptr, resid, gate, out,
+                              M, K, Kp, N, group, n_groups, 0, 0, boundary);
+  return static_cast<int>(
+      sk::launch(w8a8 != 0, epilogue, p, cluster, slice_k, rows, static_cast<cudaStream_t>(stream)));
 }

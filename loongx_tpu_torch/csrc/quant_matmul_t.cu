@@ -12,16 +12,18 @@
 // What bounds it on this card: at the FLUX shapes (M 512-2560, N 64-15360, K 3072-15360)
 // it does 2*M*N*K operations against K*N int8 weight bytes plus the bf16 dy and dx, about
 // 1000 bf16 op/byte at M 2048, far above the ridge (~295): tensor-core operations bound
-// it.  The one exception is the final proj_out (N 64), which is bound by its bytes.
-// Two kernels share the contract (the Python wrapper's qmm_t_route is the rule):
+// it.  The one exception is the final proj_out (N 64), which is bound by the bytes of dx.
+// Three kernels share the contract (the Python wrapper's qmm_t_route is the rule):
 //   * qmm_t_wgmma_kernel (below, "The transposed GEMM on wgmma"): K and N whole 128 tiles;
+//   * qmm_t_narrow_kernel (below, "The transposed GEMM with a contraction of at most 64"): N
+//     16..64, K whole 128 tiles (the proj_out backward);
 //   * qmm_t_kernel, kept simple: 128x128 output tiles (dy rows x weight rows), 8 warps of
 //     64x32, mma.sync m16n8k16 (bf16 in, fp32 accumulate).  The contraction runs over N in
 //     steps of 32, double-buffered in shared memory through registers: the dy tile is scaled
 //     and rounded to bf16 on its way in, the weight tile widened to bf16.  The stored [K, N]
 //     weight is already contiguous along the contraction, which is the layout the mma B
 //     operand ("col") wants, so unlike the forward no transpose is needed: each weight row
-//     of 32 bytes becomes one shared row of 32 bf16.  The proj_out backward (N 64) runs it.
+//     of 32 bytes becomes one shared row of 32 bf16.  No FLUX shape runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -405,6 +407,121 @@ int num_sms() {
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------------------
+// The transposed GEMM with a contraction of at most 64 (N <= 64: the final proj_out's backward,
+// dy [1024, 64] -> dx [1024, 3072]).  What bounds it: the 2 M K bytes of dx (0.0019 ms at M 1024
+// K 3072 at 3.35 TB/s); the product is 64 deep, 1/16 of a tile's store.  So each block is small
+// and self-contained, and enough of them are resident at once to overlap one's loads with
+// another's product and stores: a block of one warpgroup takes 64 dy rows x 128 weight rows
+// (64 x 128 of dx), M 1024 K 3072 runs 16 x 24 = 384 blocks of 25 KB of shared memory, all
+// resident at once, with no pre-scale pass and no persistent tail.  The block loads dy's rows
+// (16-byte loads) and the scale and writes a = bf16(dy * scale) (__fmul_rn, then round to
+// nearest even: qmm_t_kernel's and the TPU kernels' order) as the K-major A tile of wgmma
+// m64n128k16 bf16 ss;
+// it loads the int8 weight rows, which are K-major as stored ([K, N], the contraction
+// contiguous), and widens them exactly (hopper::widen_pair) into the K-major B tile; both tiles
+// 128-byte swizzled, the contraction past N zero.  Four wgmma steps; the fp32 tile is rounded
+// once to bf16, staged in shared memory over both tiles and written as 256-byte rows of dx.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): 0.0042-0.0045 ms at proj_out, against 0.0080
+// on qmm_t_kernel and 0.0067 on qmm_t_wgmma_kernel with a half stage and its pre-scale pass
+// (0.0013 of it); blocks of two warpgroups sharing one weight tile measured 0.0047.
+namespace nw {
+
+constexpr int BM = 64;       // dy rows (dx rows) a block
+constexpr int BK = 128;      // weight rows (dx columns) a block
+constexpr int THREADS = 128;
+constexpr int A_TILE = BM * 128, B_TILE = BK * 128;
+constexpr int SMEM_BYTES = A_TILE + B_TILE + 1024;
+
+__global__ void __launch_bounds__(THREADS)
+qmm_t_narrow_kernel(const __nv_bfloat16* __restrict__ dy, const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ dx, int M, int K,
+                    int N) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sb = sa + A_TILE;
+  uint8_t* stage = sa;  // the dx tile, [64 m][128 k] bf16, over both tiles after the products
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * BK, m0 = blockIdx.y * BM;
+
+  // a: 64 rows x 8 chunks of 8 contraction elements, 4 a thread; the weight: 128 rows x 4 chunks
+  // of 16 int8, 4 a thread.  Every load is issued before the first use.
+  uint4 d[4], wv[4];
+  float sv[4][8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = tid + j * THREADS, r = c / 8, n = 8 * (c % 8);
+    const bool ok = m0 + r < M && n < N;
+    d[j] = ok ? __ldg(reinterpret_cast<const uint4*>(dy + (long long)(m0 + r) * N + n))
+              : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sv[j][e] = ok ? __ldg(scale + n + e) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = tid + j * THREADS, wr = c / 4, wn = 16 * (c % 4);
+    wv[j] = wn < N ? __ldg(reinterpret_cast<const uint4*>(w + (long long)(k0 + wr) * N + wn))
+                   : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = tid + j * THREADS, r = c / 8, ch = c % 8;
+    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&d[j]);
+    float f[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(__bfloat162float(x[e]), sv[j][e]);
+    *reinterpret_cast<uint4*>(sa + r * 128 + ((ch ^ (r % 8)) * 16)) =
+        make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                   pack_bf16(f[6], f[7]));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = tid + j * THREADS, wr = c / 4, wc = 2 * (c % 4);  // two 16-byte bf16 chunks
+    const uint32_t b[4] = {wv[j].x ^ 0x80808080u, wv[j].y ^ 0x80808080u, wv[j].z ^ 0x80808080u,
+                           wv[j].w ^ 0x80808080u};
+    *reinterpret_cast<uint4*>(sb + wr * 128 + ((wc ^ (wr % 8)) * 16)) =
+        make_uint4(hopper::widen_pair(b[0], 0x7540, 0x7541), hopper::widen_pair(b[0], 0x7542, 0x7543),
+                   hopper::widen_pair(b[1], 0x7540, 0x7541), hopper::widen_pair(b[1], 0x7542, 0x7543));
+    *reinterpret_cast<uint4*>(sb + wr * 128 + (((wc + 1) ^ (wr % 8)) * 16)) =
+        make_uint4(hopper::widen_pair(b[2], 0x7540, 0x7541), hopper::widen_pair(b[2], 0x7542, 0x7543),
+                   hopper::widen_pair(b[3], 0x7540, 0x7541), hopper::widen_pair(b[3], 0x7542, 0x7543));
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  float acc[64];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_m64n128k16_bf16_ss(acc, hopper::desc_sw128(sa + kk * 32, 16, 1024),
+                                     hopper::desc_sw128(sb + kk * 32, 16, 1024), kk > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc);
+  __syncthreads();  // the products have read both tiles: the dx tile goes over them
+
+  // acc[4i + e] is dx[m0 + 16 warp + g + 8 (e / 2)][k0 + 8i + 2t + e % 2]; 16-byte chunk c of
+  // staged row r at c ^ (r % 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<uint32_t*>(stage + r * 256 + ((i ^ (r % 8)) * 16) + 4 * t) =
+          pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int idx = tid + j * THREADS, r = idx / 16, c = idx % 16;
+    if (m0 + r < M)
+      *reinterpret_cast<uint4*>(dx + (long long)(m0 + r) * K + k0 + 8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * 256 + ((c ^ (r % 8)) * 16));
+  }
+}
+
+}  // namespace nw
+
 }  // namespace
 
 // dy bf16 [M, N], w int8 [K, N] (block already offset), scale fp32 [N] -> dx bf16 [M, K].
@@ -466,5 +583,19 @@ extern "C" int qmm_t_prescale(const void* dy, const float* scale, void* a, int M
   wg::qmm_t_prescale_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(dy), scale, static_cast<__nv_bfloat16*>(a), M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transposed GEMM with a contraction of at most 64 (qmm_t_narrow_kernel): the arguments of
+// qmm_t_gemm (dy and w 16-byte aligned).  Takes N 16..64 a multiple of 16 and K a
+// multiple of 128; anything else returns cudaErrorInvalidValue.
+extern "C" int qmm_t_gemm_narrow(const void* dy, const void* w, const float* scale, void* dx, int M,
+                                 int K, int N, void* stream) {
+  if (M < 1 || N < 16 || N > 64 || N % 16 || K < nw::BK || K % nw::BK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(K / nw::BK, (M + nw::BM - 1) / nw::BM);
+  nw::qmm_t_narrow_kernel<<<grid, nw::THREADS, nw::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const int8_t*>(w), scale,
+      static_cast<__nv_bfloat16*>(dx), M, K, N);
   return static_cast<int>(cudaGetLastError());
 }

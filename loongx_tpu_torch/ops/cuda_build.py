@@ -12,9 +12,10 @@ wrappers raise on a non-zero code.
 where it launches its kernel.  Callers that want the count of one run reset
 it with ``LAUNCHES.clear()``.
 
-Where two hand-written kernels share a contract (the flash forward and
-backward, the W8A8 and weight-only GEMMs and the transposed GEMM on wgmma
-or on ``mma.sync``), the wrapper picks one by shape with a named rule;
+Where hand-written kernels share a contract (the flash forward and
+backward, the W8A8 and weight-only GEMMs on wgmma, split over a cluster or
+on ``mma.sync``, the transposed GEMM on wgmma, its narrow kernel or on
+``mma.sync``), the wrapper picks one by shape with a named rule;
 ``mma_sync_only()`` sends every such launch to the ``mma.sync`` kernel,
 which takes every shape, to time it beside the other; the W8A8
 activation pass and the LN row stats, whose warp kernels replaced

@@ -29,11 +29,15 @@ GEMMs share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
 warpgroup, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
 (TMA ring, the int8 weight widened in registers as the operand of y^T =
 W^T x^T, ``qmm_bf16_wgmma_kernel``) take every shape their 128 x 128 tiles
-cover, the ``mma.sync`` kernel (``qmm_kernel``) the rest; `qmm_route` is
-the rule, a dispatch by shape.  The transposed products likewise:
-``qmm_t_wgmma_kernel`` (bf16 wgmma with the weight widened in registers,
-after a pre-scale pass over dy) where `qmm_t_route` says so,
-``qmm_t_kernel`` on ``mma.sync`` the rest.  Each launch counts under its
+cover, the split-K kernel (``qmm_splitk_kernel``: K split over a
+thread-block cluster, `splitk_plan`) both modes at N below one tile (the
+final proj_out, N 64), the ``mma.sync`` kernel (``qmm_kernel``) the rest;
+`qmm_route` is the rule, a dispatch by shape.  The transposed products
+likewise: ``qmm_t_wgmma_kernel`` (bf16 wgmma with the weight widened in
+registers, after a pre-scale pass over dy) and ``qmm_t_narrow_kernel``
+(a contraction of at most 64, the pre-scale and the widening in the kernel:
+the proj_out backward) where `qmm_t_route` says so, ``qmm_t_kernel`` on
+``mma.sync`` the rest.  Each launch counts under its
 entry's name and under ``"<name>:<route>"``.
 
 Two MAC modes, chosen by ``w8a8``:
@@ -97,6 +101,7 @@ leaves.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -118,6 +123,8 @@ _WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 _BF16_WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P]
 _T_WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SPLITK_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -170,6 +177,68 @@ def stacked_w8a8_group(k: int, n: int) -> Tuple[int, int]:
 
 WGMMA_TILE = 128  # the wgmma GEMMs' M and N tile and their k stage
 
+# The split-K GEMM (N below one tile): a cluster of blocks shares one tile of
+# rows, each block one slice of K
+SPLITK_CLUSTER = 8  # blocks a cluster: the portable maximum
+SPLITK_ROWS = 64  # rows of x a block: one m64 wgmma
+SPLITK_MAX_PANELS = 16  # 128-byte-wide k panels a slice, one mbarrier each
+SMEM_PER_BLOCK = 232448  # the dynamic shared memory a block may take (227 KB)
+
+
+@dataclass(frozen=True)
+class SplitKPlan:
+    """How the split-K kernel cuts a [K, N] weight: ``cluster`` blocks
+    share ``rows`` rows of x, block r taking k (W8A8: code bytes of k_pad)
+    [r slice_k, (r + 1) slice_k) in panels of ``panel_k`` (128 bytes: 64
+    bf16 or 128 codes); ``smem`` is the shared memory a block takes."""
+    cluster: int
+    slice_k: int
+    rows: int
+    panel_k: int
+    smem: int
+
+
+def splitk_smem(slice_k: int, n: int, w8a8: bool) -> int:
+    """Bytes of shared memory a split-K block takes (``sk::smem_bytes`` in
+    csrc/quant_matmul.cu): its x panels and, W8A8, a ring of two K-major
+    weight panels (N padded to a 64 or 128 tile; the partial tile goes over
+    them after the products), the raw weight slice, the buffer that
+    receives its rows of every block's partial tile, one mbarrier a panel
+    and one for that buffer, the slack that aligns the base to 1024
+    bytes."""
+    nt = 64 if n <= 64 else 128
+    panels = slice_k // (128 if w8a8 else 64)
+    tiles = (panels * SPLITK_ROWS * 128
+             + (min(panels, 2) * nt * 128 if w8a8 else 0))
+    red = SPLITK_ROWS * (nt + 8) * 4
+    recv = SPLITK_ROWS * (nt + 4) * 4
+    return (1024 + _round_up(max(tiles, red), 1024)
+            + _round_up(slice_k * n, 1024) + _round_up(recv, 1024)
+            + 8 * (panels + 1))
+
+
+def splitk_plan(k: int, n: int, group: int, k_pad: int,
+                w8a8: bool) -> Optional[SplitKPlan]:
+    """The split-K kernel's cut of a [K, N] weight, or None where it cannot
+    take the shape: N 16..112, a multiple of 16; K a multiple of 128 and
+    the contraction (W8A8: k_pad) whole `SPLITK_CLUSTER` slices of whole
+    128-byte panels; in W8A8 no slice straddles an activation group (each
+    group's s32 partials then sum exactly, as the mma.sync kernel's do);
+    the slice's panels fit a block's shared memory."""
+    if n % 16 or not 16 <= n < WGMMA_TILE or k % WGMMA_TILE:
+        return None
+    kloop, panel = (k_pad, 128) if w8a8 else (k, 64)
+    cluster = SPLITK_CLUSTER
+    if kloop % (cluster * panel):
+        return None
+    slice_k = kloop // cluster
+    if w8a8 and group % slice_k:
+        return None
+    smem = splitk_smem(slice_k, n, w8a8)
+    if slice_k // panel > SPLITK_MAX_PANELS or smem > SMEM_PER_BLOCK:
+        return None
+    return SplitKPlan(cluster, slice_k, SPLITK_ROWS, panel, smem)
+
 
 def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
     """The forward GEMM that takes a [K, N] weight, a rule on shapes:
@@ -177,11 +246,14 @@ def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
     stages are whole (W8A8: k_pad and the activation group multiples of
     128; weight-only: K a multiple of 128), at every M (the M 1-2
     modulation matvecs included: the wgmma kernels are faster there too);
-    ``"mma_sync"`` for the shapes the tiles cannot take (K 64 of
-    x_embedder, N 64 of proj_out).  The LN + adaLN prologue form takes the
-    same rule: W8A8 runs it in its activation pass, weight-only on the
-    wgmma route in `ln_mod_pass` ahead of the GEMM."""
+    ``"splitk"`` where N is below one tile and `splitk_plan` can cut K
+    (the final proj_out, K 3072 N 64); ``"mma_sync"`` for the rest (K 64
+    of x_embedder).  The LN + adaLN prologue form takes the same rule:
+    W8A8 runs it in its activation pass, weight-only on the wgmma and
+    split-K routes in `ln_mod_pass` ahead of the GEMM."""
     t = WGMMA_TILE
+    if splitk_plan(k, n, group, k_pad, w8a8) is not None:
+        return "splitk"
     if k < t or n < t:
         return "mma_sync"
     if w8a8:
@@ -189,14 +261,24 @@ def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
     return "wgmma" if k % t == 0 else "mma_sync"
 
 
+QMM_T_NARROW_MAX_N = 64  # the narrow kernel's contraction: one 128-byte bf16 panel
+
+
 def qmm_t_route(k: int, n: int) -> str:
     """The transposed GEMM that takes a [K, N] weight (dy [M, N] -> dx
-    [M, K]), a rule on shapes: ``"wgmma"`` where K (its 128 weight rows a
-    tile) and N (its 128-deep stages) are whole 128 tiles, at every M;
-    ``"mma_sync"`` for the rest (N 64 of the proj_out backward)."""
+    [M, K]), a rule on shapes, at every M, K whole 128 tiles (its 128
+    weight rows a tile): ``"wgmma"`` where N is whole 128-deep stages;
+    ``"narrow"`` (``qmm_t_narrow_kernel``, the pre-scale in the kernel)
+    where N is 16..64, a multiple of 16 (the proj_out backward, N 64);
+    ``"mma_sync"`` for the rest."""
     t = WGMMA_TILE
-    return "wgmma" if k % t == 0 and n % t == 0 and k >= t and n >= t \
-        else "mma_sync"
+    if k % t or k < t:
+        return "mma_sync"
+    if n % t == 0 and n >= t:
+        return "wgmma"
+    if n % 16 == 0 and 16 <= n <= QMM_T_NARROW_MAX_N:
+        return "narrow"
+    return "mma_sync"
 
 
 # the warp kernel keeps a whole group in its lanes' registers
@@ -542,12 +624,13 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _prologue(x, ab, seg_boundary: int, route: str, w8a8: bool):
     """(x, ab, stats) for `_launch` of a prologue form: the weight-only
-    wgmma route runs the prologue as its own pass (x becomes x', no ``ab``
-    left); the W8A8 activation pass and the weight-only ``mma.sync``
-    kernel apply ``ab`` with the row stats of the caller's x."""
+    wgmma and split-K routes run the prologue as its own pass (x becomes
+    x', no ``ab`` left); the W8A8 activation pass and the weight-only
+    ``mma.sync`` kernel apply ``ab`` with the row stats of the caller's
+    x."""
     if ab is None:
         return x, None, None
-    if route == "wgmma" and not w8a8:
+    if route != "mma_sync" and not w8a8:
         return ln_mod_pass(x, ab, seg_boundary)[0], None, None
     return x, ab, ln_row_stats(x)
 
@@ -585,6 +668,14 @@ def _launch(name: str, x, route: str, w_ptr: int, k: int, n: int,
                   norm_w_ptr, _ptr(resid), _ptr(gate), out.data_ptr(), m, k,
                   k_pad, n, group, n_groups, head_dim, plane_h, seg_boundary,
                   1, stream)
+    elif route == "splitk":
+        plan = splitk_plan(k, n, group, k_pad, w8a8)
+        fn = cuda_build.entry("quant_matmul", "qmm_gemm_splitk",
+                              _SPLITK_SIGNATURE)
+        code = fn(int(w8a8), epilogue, a.data_ptr(), _ptr(xs), w_ptr,
+                  scale_ptr, bias_ptr, _ptr(resid), _ptr(gate), out.data_ptr(),
+                  m, k, k_pad, n, group, n_groups, seg_boundary, plan.cluster,
+                  plan.slice_k, plan.rows, stream)
     else:
         fn = lib.qmm_gemm
         fn.argtypes, fn.restype = _GEMM_SIGNATURE, ctypes.c_int
@@ -810,6 +901,11 @@ def _launch_t(name: str, dy: torch.Tensor, w_ptr: int, k: int, n: int,
         fn.argtypes, fn.restype = _T_WGMMA_SIGNATURE, ctypes.c_int
         code = fn(dy.data_ptr(), w_ptr, scale_ptr, a.data_ptr(),
                   out.data_ptr(), m, k, n, 1, stream)
+    elif route == "narrow":
+        fn = cuda_build.entry("quant_matmul_t", "qmm_t_gemm_narrow",
+                              _T_SIGNATURE)
+        code = fn(dy.data_ptr(), w_ptr, scale_ptr, out.data_ptr(), m, k, n,
+                  stream)
     else:
         fn = lib.qmm_t_gemm
         fn.argtypes, fn.restype = _T_SIGNATURE, ctypes.c_int

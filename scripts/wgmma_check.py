@@ -14,6 +14,7 @@ nvcc.
     python3 scripts/wgmma_check.py int8    # the int8 QK^T forward on s8 wgmma (+ its pre-pass)
     python3 scripts/wgmma_check.py actq    # the W8A8 activation pass (warp per group)
     python3 scripts/wgmma_check.py ln      # the row stats, the prologue pass, the fused forms
+    python3 scripts/wgmma_check.py narrow  # the N 64 GEMMs: split-K forward, narrow backward
 """
 
 import subprocess
@@ -45,7 +46,8 @@ def build():
             if "error" in line.lower() or "warning" in line.lower():
                 print("  ", line)
             if "Compiling entry function" in line and any(
-                    w in line for w in ("wgmma", "rope", "prescale", "kquant", "act_quant", "ln_")):
+                    w in line for w in ("wgmma", "rope", "prescale", "kquant", "act_quant", "ln_",
+                                        "splitk", "narrow")):
                 print("  ", line.split("'")[1])
                 print("\n".join("     " + x for x in lines[i + 1:i + 4]))
 
@@ -398,16 +400,107 @@ def check_ln(gen):
     check_fused(torch, gen, records)
 
 
+def check_narrow(gen):
+    """The N below one tile GEMMs: the split-K forward (both modes; the flat contract, the
+    stacked one and its gate form; N 16 to 112, one and two activation groups, a padded K,
+    ragged M) against its plain version, its W8A8 outputs against the mma.sync kernel's
+    exactly; the narrow transposed GEMM (N 16 to 64, ragged M); then device times at proj_out
+    (M 1024 K 3072 N 64) beside the mma.sync kernels and the library calls."""
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    cases = [(1024, 3072, 64, None, "flat"), (1000, 3072, 64, "gelu_tanh", "flat"),
+             (1, 3072, 64, None, "flat"), (300, 3072, 64, "gelu_tanh", "gate"),
+             (257, 1024, 16, "gelu_tanh", "stacked"), (130, 2048, 48, None, "flat"),
+             (200, 3072, 112, None, "gate"), (64, 4096, 80, None, "stacked")]
+    for w8a8 in (True, False):
+        for m, k, n, act, form in cases:
+            wq = torch.randint(-128, 128, (2, k, n), dtype=torch.int8, device="cuda", generator=gen)
+            sc = torch.rand(2, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+            bi = torch.randn(2, 1, n, generator=gen, device="cuda") * 0.02
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            fused = {}
+            if form == "gate":
+                fused = dict(resid=torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16),
+                             gate=torch.randn(8, n, generator=gen, device="cuda") * 0.5,
+                             seg_boundary=m // 3)
+            if form == "flat":
+                group, k_pad = qmm.flat_w8a8_group(k, n)
+
+                def run():
+                    return qmm.quant_matmul(x, wq[1], sc[1], bias=bi[1], activation=act, w8a8=w8a8)
+            else:
+                group, k_pad = qmm.stacked_w8a8_group(k, n)
+
+                def run():
+                    return qmm.quant_matmul_stacked(x, wq, sc, 1, bias3=bi, activation=act,
+                                                    w8a8=w8a8, **fused)
+            ref = qmm.qmm_plain(x, wq[1], sc[1], bi[1], act, w8a8, group, k_pad, **fused)
+            out = run()
+            with cuda_build.mma_sync_only():
+                old = run()
+            torch.cuda.synchronize()
+            route = qmm.qmm_route(k, n, group, k_pad, w8a8)
+            what = (f"{'w8a8' if w8a8 else 'wonly'} M{m} K{k} N{n} {act} {form} group {group} "
+                    f"route {route} plan {qmm.splitk_plan(k, n, group, k_pad, w8a8)}")
+            _report(what, out, ref)
+            flips = int((out != old).sum().item())
+            if w8a8 and flips:
+                FAILED.append(f"{what}: {flips} outputs differ from mma.sync")
+            print(f"   outputs differing from mma.sync {flips}{' (tol 0)' if w8a8 else ''}",
+                  flush=True)
+    m, k, n = 1024, 3072, 64
+    wq = torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+    sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+    bi = torch.randn(1, n, generator=gen, device="cuda") * 0.02
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    wb = wq.to(torch.bfloat16)
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+    lib = device_ms(lambda: torch.matmul(x, wb))
+    int_mm = device_ms(lambda: torch._int_mm(xq, wq))
+    for w8a8 in (True, False):
+        def run():
+            return qmm.quant_matmul(x, wq, sc, bias=bi, w8a8=w8a8)
+        new, gemm = device_ms(run), device_ms(run, match="splitk")
+        with cuda_build.mma_sync_only():
+            old = device_ms(run)
+        print(f"proj_out M{m} K{k} N{n} {'w8a8' if w8a8 else 'wonly'}: split-K device {new:.4f} ms "
+              f"(its GEMM {gemm:.4f}), mma.sync {old:.4f}, cuBLAS bf16 {lib:.4f}"
+              + (f", torch._int_mm {int_mm:.4f}" if w8a8 else ""), flush=True)
+    for m, k, n in [(1024, 3072, 64), (1000, 3072, 64), (300, 512, 32), (5, 256, 16)]:
+        wq = torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+        sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def run():
+            return qmm.quant_matmul_t(dy, wq, sc)
+        ref = qmm.qmm_t_plain(dy, wq, sc)
+        out = run()
+        with cuda_build.mma_sync_only():
+            old = run()
+        torch.cuda.synchronize()
+        _report(f"qmm_t dy [{m}, {n}] -> dx [{m}, {k}] route {qmm.qmm_t_route(k, n)}", out, ref)
+        _report("   mma.sync", old, ref)
+        if m >= 1000:
+            a = (dy.float() * sc.reshape(-1)).to(torch.bfloat16)
+            wb = wq.to(torch.bfloat16)
+            new = device_ms(run)
+            with cuda_build.mma_sync_only():
+                old_t = device_ms(run)
+            lib_t = device_ms(lambda: torch.matmul(a, wb.t()))
+            print(f"   device: narrow {new:.4f} ms, mma.sync {old_t:.4f}, cuBLAS bf16 on the "
+                  f"pre-scaled dy {lib_t:.4f}", flush=True)
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "build":
         build()
-    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln"):
+    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln", "narrow"):
         if not torch.cuda.is_available():
             sys.exit("wgmma_check: no CUDA device")
         gen = torch.Generator(device="cuda").manual_seed(0)
         {"qmm": check_qmm, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
-         "bwd": check_bwd, "int8": check_int8, "actq": check_actq, "ln": check_ln}[what](gen)
+         "bwd": check_bwd, "int8": check_int8, "actq": check_actq, "ln": check_ln,
+         "narrow": check_narrow}[what](gen)
         if FAILED:
             sys.exit(f"wgmma_check: {len(FAILED)} checks failed")
     else:

@@ -4,10 +4,10 @@
   rotates q and k exactly as the JAX package does (``ops/rope.py``
   ``apply_rope`` and the Pallas kernel's ``_rope_rotate``), bit for bit in
   bf16, in both layouts; on CPU tensors the wrapper is the plain version.
-* The shape rules that pick between the two hand-written forward kernels
-  of a contract: ``qmm_route`` over every main-path shape of
+* The shape rules that pick between the hand-written forward kernels of a
+  contract: ``qmm_route`` over every main-path shape of
   ``chip_smoke.qmm_cases`` (W8A8 and weight-only, both on wgmma wherever
-  the 128 x 128 tiles fit) and at its edges,
+  the 128 x 128 tiles fit, on split-K at proj_out's N 64) and at its edges,
   ``flash_fwd_route`` by head_dim, and ``cuda_build.mma_sync_only``.
 """
 
@@ -96,8 +96,10 @@ def _main_path_shapes():
     return out
 
 
-# the flat layers the 128 x 128 tiles cannot take: K 64, N 64 (both modes)
-_MMA_SYNC_W8A8 = {("qmm_flat", "x_embedder"), ("qmm_flat", "proj_out")}
+# the flat layers the 128 x 128 tiles cannot take: K 64 on mma.sync, N 64
+# split over a cluster (both modes)
+_MMA_SYNC_W8A8 = {("qmm_flat", "x_embedder")}
+_SPLITK = {("qmm_flat", "proj_out"), ("qmm_flat", "ragged M1000 proj_out")}
 
 
 @pytest.mark.parametrize("w8a8", [True, False], ids=["w8a8", "wonly"])
@@ -111,6 +113,10 @@ def test_qmm_route_main_path(entry, label, m, k, n, w8a8):
     route = qmm.qmm_route(k, n, group, k_pad, w8a8)
     if (entry, label) in _MMA_SYNC_W8A8:
         assert route == "mma_sync"
+    elif (entry, label) in _SPLITK:
+        assert route == "splitk"
+        # the split-K kernel's preconditions (csrc/quant_matmul.cu sk::launch)
+        assert k % 128 == 0 and 16 <= n < 128 and n % 16 == 0
     else:
         assert route == "wgmma"
         # the wgmma kernels' own preconditions (csrc/quant_matmul.cu wg::launch,
@@ -125,7 +131,7 @@ def test_qmm_route_main_path(entry, label, m, k, n, w8a8):
 @pytest.mark.parametrize("k,n,group,k_pad,want,want_wonly", [
     (128, 128, 128, 128, "wgmma", "wgmma"),         # one tile
     (64, 3072, 128, 128, "mma_sync", "mma_sync"),   # K below a tile
-    (3072, 64, 1536, 3072, "mma_sync", "mma_sync"),  # N below a tile
+    (3072, 64, 1536, 3072, "splitk", "splitk"),  # N below a tile: split K
     (3072, 3072, 1536, 3072, "wgmma", "wgmma"),
     (192, 3072, 192, 192, "mma_sync", "mma_sync"),  # not whole k tiles
     (256, 3072, 256, 320, "mma_sync", "wgmma"),  # k_pad is not whole k tiles
@@ -136,12 +142,12 @@ def test_qmm_route_edges(k, n, group, k_pad, want, want_wonly):
     assert qmm.qmm_route(k, n, group, k_pad, False) == want_wonly
     # the LN + adaLN prologue forms take the same rule: W8A8 applies the
     # prologue in its activation pass, weight-only in a pass of its own
-    # ahead of the wgmma GEMM (`_prologue` leaves the GEMM no ab), on the A
-    # tile of the mma.sync kernel
+    # ahead of the wgmma and split-K GEMMs (`_prologue` leaves the GEMM no
+    # ab), on the A tile of the mma.sync kernel
     x, ab = torch.randn(3, k), torch.randn(8, k)
     for w8a8, route in ((True, want), (False, want_wonly)):
         _, ab_left, stats = qmm._prologue(x, ab, 1, route, w8a8)
-        assert (ab_left is None) == (route == "wgmma" and not w8a8)
+        assert (ab_left is None) == (route != "mma_sync" and not w8a8)
         assert (stats is None) == (ab_left is None)
 
 

@@ -4,10 +4,11 @@ host-side logic on the CPU.
 * The shape rules `qmm_route` (weight-only mode) and `qmm_t_route` over
   every training, T5 and serving shape that ``chip_smoke.py`` checks
   (``qmm_cases``, ``qmm_t_cases``, ``t5_cases``, ``fused_cases``) and at
-  their edges: the shapes that stay on ``mma.sync`` are the ones the rules
-  name (K 64 of x_embedder, N 64 of proj_out and of its backward); the
-  weight-only LN + adaLN prologue forms take the plain weight-only rule,
-  their prologue a pass of its own ahead of the wgmma GEMM.
+  their edges: the only shape left on ``mma.sync`` is the one the rules
+  name (K 64 of x_embedder); N 64 of proj_out takes the split-K forward and
+  its backward the narrow transposed kernel; the weight-only LN + adaLN
+  prologue forms take the plain weight-only rule, their prologue a pass of
+  its own ahead of the wgmma GEMM.
 * ``cuda_build.mma_sync_only`` sends both new routes back to ``mma.sync``
   and restores them.
 * The plain versions the card holds the kernels to (`qmm_plain` with
@@ -76,9 +77,10 @@ def _forward_cases():
     return out
 
 
-# what the rules send to mma.sync: the flat layers whose K or N is below
-# one 128 tile
-_WONLY_MMA_SYNC = {("qmm_flat", "x_embedder"), ("qmm_flat", "proj_out")}
+# what the rules send to mma.sync: the flat layer whose K is below one 128
+# tile; the flat layers whose N is below one tile (proj_out) go to split-K
+_WONLY_MMA_SYNC = {("qmm_flat", "x_embedder")}
+_WONLY_SPLITK = {("qmm_flat", "proj_out"), ("qmm_flat", "ragged M1000 proj_out")}
 
 
 def _prologue_is_a_pass(k: int, route: str) -> bool:
@@ -102,6 +104,9 @@ def test_qmm_route_weight_only_cases(entry, label, k, n, prologue):
     route = qmm.qmm_route(k, n, group, k_pad, False)
     if (entry, label) in _WONLY_MMA_SYNC:
         assert route == "mma_sync"
+    elif (entry, label) in _WONLY_SPLITK:
+        assert route == "splitk"
+        assert qmm.splitk_plan(k, n, group, k_pad, False) is not None
     else:
         assert route == "wgmma"
         # wg::wo::launch's preconditions
@@ -120,8 +125,8 @@ def _t_cases():
                          ids=[f"{e}-{lbl}" for e, lbl, *_ in _t_cases()])
 def test_qmm_t_route_cases(entry, label, k, n):
     route = qmm.qmm_t_route(k, n)
-    if (entry, label) == ("qmm_t", "proj_out"):  # N 64
-        assert route == "mma_sync"
+    if n == 64:  # proj_out's backward, at M 1024 and ragged M 1000
+        assert route == "narrow"
     else:
         assert route == "wgmma"
         # qmm_t_gemm_wgmma's preconditions
@@ -131,7 +136,7 @@ def test_qmm_t_route_cases(entry, label, k, n):
 @pytest.mark.parametrize("k,n,want", [
     (128, 128, "wgmma"),        # one tile each way
     (15360, 3072, "wgmma"),     # the single blocks' proj_out backward
-    (3072, 64, "mma_sync"),     # N below a tile: the final proj_out
+    (3072, 64, "narrow"),       # N below a tile: the final proj_out
     (64, 3072, "mma_sync"),     # K below a tile
     (3072, 192, "mma_sync"),    # N not whole 128-deep stages
     (320, 3072, "mma_sync"),    # K not whole 128-row tiles
@@ -143,16 +148,16 @@ def test_qmm_t_route_edges(k, n, want):
 @pytest.mark.parametrize("k,n,want", [
     (128, 128, "wgmma"),
     (64, 3072, "mma_sync"),     # K below a tile (x_embedder)
-    (3072, 64, "mma_sync"),     # N below a tile (proj_out)
+    (3072, 64, "splitk"),       # N below a tile (proj_out)
     (384, 256, "wgmma"),        # K whole 128-deep stages
     (192, 256, "mma_sync"),     # K not whole stages
 ])
 def test_qmm_route_weight_only_edges(k, n, want):
     group, k_pad = qmm.stacked_w8a8_group(k, n)
     assert qmm.qmm_route(k, n, group, k_pad, False) == want
-    # the prologue form: a pass ahead of the wgmma GEMM, on the A tile of
-    # the mma.sync kernel
-    assert _prologue_is_a_pass(k, want) == (want == "wgmma")
+    # the prologue form: a pass ahead of the wgmma and split-K GEMMs, on the
+    # A tile of the mma.sync kernel
+    assert _prologue_is_a_pass(k, want) == (want != "mma_sync")
 
 
 def test_mma_sync_only_forces_and_restores_the_new_routes():
