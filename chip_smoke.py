@@ -39,7 +39,13 @@ Phases (each prints one line with the card, its power limit and seconds):
      outputs equal to the mma.sync kernel's, every one, its device time
      beside its GEMM's alone, the mma.sync kernel's, the library call's and
      cuBLAS bf16's) and the narrow transposed kernel (device time beside
-     the mma.sync kernel's and cuBLAS bf16 on the pre-scaled dy); kernels
+     the mma.sync kernel's and cuBLAS bf16 on the pre-scaled dy); x_embedder's
+     K 64 kernel (both modes, W8A8 quantized in it: its outputs equal to
+     the mma.sync route's, the activation pass and qmm_kernel, at M 1024 and
+     on its first 1000 rows, its device time beside theirs, the library
+     call's and cuBLAS bf16's); the chunked S4D scan at every encoder layer
+     and EEG wide at batch 2, beside the sequential kernel by device time
+     and by the whole call's; kernels
      under about 0.05 ms are timed by device time too (`device_ms`,
      torch.profiler), since their wrapper time is host cost;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
@@ -49,8 +55,9 @@ Phases (each prints one line with the card, its power limit and seconds):
      (W8A8), each beside its rounding floor, the launch count of each
      kernel (57 wgmma flash forwards after 57 RoPE pre-passes; every
      stacked and fused-qkv GEMM on wgmma, the split of all 397 GEMM
-     launches by kernel, the flat ones by route: proj_out on split-K and
-     only x_embedder's two on mma.sync), a device profile and a host
+     launches by kernel, the flat ones by route: proj_out on split-K,
+     x_embedder's two on the K 64 kernel, none on mma.sync; one activation
+     pass a W8A8 GEMM launch but the K 64 kernel's), a device profile and a host
      profile; the same
      57 blocks with ``fuse_ln`` and
      ``fuse_gate`` (kernels vs plain beside the floor, 114 prologue and
@@ -66,8 +73,9 @@ Phases (each prints one line with the card, its power limit and seconds):
      within loose range limits (the random VAE weights decode a little
      past [-1, 1]; the share outside is printed), and the card's SM clock
      and power draw sampled while it serves; then the first request again
-     with ``s4_mode="pallas"`` (the S4D recurrence kernel: its launches and
-     the brain embeds against the conv mode's, and the plain recurrence's)
+     with ``s4_mode="pallas"`` (the chunked S4D kernel: its 10 launches a
+     brain encode and the brain embeds against the conv mode's, and the
+     plain recurrence's)
      and with ``int8_attn=True`` (int8 QK^T: ms/step and the image against
      the bf16-score one; every int8 launch on the s8 wgmma kernel) and
      with ``fuse_ln`` + ``fuse_gate`` (ms/step
@@ -84,8 +92,9 @@ Phases (each prints one line with the card, its power limit and seconds):
      memory, launches per step (every flash backward, stacked weight-only
      GEMM and stacked transposed GEMM launch on the wgmma route, none on
      mma.sync; the flat GEMMs and the flat transposed one by route: the
-     proj_out forward on split-K, its backward on the narrow kernel, no
-     transposed GEMM on mma.sync); every LoRA B factor must move, int8 and
+     proj_out forward on split-K, its backward on the narrow kernel,
+     x_embedder's forward on the K 64 kernel, no flat or transposed GEMM
+     on mma.sync); every LoRA B factor must move, int8 and
      frozen leaves must
      not; then a fifth step under the profiler gives the step's device
      time by kernel group, its flash backward group and its two int8 GEMM
@@ -667,13 +676,9 @@ def check_qmm(torch, gen, records):
             extra = _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad,
                                  w8a8, ref)
             library = _library_call(torch, x, wq, w8a8)
-            if extra["route"] == "mma_sync":
-                # x_embedder: a short call, read by device time (the W8A8
-                # activation pass included)
-                extra["device_ms"] = device_ms(run)
-            elif extra["route"] == "splitk":
-                extra.update(_splitk_extra(torch, run, out, library, x, wq,
-                                           w8a8))
+            if extra["route"] in ("k64", "splitk"):
+                extra.update(_own_kernel_extra(torch, qmm, run, out, library, x,
+                                               wq, sc, bi, w8a8, extra["route"]))
             _qmm_record(records, "qmm_flat", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(library), m, k, n, extra)
@@ -681,25 +686,43 @@ def check_qmm(torch, gen, records):
     print_slower(records, ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat"))
 
 
-def _splitk_extra(torch, run, out, library, x, wq, w8a8):
-    """Device times of the split-K forward at proj_out (its route with the
-    W8A8 activation pass, its GEMM alone, the mma.sync kernel it replaces,
-    the library call; in W8A8 cuBLAS bf16 too) and the count of its outputs
-    that differ from the mma.sync kernel's, which must be 0 in W8A8 (the same
-    s32 group sums, folded in the same order)."""
+def _own_kernel_extra(torch, qmm, run, out, library, x, wq, sc, bi, w8a8,
+                      route):
+    """Device times of a flat GEMM on a kernel of its own (``route``:
+    split-K at proj_out, K 64 at x_embedder): the route with any W8A8
+    activation pass, its GEMM alone, the mma.sync route it replaces, the
+    library call, and in W8A8 cuBLAS bf16 too; the count of its outputs
+    that differ from the mma.sync route's at M and on the first 1000 rows (a
+    ragged last tile), which must be 0 in W8A8 (the same s32 group sums,
+    folded in the same order); the ragged rows against the plain version
+    within one bf16 rounding."""
     from loongx_tpu_torch.ops import cuda_build
-    extra = dict(device_ms=device_ms(run), gemm_device_ms=device_ms(run, match="splitk"),
+    xr = x[:1000]
+    group, k_pad = qmm.flat_w8a8_group(*wq.shape)
+
+    def ragged():
+        return qmm.quant_matmul(xr, wq, sc, bias=bi, w8a8=w8a8)
+
+    extra = dict(device_ms=device_ms(run), gemm_device_ms=device_ms(run, match=route),
                  library_device_ms=device_ms(library))
+    out_r = ragged()
     with cuda_build.mma_sync_only():
         extra["mma_sync_device_ms"] = device_ms(run)
-        old = run()
+        old, old_r = run(), ragged()
+    ref_r = qmm.qmm_plain(xr, wq, sc, bi, None, w8a8, group, k_pad).float()
+    extra["ragged_err"] = (out_r.float() - ref_r).abs().max().item()
     extra["mma_sync_flips"] = int((out != old).sum().item())
+    extra["ragged_mma_sync_flips"] = int((out_r != old_r).sum().item())
+    tol = 2.0 ** -7 * ref_r.abs().max().item() + 1e-6
+    if not extra["ragged_err"] <= tol:
+        raise Failure(f"{route} M 1000: err {extra['ragged_err']} > {tol}")
     if w8a8:
         wb = wq.to(torch.bfloat16)
         extra["cublas_bf16_device_ms"] = device_ms(lambda: torch.matmul(x, wb))
-        if extra["mma_sync_flips"]:
-            raise Failure(f"split-K W8A8: {extra['mma_sync_flips']} outputs differ "
-                          "from the mma.sync kernel's")
+        flips = extra["mma_sync_flips"] + extra["ragged_mma_sync_flips"]
+        if flips:
+            raise Failure(f"{route} W8A8: {flips} outputs differ from the mma.sync "
+                          "route's (M and its first 1000 rows)")
     return extra
 
 
@@ -970,6 +993,7 @@ def check_flash_bwd(torch, gen, records):
 S4D_ATOL, S4D_CONV_REL_L2 = 1e-4, 1.8e-3
 # one dependent complex update of the recurrence: multiply, subtract, add
 S4D_STEP_CYCLES = 12
+S4D_CLOCK_HZ = 1.98e9  # the SM clock the card holds under load
 
 
 def s4d_cases():
@@ -980,38 +1004,74 @@ def s4d_cases():
 
 
 def check_s4d(torch, gen, records):
+    """The S4D recurrence at every encoder layer (and EEG wide at batch 2
+    and two short layers of many states a block, fewer chunks than a lane
+    has states: their inputs from generators of their own): the chunked
+    kernel within 1e-4 of the plain recurrence and 1.8e-3 rel L2 of the FFT
+    mode, the sequential kernel (its route under `cuda_build.mma_sync_only`:
+    discretisation and casts in PyTorch, then the kernel) within 1e-4 of
+    the plain recurrence; the chunked kernel's device time and the whole
+    call's beside the sequential kernel's in the same call; the bounds:
+    bytes, operations and the chunked chain (2 T + C dependent updates)."""
+    from loongx_tpu_torch.ops import cuda_build
     from loongx_tpu_torch.ops import s4 as ts4
     from loongx_tpu_torch.ops import s4_scan
 
-    for label, b, length, h, n in s4d_cases():
-        p = ts4.init_s4d_layer(h, 2 * n, generator=gen, device="cuda")
-        u = torch.randn(b, length, h, generator=gen, device="cuda")
-        out = s4_scan.s4d_scan_recurrent(p, u)
+    cases = [(c, gen) for c in s4d_cases()]
+    cases.append((("EEG wide B2", 2, 4096, 64, 32),
+                  torch.Generator(device="cuda").manual_seed(7)))
+    cases.append((("short L N8", 1, 8, 16, 8),
+                  torch.Generator(device="cuda").manual_seed(8)))
+    cases.append((("short L N64", 1, 8, 2, 64),
+                  torch.Generator(device="cuda").manual_seed(9)))
+    for (label, b, length, h, n), g in cases:
+        p = ts4.init_s4d_layer(h, 2 * n, generator=g, device="cuda")
+        u = torch.randn(b, length, h, generator=g, device="cuda")
+
+        def run():
+            return s4_scan.s4d_scan_recurrent(p, u)
+
+        out = run()
         ref = s4_scan.s4d_scan_plain(p, u)
         conv = ts4.s4d_conv(p, u)
         err = (out - ref).abs().max().item()
         rel = rel_l2(out, conv)
-        ms = cuda_time_ms(lambda: s4_scan.s4d_scan_recurrent(p, u))
+        ms, dev = cuda_time_ms(run), device_ms(run)
+        with cuda_build.mma_sync_only():
+            seq_err = (run() - ref).abs().max().item()
+            seq_ms = cuda_time_ms(run)
+            seq_dev = device_ms(run, match="s4d_scan_kernel")
+            seq_all = device_ms(run)
         plain_ms = cuda_time_ms(lambda: s4_scan.s4d_scan_plain(p, u), iters=2)
         conv_ms = cuda_time_ms(lambda: ts4.s4d_conv(p, u))
-        # u read and y written in fp32, the six [H, N] planes and D; about 14
-        # flops per (b, t, h, n)
-        bms, by = bound_ms(2 * b * length * h * 4 + (6 * n + 1) * h * 4,
+        # u read and y written in fp32, the layer's 4N + 2 parameters a
+        # channel; about 14 flops per (b, t, h, n)
+        bms, by = bound_ms(2 * b * length * h * 4 + (4 * n + 2) * h * 4,
                            14.0 * b * length * h * n, "fp32")
-        clock_hz = 1.98e9  # the SM clock the card holds under load
-        latency_ms = 1e3 * length * S4D_STEP_CYCLES / clock_hz
-        records.append(dict(kernel="s4d_scan", case=label, err=err,
-                            tol=S4D_ATOL, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, conv_ms=conv_ms, bound_ms=bms,
-                            bound_by=by, latency_bound_ms=latency_ms))
-        print(f"  s4d_scan {label:10s} B{b} L{length} H{h} N{n} err {err:.3e} "
-              f"(tol {S4D_ATOL:.0e}) rel L2 vs s4d_conv {rel:.3e} (bound "
-              f"{S4D_CONV_REL_L2:.1e}) kernel {ms:.4f} ms plain {plain_ms:.2f}"
-              f" s4d_conv {conv_ms:.4f} bound {bms:.5f} ({by}); recurrence "
-              f"latency {latency_ms:.4f}", flush=True)
-        if not (err <= S4D_ATOL and rel <= S4D_CONV_REL_L2):
+        plan = s4_scan.s4d_chunk_plan(length, h, n)
+        chain_ms = 1e3 * (2 * plan.T + plan.C) * S4D_STEP_CYCLES / S4D_CLOCK_HZ
+        latency_ms = 1e3 * length * S4D_STEP_CYCLES / S4D_CLOCK_HZ
+        records.append(dict(kernel="s4d_chunk_scan", case=label, err=err,
+                            tol=S4D_ATOL, ms=ms, device_ms=dev,
+                            sequential_ms=seq_ms, sequential_device_ms=seq_dev,
+                            sequential_call_device_ms=seq_all,
+                            plain_ms=plain_ms, library_ms=None, conv_ms=conv_ms,
+                            bound_ms=bms, bound_by=by, chain_bound_ms=chain_ms,
+                            latency_bound_ms=latency_ms, route="chunked"))
+        print(f"  s4d_scan {label:11s} B{b} L{length} H{h} N{n} T{plan.T} "
+              f"C{plan.C}: err {err:.3e} (tol {S4D_ATOL:.0e}; sequential "
+              f"kernel {seq_err:.3e}) rel L2 vs s4d_conv {rel:.3e} (bound "
+              f"{S4D_CONV_REL_L2:.1e}); chunked kernel device {dev:.4f} ms, "
+              f"call {ms:.4f}; sequential kernel device {seq_dev:.4f} (its "
+              f"call's kernels {seq_all:.4f}), call {seq_ms:.4f}; plain "
+              f"{plain_ms:.2f}, s4d_conv {conv_ms:.4f}; bound {bms:.5f} ({by}),"
+              f" chunked chain {chain_ms:.4f}, sequential chain "
+              f"{latency_ms:.4f}", flush=True)
+        if not (err <= S4D_ATOL and rel <= S4D_CONV_REL_L2
+                and seq_err <= S4D_ATOL):
             raise Failure(f"s4d_scan {label}: err {err} (tol {S4D_ATOL}), rel "
-                          f"L2 vs conv {rel} (bound {S4D_CONV_REL_L2})")
+                          f"L2 vs conv {rel} (bound {S4D_CONV_REL_L2}), "
+                          f"sequential kernel err {seq_err} (tol {S4D_ATOL})")
 
 
 # the int8 QK^T forward against the bf16-score kernel: the JAX package's own
@@ -1671,20 +1731,22 @@ def plain_versions(attention=None):
 KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
            "qmm_stacked", "qmm_stacked:wgmma", "qmm_qkv_stacked",
            "qmm_qkv_stacked:wgmma", "qmm_flat", "qmm_flat:wgmma",
-           "qmm_flat:mma_sync", "qmm_flat:splitk", "qmm_act_quant",
+           "qmm_flat:k64", "qmm_flat:splitk", "qmm_act_quant",
            "qmm_act_quant:warp")
 TRAIN_KERNELS = ("flash_attention", "flash_attention:wgmma", "flash_rope",
                  "qmm_stacked", "qmm_stacked:wgmma", "qmm_flat",
-                 "qmm_flat:splitk", "qmm_t", "qmm_t:narrow", "qmm_t_stacked",
+                 "qmm_flat:splitk", "qmm_flat:k64", "qmm_t", "qmm_t:narrow",
+                 "qmm_t_stacked",
                  "qmm_t_stacked:wgmma", "flash_bwd_dkv", "flash_bwd_dkv:wgmma",
                  "flash_bwd_dq", "flash_bwd_dq:wgmma")
 # the routes a launch of the int8 GEMM entries can take
-GEMM_ROUTES = ("wgmma", "splitk", "narrow", "mma_sync")
+GEMM_ROUTES = ("wgmma", "splitk", "k64", "narrow", "mma_sync")
 FLASH_BWD_GROUPS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 # the training step's int8 GEMM groups: the weight-only forward (forward,
 # remat and gelu recompute) and the transposed backward, each by kernel
-WONLY_GROUPS = ("qmm_bf16_wgmma_kernel", "qmm_splitk_kernel", "qmm_kernel")
+WONLY_GROUPS = ("qmm_bf16_wgmma_kernel", "qmm_splitk_kernel", "qmm_k64_kernel",
+                "qmm_kernel")
 TRANSPOSED_GROUPS = ("qmm_t_wgmma_kernel", "qmm_t_prescale_kernel",
                      "qmm_t_narrow_kernel", "qmm_t_kernel")
 GEMM_ENTRIES = ("qmm_stacked", "qmm_qkv_stacked", "qmm_flat")
@@ -1702,15 +1764,16 @@ PROFILE_GROUPS = ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
 
 
 def gemm_split(counts):
-    """{entry: (launches, wgmma, mma_sync, splitk)} of the int8 GEMM
+    """{entry: (launches, wgmma, mma_sync, splitk, k64)} of the int8 GEMM
     entries; each launch goes to exactly one of the kernels."""
     out = {e: (counts.get(e, 0), counts.get(f"{e}:wgmma", 0),
-               counts.get(f"{e}:mma_sync", 0), counts.get(f"{e}:splitk", 0))
+               counts.get(f"{e}:mma_sync", 0), counts.get(f"{e}:splitk", 0),
+               counts.get(f"{e}:k64", 0))
            for e in GEMM_ENTRIES}
-    for e, (total, wg, ms, sk) in out.items():
-        if total != wg + ms + sk:
+    for e, (total, wg, ms, sk, k64) in out.items():
+        if total != wg + ms + sk + k64:
             raise Failure(f"{e}: {total} launches, {wg} wgmma + {ms} mma.sync "
-                          f"+ {sk} split-K")
+                          f"+ {sk} split-K + {k64} K 64")
     return out
 
 
@@ -1854,14 +1917,16 @@ def full_forward(torch, pipe, gen):
             t_plain = time.perf_counter() - t0
         print(f"  forward S{s_txt + 2 * s_img}: kernels {t_kernel * 1e3:.1f} "
               f"ms, plain {t_plain * 1e3:.1f} ms, launches {counts}; GEMM "
-              f"launches (total, wgmma, mma.sync, split-K) {split}; qmm_flat "
+              f"launches (total, wgmma, mma.sync, split-K, K 64) {split}; qmm_flat "
               f"by route {flat_routes}", flush=True)
-        # the final proj_out (N 64) on the split-K kernel; only x_embedder's
-        # K 64 (img and cond) left on mma.sync
-        if not split["qmm_flat"][3] or split["qmm_flat"][2] > 2:
+        # the final proj_out (N 64) on the split-K kernel, x_embedder's K 64
+        # (img and cond) on the K 64 kernel: no flat launch on mma.sync
+        if (not split["qmm_flat"][3] or split["qmm_flat"][2]
+                or split["qmm_flat"][4] != 2):
             raise Failure(f"W8A8 forward: qmm_flat launches {split['qmm_flat']} "
-                          "(total, wgmma, mma.sync, split-K): proj_out not on "
-                          "split-K or more than x_embedder's two on mma.sync")
+                          "(total, wgmma, mma.sync, split-K, K 64): proj_out not "
+                          "on split-K, x_embedder's two not on the K 64 kernel "
+                          "or a launch on mma.sync")
         for depth, w8a8, bound, floor_share in comparisons:
             def run(depth=depth, w8a8=w8a8):
                 return flux_forward(params, depth, w8a8=w8a8, **kw)
@@ -1890,7 +1955,7 @@ def full_forward(torch, pipe, gen):
                   f"plain with float32 probabilities vs plain: {floor:.3e}), "
                   f"the blocks move the velocity by {blocks:.3f} (rel L2), "
                   f"finite {finite}; GEMM launches (total, wgmma, mma.sync, "
-                  f"split-K) {run_split}", flush=True)
+                  f"split-K, K 64) {run_split}", flush=True)
             if not finite or not rel <= bound:
                 raise Failure(f"forward {label}: rel L2 {rel} (bound {bound}),"
                               f" finite {finite}")
@@ -1961,12 +2026,20 @@ def full_forward(torch, pipe, gen):
         raise Failure(f"flash launches {counts}: want {blocks} on wgmma, each "
                       f"after its RoPE pre-pass")
     # every stacked and fused-qkv launch (M 2 to 2560) on the wgmma GEMM;
-    # the flat ones that the tiling cannot take (K 64, N 64) on mma.sync
+    # the flat ones that the tiling cannot take (K 64, N 64) on their own
     if split["qmm_stacked"][2] or split["qmm_qkv_stacked"][2]:
         raise Failure(f"stacked / qkv launches on mma.sync: {split}")
-    # every activation pass of the forward on the warp kernel
+    # every activation pass of the forward on the warp kernel, one ahead of
+    # each W8A8 GEMM launch but the K 64 kernel's, which quantizes x itself
+    passes = sum(split[e][0] for e in GEMM_ENTRIES) - split["qmm_flat"][4]
+    print(f"  forward activation passes: {counts['qmm_act_quant']} (one a W8A8 "
+          f"GEMM launch but the K 64 kernel's {split['qmm_flat'][4]}: "
+          f"{passes})", flush=True)
     if counts["qmm_act_quant"] != counts["qmm_act_quant:warp"]:
         raise Failure(f"activation passes not all on the warp kernel: {counts}")
+    if counts["qmm_act_quant"] != passes:
+        raise Failure(f"activation passes {counts['qmm_act_quant']}, want "
+                      f"{passes} (GEMM launches {split})")
     if not all(counts.values()):
         raise Failure(f"a kernel was not launched: {counts}")
     fused_launch_check(cfg, fused, 1, "forward")
@@ -2216,7 +2289,7 @@ def serve(torch, pipe):
             setattr(generate, name, fn)
     print(f"  launches over {served} requests: "
           f"{ {n: counts.get(n, 0) for n in KERNELS} }; GEMM launches (total, "
-          f"wgmma, mma.sync, split-K) {gemm_split(counts)}; qmm_flat by route "
+          f"wgmma, mma.sync, split-K, K 64) {gemm_split(counts)}; qmm_flat by route "
           f"{routes(counts, 'qmm_flat')}", flush=True)
     missing = [n for n in KERNELS if not counts.get(n)]
     if missing:
@@ -2260,6 +2333,7 @@ def serve_options(torch, pipe, req, img_ref, times, ms_unfused):
     for mode in ("conv", "pallas"):
         embeds[mode] = generate.encode_brain_conditions(pipe, s4_mode=mode, **sig)
     encode_launches = cuda_build.LAUNCHES["s4d_scan"]
+    chunked_launches = cuda_build.LAUNCHES["s4d_scan:chunked"]
     kernel = s4_scan.s4d_scan_recurrent
     s4_scan.s4d_scan_recurrent = s4_scan.s4d_scan_plain
     try:
@@ -2303,12 +2377,16 @@ def serve_options(torch, pipe, req, img_ref, times, ms_unfused):
     print(f"  brain embeds (prompt, pooled) rel L2: "
           + "; ".join(f"{k} {v[0]:.3e}, {v[1]:.3e}" for k, v in rels.items())
           + f" (bound {S4_EMBED_REL_L2:.0e} for pallas vs plain); S4D "
-          f"launches per brain encode {encode_launches}", flush=True)
+          f"launches per brain encode {encode_launches} ({chunked_launches} "
+          f"on the chunked kernel)", flush=True)
     n_layers = 2 * len(s4d_cases())
-    if encode_launches != n_layers or out["s4_mode=pallas"]["s4d_scan"] != n_layers:
-        raise Failure(f"S4D launches {encode_launches} per encode, "
+    if not (encode_launches == chunked_launches == n_layers
+            == out["s4_mode=pallas"]["s4d_scan"]
+            == out["s4_mode=pallas"].get("s4d_scan:chunked")):
+        raise Failure(f"S4D launches {encode_launches} per encode "
+                      f"({chunked_launches} chunked), "
                       f"{out['s4_mode=pallas'].get('s4d_scan')} per request, "
-                      f"not {n_layers}")
+                      f"not {n_layers} on the chunked kernel")
     if not max(rels["pallas vs plain"]) <= S4_EMBED_REL_L2:
         raise Failure(f"brain embeds through the S4D recurrence: {rels}")
     blocks = pipe.flux_cfg.num_double_blocks + pipe.flux_cfg.num_single_blocks
@@ -2582,10 +2660,14 @@ def train(torch):
             raise Failure(f"{n}: {launches[n]} launches, {launches[n + ':wgmma']} "
                           f"wgmma, {launches[n + ':mma_sync']} mma.sync")
     # the proj_out backward (N 64) on the narrow kernel: no transposed GEMM
-    # on mma.sync; its forward on split-K
+    # on mma.sync; its forward on split-K, x_embedder's on the K 64 kernel: no
+    # flat GEMM on mma.sync
     if launches["qmm_t:mma_sync"] or launches["qmm_t:narrow"] != launches["qmm_t"]:
         raise Failure(f"qmm_t: {launches['qmm_t']} launches, by route "
                       f"{routes(launches, 'qmm_t')}")
+    if launches["qmm_flat:mma_sync"]:
+        raise Failure(f"qmm_flat: {launches['qmm_flat']} launches, by route "
+                      f"{routes(launches, 'qmm_flat')}")
     # one more step under the profiler, outside the timings and the counts
     prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
     if prof is None:
@@ -2732,8 +2814,14 @@ def kernel_table(records, launches):
                           "train"),
         "flash_bwd_dq": ("flash_attention.cu", f"{fa_py}:656", "S2560 union",
                          "train"),
-        "s4d_scan": ("s4d_scan.cu", "loongx_tpu/ops/s4_pallas.py:30",
-                     "EEG wide", "serve s4_mode=pallas"),
+        # the flat GEMM at K of one 64-wide panel (x_embedder), both modes,
+        # W8A8 quantized in the kernel: its cases are qmm_flat's on that route
+        "qmm_k64": ("quant_matmul.cu", f"{qmm_py}:75", "x_embedder w8a8",
+                    "serve"),
+        # the S4D recurrence as a chunked scan; its launches are the
+        # s4d_scan entry's on the chunked route
+        "s4d_chunk_scan": ("s4d_scan.cu", "loongx_tpu/ops/s4_pallas.py:30",
+                           "EEG wide", "serve s4_mode=pallas"),
         # the int8 QK^T mode of _fwd_kernel (:228-291) and its pre-pass (the
         # q and k quantization of _quant :228)
         "flash_attention_int8": ("flash_attention.cu", f"{fa_py}:193",
@@ -2772,18 +2860,24 @@ def kernel_table(records, launches):
                          "qmm_stacked", "qmm_qkv_stacked", "qmm_flat",
                          "qmm_stacked_gate", "qmm_stacked_ln",
                          "qmm_qkv_stacked_ln")]
-        elif name == "qmm_splitk":
+        elif name in ("qmm_splitk", "qmm_k64"):
             counter = "qmm_flat"
             cases = [r for r in records if r["kernel"] == "qmm_flat"
-                     and r.get("route") == "splitk"]
+                     and r.get("route") == name[4:]]
+        elif name == "s4d_chunk_scan":
+            counter = "s4d_scan"
+            cases = [r for r in records if r["kernel"] == name]
         else:
             counter = name
             cases = [r for r in records if r["kernel"] == name]
         main = next(r for r in cases if r["case"] == main_case)
         by_route = {r: launches[path].get(f"{counter}:{r}", 0)
-                    for r in (*GEMM_ROUTES, "warp", "block")
+                    for r in (*GEMM_ROUTES, "warp", "block", "chunked",
+                              "sequential")
                     if f"{counter}:{r}" in launches[path]}
-        n_launches = (by_route.get("splitk", 0) if name == "qmm_splitk"
+        own_route = {"qmm_splitk": "splitk", "qmm_k64": "k64",
+                     "s4d_chunk_scan": "chunked"}.get(name)
+        n_launches = (by_route.get(own_route, 0) if own_route
                       else launches[path].get(counter, 0))
         table.append({
             "name": name, "route": "cuda", "source": csrc + src,
@@ -2798,7 +2892,8 @@ def kernel_table(records, launches):
                                           "mma_sync_flips", "block_device_ms",
                                           "library_device_ms", "cublas_bf16_ms",
                                           "cublas_bf16_device_ms", "transpose_share",
-                                          "prescale_ms")
+                                          "prescale_ms", "sequential_ms",
+                                          "sequential_device_ms", "chain_bound_ms")
                if key in main},
             **({"kernel": main["route"]} if "route" in main else {}),
             **({"launches_by_route": by_route} if any(by_route.values()) else {}),

@@ -36,7 +36,7 @@
 // What bounds it on this card: at the FLUX shapes (M 2048-2560, K 3072/12288, N 3072-18432)
 // each call does 2*M*K*N operations against K*N weight bytes: ~2000 int8 op/byte, far above
 // the ridge, so it is bound by tensor-core operations; the modulation matvecs (M = 2) are
-// bound by the weight bytes.  Three kernels take the forward (the Python wrapper's qmm_route
+// bound by the weight bytes.  Five kernels take the forward (the Python wrapper's qmm_route
 // is the rule):
 //   * qmm_wgmma_kernel (below, "The W8A8 GEMM on wgmma"): every W8A8 shape whose K, N, padded
 //     K and activation group are whole 128-wide tiles, the FLUX stacked, fused-qkv and flat
@@ -46,10 +46,12 @@
 //     pass), the FLUX training layers and the T5-XXL linears from M 1 to 2560;
 //   * qmm_splitk_kernel (below, "The flat GEMM at N below one 128 tile"): both MAC modes at N
 //     16..112 with K whole slices of a cluster of 8 blocks (the final proj_out, N 64);
+//   * qmm_k64_kernel (below, "The flat GEMM at K of one 64-wide panel"): both MAC modes at K
+//     16..64 and N whole 128 tiles, W8A8 quantizing x in the kernel (x_embedder, K 64);
 //   * qmm_kernel, kept simple: 128x128 output tiles, 8 warps of 64x32 on mma.sync, k tiles of
 //     64 bytes double-buffered in shared memory (x by cp.async, the weight through registers
 //     because mma needs it k-major: each thread transposes 4x4 int8 blocks with byte_perm);
-//     the layers with K of 64 (x_embedder) and the shapes no other kernel takes.
+//     the shapes no other kernel takes, and every shape under cuda_build.mma_sync_only().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1941,6 +1943,232 @@ cudaError_t launch(bool w8a8, int epilogue, const QmmArgs& p, int cluster, int s
 
 }  // namespace sk
 
+// ---------------------------------------------------------------------------------------
+// The flat GEMM at K of one 64-wide panel (kernel 4, _qmm_kernel :75, pallas_call :127, at
+// x_embedder: M 1024 K 64 N 3072), both MAC modes (`qmm_route`'s "k64": K 16..64 a multiple of
+// 16, N whole 128 tiles, W8A8 with one activation group over the whole padded row).
+// What bounds it: bytes.  It does 2 M K N operations (0.4 GOP at x_embedder) against the
+// M N bf16 output (6.3 MB): 60 operations a byte, far below the ridge, so the card's job is to
+// write the output at bandwidth, and the design's to leave nothing else on the way of the
+// store: one launch (W8A8 quantizes in the kernel; qmm_kernel ran after a separate activation
+// pass, and a one-wave call pays about 3 us of launch and ramp), one 128 x 128 output tile a
+// block, 256 threads, 33 KB of shared memory, so every block of the call is resident at once
+// (192 at M 1024, two an SM) and one block's store overlaps another's loads and products; the
+// chain of a block is short: one round trip of loads, a pass through registers, the products,
+// the store.  A block:
+//   * every thread loads its share of the weight panel (8 words) and of the x tile (4 chunks of
+//     16 bytes) at once, straight into registers (no TMA: the panel goes through registers for
+//     its transpose anyway, and the chain saves the tensor maps' fetch and an mbarrier);
+//   * W8A8: 8 lanes quantize a row, one 16-byte chunk of 8 bf16 each: the row's absmax over its
+//     K values on bf16 pairs (exact), x_scale = absmax / 127 (1 for a zero row) and
+//     quant8::codes8's codes, the operations of act_quant_warp_kernel with the group of
+//     `flat_w8a8_group` (group = padded K: one scale a row, the codes past K zero, so the
+//     products over them add nothing), into the K-major A tile; weight-only stores x as it is;
+//   * the threads transpose their weight words into the K-major B tile (8-bit wgmma takes B
+//     only K-major), weight-only widening each int8 exactly to bf16 (hopper::widen_pair); a 4 x 4
+//     byte block a step (wg::transpose4x4);
+//   * each warpgroup runs its 64 rows: W8A8 two wgmma m64n128k32 s8 (K 64), then
+//     facc = fadd(0, fmul(float(i32), x_scale)) as qmm_kernel folds its one group; weight-only
+//     four wgmma m64n128k16 bf16 with an fp32 accumulator;
+//   * the epilogue is wg::epilogue_store (qmm_kernel's operations in its order: z = acc * scale
+//     (+ bias), gelu_tanh, the gate + residual or fused-qkv forms), staged in the shared memory
+//     of the A and B tiles once both warpgroups' products are done.
+// W8A8 equals the mma.sync route (the activation pass, then qmm_kernel) bit for bit: the same
+// codes and scales, exact s32 sums, the same fp32 operations.  Weight-only: fp32 sums in
+// wgmma's order, within one bf16 rounding of qmm_plain.  Ragged M: the loads zero the rows past
+// M, the store masks them; K below 64: the loads zero k past K.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): at x_embedder 0.008 ms W8A8 (0.016 on the
+// mma.sync route), 0.0056 weight-only (0.0097), cuBLAS bf16 0.0040; at M 128 still 0.006 and
+// 0.004, so a block's chain (loads, the quantization's shuffles and IEEE division, the products,
+// the store), not the bytes, holds it above its 0.002 bound.
+namespace k64 {
+
+// A timing probe: built with -DK64_PROBE_PREP=0, 1 or 2 the kernel skips its weight's transpose
+// (bit 0 clear) or its W8A8 quantization (bit 1 clear), wrong results (scripts/wgmma_check.py
+// k64 builds these).  3 runs it.
+#ifndef K64_PROBE_PREP
+#define K64_PROBE_PREP 3
+#endif
+
+constexpr int BM = 128, BN = 128, THREADS = 256;
+constexpr int KMAX = 64;                 // the one panel's k
+constexpr int A_TILE = BM * 128;         // 128 rows of 128 bytes (W8A8: 64 codes, 64 unread)
+constexpr int B_TILE = BN * 128;         // 128 n rows of 128 bytes, K-major
+constexpr int SMEM = 1024 + A_TILE + B_TILE + BM * 4;
+static_assert(A_TILE + B_TILE >= 2 * wg::OUT_TILE, "the staging tiles reuse A and B");
+
+template <bool W8A8, int EPI>
+__global__ void __launch_bounds__(THREADS, 2) qmm_k64_kernel(const QmmArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = base;
+  uint8_t* sb = base + A_TILE;
+  float* sxs = reinterpret_cast<float*>(sb + B_TILE);  // W8A8: each row's x_scale
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  // Every load of the block first, all in flight together: the thread's 8 weight words (k rows
+  // 8 (t / 32) .. + 7, columns 4 (t % 32) .. + 3: a warp reads whole 128-byte rows) and its four
+  // 16-byte chunks of x (chunk c = t % 8, k 8c .. 8c + 7, of rows t / 8 + 32 i: a row's 8 lanes
+  // adjacent); the epilogue's scale and bias lines into L1
+  const int n4 = tid % 32, kq = tid / 32, c = tid % 8;
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = 8 * kq + i;
+    const uint8_t* src = p.w + (long long)k * p.N + n0 + 4 * n4;
+    w[i] = k < p.K ? __ldg(reinterpret_cast<const uint32_t*>(src)) : 0u;
+  }
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(p.a);
+  uint4 raw[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + tid / 8 + 32 * i;
+    raw[i] = (gm < p.M && 8 * c < p.K)
+                 ? __ldg(reinterpret_cast<const uint4*>(xb + (long long)gm * p.K + 8 * c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (tid < 8 && (tid < 4 || p.bias))
+    asm volatile("prefetch.L1 [%0];" ::"l"((tid < 4 ? p.scale : p.bias) + n0 + 32 * (tid % 4)));
+
+  if (!W8A8) {
+    // x as it is: the K-major A tile (16-byte chunk c of row r at c ^ (r % 8))
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tid / 8 + 32 * i;
+      *reinterpret_cast<uint4*>(sa + r * 128 + ((c ^ (r % 8)) * 16)) = raw[i];
+    }
+  } else if (K64_PROBE_PREP & 2) {
+    // a row's absmax over its 8 lanes (on bf16 pairs, exact), x_scale = absmax / 127 (1 for a
+    // zero row), then quant8::codes8's codes; each stage over the thread's four rows at once,
+    // so their dependent chains (shuffles, the IEEE division and reciprocal) overlap
+    float amax[4], scale[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw[i]);
+      __nv_bfloat162 m2 = __float2bfloat162_rn(0.f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m2 = __hmax2(m2, __habs2(xv[e]));
+      amax[i] = fmaxf(__low2float(m2), __high2float(m2));
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off *= 2)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], off));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) scale[i] = quant8::scale_of(amax[i]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tid / 8 + 32 * i;
+      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw[i]);
+      float val[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        val[2 * e] = __low2float(xv[e]);
+        val[2 * e + 1] = __high2float(xv[e]);
+      }
+      *reinterpret_cast<uint2*>(sa + r * 128 + (((c / 2) ^ (r % 8)) * 16) + 8 * (c % 2)) =
+          quant8::codes8(val, scale[i], __frcp_rn(scale[i]));
+      if (c == 0) sxs[r] = scale[i];
+    }
+  }
+
+  // p.K > 0 always holds (launch checks K >= 16); the branch, which the compiler cannot fold,
+  // keeps ptxas from scheduling the transposes ahead of the x tile's stores: without it the
+  // weight-only kernel measured 0.0070-0.0073 ms at x_embedder against 0.0055-0.0056 (H100
+  // 80GB HBM3, 700 W; scripts/wgmma_check.py k64, chip_smoke.py)
+  if ((K64_PROBE_PREP & 1) && p.K > 0) {
+    // the weight words -> B row n (k contiguous, 16-byte chunk c at c ^ (n % 8)), weight-only
+    // widened to bf16
+    uint32_t lo[4], hi[4];  // column j's k bytes 0..3 and 4..7 of the thread's 8
+    wg::transpose4x4(w[0], w[1], w[2], w[3], lo);
+    wg::transpose4x4(w[4], w[5], w[6], w[7], hi);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * n4 + j;
+      if (W8A8) {
+        *reinterpret_cast<uint2*>(sb + n * 128 + (((kq / 2) ^ (n % 8)) * 16) + 8 * (kq % 2)) =
+            make_uint2(lo[j], hi[j]);
+      } else {
+        const uint32_t a = lo[j] ^ 0x80808080u, b = hi[j] ^ 0x80808080u;
+        *reinterpret_cast<uint4*>(sb + n * 128 + ((kq ^ (n % 8)) * 16)) = make_uint4(
+            hopper::widen_pair(a, 0x7540, 0x7541), hopper::widen_pair(a, 0x7542, 0x7543),
+            hopper::widen_pair(b, 0x7540, 0x7541), hopper::widen_pair(b, 0x7542, 0x7543));
+      }
+    }
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  const int wgi = tid / 128, warp = (tid / 32) % 4, g = (tid % 32) / 4;
+  const uint64_t da = hopper::desc_sw128(sa + wgi * 64 * 128, 16, 1024);
+  const uint64_t db = hopper::desc_sw128(sb, 16, 1024);
+  float facc[64];
+  if (W8A8) {
+    int iacc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) iacc[i] = 0;
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n128k32_s8(iacc, da, db, 0);
+    hopper::wgmma_m64n128k32_s8(iacc, da + 2, db + 2, 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(iacc);
+    // acc = 0 + float(i32) * x_scale(row): qmm_kernel's fold of its one group; float(i32) as
+    // 1.5 * 2^23 + i32 less 1.5 * 2^23, exact for |i32| < 2^22 (|i32| <= 64 * 127 * 128 here)
+    // and two full-rate instructions against the quarter-rate conversion
+    const float xs0 = sxs[wgi * 64 + warp * 16 + g], xs1 = sxs[wgi * 64 + warp * 16 + g + 8];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float a = __fsub_rn(__int_as_float(0x4B400000 + iacc[i]), 12582912.f);
+      facc[i] = __fadd_rn(0.f, __fmul_rn(a, (i % 4) < 2 ? xs0 : xs1));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) facc[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n128k16_bf16_ss(facc, da + 2 * kk, db + 2 * kk, kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(facc);
+  }
+  __syncthreads();  // both warpgroups' products are done: A and B become the staging tiles
+  wg::epilogue_store<EPI>(facc, p, m0, n0, base + wgi * wg::OUT_TILE);
+}
+
+template <bool W8A8, int EPI>
+cudaError_t launch_one(const QmmArgs& p, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(qmm_k64_kernel<W8A8, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
+  qmm_k64_kernel<W8A8, EPI><<<grid, THREADS, SMEM, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool W8A8>
+cudaError_t launch_mode(int epilogue, const QmmArgs& p, cudaStream_t st) {
+  switch (epilogue) {
+    case EPI_BIAS: return launch_one<W8A8, EPI_BIAS>(p, st);
+    case EPI_GELU: return launch_one<W8A8, EPI_GELU>(p, st);
+    case EPI_QKV: return launch_one<W8A8, EPI_QKV>(p, st);
+    case EPI_GATE: return launch_one<W8A8, EPI_GATE>(p, st);
+    case EPI_GELU_GATE: return launch_one<W8A8, EPI_GELU_GATE>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch(bool w8a8, int epilogue, const QmmArgs& p, cudaStream_t st) {
+  if (p.M < 1 || p.K < 16 || p.K > KMAX || p.K % 16 || p.N < BN || p.N % BN)
+    return cudaErrorInvalidValue;
+  return w8a8 ? launch_mode<true>(epilogue, p, st) : launch_mode<false>(epilogue, p, st);
+}
+
+}  // namespace k64
+
 template <bool W8A8, bool LN>
 cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
@@ -2132,4 +2360,18 @@ extern "C" int qmm_gemm_splitk(int w8a8, int epilogue, const void* a, const floa
                               M, K, Kp, N, group, n_groups, 0, 0, boundary);
   return static_cast<int>(
       sk::launch(w8a8 != 0, epilogue, p, cluster, slice_k, rows, static_cast<cudaStream_t>(stream)));
+}
+
+// The flat GEMM at K of one 64-wide panel: x bf16 [M, K] in both modes (W8A8 quantizes it in the
+// kernel, one x_scale a row: the activation group of `flat_w8a8_group`, group = padded K), 16-
+// byte aligned base; w int8 [K, N]; the epilogues of qmm_gemm.  Takes K 16..64 a multiple of 16
+// and N a multiple of 128; anything else returns cudaErrorInvalidValue.
+extern "C" int qmm_gemm_k64(int w8a8, int epilogue, const void* x, const void* w,
+                            const float* scale, const float* bias, const float* norm_w,
+                            const void* resid, const float* gate, void* out, int M, int K, int N,
+                            int head_dim, int plane_h, int boundary, void* stream) {
+  if (!gated_ok(epilogue, resid, gate)) return static_cast<int>(cudaErrorInvalidValue);
+  const QmmArgs p = make_args(x, nullptr, w, scale, bias, norm_w, nullptr, nullptr, resid, gate,
+                              out, M, K, K, N, 0, 0, head_dim, plane_h, boundary);
+  return static_cast<int>(k64::launch(w8a8 != 0, epilogue, p, static_cast<cudaStream_t>(stream)));
 }

@@ -24,14 +24,17 @@ The forward and transposed kernels run on CUDA tensors and their plain
 versions on CPU tensors; nothing falls back.
 In W8A8 mode the GEMM is preceded by `act_quant`, a small kernel of the
 same source that quantizes the activations (one warp per (row, group)
-where `act_quant_route` says so: every FLUX shape).  Hand-written forward
+where `act_quant_route` says so: every FLUX shape), except on the K 64
+route, whose kernel computes the same codes itself.  Hand-written forward
 GEMMs share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
 warpgroup, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
 (TMA ring, the int8 weight widened in registers as the operand of y^T =
 W^T x^T, ``qmm_bf16_wgmma_kernel``) take every shape their 128 x 128 tiles
 cover, the split-K kernel (``qmm_splitk_kernel``: K split over a
 thread-block cluster, `splitk_plan`) both modes at N below one tile (the
-final proj_out, N 64), the ``mma.sync`` kernel (``qmm_kernel``) the rest;
+final proj_out, N 64), the K 64 kernel (``qmm_k64_kernel``: one 64-wide
+k panel, W8A8 quantizing x in the kernel, no activation pass) both modes
+at x_embedder, the ``mma.sync`` kernel (``qmm_kernel``) the rest;
 `qmm_route` is the rule, a dispatch by shape.  The transposed products
 likewise: ``qmm_t_wgmma_kernel`` (bf16 wgmma with the weight widened in
 registers, after a pre-scale pass over dy) and ``qmm_t_narrow_kernel``
@@ -125,6 +128,8 @@ _BF16_WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 _T_WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SPLITK_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P]
+_K64_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -240,20 +245,31 @@ def splitk_plan(k: int, n: int, group: int, k_pad: int,
     return SplitKPlan(cluster, slice_k, SPLITK_ROWS, panel, smem)
 
 
-def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool) -> str:
+K64_MAX = 64  # the K 64 kernel's contraction: one 64-wide panel
+
+
+def qmm_route(k: int, n: int, group: int, k_pad: int, w8a8: bool,
+              prologue: bool = False) -> str:
     """The forward GEMM that takes a [K, N] weight, a rule on shapes:
     ``"wgmma"`` where K and N are at least one 128 tile and the 128-deep k
     stages are whole (W8A8: k_pad and the activation group multiples of
     128; weight-only: K a multiple of 128), at every M (the M 1-2
     modulation matvecs included: the wgmma kernels are faster there too);
     ``"splitk"`` where N is below one tile and `splitk_plan` can cut K
-    (the final proj_out, K 3072 N 64); ``"mma_sync"`` for the rest (K 64
-    of x_embedder).  The LN + adaLN prologue form takes the same rule:
-    W8A8 runs it in its activation pass, weight-only on the wgmma and
-    split-K routes in `ln_mod_pass` ahead of the GEMM."""
+    (the final proj_out, K 3072 N 64); ``"k64"`` (``qmm_k64_kernel``) where
+    K is 16..64, a multiple of 16, and N whole 128 tiles, in W8A8 with one
+    activation group over the padded row (group == k_pad), which the
+    kernel quantizes itself (x_embedder, K 64); ``"mma_sync"`` for the
+    rest.  The LN + adaLN prologue form (``prologue``) takes the same rule
+    except that W8A8 leaves ``"k64"`` for ``"mma_sync"``: W8A8 runs the
+    prologue in its activation pass, weight-only on the wgmma, split-K
+    and K 64 routes in `ln_mod_pass` ahead of the GEMM."""
     t = WGMMA_TILE
     if splitk_plan(k, n, group, k_pad, w8a8) is not None:
         return "splitk"
+    if (16 <= k <= K64_MAX and k % 16 == 0 and n >= t and n % t == 0
+            and not (w8a8 and (prologue or group != k_pad))):
+        return "k64"
     if k < t or n < t:
         return "mma_sync"
     if w8a8:
@@ -624,7 +640,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _prologue(x, ab, seg_boundary: int, route: str, w8a8: bool):
     """(x, ab, stats) for `_launch` of a prologue form: the weight-only
-    wgmma and split-K routes run the prologue as its own pass (x becomes
+    wgmma, split-K and K 64 routes run the prologue as its own pass (x becomes
     x', no ``ab`` left); the W8A8 activation pass and the weight-only
     ``mma.sync`` kernel apply ``ab`` with the row stats of the caller's
     x."""
@@ -642,13 +658,14 @@ def _launch(name: str, x, route: str, w_ptr: int, k: int, n: int,
             plane_h: int = 0, ab=None, stats=None, resid=None, gate=None,
             seg_boundary: int = 0) -> None:
     """One GEMM launch on ``route`` (after the W8A8 activation pass, which
-    takes the prologue in that mode); ``x`` is the bf16 operand, ``stats``
-    the prologue's row stats of the caller's x."""
+    takes the prologue in that mode, except on ``"k64"``, whose kernel
+    quantizes x itself); ``x`` is the bf16 operand, ``stats`` the
+    prologue's row stats of the caller's x."""
     m = x.shape[0]
     lib = cuda_build.library("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     xs = None
-    if w8a8:
+    if w8a8 and route != "k64":  # the K 64 kernel quantizes x itself
         a, xs = act_quant(x, group, k_pad, ab, seg_boundary, stats)
         ab = stats = None
     else:
@@ -668,6 +685,12 @@ def _launch(name: str, x, route: str, w_ptr: int, k: int, n: int,
                   norm_w_ptr, _ptr(resid), _ptr(gate), out.data_ptr(), m, k,
                   k_pad, n, group, n_groups, head_dim, plane_h, seg_boundary,
                   1, stream)
+    elif route == "k64":
+        _check(ab is None, "the K 64 kernel takes no W8A8 prologue")
+        fn = cuda_build.entry("quant_matmul", "qmm_gemm_k64", _K64_SIGNATURE)
+        code = fn(int(w8a8), epilogue, x.data_ptr(), w_ptr, scale_ptr, bias_ptr,
+                  norm_w_ptr, _ptr(resid), _ptr(gate), out.data_ptr(), m, k, n,
+                  head_dim, plane_h, seg_boundary, stream)
     elif route == "splitk":
         plan = splitk_plan(k, n, group, k_pad, w8a8)
         fn = cuda_build.entry("quant_matmul", "qmm_gemm_splitk",
@@ -805,7 +828,7 @@ def quant_matmul_stacked(x: torch.Tensor, w_q3: torch.Tensor,
     m = x.shape[0]
     name = ("qmm_stacked" + ("_ln" if ab is not None else "")
             + ("_gate" if resid is not None else ""))
-    route = active_route(qmm_route(k, n, group, k_pad, w8a8))
+    route = active_route(qmm_route(k, n, group, k_pad, w8a8, ab is not None))
     x, ab, stats = _prologue(x, ab, seg_boundary, route, w8a8)
     x = _cuda_x(x, k)
     _cuda_weight(w_q3, x.device)
@@ -858,7 +881,7 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
         return quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk], norm_w,
                                head_dim, w8a8, group, k_pad, ab, seg_boundary)
     name = "qmm_qkv_stacked" + ("_ln" if ab is not None else "")
-    route = active_route(qmm_route(k, n3, group, k_pad, w8a8))
+    route = active_route(qmm_route(k, n3, group, k_pad, w8a8, ab is not None))
     x, ab, stats = _prologue(x, ab, seg_boundary, route, w8a8)
     x = _cuda_x(x, k)
     _cuda_weight(w_q3, x.device)

@@ -5,7 +5,7 @@ and one serving or training shape, and timed beside the ``mma.sync``
 kernel it replaces at one or two of those shapes.  Needs one CUDA card and
 nvcc.
 
-    python3 scripts/wgmma_check.py build   # nvcc -Xptxas -v: registers, spills
+    python3 scripts/wgmma_check.py build [source ...]  # nvcc -Xptxas -v: registers, spills
     python3 scripts/wgmma_check.py qmm     # the W8A8 GEMM
     python3 scripts/wgmma_check.py wo      # the weight-only GEMM on bf16 wgmma
     python3 scripts/wgmma_check.py qmm_t   # the transposed GEMM on bf16 wgmma
@@ -15,8 +15,15 @@ nvcc.
     python3 scripts/wgmma_check.py actq    # the W8A8 activation pass (warp per group)
     python3 scripts/wgmma_check.py ln      # the row stats, the prologue pass, the fused forms
     python3 scripts/wgmma_check.py narrow  # the N 64 GEMMs: split-K forward, narrow backward
+    python3 scripts/wgmma_check.py k64     # the K 64 GEMM (x_embedder), W8A8 quantized in it
+    python3 scripts/wgmma_check.py s4d     # the chunked S4D scan beside the sequential kernel
+
+k64 and s4d also time probes: the kernel built apart with a -D flag that cuts
+it short (``K64_PROBE_PREP``, ``S4D_PROBE_STOP``; wrong results), so that the
+time of the part cut away shows.
 """
 
+import ctypes
 import subprocess
 import sys
 import time
@@ -32,9 +39,9 @@ from chip_smoke import (  # noqa: E402
 from loongx_tpu_torch.ops import cuda_build  # noqa: E402
 
 
-def build():
+def build(names=cuda_build.SOURCES):
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("quant_matmul", "quant_matmul_t", "flash_attention"):
+    for name in names:
         out = cuda_build.BUILD_DIR / f"{name}-ptxas-check.so"
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas=-v", "-o", str(out),
                str(cuda_build.CSRC_DIR / f"{name}.cu")]
@@ -47,9 +54,32 @@ def build():
                 print("  ", line)
             if "Compiling entry function" in line and any(
                     w in line for w in ("wgmma", "rope", "prescale", "kquant", "act_quant", "ln_",
-                                        "splitk", "narrow")):
+                                        "splitk", "narrow", "k64", "chunk")):
                 print("  ", line.split("'")[1])
                 print("\n".join("     " + x for x in lines[i + 1:i + 4]))
+
+
+def probe_entries(source, name, signature, defines):
+    """The C entry ``name`` of ``source`` built once for each of ``defines``
+    (``-D<define>``: a timing probe), all ``nvcc`` started together; a dict
+    define -> the entry with its signature set."""
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for define in defines:
+        out = cuda_build.BUILD_DIR / f"{source}-{define.replace('=', '')}-probe.so"
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{define}", "-o", str(out),
+               str(cuda_build.CSRC_DIR / f"{source}.cu")]
+        procs[define] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True), out)
+    entries = {}
+    for define, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {source}.cu -D{define} failed:\n{log}")
+        fn = getattr(ctypes.CDLL(str(out)), name)
+        fn.argtypes, fn.restype = list(signature), ctypes.c_int
+        entries[define] = fn
+    return entries
 
 
 def check_qmm(gen):
@@ -490,17 +520,178 @@ def check_narrow(gen):
                   f"pre-scaled dy {lib_t:.4f}", flush=True)
 
 
+def check_k64(gen):
+    """The K 64 GEMM in both modes (the flat contract at x_embedder and a ragged M, K 16-48,
+    the stacked contract with gelu, the gate form and the prologue form, the fused-qkv
+    planes) against its plain version, its W8A8 outputs against the mma.sync route's
+    (activation pass + qmm_kernel) exactly; then device times at x_embedder (M 1024 K 64
+    N 3072) beside the mma.sync route, cuBLAS bf16 and torch._int_mm."""
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    cases = [(1024, 64, 3072, None, "flat"), (1000, 64, 3072, None, "flat"),
+             (300, 48, 256, "gelu_tanh", "flat"), (257, 16, 384, None, "flat"),
+             (257, 64, 384, "gelu_tanh", "stacked"), (130, 64, 128, None, "gate"),
+             (200, 64, 640, None, "ln"), (100, 64, 768, None, "qkv")]
+    for w8a8 in (True, False):
+        for m, k, n, act, form in cases:
+            wq = torch.randint(-128, 128, (2, k, n), dtype=torch.int8, device="cuda", generator=gen)
+            sc = torch.rand(2, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+            bi = torch.randn(2, 1, n, generator=gen, device="cuda") * 0.02
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            x[1] = 0.0  # x_scale 1
+            x[2, :3] = torch.tensor([3.25, 1.625, -1.625])  # the W8A8 tie at absmax / 2
+            x[2, 3:] = x[2, 3:].clamp(-3.0, 3.0)
+            fused = {}
+            if form == "gate":
+                fused = dict(resid=torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16),
+                             gate=torch.randn(8, n, generator=gen, device="cuda") * 0.5,
+                             seg_boundary=m // 3)
+            if form == "ln":
+                ab = torch.randn(8, k, generator=gen, device="cuda") * 0.1
+                ab[0] += 1.0
+                ab[2] += 1.0
+                fused = dict(ab=ab, seg_boundary=m // 2)
+            group, k_pad = (qmm.flat_w8a8_group(k, n) if form == "flat"
+                            else qmm.stacked_w8a8_group(k, n))
+            if form == "flat":
+                def run():
+                    return qmm.quant_matmul(x, wq[1], sc[1], bias=bi[1], activation=act, w8a8=w8a8)
+                ref = qmm.qmm_plain(x, wq[1], sc[1], bi[1], act, w8a8, group, k_pad)
+            elif form == "qkv":
+                norm_w = torch.rand(3, n // 3, generator=gen, device="cuda") + 0.5
+
+                def run():
+                    return torch.stack(qmm.quant_qkv_stacked(x, wq, sc, bi, norm_w, 1, 128,
+                                                             w8a8=w8a8))
+                ref = torch.stack(qmm.quant_qkv_plain(x, wq[1], sc[1], bi[1], norm_w, 128, w8a8,
+                                                      group, k_pad))
+            else:
+                def run():
+                    return qmm.quant_matmul_stacked(x, wq, sc, 1, bias3=bi, activation=act,
+                                                    w8a8=w8a8, **fused)
+                ref = qmm.qmm_plain(x, wq[1], sc[1], bi[1], act, w8a8, group, k_pad, **fused)
+            out = run()
+            with cuda_build.mma_sync_only():
+                old = run()
+            torch.cuda.synchronize()
+            route = qmm.qmm_route(k, n, group, k_pad, w8a8, form == "ln")
+            what = (f"{'w8a8' if w8a8 else 'wonly'} M{m} K{k} N{n} {act} {form} group {group} "
+                    f"k_pad {k_pad} route {route}")
+            _report(what, out, ref)
+            flips = int((out != old).sum().item())
+            exact = w8a8 and route == "k64"
+            if exact and flips:
+                FAILED.append(f"{what}: {flips} outputs differ from mma.sync")
+            print(f"   outputs differing from the mma.sync route {flips}"
+                  f"{' (tol 0)' if exact else ''}", flush=True)
+    m, k, n = 1024, 64, 3072
+    wq = torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+    sc = torch.rand(1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+    bi = torch.randn(1, n, generator=gen, device="cuda") * 0.02
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    wb = wq.to(torch.bfloat16)
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+    lib = device_ms(lambda: torch.matmul(x, wb))
+    int_mm = device_ms(lambda: torch._int_mm(xq, wq))
+    preps = probe_entries("quant_matmul", "qmm_gemm_k64", qmm._K64_SIGNATURE,
+                          [f"K64_PROBE_PREP={prep}" for prep in (2, 1, 0)])
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for w8a8 in (True, False):
+        def run():
+            return qmm.quant_matmul(x, wq, sc, bias=bi, w8a8=w8a8)
+
+        def probe(prep):
+            fn = preps[f"K64_PROBE_PREP={prep}"]
+            return lambda: cuda_build.check(fn(
+                int(w8a8), qmm.EPI_BIAS, x.data_ptr(), wq.data_ptr(), sc.data_ptr(),
+                bi.data_ptr(), None, None, None, out.data_ptr(), m, k, n, 0, 0, 0,
+                stream), "qmm_gemm_k64 probe")
+        new = device_ms(run)
+        with cuda_build.mma_sync_only():
+            old = device_ms(run)
+        probes = {prep: device_ms(probe(prep)) for prep in ((2, 1, 0) if w8a8 else (0,))}
+        print(f"x_embedder M{m} K{k} N{n} {'w8a8' if w8a8 else 'wonly'}: k64 device {new:.4f} ms, "
+              f"mma.sync route {old:.4f}, cuBLAS bf16 {lib:.4f}"
+              + (f", torch._int_mm {int_mm:.4f}" if w8a8 else "")
+              + f"; wrapper {cuda_time_ms(run):.4f}; probes (bit 0 transpose, bit 1 "
+              f"quantize) {probes}", flush=True)
+    for mm in (128, 256, 512, 2048):
+        xm = torch.randn(mm, k, generator=gen, device="cuda").to(torch.bfloat16)
+        for w8a8 in (True, False):
+            t = device_ms(lambda: qmm.quant_matmul(xm, wq, sc, bias=bi, w8a8=w8a8))
+            print(f"   M{mm}: k64 {'w8a8' if w8a8 else 'wonly'} device {t:.4f} ms", flush=True)
+
+
+def check_s4d(gen):
+    """The chunked S4D scan at every encoder layer (chip_smoke.s4d_cases), batch 2, a ragged L,
+    bf16 u and N 64, against the plain recurrence (1e-4) and the FFT mode (1.8e-3 rel L2);
+    device time and the whole call's beside the sequential kernel's."""
+    from chip_smoke import S4D_ATOL, S4D_CONV_REL_L2, rel_l2, s4d_cases
+    from loongx_tpu_torch.ops import s4 as ts4
+    from loongx_tpu_torch.ops import s4_scan
+    cases = s4d_cases() + [("EEG wide B2", 2, 4096, 64, 32), ("ragged L4001", 1, 4001, 64, 32),
+                           ("N64", 1, 1024, 8, 64), ("fNIRS B3", 3, 512, 6, 3),
+                           ("short L H16 N8", 1, 8, 16, 8), ("short L N64", 1, 8, 2, 64)]
+    stops = probe_entries("s4d_scan", "s4d_chunk_scan", s4_scan._CHUNK_SIGNATURE,
+                          [f"S4D_PROBE_STOP={stop}" for stop in (1, 2, 3)])
+
+    def probe(stop, p, u, n):
+        # s4_scan._chunked's call on the probe build
+        b, length, h = u.shape
+        plan = s4_scan.s4d_chunk_plan(length, h, n)
+        y = torch.empty_like(u)
+        planes = [p[k].float().contiguous() for k in ("log_A_real", "A_imag", "log_dt", "C", "D")]
+        fn = stops[f"S4D_PROBE_STOP={stop}"]
+        return lambda: cuda_build.check(fn(
+            u.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in planes), b, length, h, n,
+            plan.T, plan.C, plan.hb, plan.nq, plan.q, plan.cl, plan.threads,
+            torch.cuda.current_stream().cuda_stream), "s4d_chunk_scan probe")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, length, h, n in cases:
+            if dtype == torch.bfloat16 and label not in ("EEG wide", "motion"):
+                continue
+            p = ts4.init_s4d_layer(h, 2 * n, generator=gen, device="cuda")
+            u = torch.randn(b, length, h, generator=gen, device="cuda").to(dtype)
+            out = s4_scan.s4d_scan_recurrent(p, u)
+            ref = s4_scan.s4d_scan_plain(p, u)
+            with cuda_build.mma_sync_only():
+                old = s4_scan.s4d_scan_recurrent(p, u)
+            conv = ts4.s4d_conv(p, u)
+            err = (out.float() - ref.float()).abs().max().item()
+            old_err = (old.float() - ref.float()).abs().max().item()
+            rel = rel_l2(out, conv)
+            # bf16 y: one rounding of the output, and no bar against the FFT mode
+            fp32 = dtype == torch.float32
+            tol = S4D_ATOL if fp32 else 2.0 ** -7 * ref.float().abs().max().item()
+            ok = err <= tol and old_err <= tol and (rel <= S4D_CONV_REL_L2 or not fp32)
+            if not ok:
+                FAILED.append(f"s4d {label} {dtype}")
+            run = lambda: s4_scan.s4d_scan_recurrent(p, u)
+            dev, ms = device_ms(run), cuda_time_ms(run)
+            with cuda_build.mma_sync_only():
+                old_dev, old_ms = device_ms(run, match="s4d_scan"), cuda_time_ms(run)
+            # the kernel ended after staging, A and B (timing probes)
+            cut = {stop: device_ms(probe(stop, p, u, n)) for stop in (1, 2, 3)} if fp32 else {}
+            print(f"s4d {label} B{b} L{length} H{h} N{n} {str(dtype)[6:]}: probes {cut}; plan "
+                  f"{s4_scan.s4d_chunk_plan(length, h, n)}, err {err:.3e} (tol {tol:.1e}; "
+                  f"sequential {old_err:.3e}), rel L2 vs conv {rel:.3e}; device {dev:.4f} ms "
+                  f"(sequential kernel {old_dev:.4f}), call {ms:.4f} (sequential {old_ms:.4f})"
+                  f"{'' if ok else '  FAILED'}", flush=True)
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "build":
-        build()
-    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln", "narrow"):
+        build(sys.argv[2:] or cuda_build.SOURCES)
+    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln", "narrow", "k64",
+                  "s4d"):
         if not torch.cuda.is_available():
             sys.exit("wgmma_check: no CUDA device")
         gen = torch.Generator(device="cuda").manual_seed(0)
         {"qmm": check_qmm, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
          "bwd": check_bwd, "int8": check_int8, "actq": check_actq, "ln": check_ln,
-         "narrow": check_narrow}[what](gen)
+         "narrow": check_narrow, "k64": check_k64, "s4d": check_s4d}[what](gen)
         if FAILED:
             sys.exit(f"wgmma_check: {len(FAILED)} checks failed")
     else:

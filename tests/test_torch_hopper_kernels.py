@@ -7,7 +7,8 @@
 * The shape rules that pick between the hand-written forward kernels of a
   contract: ``qmm_route`` over every main-path shape of
   ``chip_smoke.qmm_cases`` (W8A8 and weight-only, both on wgmma wherever
-  the 128 x 128 tiles fit, on split-K at proj_out's N 64) and at its edges,
+  the 128 x 128 tiles fit, on split-K at proj_out's N 64, on the K 64
+  kernel at x_embedder) and at its edges,
   ``flash_fwd_route`` by head_dim, and ``cuda_build.mma_sync_only``.
 """
 
@@ -96,9 +97,9 @@ def _main_path_shapes():
     return out
 
 
-# the flat layers the 128 x 128 tiles cannot take: K 64 on mma.sync, N 64
-# split over a cluster (both modes)
-_MMA_SYNC_W8A8 = {("qmm_flat", "x_embedder")}
+# the flat layers the 128 x 128 tiles cannot take: K 64 on its own kernel,
+# N 64 split over a cluster (both modes)
+_K64 = {("qmm_flat", "x_embedder")}
 _SPLITK = {("qmm_flat", "proj_out"), ("qmm_flat", "ragged M1000 proj_out")}
 
 
@@ -111,8 +112,10 @@ def test_qmm_route_main_path(entry, label, m, k, n, w8a8):
     else:
         group, k_pad = qmm.stacked_w8a8_group(k, n)
     route = qmm.qmm_route(k, n, group, k_pad, w8a8)
-    if (entry, label) in _MMA_SYNC_W8A8:
-        assert route == "mma_sync"
+    if (entry, label) in _K64:
+        assert route == "k64"
+        # the K 64 kernel's preconditions (csrc/quant_matmul.cu k64::launch)
+        assert 16 <= k <= 64 and k % 16 == 0 and n % 128 == 0
     elif (entry, label) in _SPLITK:
         assert route == "splitk"
         # the split-K kernel's preconditions (csrc/quant_matmul.cu sk::launch)
@@ -130,7 +133,7 @@ def test_qmm_route_main_path(entry, label, m, k, n, w8a8):
 
 @pytest.mark.parametrize("k,n,group,k_pad,want,want_wonly", [
     (128, 128, 128, 128, "wgmma", "wgmma"),         # one tile
-    (64, 3072, 128, 128, "mma_sync", "mma_sync"),   # K below a tile
+    (64, 3072, 128, 128, "k64", "k64"),   # K below a tile: one 64-wide panel
     (3072, 64, 1536, 3072, "splitk", "splitk"),  # N below a tile: split K
     (3072, 3072, 1536, 3072, "wgmma", "wgmma"),
     (192, 3072, 192, 192, "mma_sync", "mma_sync"),  # not whole k tiles
@@ -142,7 +145,7 @@ def test_qmm_route_edges(k, n, group, k_pad, want, want_wonly):
     assert qmm.qmm_route(k, n, group, k_pad, False) == want_wonly
     # the LN + adaLN prologue forms take the same rule: W8A8 applies the
     # prologue in its activation pass, weight-only in a pass of its own
-    # ahead of the wgmma and split-K GEMMs (`_prologue` leaves the GEMM no
+    # ahead of the wgmma, split-K and K 64 GEMMs (`_prologue` leaves the GEMM no
     # ab), on the A tile of the mma.sync kernel
     x, ab = torch.randn(3, k), torch.randn(8, k)
     for w8a8, route in ((True, want), (False, want_wonly)):

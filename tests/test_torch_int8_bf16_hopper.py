@@ -4,8 +4,8 @@ host-side logic on the CPU.
 * The shape rules `qmm_route` (weight-only mode) and `qmm_t_route` over
   every training, T5 and serving shape that ``chip_smoke.py`` checks
   (``qmm_cases``, ``qmm_t_cases``, ``t5_cases``, ``fused_cases``) and at
-  their edges: the only shape left on ``mma.sync`` is the one the rules
-  name (K 64 of x_embedder); N 64 of proj_out takes the split-K forward and
+  their edges: no shape is left on ``mma.sync``; K 64 of x_embedder takes
+  the K 64 kernel; N 64 of proj_out takes the split-K forward and
   its backward the narrow transposed kernel; the weight-only LN + adaLN
   prologue forms take the plain weight-only rule, their prologue a pass of
   its own ahead of the wgmma GEMM.
@@ -77,9 +77,10 @@ def _forward_cases():
     return out
 
 
-# what the rules send to mma.sync: the flat layer whose K is below one 128
-# tile; the flat layers whose N is below one tile (proj_out) go to split-K
-_WONLY_MMA_SYNC = {("qmm_flat", "x_embedder")}
+# the flat layers the 128 x 128 tiles cannot take: the one whose K is one
+# 64-wide panel goes to the K 64 kernel, those whose N is below one tile
+# (proj_out) to split-K
+_WONLY_K64 = {("qmm_flat", "x_embedder")}
 _WONLY_SPLITK = {("qmm_flat", "proj_out"), ("qmm_flat", "ragged M1000 proj_out")}
 
 
@@ -102,8 +103,8 @@ def test_qmm_route_weight_only_cases(entry, label, k, n, prologue):
     group, k_pad = (qmm.flat_w8a8_group(k, n) if entry == "qmm_flat"
                     else qmm.stacked_w8a8_group(k, n))
     route = qmm.qmm_route(k, n, group, k_pad, False)
-    if (entry, label) in _WONLY_MMA_SYNC:
-        assert route == "mma_sync"
+    if (entry, label) in _WONLY_K64:
+        assert route == "k64"
     elif (entry, label) in _WONLY_SPLITK:
         assert route == "splitk"
         assert qmm.splitk_plan(k, n, group, k_pad, False) is not None
@@ -147,7 +148,7 @@ def test_qmm_t_route_edges(k, n, want):
 
 @pytest.mark.parametrize("k,n,want", [
     (128, 128, "wgmma"),
-    (64, 3072, "mma_sync"),     # K below a tile (x_embedder)
+    (64, 3072, "k64"),          # K below a tile (x_embedder)
     (3072, 64, "splitk"),       # N below a tile (proj_out)
     (384, 256, "wgmma"),        # K whole 128-deep stages
     (192, 256, "mma_sync"),     # K not whole stages
@@ -155,7 +156,7 @@ def test_qmm_t_route_edges(k, n, want):
 def test_qmm_route_weight_only_edges(k, n, want):
     group, k_pad = qmm.stacked_w8a8_group(k, n)
     assert qmm.qmm_route(k, n, group, k_pad, False) == want
-    # the prologue form: a pass ahead of the wgmma and split-K GEMMs, on the
+    # the prologue form: a pass ahead of the wgmma, split-K and K 64 GEMMs, on the
     # A tile of the mma.sync kernel
     assert _prologue_is_a_pass(k, want) == (want != "mma_sync")
 

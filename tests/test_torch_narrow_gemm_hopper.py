@@ -5,7 +5,8 @@ host-side logic on the CPU.
 * The shape rules `qmm_route` (``"splitk"``) and `qmm_t_route`
   (``"narrow"``) over ``chip_smoke.qmm_cases`` / ``qmm_t_cases``: proj_out
   (and its ragged M 1000 case) takes the new routes in both MAC modes,
-  x_embedder (K 64) stays on ``mma.sync``, and the edges of the new rules.
+  x_embedder (K 64) the K 64 kernel's (``"k64"``), and the edges of the new
+  rules.
 * The slice plan (`splitk_plan`): the cluster's slices cover K (k_pad in
   W8A8) exactly, each is whole 128-byte panels, no W8A8 slice straddles an
   activation group at any `flat_w8a8_group` the rule admits, the cluster
@@ -78,7 +79,7 @@ def test_qmm_route_flat_cases(label, m, k, n, w8a8):
         assert route == "splitk"
         assert qmm.splitk_plan(k, n, group, k_pad, w8a8) is not None
     elif k < qmm.WGMMA_TILE:  # x_embedder, K 64
-        assert route == "mma_sync"
+        assert route == "k64"
         assert qmm.splitk_plan(k, n, group, k_pad, w8a8) is None
     else:
         assert route == "wgmma"
