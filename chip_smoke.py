@@ -85,7 +85,20 @@ Phases (each prints one line with the card, its power limit and seconds):
      a Condition with the source image and all four signals, a character
      tokenizer): stage times, ms/step, edits/s, stacked-kernel launches per
      prompt, CLIP ms, then ``free_text_encoders()`` and the bytes it frees;
-  5. train: the serving bundle is freed, the seed_512 QLoRA configuration
+  infer CLI: the serving bundle is written with ``save_pipeline`` to a
+     directory in the checkout (disk checked first; seconds and bytes
+     printed, with the host's peak resident memory before and after) and
+     freed; phase 4's first request becomes a PNG and a brain-data pickle, with two more 512x512 requests beside
+     it; ``cli.infer.main`` runs in this process with LOONGX_W8A8=1, once
+     with ``--single_image`` (its PNG must equal phase 4's first-request
+     uint8 image bit for bit) and once over the directory at
+     ``--batch_size 2`` (groups of 2 and 1; every decode finite, every
+     output 512x512, the first request within 1 of the single edit):
+     checkpoint load times, ``--timing``'s p50, the single edit's ms/step,
+     and the launches of the single edit and of each group (every flash
+     forward and GEMM on wgmma, split-K or K 64, none on mma.sync); the
+     directory is removed at the end;
+  5. train: the seed_512 QLoRA configuration
      is built on the card (int8 FLUX.1-dev, LoRA r 4, CS3 + DGF frozen with
      dropout on, Prodigy, clip 0.5, remat, bf16, batch 1 at 512 px) and
      takes 4 steps: s/step, loss, grad norm and Prodigy's d per step, peak
@@ -121,6 +134,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2304,7 +2319,7 @@ def serve(torch, pipe):
     else:
         print("  card while serving: clocks and power not measured (no "
               "nvidia-smi samples)", flush=True)
-    return counts, options
+    return counts, options, requests[0], images[0]
 
 
 # brain embeds through the S4D recurrence kernel against the plain
@@ -2524,6 +2539,240 @@ def serve_text(torch, pipe):
           f"took {text_bytes / 1e9:.3f} GB)", flush=True)
     if "t5" in pipe.params or freed < 0.9 * text_bytes:
         raise Failure(f"free_text_encoders freed {freed} of {text_bytes} bytes")
+
+
+# ---------------------------------------------------------------------------
+# Phase "infer CLI": the served edit from a checkpoint on disk
+# ---------------------------------------------------------------------------
+
+# disk the checkpoint may take beyond the bundle's own bytes (config, the
+# PNGs and their edits)
+CLI_DISK_MARGIN = 1 << 30
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def cli_workdir(pipe):
+    """A fresh directory in the checkout for the checkpoint, after checking
+    that its disk holds the serving bundle."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    need = _tree_bytes(pipe.params) + CLI_DISK_MARGIN
+    free = shutil.disk_usage(here).free
+    print(f"  disk at {here}: {free / 1e9:.1f} GB free, the checkpoint needs "
+          f"{need / 1e9:.1f} GB", flush=True)
+    if free < need:
+        raise Failure(f"{free} bytes free at {here}, {need} needed for the "
+                      "serving checkpoint")
+    return tempfile.mkdtemp(prefix=".chip_smoke_cli_", dir=here)
+
+
+def write_cli_inputs(torch, pipe, req, root):
+    """Phase 4's serving bundle saved with the port's ``save_pipeline``
+    (full-width FLUX.1-dev, int8 serving layout, VAE, CS3, DGF), phase 4's
+    first request image as a PNG with its four signals in a pickle under
+    the file's name, and two more 512x512 requests beside it for the
+    directory mode.  Returns the paths."""
+    import pickle
+    import resource
+
+    import numpy as np
+    from PIL import Image
+    from loongx_tpu_torch.utils import checkpoint
+
+    ckpt = os.path.join(root, "ckpt")
+    torch.cuda.synchronize()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    t0 = time.perf_counter()
+    checkpoint.save_pipeline(pipe, ckpt)
+    dt = time.perf_counter() - t0
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    files = checkpoint.component_files(ckpt)
+    written = sum(os.path.getsize(f) for f in files.values())
+    print(f"  save_pipeline: {written} bytes ({written / 1e9:.3f} GB; "
+          + ", ".join(f"{k} {os.path.getsize(f) / 1e9:.3f}"
+                      for k, f in sorted(files.items()))
+          + f") in {dt:.1f} s ({written / dt / 1e9:.2f} GB/s); host peak "
+          f"resident memory {rss0 / 1e9:.2f} GB before, {rss1 / 1e9:.2f} GB "
+          "after", flush=True)
+    in_dir = os.path.join(root, "in")
+    os.makedirs(in_dir)
+    signals = {"EEG": "eeg", "PPG": "ppg", "FNIRS": "fnirs", "Motion": "motion"}
+    brain = {"req1.png": {k: req[v] for k, v in signals.items()}}
+    Image.fromarray(req["cond_image"]).save(os.path.join(in_dir, "req1.png"))
+    for seed in (3, 4):  # sorted after req1: the groups are [req1, req2], [req3]
+        rng = np.random.default_rng(seed)
+        name = f"req{seed - 1}.png"
+        Image.fromarray((rng.random(req["cond_image"].shape) * 255).astype(
+            np.uint8)).save(os.path.join(in_dir, name))
+        brain[name] = {k: rng.standard_normal(req[v].shape).astype(np.float32)
+                       for k, v in signals.items()}
+    pkl = os.path.join(root, "brain.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(brain, f)
+    return {"ckpt": ckpt, "in_dir": in_dir, "image": os.path.join(
+        in_dir, "req1.png"), "pkl": pkl, "root": root, "bytes": written}
+
+
+def _cli_launch_check(counts, blocks, what):
+    """Every flash forward on wgmma (one a block a step, each after its
+    RoPE pre-pass), every GEMM on wgmma, split-K or K 64, none on
+    mma.sync, every serving kernel launched."""
+    split = gemm_split(counts)
+    flash = STEPS * blocks
+    print(f"  {what} launches: { {n: counts.get(n, 0) for n in KERNELS} }; "
+          f"GEMM launches (total, wgmma, mma.sync, split-K, K 64) {split}; "
+          f"qmm_flat by route {routes(counts, 'qmm_flat')}", flush=True)
+    missing = [n for n in KERNELS if not counts.get(n)]
+    on_mma_sync = {e: v[2] for e, v in split.items() if v[2]}
+    if (missing or on_mma_sync or counts.get("flash_attention:mma_sync")
+            or not counts.get("flash_attention") == counts.get(
+                "flash_attention:wgmma") == counts.get("flash_rope") == flash):
+        raise Failure(f"{what}: kernels not launched {missing}, GEMMs on "
+                      f"mma.sync {on_mma_sync}, flash {counts.get('flash_attention')}"
+                      f" ({counts.get('flash_attention:wgmma')} wgmma, "
+                      f"{counts.get('flash_rope')} pre-passes; {flash} expected)")
+
+
+def infer_cli(torch, paths, img_ref, device="cuda"):
+    """``cli.infer.main`` in this process with LOONGX_W8A8=1: one
+    ``--single_image`` edit of phase 4's first request (its PNG must equal
+    phase 4's uint8 image bit for bit), then the directory mode over the
+    three requests at ``--batch_size 2`` (groups of 2 and 1; each output
+    finite and of the request's size, the first within 1 of the single
+    edit).  Prints the
+    load times, ``--timing``'s p50, the single edit's ms/step and the
+    launches of the single edit and of each group."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+    from loongx_tpu_torch.cli import infer
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.sampling import generate
+
+    def read_png(path):
+        return np.asarray(Image.open(path))
+
+    loads, denoise_s, finite, groups, pipes = [], [], [], [], []
+    load = LoongXPipeline.from_pretrained
+    denoise, decode, gen_fn = generate.denoise, generate.vae_decode, generate.generate
+
+    def timed_load(path, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = load(path, **kw)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        pipes.append(pipe)
+        return pipe
+
+    def timed_denoise(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise(*a, **k)
+        torch.cuda.synchronize()
+        denoise_s.append(time.perf_counter() - t0)
+        return out
+
+    def checked_decode(*a, **k):
+        out = decode(*a, **k)
+        finite.append(bool(torch.isfinite(out).all()))
+        return out
+
+    def counted_generate(*a, **k):
+        cuda_build.LAUNCHES.clear()
+        out = gen_fn(*a, **k)
+        groups.append((len(out), dict(cuda_build.LAUNCHES)))
+        return out
+
+    size = img_ref.shape[1]
+    common = ["--checkpoint", paths["ckpt"], "--brain_data_path", paths["pkl"],
+              "--seed", "1", "--int8", "--condition_type", "eeg+fnirs",
+              "--position_delta_y", "0", "--steps", str(STEPS),
+              "--target_size", str(size), "--device", device]
+    single_dir = os.path.join(paths["root"], "out_single")
+    batch_dir = os.path.join(paths["root"], "out_batch")
+    env = os.environ.get("LOONGX_W8A8")
+    os.environ["LOONGX_W8A8"] = "1"
+    log = io.StringIO()
+    try:
+        LoongXPipeline.from_pretrained = staticmethod(timed_load)
+        generate.denoise, generate.vae_decode = timed_denoise, checked_decode
+        cuda_build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer.main(common + ["--single_image", paths["image"], "--prompt", "",
+                             "--output_dir", single_dir])
+        single_s = time.perf_counter() - t0
+        single_counts = dict(cuda_build.LAUNCHES)
+        blocks = pipes[-1].flux_cfg.num_double_blocks + (
+            pipes[-1].flux_cfg.num_single_blocks)
+        pipes.clear()
+        generate.generate = counted_generate
+        with contextlib.redirect_stdout(log):
+            infer.main(common + ["--input_dir", paths["in_dir"],
+                                 "--output_dir", batch_dir, "--batch_size",
+                                 "2", "--timing"])
+    finally:
+        LoongXPipeline.from_pretrained = load
+        generate.denoise, generate.vae_decode = denoise, decode
+        generate.generate = gen_fn
+        if env is None:
+            os.environ.pop("LOONGX_W8A8")
+        else:
+            os.environ["LOONGX_W8A8"] = env
+        pipes.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("\n".join(f"  | {line}" for line in log.getvalue().splitlines()),
+          flush=True)
+    p50 = [line for line in log.getvalue().splitlines() if "p50" in line]
+    print(f"  checkpoint loads {', '.join(f'{t:.2f}' for t in loads)} s "
+          f"({paths['bytes'] / loads[0] / 1e9:.2f} GB/s the first); single "
+          f"edit {single_s:.2f} s end to end, {denoise_s[0] / STEPS * 1e3:.1f} "
+          f"ms/step x {STEPS}; directory mode {p50[0] if p50 else 'no p50'}",
+          flush=True)
+
+    ref = ((np.clip(img_ref[0], -1, 1) + 1) * 127.5).round().astype(np.uint8)
+    single = read_png(os.path.join(single_dir, "req1.png"))
+    diff = np.abs(single.astype(np.int32) - ref.astype(np.int32))
+    print(f"  single edit vs phase 4's first request: {int((diff > 0).sum())} "
+          f"of {diff.size} values differ, max {int(diff.max())}", flush=True)
+    if single.shape != ref.shape or diff.any():
+        raise Failure(f"the CLI's single edit differs from phase 4's first "
+                      f"request in {int((diff > 0).sum())} values (max "
+                      f"{int(diff.max())})")
+    _cli_launch_check(single_counts, blocks, "single edit")
+    names = sorted(os.listdir(batch_dir))
+    if [n for n, _ in groups] != [2, 1] or names != sorted(
+            os.listdir(paths["in_dir"])):
+        raise Failure(f"directory mode: groups {[n for n, _ in groups]}, "
+                      f"outputs {names}")
+    for i, (n, counts) in enumerate(groups):
+        _cli_launch_check(counts, blocks, f"group {i + 1} ({n} images)")
+    for name in names:
+        out = read_png(os.path.join(batch_dir, name))
+        if out.shape != (size, size, 3):
+            raise Failure(f"directory mode: {name} of shape {out.shape}")
+    if not all(finite):
+        raise Failure(f"non-finite decodes: {finite}")
+    first = read_png(os.path.join(batch_dir, "req1.png")).astype(np.int32)
+    bdiff = np.abs(first - single.astype(np.int32))
+    print(f"  directory mode (batch 2) vs the single edit: max {int(bdiff.max())}"
+          f", {int((bdiff > 0).sum())} values differ; decodes finite "
+          f"{finite}", flush=True)
+    if bdiff.max() > 1:
+        raise Failure(f"directory mode's req1 differs from the single edit by "
+                      f"{int(bdiff.max())} (limit 1)")
 
 
 TRAIN_STEPS = 4
@@ -2955,16 +3204,23 @@ def main() -> int:
             kw = full_forward(torch, pipe, gen)
             lora_grads(torch, gen, kw)
         with Phase("4 serve", card):
-            counts, options = serve(torch, pipe)
+            counts, options, req0, img0 = serve(torch, pipe)
             launches = {"serve": counts,
                         "serve s4_mode=pallas": options["s4_mode=pallas"],
                         "serve int8_attn": options["int8_attn"],
                         "serve fuse_ln+fuse_gate": options["fuse_ln+fuse_gate"]}
         with Phase("generate (text prompts, fuse mode)", card):
             serve_text(torch, pipe)
-        pipe = kw = None  # free the serving bundle before training
-        gc.collect()
-        torch.cuda.empty_cache()
+        with Phase("infer CLI", card):
+            root = cli_workdir(pipe)
+            try:
+                cli_inputs = write_cli_inputs(torch, pipe, req0, root)
+                pipe = kw = None  # free the serving bundle: the CLI loads it
+                gc.collect()
+                torch.cuda.empty_cache()
+                infer_cli(torch, cli_inputs, img0)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
         with Phase("5 train", card):
             launches["train"], launches["train fuse_ln"] = train(torch)
     except Failure as exc:

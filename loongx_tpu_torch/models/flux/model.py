@@ -87,6 +87,10 @@ class FluxConfig:
         return FluxConfig()
 
     @staticmethod
+    def flux_schnell() -> "FluxConfig":
+        return FluxConfig(guidance_embeds=False)
+
+    @staticmethod
     def tiny(guidance: bool = True) -> "FluxConfig":
         """Same topology, tiny dims (tests)."""
         return FluxConfig(

@@ -198,7 +198,12 @@ def vae_sample(mean: torch.Tensor, logvar: torch.Tensor,
 
 def vae_decode(params: Params, cfg: VAEConfig,
                latents: torch.Tensor) -> torch.Tensor:
-    """latents [B, h, w, C] (VAE space) -> images [B, H, W, 3]."""
+    """latents [B, h, w, C] (VAE space) -> images [B, H, W, 3], one image a
+    pass: on the GPU a batched pass's convolutions do not round as one
+    image's do, and an image must decode the same whatever batch it is in."""
+    if latents.shape[0] > 1:
+        return torch.cat([vae_decode(params, cfg, latents[i:i + 1])
+                          for i in range(latents.shape[0])])
     p = params["decoder"]
     g = cfg.norm_groups
     x = _conv(p["conv_in"], _nchw(latents))

@@ -64,7 +64,13 @@ class LoongXPipeline:
 
     @property
     def device(self) -> torch.device:
-        return self.params["flux"]["x_embedder"]["bias"].device
+        """The device of the params (the first leaf found: a bundle loaded
+        with some components only may have no DiT)."""
+        node = self.params
+        while not isinstance(node, torch.Tensor):
+            node = next(iter(node.values() if isinstance(node, dict)
+                             else node))
+        return node.device
 
     @staticmethod
     def init_serving(flux_cfg: Optional[FluxConfig] = None,
@@ -104,6 +110,67 @@ class LoongXPipeline:
         return LoongXPipeline(flux_cfg, None, {"flux": flux, **_brain_params(kw)},
                               torch.bfloat16)
 
+    @staticmethod
+    def init_random(generator: Optional[torch.Generator] = None,
+                    flux_cfg: Optional[FluxConfig] = None,
+                    vae_cfg: Optional[VAEConfig] = None,
+                    t5_cfg: Optional[T5Config] = None,
+                    clip_cfg: Optional[CLIPTextConfig] = None,
+                    dtype=torch.bfloat16, with_biosignal: bool = True,
+                    device="cuda") -> "LoongXPipeline":
+        """Random float weights made on ``device`` from ``generator``: the
+        DiT (FLUX.1-dev by default), VAE, T5 (XXL), CLIP text (L) and, with
+        ``with_biosignal``, the CS3 encoders and DGF; the JAX package's
+        trees."""
+        flux_cfg = flux_cfg or FluxConfig.flux_dev()
+        vae_cfg = vae_cfg or VAEConfig.flux()
+        t5_cfg = t5_cfg or T5Config.xxl()
+        clip_cfg = clip_cfg or CLIPTextConfig.large()
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        params: Dict[str, Any] = {
+            "flux": init_flux_params(flux_cfg, **kw),
+            "vae": init_vae_params(vae_cfg, **kw),
+            "t5": init_t5_params(t5_cfg, **kw),
+            "clip": init_clip_params(clip_cfg, **kw),
+        }
+        if with_biosignal:
+            params.update(_brain_params(kw))
+        return LoongXPipeline(flux_cfg, vae_cfg, params, dtype,
+                              t5_cfg=t5_cfg, clip_cfg=clip_cfg)
+
+    @staticmethod
+    def tiny(generator: Optional[torch.Generator] = None,
+             dtype=torch.float32, with_biosignal: bool = False,
+             device="cuda") -> "LoongXPipeline":
+        """Miniature pipeline for tests, the JAX package's `tiny`: tiny VAE,
+        T5, CLIP and a 2 + 2 block DiT whose widths fit them.  The CS3
+        encoders and DGF (``with_biosignal``) keep their full size: their
+        widths are fixed by the reference contract."""
+        vae_cfg, t5_cfg = VAEConfig.tiny(), T5Config.tiny()
+        clip_cfg = CLIPTextConfig.tiny()
+        flux_cfg = FluxConfig(
+            in_channels=4 * vae_cfg.latent_channels, num_heads=2, head_dim=32,
+            num_double_blocks=2, num_single_blocks=2,
+            joint_dim=t5_cfg.d_model, pooled_dim=clip_cfg.hidden,
+            axes_dims=(8, 12, 12))
+        return LoongXPipeline.init_random(
+            generator, flux_cfg, vae_cfg, t5_cfg, clip_cfg, dtype,
+            with_biosignal=with_biosignal, device=device)
+
+    @staticmethod
+    def from_pretrained(path: str, dtype=torch.bfloat16,
+                        quantize: bool = False, components=None,
+                        device="cuda") -> "LoongXPipeline":
+        """Load a pipeline directory written by `utils.checkpoint.
+        save_pipeline` (``cli/convert.py``) onto ``device``; ``components``
+        names the param files to read (None: all).  ``quantize=True``
+        int8-quantizes the DiT and text encoders after the load (convert
+        with ``--quantize`` where the float tree does not fit the card)."""
+        from loongx_tpu_torch.utils.checkpoint import load_pipeline
+
+        pipe = load_pipeline(path, dtype=dtype, components=components,
+                             device=device)
+        return pipe.quantize() if quantize else pipe
 
     def add_text_encoders(self, t5_cfg: Optional[T5Config] = None,
                           clip_cfg: Optional[CLIPTextConfig] = None, *,

@@ -313,8 +313,9 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
     deployed mode), ``fuse_flag=True`` fuses them by the ``fuse_mode``
     wiring ("infer" or "train").  ``condition_type`` drives the adapter
     switch on the precomputed ``cond_tokens`` path (a Condition brings its
-    own type).  ``decode_chunk`` bounds how many images the VAE decodes at
-    once.  ``w8a8``, ``int8_attn``, ``fuse_ln`` and ``fuse_gate`` select
+    own type).  ``decode_chunk`` bounds how many images a decode step
+    takes (None: all of them); `vae_decode` runs one image a pass either
+    way, so the images do not depend on it.  ``w8a8``, ``int8_attn``, ``fuse_ln`` and ``fuse_gate`` select
     the int8 DiT's MAC mode, attention scores and fused elementwise work,
     as in `neural_edit`.
 

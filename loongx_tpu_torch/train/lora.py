@@ -122,6 +122,33 @@ def lora_mask(params: Any, _name: str = "") -> Any:
     return _name in LORA_FACTORS
 
 
+def merge_lora(params: Params) -> Params:
+    """Fold the LoRA deltas into the base kernels (the serving fast path):
+    kernel + (A B) * scale in float32, cast back to the kernel's dtype, the
+    LoRA leaves dropped.  An int8 kernel with a LoRA raises ValueError:
+    folding would requantize it; serve its deltas live instead."""
+    def merge_tree(tree):
+        if isinstance(tree, dict):
+            if "kernel_q" in tree and "lora_a" in tree:
+                raise ValueError(
+                    "merge_lora: cannot fold a LoRA delta into an "
+                    "int8-quantized kernel; keep the deltas live (QLoRA "
+                    "serving) or merge before quantize()")
+            if "kernel" in tree and "lora_a" in tree:
+                kernel = tree["kernel"]
+                delta = torch.einsum(
+                    "...ir,...ro->...io", tree["lora_a"].float(),
+                    tree["lora_b"].float()) * tree["lora_scale"][..., None, None]
+                new = {k: v for k, v in tree.items()
+                       if k not in ("lora_a", "lora_b", "lora_scale")}
+                new["kernel"] = (kernel.float() + delta).to(kernel.dtype)
+                return new
+            return {k: merge_tree(v) for k, v in tree.items()}
+        return tree
+
+    return merge_tree(params)
+
+
 def lora_state_dict(params: Params) -> Dict[str, torch.Tensor]:
     """Flat {path/leaf: tensor} of the LoRA leaves, lora_scale included
     (skipped where None, as in a partitioned trainable tree)."""

@@ -1,1 +1,3 @@
-"""Utilities: the weight bridge from the JAX package."""
+"""Utilities: the weight bridge from the JAX package, checkpoints
+(pipeline directories, LoRA files) and the Hugging Face weight
+conversion."""

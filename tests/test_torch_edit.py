@@ -246,7 +246,11 @@ def test_port_imports_no_jax():
         "       'loongx_tpu_torch.models.text.t5',\n"
         "       'loongx_tpu_torch.models.text.clip',\n"
         "       'loongx_tpu_torch.sampling.condition',\n"
-        "       'loongx_tpu_torch.train.adapters'}\n"
+        "       'loongx_tpu_torch.train.adapters',\n"
+        "       'loongx_tpu_torch.utils.checkpoint',\n"
+        "       'loongx_tpu_torch.utils.convert',\n"
+        "       'loongx_tpu_torch.cli.convert',\n"
+        "       'loongx_tpu_torch.cli.infer'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 20, names\n"
         "print(len(names), bad)\n"
