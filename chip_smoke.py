@@ -117,12 +117,36 @@ Phases (each prints one line with the card, its power limit and seconds):
      ff.in, forward and remat; 19 row stats in the backward): finite loss,
      LoRA B factors moved, frozen leaves untouched, s/step, and one more
      step under the profiler (its prologue group beside the unfused
-     step's profile).
+     step's profile);
+  train CLI: the training bundle a user converts (random int8 FLUX.1-dev
+     in the training layout without LoRA, the VAE, CS3 + DGF, int8 T5-XXL
+     and CLIP-L) is written with ``save_pipeline`` to a directory in the
+     checkout (disk checked first; removed at the end) with character-level
+     ``tokenizers`` vocabularies (both must load), beside a synthetic
+     8-row L-Mind corpus (512x512 PNG pairs, instructions, the four
+     signals) and configs/seed_512.yaml with only its paths,
+     ``save_interval: 1``, ``sample_interval: 2``, ``staged_text: true``
+     and 2 loader workers changed; ``cli.train.main`` then trains 2
+     optimizer steps of 4 micro-batches (a summary of 2 steps with a
+     finite loss; T5/CLIP loaded alone and freed before the DiT loads;
+     LoRA files and train states at steps 1 and 2; the probe JPEG at step
+     2, 512x512, and no probe failure printed; every LoRA B factor moved,
+     no frozen byte changed; per micro-batch every flash backward, stacked
+     weight-only and transposed GEMM on wgmma and nothing on mma.sync;
+     s/micro-step, peak memory, save and load seconds, one micro-step's
+     device profile with the loader's next batch beside it), resumes to
+     step 3 (the train state loaded equal bit for bit to the one saved,
+     4 more micro-batches), and is refused ("fingerprint") with
+     ``lora_config.r: 8``.  The loop is watched from outside: module
+     attributes (the pipeline loader, make_train_step, partition, the
+     checkpoint functions, the probe) are wrapped for the phase.
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
 launch counts from phase 4 for the forward kernels -- the S4D, int8
 attention and fused-elementwise kernels from the phase-4 request that
-selects them -- and from phase 5 for the backward ones) and the card's name and power limit.  The last line is
+selects them -- and from phase 5 for the backward ones; each kernel's
+launches in the train CLI's first run beside them, as
+``launches_train_cli``) and the card's name and power limit.  The last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
@@ -2550,21 +2574,14 @@ def serve_text(torch, pipe):
 CLI_DISK_MARGIN = 1 << 30
 
 
-def _tree_bytes(tree):
-    if isinstance(tree, dict):
-        return sum(_tree_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_tree_bytes(v) for v in tree)
-    return tree.numel() * tree.element_size()
-
-
 def cli_workdir(pipe):
     """A fresh directory in the checkout for the checkpoint, after checking
     that its disk holds the serving bundle."""
     import tempfile
+    from loongx_tpu_torch.ops.quant import quantized_bytes
 
     here = os.path.dirname(os.path.abspath(__file__))
-    need = _tree_bytes(pipe.params) + CLI_DISK_MARGIN
+    need = quantized_bytes(pipe.params) + CLI_DISK_MARGIN
     free = shutil.disk_usage(here).free
     print(f"  disk at {here}: {free / 1e9:.1f} GB free, the checkpoint needs "
           f"{need / 1e9:.1f} GB", flush=True)
@@ -3022,6 +3039,547 @@ def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase "train CLI": python -m loongx_tpu_torch.cli.train from a YAML config
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_ROWS = 8
+TRAIN_CLI_SIZE = 512  # the corpus' images and configs/seed_512.yaml's sizes
+TRAIN_CLI_MAX_STEPS = (2, 3)  # the first run, then the resumed one
+# phase 5's signal shapes (the CS3 encoders' fixed lengths)
+TRAIN_CLI_SIGNALS = {"EEG": (4, 4096), "PPG": (4, 256), "FNIRS": (6, 512),
+                     "Motion": (6, 128)}
+TRAIN_CLI_FREED_BYTES = 1 << 30  # allocated when the DiT loads, at most
+TRAIN_CLI_PROFILED = 6  # the micro-step of run 1 taken under the profiler
+
+
+def _bytes_to_unicode():
+    """GPT-2's byte -> printable character table (the CLIP tokenizer's)."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, (chr(c) for c in cs)))
+
+
+def write_char_tokenizers(root):
+    """``t5_tokenizer/`` and ``clip_tokenizer/`` in the pipeline directory:
+    character-level vocabularies built with the ``tokenizers`` package (a
+    unigram model for T5, byte-level BPE without merges for CLIP), loadable
+    by ``transformers``' T5TokenizerFast and CLIPTokenizer (the repository
+    holds no real vocabulary)."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, processors
+
+    # T5: a unigram model over single characters after the metaspace split,
+    # T5's own structure
+    pieces = ["<pad>", "</s>", "<unk>"] + [chr(c) for c in range(33, 127)]
+    tok = Tokenizer(models.Unigram([(p, -1.0) for p in pieces + ["▁"]],
+                                   unk_id=2))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace()
+    tok.decoder = decoders.Metaspace()
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A </s>", special_tokens=[("</s>", 1)])
+    t5_dir = os.path.join(root, "t5_tokenizer")
+    os.makedirs(t5_dir)
+    tok.save(os.path.join(t5_dir, "tokenizer.json"))
+    with open(os.path.join(t5_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "T5Tokenizer", "eos_token": "</s>",
+                   "unk_token": "<unk>", "pad_token": "<pad>", "extra_ids": 0,
+                   "model_max_length": 512}, f)
+
+    chars = list(_bytes_to_unicode().values())
+    clip_vocab = {c: i for i, c in enumerate(chars)}
+    clip_vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
+    bos, eos = "<|startoftext|>", "<|endoftext|>"
+    clip_vocab[bos], clip_vocab[eos] = len(clip_vocab), len(clip_vocab) + 1
+    clip_dir = os.path.join(root, "clip_tokenizer")
+    os.makedirs(clip_dir)
+    with open(os.path.join(clip_dir, "vocab.json"), "w") as f:
+        json.dump(clip_vocab, f)
+    with open(os.path.join(clip_dir, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    tok = Tokenizer(models.BPE(clip_vocab, [], unk_token=eos,
+                               end_of_word_suffix="</w>"))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.post_processor = processors.TemplateProcessing(
+        single=f"{bos} $A {eos}",
+        special_tokens=[(bos, clip_vocab[bos]), (eos, clip_vocab[eos])])
+    tok.save(os.path.join(clip_dir, "tokenizer.json"))
+    with open(os.path.join(clip_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "CLIPTokenizer", "bos_token": bos,
+                   "eos_token": eos, "unk_token": eos, "pad_token": eos,
+                   "model_max_length": 77}, f)
+
+
+def train_cli_bundle(torch):
+    """The pipeline a user converts for training, random on the card: int8
+    FLUX.1-dev in the training layout without LoRA (the loop adds it), the
+    FLUX VAE, CS3 + DGF, int8 T5-XXL and CLIP-L."""
+    from loongx_tpu_torch.models import pipeline as pipeline_mod
+    from loongx_tpu_torch.models.flux.model import FluxConfig, init_flux_params
+    from loongx_tpu_torch.models.flux.vae import VAEConfig, init_vae_params
+    from loongx_tpu_torch.ops.quant import random_quantized_like
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg, vae_cfg = FluxConfig.flux_dev(), VAEConfig.flux()
+    flux = random_quantized_like(
+        init_flux_params(cfg, dtype=torch.bfloat16, device="meta"),
+        generator=gen, device="cuda")
+    kw = dict(generator=gen, dtype=torch.bfloat16, device="cuda")
+    params = {"flux": flux, "vae": init_vae_params(vae_cfg, **kw),
+              **pipeline_mod._brain_params(kw)}
+    pipe = pipeline_mod.LoongXPipeline(cfg, vae_cfg, params, torch.bfloat16)
+    return pipe.add_text_encoders(seed=3)
+
+
+def write_train_corpus(root):
+    """A synthetic L-Mind corpus: 512x512 source/target PNG pairs, one
+    instruction each (train.jsonl) and the four signals in data_final.pkl,
+    keyed by the source image's name."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    os.makedirs(os.path.join(root, "imgs"))
+    rows, bio = [], {}
+    for i in range(TRAIN_CLI_ROWS):
+        for tag in ("src", "tgt"):
+            Image.fromarray(rng.integers(
+                0, 256, (TRAIN_CLI_SIZE, TRAIN_CLI_SIZE, 3), np.uint8)).save(
+                os.path.join(root, "imgs", f"{i}_{tag}.png"))
+        rows.append({"source_image": f"imgs/{i}_src.png",
+                     "target_image": f"imgs/{i}_tgt.png",
+                     "instruction": f"make the sky {('red', 'green', 'blue')[i % 3]}"
+                                    f" and the light softer, edit {i}"})
+        bio[f"{i}_src.png"] = {k: rng.standard_normal(s).astype(np.float32)
+                               for k, s in TRAIN_CLI_SIGNALS.items()}
+    jsonl = os.path.join(root, "train.jsonl")
+    with open(jsonl, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    with open(os.path.join(root, "data_final.pkl"), "wb") as f:
+        pickle.dump(bio, f)
+    return jsonl
+
+
+def write_train_config(root, ckpt, jsonl, runs, **lora):
+    """configs/seed_512.yaml with only its paths changed, plus save_interval
+    1, sample_interval 2, staged_text and 2 loader workers (``lora``:
+    lora_config keys to change)."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "seed_512.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["flux_path"] = ckpt
+    t = raw["train"]
+    t.update(save_path=runs, save_interval=1, sample_interval=2,
+             staged_text=True, dataloader_workers=2)
+    t["dataset"].update(jsonl_path=jsonl, image_dir=os.path.dirname(jsonl))
+    t["lora_config"].update(lora)
+    path = os.path.join(root, f"train_r{t['lora_config']['r']}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _cpu_clone(x):
+    """A host copy of a (nested) state: tensors cloned, containers copied."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _cpu_clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cpu_clone(v) for v in x)
+    return x
+
+
+def _state_diff(got, want, path=""):
+    """Paths where two nested states differ (tensors by dtype and bytes)."""
+    import torch
+    if isinstance(want, torch.Tensor):
+        got = got.detach().cpu()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return [path]
+        bits = [t.contiguous().reshape(-1).view(torch.uint8) for t in (got, want)]
+        return [] if torch.equal(*bits) else [path]
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path} keys"]
+        return [d for k in want for d in _state_diff(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{path} length"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in _state_diff(g, w, f"{path}/{i}")]
+    return [] if got == want or (got != got and want != want) else [path]
+
+
+@contextlib.contextmanager
+def _patched(obj, name, wrap):
+    """``obj.name`` replaced by ``wrap(original)`` for the block (a static
+    method comes back as one)."""
+    import inspect
+    raw = inspect.getattr_static(obj, name)
+    setattr(obj, name, wrap(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        setattr(obj, name, raw)
+
+
+def train_cli(torch):
+    """``cli.train.main`` at full FLUX.1-dev width and depth from a pipeline
+    directory, a synthetic L-Mind corpus and configs/seed_512.yaml: 2
+    optimizer steps (8 micro-batches, staged text, LoRA files and train
+    states at steps 1 and 2, the probe image at step 2), a resumed run to
+    step 3, and a refused resume with another LoRA rank.  The loop, the
+    loader, the checkpoints and the probe are watched from outside (their
+    module attributes wrapped for the phase).  Returns the launch counts
+    of the first run."""
+    import tempfile
+    from loongx_tpu_torch.ops.quant import quantized_bytes
+    from loongx_tpu_torch.utils import checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    pipe = train_cli_bundle(torch)
+    need = quantized_bytes(pipe.params) + CLI_DISK_MARGIN
+    free = shutil.disk_usage(here).free
+    print(f"  training bundle made in {time.perf_counter() - t0:.1f} s; disk at "
+          f"{here}: {free / 1e9:.1f} GB free, the checkpoint needs "
+          f"{need / 1e9:.1f} GB", flush=True)
+    if free < need:
+        raise Failure(f"{free} bytes free at {here}, {need} needed for the "
+                      "training checkpoint")
+    root = tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=here)
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        checkpoint.save_pipeline(pipe, ckpt)
+        dt = time.perf_counter() - t0
+        files = checkpoint.component_files(ckpt)
+        written = sum(os.path.getsize(f) for f in files.values())
+        print(f"  save_pipeline: {written} bytes ({written / 1e9:.3f} GB; "
+              + ", ".join(f"{k} {os.path.getsize(f) / 1e9:.3f}"
+                          for k, f in sorted(files.items()))
+              + f") in {dt:.1f} s", flush=True)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        write_char_tokenizers(ckpt)
+        # the loader (`_tok`) prints and returns None where transformers
+        # cannot read a tokenizer: hold both to loading here
+        for cls, sub, vocab in (("T5TokenizerFast", "t5_tokenizer", 32128),
+                                ("CLIPTokenizer", "clip_tokenizer", 49408)):
+            tok = checkpoint._tok(ckpt, cls, sub)
+            if tok is None:
+                raise Failure(f"train CLI: {sub} did not load as {cls}")
+            ids = tok(["make the sky red"], padding="max_length",
+                      max_length=16, truncation=True,
+                      return_tensors="np").input_ids
+            print(f"  {sub}: {type(tok).__name__}, ids {ids[0].tolist()}",
+                  flush=True)
+            if not 0 <= ids.min() <= ids.max() < vocab:
+                raise Failure(f"train CLI: {sub} ids outside [0, {vocab})")
+        jsonl = write_train_corpus(os.path.join(root, "data"))
+        runs = os.path.join(root, "runs")
+        yml = write_train_config(root, ckpt, jsonl, runs)
+        return _train_cli_runs(torch, yml, runs, root, ckpt, jsonl)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _train_cli_run(torch, argv, saved):
+    """One ``cli.train.main(argv)`` with its loads, micro-steps, saves,
+    probe images and output recorded; ``saved`` collects host copies of
+    each saved train state by step and is read by a resume."""
+    from loongx_tpu_torch.cli import train as cli_train
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.train import loop
+    from loongx_tpu_torch.train.sampling_probe import SampleProbe
+    from loongx_tpu_torch.utils import checkpoint
+
+    rec = {"loads": [], "micro": [], "saves": [], "lora_saves": [],
+           "probes": [], "resumed": []}
+
+    def sync_time():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def from_pretrained(orig):
+        def load(path, *a, components=None, **kw):
+            mem, t0 = torch.cuda.memory_allocated(), sync_time()
+            out = orig(path, *a, components=components, **kw)
+            rec["loads"].append((tuple(components or ()), mem,
+                                 sync_time() - t0))
+            return out
+        return staticmethod(load)
+
+    def make_train_step(orig):
+        def make(*a, **kw):
+            init_fn, step_fn = orig(*a, **kw)
+
+            def step(state, frozen, batch, draws):
+                if len(rec["micro"]) + 1 == TRAIN_CLI_PROFILED and not (
+                        "profile" in rec):
+                    # one micro-step under the profiler, with the loader's
+                    # next batch being prepared beside it: its idle share
+                    # (outside the timings and the launch counts)
+                    out = []
+                    rec["profile"] = device_profile(torch, lambda: out.append(
+                        step_fn(state, frozen, batch, draws)))
+                    return out[0]
+                before, t0 = dict(cuda_build.LAUNCHES), sync_time()
+                out = step_fn(state, frozen, batch, draws)
+                dt = sync_time() - t0
+                rec["micro"].append((dt, {
+                    n: v - before.get(n, 0) for n, v in cuda_build.LAUNCHES.items()
+                    if v != before.get(n, 0)}))
+                return out
+            return init_fn, step
+        return make
+
+    def partition(orig):
+        def split(params, mask):
+            trainable, frozen = orig(params, mask)
+            rec["trainable"], rec["frozen"] = trainable, frozen
+            rec["sums0"] = _byte_sums(torch, frozen)
+            return trainable, frozen
+        return split
+
+    def save_state(orig):
+        def save(path, step, trainable, optimizer, fingerprint=None):
+            t0 = sync_time()
+            out = orig(path, step, trainable, optimizer, fingerprint=fingerprint)
+            rec["saves"].append((step, sync_time() - t0))
+            saved.clear()
+            saved[step] = _cpu_clone((checkpoint.flatten_tree(
+                checkpoint._prune(trainable))[0], optimizer.state_dict()))
+            return out
+        return save
+
+    def save_lora(orig):
+        def save(tree, path):
+            t0 = sync_time()
+            out = orig(tree, path)
+            rec["lora_saves"].append((out, sync_time() - t0))
+            return out
+        return save
+
+    def load_state(orig):
+        def load(path, trainable, optimizer):
+            t0 = sync_time()
+            step = orig(path, trainable, optimizer)
+            dt = sync_time() - t0
+            live = _cpu_clone((checkpoint.flatten_tree(
+                checkpoint._prune(trainable))[0], optimizer.state_dict()))
+            rec["resumed"].append((step, dt, _state_diff(live, saved[step])
+                                   if step in saved else ["nothing saved"]))
+            return step
+        return load
+
+    def probe(orig):
+        def call(self, step):
+            t0 = sync_time()
+            out = orig(self, step)
+            rec["probes"].append((step, out, sync_time() - t0))
+            return out
+        return call
+
+    tee = _Tee(sys.stdout)
+    with contextlib.ExitStack() as stack:
+        for obj, name, wrap in (
+                (LoongXPipeline, "from_pretrained", from_pretrained),
+                (loop, "make_train_step", make_train_step),
+                (loop, "partition", partition),
+                (checkpoint, "save_train_checkpoint", save_state),
+                (checkpoint, "save_lora_safetensors", save_lora),
+                (checkpoint, "load_train_checkpoint", load_state),
+                (SampleProbe, "__call__", probe)):
+            stack.enter_context(_patched(obj, name, wrap))
+        stack.enter_context(contextlib.redirect_stdout(tee))
+        try:
+            rec["summary"] = cli_train.main(argv)
+        except RuntimeError as exc:
+            rec["error"] = exc
+    rec["output"] = tee.text()
+    for bad in ("sample generation failed", "sample probe unavailable",
+                "lora export failed"):
+        if bad in rec["output"]:
+            raise Failure(f"train CLI: the run printed '{bad}'")
+    return rec
+
+
+def _micro_check(counts, what):
+    """Every train-step kernel launched; every flash backward, stacked
+    weight-only GEMM and stacked transposed GEMM on wgmma; nothing on
+    mma.sync."""
+    missing = [n for n in TRAIN_KERNELS if not counts.get(n)]
+    off = [n for n in ("flash_bwd_dkv", "flash_bwd_dq", "qmm_stacked",
+                       "qmm_t_stacked")
+           if counts.get(f"{n}:wgmma", 0) != counts.get(n, 0)]
+    on_mma_sync = {n: v for n, v in counts.items() if n.endswith(":mma_sync")
+                   and v}
+    if missing or off or on_mma_sync:
+        raise Failure(f"{what}: kernels not launched {missing}, not all on "
+                      f"wgmma {off}, on mma.sync {on_mma_sync}")
+
+
+def _train_cli_runs(torch, yml, runs, root, ckpt, jsonl):
+    """The three runs of the phase and their checks; returns the launch
+    counts of the first."""
+    from PIL import Image
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.train.lora import lora_state_dict
+
+    saved = {}
+    base = ["--config", yml, "--no_wandb"]
+
+    def run(argv):
+        return _train_cli_run(torch, base + argv, saved)
+
+    # first run: 2 optimizer steps of 4 micro-batches from scratch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    rec = run(["--max_steps", str(TRAIN_CLI_MAX_STEPS[0]), "--no_resume"])
+    counts = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if "error" in rec:
+        raise Failure(f"train CLI run 1: {rec['error']}")
+    summary = rec["summary"]
+    print(f"  run 1: {summary}", flush=True)
+    if summary["steps"] != TRAIN_CLI_MAX_STEPS[0] or not math.isfinite(
+            summary["final_loss"]):
+        raise Failure(f"train CLI run 1 summary {summary}")
+    loads = rec["loads"]
+    print("  loads (components, bytes allocated at the call, s): "
+          + "; ".join(f"{c} {m} {dt:.2f}" for c, m, dt in loads), flush=True)
+    if [c for c, _, _ in loads] != [("t5", "clip"),
+                                   ("flux", "vae", "encoders", "dgf")] or (
+            loads[1][1] > TRAIN_CLI_FREED_BYTES):
+        raise Failure("train CLI: the text encoders were not loaded alone and "
+                      f"freed before the DiT: {loads}")
+    (run_dir,) = [os.path.join(runs, d) for d in os.listdir(runs)]
+    for step in (1, 2):
+        need = [os.path.join(run_dir, "ckpt", str(step), "lora.safetensors"),
+                os.path.join(run_dir, "train_state", f"step_{step}",
+                             "trainable.safetensors"),
+                os.path.join(run_dir, "train_state", f"step_{step}",
+                             "train_state.pt")]
+        if not all(os.path.isfile(p) for p in need):
+            raise Failure(f"train CLI: step {step} files missing: "
+                          f"{[p for p in need if not os.path.isfile(p)]}")
+    probes = rec["probes"]
+    if [s for s, _, _ in probes] != [2]:
+        raise Failure(f"train CLI: probes at steps {probes}, expected [2]")
+    size = Image.open(probes[0][1]).size
+    print(f"  probe at step 2: {probes[0][1]} {size}, {probes[0][2]:.2f} s",
+          flush=True)
+    if size != (TRAIN_CLI_SIZE, TRAIN_CLI_SIZE):
+        raise Failure(f"train CLI: probe image {size}")
+    micro = rec["micro"]
+    n_micro = TRAIN_CLI_MAX_STEPS[0] * 4
+    if len(micro) != n_micro - 1:  # one more ran under the profiler
+        raise Failure(f"train CLI: {len(micro) + 1} micro-batches, {n_micro} "
+                      "expected")
+    for i, (_, c) in enumerate(micro):
+        _micro_check(c, f"train CLI micro-batch {i + 1}")
+    _micro_check(counts, "train CLI run 1")
+    times = [dt for dt, _ in micro]
+    steady = times[1:]
+    print(f"  micro-batch launches {micro[-1][1]}", flush=True)
+    print(f"  {sum(steady) / len(steady):.3f} s/micro-step over micro-steps "
+          f"2-{n_micro} but the profiled {TRAIN_CLI_PROFILED} "
+          f"({min(steady):.3f}-{max(steady):.3f}; the first {times[0]:.3f}); "
+          f"run wall {summary['wall_s']:.1f} s; peak memory {peak:.2f} GiB",
+          flush=True)
+    prof = rec.get("profile")
+    if prof is None:
+        print("  micro-step device profile: not measured (no device "
+              "activity in the profiler)", flush=True)
+    else:
+        print("  micro-step {} device profile (the loader's next batch "
+              "beside it): busy {busy_ms:.1f} ms over a span of {span_ms:.1f}"
+              " ms, idle share {idle_share:.3f}; by group {by_group_ms}".format(
+                  TRAIN_CLI_PROFILED, **prof), flush=True)
+    print("  saves: train state " + ", ".join(
+        f"step {s} {dt:.2f} s" for s, dt in rec["saves"]) + "; LoRA file "
+        + ", ".join(f"{dt:.2f} s" for _, dt in rec["lora_saves"]), flush=True)
+    lora = lora_state_dict(rec["trainable"]["flux"])
+    still = [n for n, v in lora.items() if n.endswith("lora_b")
+             and not bool(v.detach().abs().max() > 0)]
+    changed = [k for k, v in _byte_sums(torch, rec["frozen"]).items()
+               if v != rec["sums0"][k]]
+    print(f"  LoRA B factors moved: {sum(n.endswith('lora_b') for n in lora) - len(still)}"
+          f" of {sum(n.endswith('lora_b') for n in lora)}; frozen leaves "
+          f"changed: {len(changed)} of {len(rec['sums0'])}", flush=True)
+    if still or changed:
+        raise Failure(f"train CLI: LoRA B unmoved {still}, frozen changed "
+                      f"{changed[:5]}")
+    rec = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # second run: resume at step 2, run to step 3
+    rec = run(["--max_steps", str(TRAIN_CLI_MAX_STEPS[1])])
+    if "error" in rec:
+        raise Failure(f"train CLI run 2: {rec['error']}")
+    print(f"  run 2: {rec['summary']}", flush=True)
+    resumed = rec["resumed"]
+    print("  resume: " + "; ".join(f"step {s}, loaded in {dt:.2f} s, "
+                                   f"{len(d)} tensors differ from the save"
+                                   for s, dt, d in resumed), flush=True)
+    if ([s for s, _, _ in resumed] != [TRAIN_CLI_MAX_STEPS[0]]
+            or resumed[0][2]
+            or rec["summary"]["steps"] != TRAIN_CLI_MAX_STEPS[1]
+            or len(rec["micro"]) + ("profile" in rec) != 4):
+        raise Failure(f"train CLI run 2: resumed {resumed}, summary "
+                      f"{rec['summary']}, {len(rec['micro'])} micro-batches")
+    rec = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # third run: another LoRA rank under the same save_path is refused
+    yml8 = write_train_config(root, ckpt, jsonl, runs, r=8, lora_alpha=8)
+    rec = _train_cli_run(torch, ["--config", yml8, "--no_wandb",
+                                 "--max_steps", "3"], saved)
+    err = str(rec.get("error", ""))
+    print(f"  run 3 (lora r 8): {err[:160]}", flush=True)
+    if "fingerprint" not in err:
+        raise Failure(f"train CLI run 3 not refused: {rec.get('summary')}")
+    return counts
+
+
 def kernel_table(records, launches):
     """One entry per kernel: the worst error over its cases and the times
     at its main shape; launches from the run of its path.  The weight-only
@@ -3132,6 +3690,10 @@ def kernel_table(records, launches):
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": n_launches,
             "launches_path": path,
+            # the same kernel's launches in the train CLI's first run
+            "launches_train_cli": (
+                launches["train CLI"].get(f"{counter}:{own_route}", 0)
+                if own_route else launches["train CLI"].get(counter, 0)),
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -3223,6 +3785,8 @@ def main() -> int:
                 shutil.rmtree(root, ignore_errors=True)
         with Phase("5 train", card):
             launches["train"], launches["train fuse_ln"] = train(torch)
+        with Phase("train CLI", card):
+            launches["train CLI"] = train_cli(torch)
     except Failure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

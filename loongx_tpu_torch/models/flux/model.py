@@ -644,6 +644,16 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
 # ---------------------------------------------------------------------------
 
 
+def _cn_residuals(samples: Optional[torch.Tensor], n_blocks: int, dtype):
+    """Block index -> its ControlNet residual: block i takes sample
+    i // ceil(n_blocks / N) of the [N, ...] stack (None: no residuals)."""
+    if samples is None:
+        return None
+    samples = samples.to(dtype)
+    every = -(-n_blocks // samples.shape[0])
+    return lambda i: samples[i // every]
+
+
 def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
                  txt: torch.Tensor, pooled: torch.Tensor,
                  timestep: torch.Tensor, img_ids: torch.Tensor,
@@ -665,10 +675,11 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
     checkpointing: its activations are recomputed in the backward);
     int8_attn: int8 QK^T scores in every attention (inference only);
     fuse_ln / fuse_gate: the LN + adaLN prologue / gate + residual epilogue
-    in the int8 kernels where fusable (see the module docstring)."""
-    if controlnet_block_samples is not None or (
-            controlnet_single_block_samples is not None):
-        raise NotImplementedError("ControlNet residual inputs are not ported")
+    in the int8 kernels where fusable (see the module docstring);
+    controlnet_block_samples / controlnet_single_block_samples: [N, B,
+    S_img, hidden] residuals added to the img stream after each double
+    block / to the img part of [txt | img] after each single block, block
+    i taking sample i // ceil(n_blocks / N) (cast to img's dtype)."""
     flags = flags or {}
     use_cond = cond is not None
     latent_lora = bool(flags.get("latent_lora", False))
@@ -676,6 +687,9 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
     txt, pooled = txt.to(wdt), pooled.to(wdt)
     if use_cond:
         cond = cond.to(wdt)
+    cn_dbl = _cn_residuals(controlnet_block_samples, cfg.num_double_blocks, wdt)
+    cn_sgl = _cn_residuals(controlnet_single_block_samples,
+                           cfg.num_single_blocks, wdt)
 
     img_h = linear(params["x_embedder"], img, latent_lora, None, w8a8)
     cond_h = (linear(params["x_embedder"], cond, True, None, w8a8)
@@ -703,16 +717,22 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
         return block_fn(*args)
 
     def double(i, img_h, txt_h, cond_h):
-        return double_block_forward(
+        txt_h, img_h, cond_h = double_block_forward(
             _block_view(params["double_blocks"], i), cfg, img_h, txt_h, cond_h,
             temb, cond_temb, rope_full, flags, c_factor, w8a8, int8_attn,
             fuse_ln, fuse_gate)
+        if cn_dbl is not None:
+            img_h = img_h + cn_dbl(i)
+        return txt_h, img_h, cond_h
 
     def single(i, x, cond_h):
-        return single_block_forward(
+        x, cond_h = single_block_forward(
             _block_view(params["single_blocks"], i), cfg, x, cond_h, temb,
             cond_temb, rope_full, flags, c_factor, w8a8, int8_attn, fuse_ln,
             fuse_gate)
+        if cn_sgl is not None:
+            x = torch.cat([x[:, :s_txt], x[:, s_txt:] + cn_sgl(i)], dim=1)
+        return x, cond_h
 
     for i in range(cfg.num_double_blocks):
         txt_h, img_h, cond_h = run(double, i, img_h, txt_h, cond_h)

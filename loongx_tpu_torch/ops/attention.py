@@ -162,6 +162,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+# The JAX package's name for its reference attention (``attention_xla``):
+# the same function, kept under one body.
+attention_xla = attention_plain
+
+
 def unified_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       cond_len: int = 0, mode: str = "union",
                       c_factor: Optional[float] = None,

@@ -116,3 +116,40 @@ def stack_trees(trees: Sequence[Params]) -> Params:
     if isinstance(first, dict):
         return {k: stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(list(trees))
+
+
+def init_mlp(dims: Sequence[int], bias: bool = True, *, generator=None,
+             dtype=torch.float32, device="cuda") -> Params:
+    """A stack of linears dims[0] -> dims[1] -> ... as ``linear_<i>``; the
+    caller's apply function puts the activations between them."""
+    return {f"linear_{i}": init_linear(dims[i], dims[i + 1], bias,
+                                       generator=generator, dtype=dtype,
+                                       device=device)
+            for i in range(len(dims) - 1)}
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a dict/list tree, in order; None leaves (as
+    `train.step.partition` leaves them) are skipped."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def count_params(params: Params) -> int:
+    """The number of elements over every leaf of a tree."""
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def tree_cast(params: Params, dtype: torch.dtype) -> Params:
+    """Cast every floating-point leaf to ``dtype`` (integer leaves, such as
+    int8 codes, are kept)."""
+    if isinstance(params, dict):
+        return {k: tree_cast(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [tree_cast(v, dtype) for v in params]
+    if params is None or not params.is_floating_point():
+        return params
+    return params.to(dtype)

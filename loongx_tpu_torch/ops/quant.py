@@ -12,6 +12,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from loongx_tpu_torch.ops.nn import tree_leaves
+
 Params = Dict[str, Any]
 
 
@@ -52,6 +54,11 @@ def quantize_tree(params: Params,
         return tree
 
     return walk(params)
+
+
+def quantized_bytes(params: Params) -> int:
+    """Bytes held by every tensor leaf of a (quantized) tree."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
 
 
 def random_quantized_like(shapes: Params, *, generator=None,

@@ -16,6 +16,11 @@ def calculate_shift(image_seq_len: int, base_seq_len: int = 256,
     return image_seq_len * m + b
 
 
+def time_shift(mu: float, sigma: float, t: np.ndarray) -> np.ndarray:
+    """Exponential dynamic shifting: t -> e^mu / (e^mu + (1/t - 1)^sigma)."""
+    return np.exp(mu) / (np.exp(mu) + (1.0 / t - 1.0) ** sigma)
+
+
 def flux_sigmas(num_steps: int, image_seq_len: int, base_seq_len: int = 256,
                 max_seq_len: int = 4096, base_shift: float = 0.5,
                 max_shift: float = 1.15,
@@ -26,7 +31,7 @@ def flux_sigmas(num_steps: int, image_seq_len: int, base_seq_len: int = 256,
     if use_dynamic_shifting:
         mu = calculate_shift(image_seq_len, base_seq_len, max_seq_len,
                              base_shift, max_shift)
-        sigmas = np.exp(mu) / (np.exp(mu) + (1.0 / sigmas - 1.0))
+        sigmas = time_shift(mu, 1.0, sigmas)
     return np.append(sigmas, 0.0).astype(np.float32)
 
 

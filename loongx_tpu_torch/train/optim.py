@@ -1,5 +1,6 @@
-"""Optimizers: Prodigy (D-adaptation) as a ``torch.optim.Optimizer``, plus
-the AdamW / SGD builders (counterpart of ``loongx_tpu/train/optim.py``).
+"""Optimizers: Prodigy (D-adaptation) as a ``torch.optim.Optimizer``, the
+AdamW / SGD factories and gradient accumulation (`MultiSteps`; counterpart
+of ``loongx_tpu/train/optim.py`` and the optax chain of its training loop).
 
 Prodigy (Mishchenko & Defazio, arXiv:2306.06101), Adam-type, the JAX
 package's update exactly:
@@ -23,7 +24,7 @@ share one d: one param group.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -105,6 +106,110 @@ class Prodigy(torch.optim.Optimizer):
 
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
+
+
+class MultiSteps:
+    """Gradient accumulation with the clip inside, as the JAX training loop
+    builds it: ``optax.MultiSteps(optax.chain(clip_by_global_norm(c), tx),
+    every_k)``.
+
+    Each `step` folds the params' ``.grad`` into the accumulator as optax's
+    running mean does, ``acc + (g - acc) / (n + 1)`` in the gradient's
+    dtype; the k-th clips the accumulated mean once by its global norm
+    (optax's formula, `train.step.clip_by_global_norm`; ``clip`` None or 0
+    disables it), hands it to the inner optimizer as the gradient, steps
+    it, and starts a new window.  The params move only on the k-th call.
+    ``param_groups`` are the inner optimizer's, so `make_train_step` drives
+    this wrapper as it drives any optimizer."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int,
+                 clip: Optional[float] = None):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner, self.every_k, self.clip = inner, every_k, clip
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for g in inner.param_groups
+                    for p in g["params"]]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def _params(self):
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Accumulate; returns True where the inner optimizer stepped."""
+        from loongx_tpu_torch.train.step import clip_by_global_norm, global_norm
+
+        n = self.mini_step
+        params = self._params()
+        for acc, p in zip(self.acc, params):
+            if p.grad is not None:
+                acc.add_((p.grad.to(acc.dtype) - acc) / (n + 1))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return False
+        grads = self.acc
+        if self.clip:
+            grads = clip_by_global_norm(grads, self.clip, global_norm(grads))
+        for p, g in zip(params, grads):
+            p.grad = g.clone()
+        self.inner.step()
+        self.inner.zero_grad(set_to_none=True)
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+        return True
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"inner": the inner optimizer's state_dict, "acc": [accumulator
+        per param], "mini_step": micro-steps in the open window}."""
+        return {"inner": self.inner.state_dict(), "acc": list(self.acc),
+                "mini_step": self.mini_step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore `state_dict`'s values exactly (`load_optimizer_state`:
+        every tensor keeps its saved dtype)."""
+        load_optimizer_state(self.inner, state["inner"])
+        for acc, saved in zip(self.acc, state["acc"]):
+            acc.copy_(saved)
+        self.mini_step = int(state["mini_step"])
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer,
+                         state: Dict[str, Any]) -> None:
+    """Load an optimizer's ``state_dict`` without the dtype cast of
+    ``Optimizer.load_state_dict`` (it casts each state tensor to its
+    param's dtype: Prodigy's float32 moments of bf16 LoRA leaves would be
+    rounded).  Tensors move to their param's device, "step" counts stay
+    where they were saved, as PyTorch keeps them; the param groups take
+    the saved hyperparameters and scalars (Prodigy's d on the params'
+    device)."""
+    groups = opt.param_groups
+    saved_groups = state["param_groups"]
+    if len(groups) != len(saved_groups) or any(
+            len(g["params"]) != len(s["params"])
+            for g, s in zip(groups, saved_groups)):
+        raise ValueError("optimizer state does not match the params: "
+                         f"{[len(s['params']) for s in saved_groups]} saved, "
+                         f"{[len(g['params']) for g in groups]} here")
+    index = {i: p for g, s in zip(groups, saved_groups)
+             for i, p in zip(s["params"], g["params"])}
+    opt.state.clear()
+    for i, st in state["state"].items():
+        p = index[int(i)]
+        opt.state[p] = {k: v.to(p.device) if isinstance(v, torch.Tensor)
+                        and k != "step" else v for k, v in st.items()}
+    for g, s in zip(groups, saved_groups):
+        dev = g["params"][0].device
+        for k, v in s.items():
+            if k != "params":
+                g[k] = v.to(dev) if isinstance(v, torch.Tensor) else v
 
 
 def build_optimizer(opt_config: Any) -> OptimizerFactory:

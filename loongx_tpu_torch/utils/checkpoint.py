@@ -20,8 +20,13 @@ Files are read with the ``safetensors`` package's ``safe_open``, a tensor
 at a time onto the target device, and written with its ``save_file``, a
 component at a time (the component is copied to the host first).
 
-The orbax train-state checkpoints of the JAX module are not ported yet
-(ROADMAP Queue 1, the training loop).
+Train-state checkpoints (`save_train_checkpoint`) are this package's own
+format: ``<root>/step_<n>/trainable.safetensors`` (the trainable tree's
+tensor leaves, as `save_tree` writes a tree) and ``train_state.pt`` (the
+optimizer step and the optimizer's ``state_dict``, accumulator and open
+window included), with the run's config fingerprint in
+``<root>/fingerprint.json`` (the JAX package's keys).  The JAX package's
+train states are orbax trees and are refused, naming the format.
 """
 
 from __future__ import annotations
@@ -159,6 +164,100 @@ def load_tree(path: str, device="cuda"):
         flat = {name: f.get_tensor(name).to(device, copy=True)
                 for name in f.keys()}
     return unflatten_tree(flat, containers)
+
+
+# ---------------------------------------------------------------------------
+# Train-state checkpoints (resume)
+# ---------------------------------------------------------------------------
+
+_TRAINABLE_FILE = "trainable.safetensors"
+_STATE_FILE = "train_state.pt"
+
+
+def _prune(tree):
+    """The tree without its None leaves (a partitioned tree's other half)."""
+    if isinstance(tree, dict):
+        return {k: _prune(v) for k, v in tree.items() if v is not None}
+    if isinstance(tree, (list, tuple)):
+        return [_prune(v) for v in tree]
+    return tree
+
+
+def save_train_checkpoint(path: str, step: int, trainable, optimizer,
+                          fingerprint: Optional[Dict[str, Any]] = None) -> str:
+    """Save the trainable leaves, the optimizer's state and the step under
+    ``<path>/step_<step>`` for an exact resume; ``fingerprint`` (the config
+    facts a resume must match) goes to ``<path>/fingerprint.json``.  The
+    step directory is written under a temporary name and renamed, so a
+    crash leaves no half-written step behind.  Returns the step
+    directory."""
+    root = os.path.abspath(path)
+    os.makedirs(root, exist_ok=True)
+    if fingerprint is not None:
+        with open(os.path.join(root, "fingerprint.json"), "w") as f:
+            json.dump(fingerprint, f, indent=2, sort_keys=True)
+    out = os.path.join(root, f"step_{step}")
+    tmp = f"{out}.tmp{os.getpid()}"
+    os.makedirs(tmp)
+    save_tree(_prune(trainable), os.path.join(tmp, _TRAINABLE_FILE))
+    torch.save({"step": int(step), "optimizer": optimizer.state_dict()},
+               os.path.join(tmp, _STATE_FILE))
+    os.replace(tmp, out)
+    return out
+
+
+def load_fingerprint(path: str) -> Optional[Dict[str, Any]]:
+    """The config fingerprint saved beside a run's step directories (None
+    where there is none)."""
+    fp = os.path.join(path, "fingerprint.json")
+    if not os.path.isfile(fp):
+        return None
+    with open(fp) as f:
+        return json.load(f)
+
+
+def load_train_checkpoint(path: str, trainable, optimizer) -> int:
+    """Restore a `save_train_checkpoint` step directory into the live
+    ``trainable`` leaves (copied in place, bit for bit) and ``optimizer``
+    (its ``load_state_dict``); returns the step.  A step directory of the
+    JAX package (orbax) raises: it cannot be read without JAX."""
+    from safetensors import safe_open
+
+    tfile = os.path.join(path, _TRAINABLE_FILE)
+    if not os.path.isfile(tfile):
+        raise ValueError(
+            f"{path} is not a train state of this package (no "
+            f"{_TRAINABLE_FILE}): a directory written by the JAX package "
+            "holds orbax trees, which cannot be read without JAX. Resume "
+            "from a run of this package, or start afresh (resume=False / "
+            "--no_resume, or another save_path)")
+    live, _ = flatten_tree(_prune(trainable))
+    with safe_open(tfile, framework="pt") as f:
+        if set(f.keys()) != set(live):
+            raise ValueError(f"{tfile}: its leaves do not match the trainable "
+                             f"tree ({sorted(set(f.keys()) ^ set(live))[:5]})")
+        with torch.no_grad():
+            for name, leaf in live.items():
+                saved = f.get_tensor(name)
+                if saved.shape != leaf.shape or saved.dtype != leaf.dtype:
+                    raise ValueError(
+                        f"{tfile}: {name} is {saved.dtype} "
+                        f"{tuple(saved.shape)}, the tree's {leaf.dtype} "
+                        f"{tuple(leaf.shape)}")
+                leaf.copy_(saved)
+    state = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"])
+
+
+def latest_checkpoint(path: str) -> Optional[str]:
+    """The ``step_<n>`` directory with the largest n under ``path``."""
+    if not os.path.isdir(path):
+        return None
+    steps = [int(n[5:]) for n in os.listdir(path)
+             if n.startswith("step_") and n[5:].isdigit()]
+    return os.path.join(path, f"step_{max(steps)}") if steps else None
 
 
 # ---------------------------------------------------------------------------

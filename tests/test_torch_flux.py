@@ -204,8 +204,19 @@ def test_flux_forward_w8a8_stacked(monkeypatch):
 
 
 def test_controlnet_inputs_not_ported():
+    """ControlNet residual inputs are ported (they raised before): zero
+    residuals leave the velocity as it is, a nonzero one moves it.  Their
+    values against JAX: tests/test_torch_controlnet_signal.py."""
     tparams = from_numpy_tree(_np_tree(_init()), device="cpu")
     arrays = {k: torch.from_numpy(v) for k, v in _inputs().items()}
-    with pytest.raises(NotImplementedError):
-        tmodel.flux_forward(tparams, TCFG, **arrays,
-                            controlnet_block_samples=torch.zeros(1))
+    shape = (1, 1, 16, CFG.hidden)
+    base = tmodel.flux_forward(tparams, TCFG, **arrays)
+    zero = tmodel.flux_forward(
+        tparams, TCFG, **arrays, controlnet_block_samples=torch.zeros(shape),
+        controlnet_single_block_samples=torch.zeros(shape))
+    moved = tmodel.flux_forward(
+        tparams, TCFG, **arrays,
+        controlnet_block_samples=torch.randn(
+            shape, generator=torch.Generator().manual_seed(0)))
+    torch.testing.assert_close(zero, base, rtol=0, atol=0)
+    assert (moved - base).abs().max() > 1e-2
