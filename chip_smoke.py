@@ -98,6 +98,21 @@ Phases (each prints one line with the card, its power limit and seconds):
      and the launches of the single edit and of each group (every flash
      forward and GEMM on wgmma, split-K or K 64, none on mma.sync); the
      directory is removed at the end;
+  evaluate and depth: in the same directory, before it is removed, a random
+     Depth-Anything-Small (``DepthAnythingConfig()``) written as a Hugging
+     Face checkout and ``cli.infer.main`` serving phase 4's first request
+     with ``--condition_type depth`` (LOONGX_DEPTH_MODEL, W8A8, ``--int8``):
+     the estimator must be the port's on the card, its 512x512 predicted
+     depth within DEPTH_REL_TOL of the same estimator on the CPU (its uint8
+     image within DEPTH_U8_SHARE), the edit finite and 512x512 with the
+     single edit's launches; estimator ms per image and the edit's ms/step;
+     then random CLIP ViT-B/32 and DINO ViT-S/16 checkouts, CLIP converted
+     by ``cli.convert --eval_clip``, and ``cli.parity.main`` over a staged
+     2-row split of 512x512 pairs (``--mode neural --int8 --batch_size
+     2``): parity.json with finite CLIP-I and DINO-I and exit 1 exactly when
+     its verdict is false; CLIP-I and DINO-I of identical pairs 1 within
+     1e-5; CLIP image / text and DINO features on the card against the
+     CPU's; ms per batch of 16;
   5. train: the seed_512 QLoRA configuration
      is built on the card (int8 FLUX.1-dev, LoRA r 4, CS3 + DGF frozen with
      dropout on, Prodigy, clip 0.5, remat, bf16, batch 1 at 512 px) and
@@ -145,8 +160,9 @@ Before the last line come the kernel table as JSON ({"kernels": [...]},
 launch counts from phase 4 for the forward kernels -- the S4D, int8
 attention and fused-elementwise kernels from the phase-4 request that
 selects them -- and from phase 5 for the backward ones; each kernel's
-launches in the train CLI's first run beside them, as
-``launches_train_cli``) and the card's name and power limit.  The last line is
+launches in the train CLI's first run and in the depth-conditioned CLI edit
+beside them, as ``launches_train_cli`` and ``launches_depth_edit``) and the
+card's name and power limit.  The last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
@@ -2571,7 +2587,25 @@ def serve_text(torch, pipe):
 
 # disk the checkpoint may take beyond the bundle's own bytes (config, the
 # PNGs and their edits)
-CLI_DISK_MARGIN = 1 << 30
+# beside the checkpoint: the CLI's images, and the random Depth-Anything-
+# Small, CLIP ViT-B/32 (twice: the checkout and its bundle) and DINO
+# ViT-S/16 of phase "evaluate and depth" (about 1.4 GB)
+CLI_DISK_MARGIN = 3 << 30
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set for the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def cli_workdir(pipe):
@@ -2718,35 +2752,30 @@ def infer_cli(torch, paths, img_ref, device="cuda"):
               "--target_size", str(size), "--device", device]
     single_dir = os.path.join(paths["root"], "out_single")
     batch_dir = os.path.join(paths["root"], "out_batch")
-    env = os.environ.get("LOONGX_W8A8")
-    os.environ["LOONGX_W8A8"] = "1"
     log = io.StringIO()
     try:
         LoongXPipeline.from_pretrained = staticmethod(timed_load)
         generate.denoise, generate.vae_decode = timed_denoise, checked_decode
-        cuda_build.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        infer.main(common + ["--single_image", paths["image"], "--prompt", "",
-                             "--output_dir", single_dir])
-        single_s = time.perf_counter() - t0
-        single_counts = dict(cuda_build.LAUNCHES)
-        blocks = pipes[-1].flux_cfg.num_double_blocks + (
-            pipes[-1].flux_cfg.num_single_blocks)
-        pipes.clear()
-        generate.generate = counted_generate
-        with contextlib.redirect_stdout(log):
-            infer.main(common + ["--input_dir", paths["in_dir"],
-                                 "--output_dir", batch_dir, "--batch_size",
-                                 "2", "--timing"])
+        with _env(LOONGX_W8A8="1"):
+            cuda_build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infer.main(common + ["--single_image", paths["image"], "--prompt",
+                                 "", "--output_dir", single_dir])
+            single_s = time.perf_counter() - t0
+            single_counts = dict(cuda_build.LAUNCHES)
+            blocks = pipes[-1].flux_cfg.num_double_blocks + (
+                pipes[-1].flux_cfg.num_single_blocks)
+            pipes.clear()
+            generate.generate = counted_generate
+            with contextlib.redirect_stdout(log):
+                infer.main(common + ["--input_dir", paths["in_dir"],
+                                     "--output_dir", batch_dir, "--batch_size",
+                                     "2", "--timing"])
     finally:
         LoongXPipeline.from_pretrained = load
         generate.denoise, generate.vae_decode = denoise, decode
         generate.generate = gen_fn
-        if env is None:
-            os.environ.pop("LOONGX_W8A8")
-        else:
-            os.environ["LOONGX_W8A8"] = env
         pipes.clear()
         gc.collect()
         torch.cuda.empty_cache()
@@ -2790,6 +2819,556 @@ def infer_cli(torch, paths, img_ref, device="cuda"):
     if bdiff.max() > 1:
         raise Failure(f"directory mode's req1 differs from the single edit by "
                       f"{int(bdiff.max())} (limit 1)")
+
+
+# ---------------------------------------------------------------------------
+# Phase "evaluate and depth": Depth-Anything behind the depth condition, the
+# evaluation towers and the parity runbook
+# ---------------------------------------------------------------------------
+
+# predicted_depth on the card against the CPU, relative to max|CPU|: float32
+# on both with TF32 off, so only the order of the sums differs
+DEPTH_REL_TOL = 1e-4
+# the min-max uint8 depth image against the CPU's: share of values that may
+# differ (a value at a rounding boundary flips)
+DEPTH_U8_SHARE = 0.01
+# CLIP image / text and DINO CLS features on the card against the CPU,
+# relative to max|CPU| (float32, TF32 off)
+FEATURE_REL_TOL = 1e-4
+# CLIP-I and DINO-I of identical pairs
+IDENTITY_TOL = 1e-5
+# Hugging Face module names of a pre-LN block's (ln1, q, k, v, o, ln2, fc1,
+# fc2), the order of `_hf_block`
+CLIP_BLOCK = ("layer_norm1", "self_attn.q_proj", "self_attn.k_proj",
+              "self_attn.v_proj", "self_attn.out_proj", "layer_norm2",
+              "mlp.fc1", "mlp.fc2")
+VIT_BLOCK = ("layernorm_before", "attention.attention.query",
+             "attention.attention.key", "attention.attention.value",
+             "attention.output.dense", "layernorm_after",
+             "intermediate.dense", "output.dense")
+DINOV2_BLOCK = ("norm1", "attention.attention.query", "attention.attention.key",
+                "attention.attention.value", "attention.output.dense", "norm2",
+                "mlp.fc1", "mlp.fc2")
+
+
+def _hf_linear(state, prefix, p):
+    state[f"{prefix}.weight"] = p["kernel"].T
+    if "bias" in p:
+        state[f"{prefix}.bias"] = p["bias"]
+
+
+def _hf_norm(state, prefix, p):
+    state[f"{prefix}.weight"], state[f"{prefix}.bias"] = p["weight"], p["bias"]
+
+
+def _hf_conv(state, prefix, p):
+    """An HWIO kernel as torch's OIHW."""
+    state[f"{prefix}.weight"] = p["kernel"].permute(3, 2, 0, 1)
+    if "bias" in p:
+        state[f"{prefix}.bias"] = p["bias"]
+
+
+def _hf_block(state, prefix, blk, names):
+    for ours, theirs in zip(("ln1", "q", "k", "v", "o", "ln2", "fc1", "fc2"),
+                            names):
+        put = _hf_norm if ours.startswith("ln") else _hf_linear
+        put(state, f"{prefix}.{theirs}", blk[ours])
+
+
+def _hf_stacked_blocks(state, prefix, blocks, names):
+    for i in range(blocks["ln1"]["weight"].shape[0]):
+        _hf_block(state, f"{prefix}.{i}", {
+            n: {k: v[i] for k, v in leaf.items()}
+            for n, leaf in blocks.items()}, names)
+
+
+def _hf_patch_conv(kernel, patch):
+    """The flattened (y, x, c)-patch linear [p*p*3, H] as the conv
+    [H, 3, p, p]."""
+    return kernel.reshape(patch, patch, 3, -1).permute(3, 2, 0, 1)
+
+
+def _save_hf(d, state, config, **extra):
+    """``model.safetensors`` + ``config.json`` (+ one JSON file per keyword,
+    its name with ``.json``) in ``d``; returns the weights' bytes."""
+    from safetensors.torch import save_file
+
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "model.safetensors")
+    save_file({k: v.detach().to("cpu").contiguous() for k, v in state.items()},
+              path, metadata={"format": "pt"})
+    for name, obj in (("config", config), *extra.items()):
+        with open(os.path.join(d, f"{name}.json"), "w") as f:
+            json.dump(obj, f, indent=1)
+    return os.path.getsize(path)
+
+
+def write_hf_clip(torch, d, text_cfg, vision_cfg, gen, device):
+    """A random CLIP checkpoint (the port's inits on ``device``) in
+    transformers' CLIPModel layout, with the byte-level vocabulary of
+    `write_clip_tokenizer` (the config's end token is its own).  Returns the
+    port's (text tree with its text_projection, vision tree)."""
+    from loongx_tpu_torch.models.text.clip import init_clip_params
+    from loongx_tpu_torch.models.text.clip_vision import init_clip_vision_params
+    from loongx_tpu_torch.ops.nn import init_linear
+
+    eos = write_clip_tokenizer(d)
+    kw = dict(generator=gen, dtype=torch.float32, device=device)
+    text = init_clip_params(text_cfg, **kw)
+    text["text_projection"] = init_linear(
+        text_cfg.hidden, vision_cfg.projection_dim, bias=False, **kw)
+    vision = init_clip_vision_params(vision_cfg, **kw)
+    state = {
+        "text_model.embeddings.token_embedding.weight": text["token_embed"],
+        "text_model.embeddings.position_embedding.weight": text["pos_embed"],
+        "vision_model.embeddings.class_embedding": vision["class_embed"],
+        "vision_model.embeddings.patch_embedding.weight": _hf_patch_conv(
+            vision["patch_embed"]["kernel"], vision_cfg.patch_size),
+        "vision_model.embeddings.position_embedding.weight":
+            vision["pos_embed"],
+        "logit_scale": torch.tensor(2.6592),
+    }
+    _hf_stacked_blocks(state, "text_model.encoder.layers", text["blocks"],
+                       CLIP_BLOCK)
+    _hf_norm(state, "text_model.final_layer_norm", text["final_ln"])
+    _hf_linear(state, "text_projection", text["text_projection"])
+    _hf_norm(state, "vision_model.pre_layrnorm", vision["pre_ln"])
+    _hf_stacked_blocks(state, "vision_model.encoder.layers", vision["blocks"],
+                       CLIP_BLOCK)
+    _hf_norm(state, "vision_model.post_layernorm", vision["post_ln"])
+    _hf_linear(state, "visual_projection", vision["projection"])
+    config = {
+        "architectures": ["CLIPModel"], "model_type": "clip",
+        "projection_dim": vision_cfg.projection_dim,
+        "logit_scale_init_value": 2.6592,
+        "text_config": {
+            "model_type": "clip_text_model",
+            "vocab_size": text_cfg.vocab_size, "hidden_size": text_cfg.hidden,
+            "intermediate_size": text_cfg.d_ff,
+            "num_hidden_layers": text_cfg.num_layers,
+            "num_attention_heads": text_cfg.num_heads,
+            "max_position_embeddings": text_cfg.max_positions,
+            "hidden_act": "quick_gelu",
+            "layer_norm_eps": text_cfg.layer_norm_eps,
+            "bos_token_id": eos - 1, "eos_token_id": eos, "pad_token_id": eos,
+            "projection_dim": vision_cfg.projection_dim},
+        "vision_config": {
+            "model_type": "clip_vision_model",
+            "hidden_size": vision_cfg.hidden,
+            "intermediate_size": vision_cfg.d_ff,
+            "num_hidden_layers": vision_cfg.num_layers,
+            "num_attention_heads": vision_cfg.num_heads,
+            "image_size": vision_cfg.image_size,
+            "patch_size": vision_cfg.patch_size, "num_channels": 3,
+            "hidden_act": "quick_gelu",
+            "layer_norm_eps": vision_cfg.layer_norm_eps,
+            "projection_dim": vision_cfg.projection_dim},
+    }
+    _save_hf(d, state, config)
+    return text, vision
+
+
+def write_hf_vit(torch, d, cfg, gen, device):
+    """A random DINO ViT (the port's init on ``device``) in transformers'
+    ViTModel layout with a ViTImageProcessor config.  Returns the tree."""
+    from loongx_tpu_torch.models.vision import (
+        IMAGENET_MEAN, IMAGENET_STD, init_vit_params,
+    )
+
+    params = init_vit_params(cfg, generator=gen, dtype=torch.float32,
+                             device=device)
+    patch = "embeddings.patch_embeddings.projection"
+    state = {
+        "embeddings.cls_token": params["cls_token"].reshape(1, 1, -1),
+        "embeddings.position_embeddings": params["pos_embed"][None],
+        f"{patch}.weight": _hf_patch_conv(params["patch_embed"]["kernel"],
+                                          cfg.patch_size),
+        f"{patch}.bias": params["patch_embed"]["bias"],
+    }
+    _hf_stacked_blocks(state, "encoder.layer", params["blocks"], VIT_BLOCK)
+    _hf_norm(state, "layernorm", params["final_ln"])
+    config = {
+        "architectures": ["ViTModel"], "model_type": "vit",
+        "hidden_size": cfg.hidden, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.d_ff,
+        "hidden_act": "gelu", "image_size": cfg.image_size,
+        "patch_size": cfg.patch_size, "num_channels": 3,
+        "layer_norm_eps": cfg.layer_norm_eps, "qkv_bias": True,
+    }
+    _save_hf(d, state, config, preprocessor_config={
+        "image_processor_type": "ViTImageProcessor", "do_resize": True,
+        "size": {"height": cfg.image_size, "width": cfg.image_size},
+        "resample": 2, "do_rescale": True, "rescale_factor": 1 / 255,
+        "do_normalize": True, "image_mean": list(IMAGENET_MEAN),
+        "image_std": list(IMAGENET_STD)})
+    return params
+
+
+def write_hf_depth(torch, d, cfg, gen, device):
+    """A random Depth-Anything (the port's init on ``device``) in
+    transformers' DepthAnythingForDepthEstimation layout, with the DPT
+    processor config of the published depth-anything-small-hf.  Returns
+    (tree, the weights' bytes)."""
+    from loongx_tpu_torch.models.depth import init_depth_anything_params
+    from loongx_tpu_torch.models.vision import IMAGENET_MEAN, IMAGENET_STD
+
+    params = init_depth_anything_params(cfg, generator=gen,
+                                        dtype=torch.float32, device=device)
+    emb = "backbone.embeddings"
+    state = {f"{emb}.cls_token": params["cls"],
+             f"{emb}.mask_token": torch.zeros(1, cfg.hidden_size,
+                                              device=device),
+             f"{emb}.position_embeddings": params["pos"]}
+    _hf_conv(state, f"{emb}.patch_embeddings.projection", params["patch"])
+    for i, blk in enumerate(params["blocks"]):
+        prefix = f"backbone.encoder.layer.{i}"
+        _hf_block(state, prefix, blk, DINOV2_BLOCK)
+        state[f"{prefix}.layer_scale1.lambda1"] = blk["ls1"]
+        state[f"{prefix}.layer_scale2.lambda1"] = blk["ls2"]
+    _hf_norm(state, "backbone.layernorm", params["ln"])
+    for i, (layer, factor) in enumerate(zip(params["reassemble"],
+                                            cfg.reassemble_factors)):
+        rp = f"neck.reassemble_stage.layers.{i}"
+        _hf_conv(state, f"{rp}.projection", layer["proj"])
+        if factor > 1:  # ConvTranspose2d: [in, out, kh, kw]
+            state[f"{rp}.resize.weight"] = layer["resize"]["kernel"].permute(
+                0, 3, 1, 2)
+            state[f"{rp}.resize.bias"] = layer["resize"]["bias"]
+        elif factor < 1:
+            _hf_conv(state, f"{rp}.resize", layer["resize"])
+        _hf_conv(state, f"neck.convs.{i}", params["convs"][i])
+        fp = f"neck.fusion_stage.layers.{i}"
+        fusion = params["fusion"][i]
+        _hf_conv(state, f"{fp}.projection", fusion["proj"])
+        for r in (1, 2):
+            for c in (1, 2):
+                _hf_conv(state, f"{fp}.residual_layer{r}.convolution{c}",
+                         fusion[f"res{r}"][f"conv{c}"])
+    for c in (1, 2, 3):
+        _hf_conv(state, f"head.conv{c}", params["head"][f"conv{c}"])
+    config = {
+        "architectures": ["DepthAnythingForDepthEstimation"],
+        "model_type": "depth_anything",
+        "backbone_config": {
+            "model_type": "dinov2", "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "mlp_ratio": cfg.mlp_ratio,
+            "patch_size": cfg.patch_size, "image_size": cfg.image_size,
+            "layer_norm_eps": cfg.layer_norm_eps, "layerscale_value": 1.0,
+            "hidden_act": "gelu", "qkv_bias": True, "use_swiglu_ffn": False,
+            "out_indices": list(cfg.out_indices),
+            "out_features": [f"stage{i}" for i in cfg.out_indices],
+            "apply_layernorm": True, "reshape_hidden_states": False},
+        "patch_size": cfg.patch_size,
+        "reassemble_hidden_size": cfg.hidden_size,
+        # integral factors as ints: transformers sizes the transposed convs
+        # with them
+        "reassemble_factors": [int(f) if f == int(f) else f
+                               for f in cfg.reassemble_factors],
+        "neck_hidden_sizes": list(cfg.neck_hidden_sizes),
+        "fusion_hidden_size": cfg.fusion_hidden_size,
+        "head_in_index": cfg.head_in_index,
+        "head_hidden_size": cfg.head_hidden_size,
+        "depth_estimation_type": cfg.depth_estimation_type,
+        "max_depth": cfg.max_depth,
+    }
+    size = cfg.image_size
+    written = _save_hf(d, state, config, preprocessor_config={
+        "image_processor_type": "DPTImageProcessor", "do_resize": True,
+        "size": {"height": size, "width": size}, "keep_aspect_ratio": True,
+        "ensure_multiple_of": cfg.patch_size, "resample": 3,
+        "do_rescale": True, "rescale_factor": 1 / 255, "do_normalize": True,
+        "image_mean": list(IMAGENET_MEAN), "image_std": list(IMAGENET_STD),
+        "do_pad": False})
+    return params, written
+
+
+def _rel_err(np, got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def depth_edit(torch, paths, device="cuda"):
+    """Random Depth-Anything-Small (``DepthAnythingConfig()``, the JAX
+    default ``LiheYoung/depth-anything-small-hf``) written as a Hugging Face
+    checkout, then ``cli.infer.main`` with ``--condition_type depth`` on
+    phase 4's first request (LOONGX_DEPTH_MODEL at the checkout,
+    LOONGX_W8A8=1, ``--int8``): the estimator must be the port's on the
+    card, its predicted depth within DEPTH_REL_TOL of the same estimator on
+    the CPU (the uint8 image within DEPTH_U8_SHARE), the edit finite and
+    512x512, every flash forward and GEMM on its Hopper route.  Prints the
+    estimator's ms per image and the edit's ms/step; returns the edit's
+    launches."""
+    import numpy as np
+    from PIL import Image
+    from loongx_tpu_torch.cli import infer
+    from loongx_tpu_torch.models import depth
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.sampling import generate
+
+    cfg = depth.DepthAnythingConfig()
+    ddir = os.path.join(paths["root"], "depth-anything-small")
+    t0 = time.perf_counter()
+    _, written = write_hf_depth(
+        torch, ddir, cfg, torch.Generator(device=device).manual_seed(21), device)
+    print(f"  Depth-Anything-Small (random, seed 21): {written} bytes written "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    with open(os.path.join(ddir, "config.json")) as f:
+        if depth.DepthAnythingConfig.from_hf_config(json.load(f)) != cfg:
+            raise Failure("the Depth-Anything config.json does not read back "
+                          "as DepthAnythingConfig()")
+
+    calls, denoise_s, finite, pipes = [], [], [], []
+    predict, load = depth.DepthAnythingEstimator.predict_depth, (
+        LoongXPipeline.from_pretrained)
+    denoise, decode = generate.denoise, generate.vae_decode
+
+    def timed_predict(self, image):
+        t0 = time.perf_counter()
+        out = predict(self, image)  # ends in a copy to the host
+        calls.append((self, image.copy(), out, time.perf_counter() - t0))
+        return out
+
+    def kept_load(path, **kw):
+        pipes.append(load(path, **kw))
+        return pipes[-1]
+
+    def timed_denoise(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise(*a, **k)
+        torch.cuda.synchronize()
+        denoise_s.append(time.perf_counter() - t0)
+        return out
+
+    def checked_decode(*a, **k):
+        out = decode(*a, **k)
+        finite.append(bool(torch.isfinite(out).all()))
+        return out
+
+    out_dir = os.path.join(paths["root"], "out_depth")
+    depth._ESTIMATOR_CACHE.clear()
+    try:
+        depth.DepthAnythingEstimator.predict_depth = timed_predict
+        LoongXPipeline.from_pretrained = staticmethod(kept_load)
+        generate.denoise, generate.vae_decode = timed_denoise, checked_decode
+        with _env(LOONGX_DEPTH_MODEL=ddir, LOONGX_W8A8="1"):
+            cuda_build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            infer.main(["--checkpoint", paths["ckpt"], "--single_image",
+                        paths["image"], "--prompt", "", "--brain_data_path",
+                        paths["pkl"], "--seed", "1", "--int8",
+                        "--condition_type", "depth", "--steps", str(STEPS),
+                        "--target_size", "512", "--device", device,
+                        "--output_dir", out_dir])
+            edit_s = time.perf_counter() - t0
+            counts = dict(cuda_build.LAUNCHES)
+    finally:
+        depth.DepthAnythingEstimator.predict_depth = predict
+        LoongXPipeline.from_pretrained = load
+        generate.denoise, generate.vae_decode = denoise, decode
+    blocks = pipes[0].flux_cfg.num_double_blocks + (
+        pipes[0].flux_cfg.num_single_blocks)
+    pipes.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ests = [v for k, v in depth._ESTIMATOR_CACHE.items() if k[0] == ddir]
+    if (len(ests) != 1 or type(ests[0]) is not depth.DepthAnythingEstimator
+            or ests[0].device.type != torch.device(device).type
+            or ests[0].params["patch"]["kernel"].device != ests[0].device
+            or len(calls) != 1 or calls[0][0] is not ests[0]):
+        raise Failure(f"the depth edit's estimator is not the port's on the "
+                      f"card: cached {[type(e).__name__ for e in ests]}, "
+                      f"{len(calls)} predict calls")
+    est, image, got, first_s = calls[0]
+    cpu = depth.DepthAnythingEstimator.from_pretrained(ddir, device="cpu")
+    want = cpu.predict_depth(image)
+    err = _rel_err(np, got, want)
+    t_est = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gpu_out = est(image)
+        t_est.append(time.perf_counter() - t0)
+    u8 = np.asarray(gpu_out["depth"]).astype(np.int32)
+    u8_cpu = np.asarray(cpu(image)["depth"]).astype(np.int32)
+    share = float((u8 != u8_cpu).mean())
+    print(f"  estimator: DepthAnythingEstimator on {est.device}, input "
+          f"{image.size[0]}x{image.size[1]}; predicted_depth {got.shape} "
+          f"(max {float(np.abs(want).max()):.4g}) vs the CPU: max rel err "
+          f"{err:.3g} (tol {DEPTH_REL_TOL}); uint8 image: {share:.5f} of "
+          f"values differ (max {int(np.abs(u8 - u8_cpu).max())}; limit "
+          f"{DEPTH_U8_SHARE}); {first_s * 1e3:.1f} ms the first image, "
+          f"{min(t_est) * 1e3:.1f}-{max(t_est) * 1e3:.1f} ms an image after",
+          flush=True)
+    if got.shape != (512, 512) or not np.isfinite(got).all():
+        raise Failure(f"predicted_depth of shape {got.shape}, finite "
+                      f"{bool(np.isfinite(got).all())}")
+    if not err <= DEPTH_REL_TOL or not share <= DEPTH_U8_SHARE:
+        raise Failure(f"the depth on the card differs from the CPU's: rel err "
+                      f"{err:.3g}, uint8 share {share:.5f}")
+
+    edit = np.asarray(Image.open(os.path.join(out_dir,
+                                              os.path.basename(paths["image"]))))
+    print(f"  depth edit: {edit_s:.2f} s end to end, "
+          f"{denoise_s[0] / STEPS * 1e3:.1f} ms/step x {STEPS}; output "
+          f"{edit.shape}, decodes finite {finite}", flush=True)
+    if edit.shape != (512, 512, 3) or not (finite and all(finite)):
+        raise Failure(f"depth edit: output {edit.shape}, finite {finite}")
+    _cli_launch_check(counts, blocks, "depth edit")
+    return counts
+
+
+def _stage_split(paths, root):
+    """A 2-row L-Mind test split (512x512 ``s<i>_0`` sources: phase 4's first
+    two CLI requests; random ``s<i>_1`` targets) with their signals; returns
+    (jsonl, image dir, brain pickle)."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    data = os.path.join(root, "lmind")
+    os.makedirs(os.path.join(data, "imgs"))
+    with open(paths["pkl"], "rb") as f:
+        brain = pickle.load(f)
+    rows, split_brain = [], {}
+    for i, src in enumerate(("req1.png", "req2.png")):
+        shutil.copy(os.path.join(paths["in_dir"], src),
+                    os.path.join(data, "imgs", f"s{i}_0.png"))
+        rng = np.random.default_rng(30 + i)
+        Image.fromarray((rng.random((512, 512, 3)) * 255).astype(np.uint8)
+                        ).save(os.path.join(data, "imgs", f"s{i}_1.png"))
+        split_brain[f"s{i}_0.png"] = brain[src]
+        rows.append({"source_image": f"imgs/s{i}_0.png",
+                     "target_image": f"imgs/s{i}_1.png",
+                     "instruction": f"make the sky a deep blue, take {i}"})
+    jsonl = os.path.join(data, "test.jsonl")
+    with open(jsonl, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    pkl = os.path.join(data, "brain.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(split_brain, f)
+    return jsonl, data, pkl
+
+
+def eval_parity(torch, paths, device="cuda"):
+    """Random CLIP ViT-B/32 (transformers' CLIPConfig() widths) and DINO
+    ViT-S/16 (``ViTConfig.dino_s16()``) written as Hugging Face checkouts,
+    CLIP converted by ``cli.convert --eval_clip``, then ``cli.parity.main``
+    over a staged 2-row split of 512x512 pairs (``--mode neural --int8
+    --batch_size 2``, LOONGX_W8A8=1; ``--jax_clip_path`` and
+    ``--jax_dino_path``): parity.json with finite CLIP-I and DINO-I, exit 1
+    exactly when the verdict is false; CLIP-I and DINO-I of identical pairs
+    1 within IDENTITY_TOL; CLIP image / text and DINO features on the card
+    within FEATURE_REL_TOL of the CPU's; the ms per batch of 16."""
+    import numpy as np
+    from loongx_tpu_torch.cli import convert, evaluate, parity
+    from loongx_tpu_torch.models.text.clip import CLIPTextConfig
+    from loongx_tpu_torch.models.text.clip_vision import (
+        CLIPVisionConfig, clip_preprocess, clip_vision_encode,
+    )
+    from loongx_tpu_torch.models.vision import ViTConfig, vit_encode, vit_preprocess
+
+    root = paths["root"]
+    gen = torch.Generator(device=device).manual_seed(22)
+    clip_dir, dino_dir = (os.path.join(root, n) for n in ("clip-vit-b32",
+                                                          "dino-vits16"))
+    text_cfg = CLIPTextConfig(hidden=512, num_layers=12, num_heads=8, d_ff=2048)
+    t0 = time.perf_counter()
+    _, vision = write_hf_clip(torch, clip_dir, text_cfg, CLIPVisionConfig.b32(),
+                              gen, device)
+    vit = write_hf_vit(torch, dino_dir, ViTConfig.dino_s16(), gen, device)
+    bundle = os.path.join(root, "eval_clip")
+    convert.main(["--eval_clip", clip_dir, "--out", bundle])
+    print(f"  CLIP ViT-B/32 and DINO ViT-S/16 (random, seed 22) written and "
+          f"CLIP converted in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    jsonl, data, pkl = _stage_split(paths, root)
+    out = os.path.join(root, "parity")
+    argv = ["--checkpoint", paths["ckpt"], "--test_jsonl", jsonl,
+            "--image_dir", data, "--brain_data", pkl, "--jax_clip_path", bundle,
+            "--jax_dino_path", dino_dir, "--out", out, "--mode", "neural",
+            "--int8", "--batch_size", "2", "--steps", str(STEPS),
+            "--device", device]
+    t0 = time.perf_counter()
+    with _env(LOONGX_W8A8="1"):
+        try:
+            parity.main(argv)
+            code = 0
+        except SystemExit as exc:
+            code = exc.code
+    parity_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(out, "parity.json")) as f:
+        written = json.load(f)
+    results, verdict = written["results"], written["verdict"]
+    print(f"  parity: exit {code} in {parity_s:.1f} s; results {results}; "
+          f"verdict {verdict}", flush=True)
+    if code not in (0, 1) or (code == 1) != (verdict["parity"] is False):
+        raise Failure(f"parity exited {code!r} with the verdict {verdict}")
+    if not all(np.isfinite(results.get(k, np.nan)) for k in ("clip_i",
+                                                             "dino_i")):
+        raise Failure(f"parity.json lacks finite clip_i / dino_i: {results}")
+
+    outputs = os.path.join(out, "outputs")
+    ident = os.path.join(root, "identical")
+    os.makedirs(ident)
+    gens = sorted(os.listdir(outputs))
+    for name in gens:
+        shutil.copy(os.path.join(outputs, name),
+                    os.path.join(ident, name.replace("_0.", "_1.")))
+    same = evaluate.main(["--gen_dir", outputs, "--gt_dir", ident,
+                          "--jax_clip_path", bundle, "--jax_dino_path",
+                          dino_dir, "--image_size", "512", "--device", device])
+    off = max(abs(same["clip_i"] - 1), abs(same["dino_i"] - 1))
+    print(f"  identical pairs: CLIP-I {same['clip_i']:.7f}, DINO-I "
+          f"{same['dino_i']:.7f} (tol {IDENTITY_TOL})", flush=True)
+    if not off <= IDENTITY_TOL:
+        raise Failure(f"identical pairs score {same['clip_i']}, "
+                      f"{same['dino_i']}")
+
+    images = [os.path.join(outputs, n) for n in gens] + [
+        os.path.join(data, "imgs", f"s{i}_1.png") for i in range(2)]
+    texts = ["make the sky a deep blue, take 0", "b"]
+    feats = {}
+    for dev in (device, "cpu"):
+        img_fn, txt_fn = evaluate.load_clip_backend(bundle, dev)
+        dino_fn = evaluate.load_dino_backend(dino_dir, dev)
+        feats[dev] = {"CLIP image": img_fn(images), "CLIP text": txt_fn(texts),
+                      "DINO CLS": dino_fn(images)}
+    errs = {k: _rel_err(np, feats[device][k], feats["cpu"][k])
+            for k in feats["cpu"]}
+    print(f"  features on the card vs the CPU, max rel err: "
+          f"{ {k: f'{v:.3g}' for k, v in errs.items()} } (tol "
+          f"{FEATURE_REL_TOL})", flush=True)
+    if not all(e <= FEATURE_REL_TOL for e in errs.values()):
+        raise Failure(f"features on the card differ from the CPU's: {errs}")
+
+    img_fn, txt_fn = evaluate.load_clip_backend(bundle, device)
+    dino_fn = evaluate.load_dino_backend(dino_dir, device)
+    batch = (images * 4)[:16]
+    host = {}
+    for name, fn, arg in (("CLIP image", img_fn, batch),
+                          ("CLIP text", txt_fn, texts * 8),
+                          ("DINO", dino_fn, batch)):
+        fn(arg)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(arg)
+        host[name] = (time.perf_counter() - t0) / 3 * 1e3
+    x = torch.rand(16, 512, 512, 3, device=device,
+                   generator=torch.Generator(device=device).manual_seed(23))
+    with torch.inference_mode():
+        dev = {"CLIP image": cuda_time_ms(lambda: clip_vision_encode(
+                   vision, CLIPVisionConfig.b32(), clip_preprocess(x, 224))),
+               "DINO": cuda_time_ms(lambda: vit_encode(
+                   vit, ViTConfig.dino_s16(), vit_preprocess(x, 224)))}
+    print(f"  ms per batch of 16: the backends (Pillow read and resize "
+          f"included) { {k: round(v, 2) for k, v in host.items()} }; the "
+          f"towers on the card from 512x512 (resize included, CUDA events) "
+          f"{ {k: round(v, 3) for k, v in dev.items()} }", flush=True)
 
 
 TRAIN_STEPS = 4
@@ -3093,13 +3672,23 @@ def write_char_tokenizers(root):
                    "unk_token": "<unk>", "pad_token": "<pad>", "extra_ids": 0,
                    "model_max_length": 512}, f)
 
+    write_clip_tokenizer(os.path.join(root, "clip_tokenizer"))
+
+
+def write_clip_tokenizer(clip_dir):
+    """A byte-level BPE vocabulary without merges (every byte alone and with
+    "</w>", then the start and end tokens) in ``clip_dir``, as
+    ``vocab.json`` + ``merges.txt`` and the ``tokenizers`` package's
+    ``tokenizer.json``: loadable by transformers' CLIPTokenizer.  Returns
+    the end token's id."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, processors
+
     chars = list(_bytes_to_unicode().values())
     clip_vocab = {c: i for i, c in enumerate(chars)}
     clip_vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
     bos, eos = "<|startoftext|>", "<|endoftext|>"
     clip_vocab[bos], clip_vocab[eos] = len(clip_vocab), len(clip_vocab) + 1
-    clip_dir = os.path.join(root, "clip_tokenizer")
-    os.makedirs(clip_dir)
+    os.makedirs(clip_dir, exist_ok=True)
     with open(os.path.join(clip_dir, "vocab.json"), "w") as f:
         json.dump(clip_vocab, f)
     with open(os.path.join(clip_dir, "merges.txt"), "w") as f:
@@ -3116,6 +3705,7 @@ def write_char_tokenizers(root):
         json.dump({"tokenizer_class": "CLIPTokenizer", "bos_token": bos,
                    "eos_token": eos, "unk_token": eos, "pad_token": eos,
                    "model_max_length": 77}, f)
+    return clip_vocab[eos]
 
 
 def train_cli_bundle(torch):
@@ -3684,16 +4274,19 @@ def kernel_table(records, launches):
                     if f"{counter}:{r}" in launches[path]}
         own_route = {"qmm_splitk": "splitk", "qmm_k64": "k64",
                      "s4d_chunk_scan": "chunked"}.get(name)
-        n_launches = (by_route.get(own_route, 0) if own_route
-                      else launches[path].get(counter, 0))
+
+        def count(counts):
+            return (counts.get(f"{counter}:{own_route}", 0) if own_route
+                    else counts.get(counter, 0))
+
         table.append({
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": replaces, "launches": n_launches,
+            "replaces": replaces, "launches": count(launches[path]),
             "launches_path": path,
-            # the same kernel's launches in the train CLI's first run
-            "launches_train_cli": (
-                launches["train CLI"].get(f"{counter}:{own_route}", 0)
-                if own_route else launches["train CLI"].get(counter, 0)),
+            # the same kernel's launches in the train CLI's first run and in
+            # the depth-conditioned CLI edit
+            "launches_train_cli": count(launches["train CLI"]),
+            "launches_depth_edit": count(launches["depth edit"]),
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -3773,15 +4366,20 @@ def main() -> int:
                         "serve fuse_ln+fuse_gate": options["fuse_ln+fuse_gate"]}
         with Phase("generate (text prompts, fuse mode)", card):
             serve_text(torch, pipe)
-        with Phase("infer CLI", card):
-            root = cli_workdir(pipe)
-            try:
+        root = None
+        try:
+            with Phase("infer CLI", card):
+                root = cli_workdir(pipe)
                 cli_inputs = write_cli_inputs(torch, pipe, req0, root)
                 pipe = kw = None  # free the serving bundle: the CLI loads it
                 gc.collect()
                 torch.cuda.empty_cache()
                 infer_cli(torch, cli_inputs, img0)
-            finally:
+            with Phase("evaluate and depth", card):
+                launches["depth edit"] = depth_edit(torch, cli_inputs)
+                eval_parity(torch, cli_inputs)
+        finally:
+            if root is not None:
                 shutil.rmtree(root, ignore_errors=True)
         with Phase("5 train", card):
             launches["train"], launches["train fuse_ln"] = train(torch)

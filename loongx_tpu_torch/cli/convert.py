@@ -5,6 +5,7 @@ Usage:
   python -m loongx_tpu_torch.cli.convert --flux <dir> --t5 <dir> \\
       --clip <dir> --vae <dir> --out checkpoints/flux-dev \\
       [--quantize [--serving]] [--init-encoders] [--schnell]
+  python -m loongx_tpu_torch.cli.convert --eval_clip <hf_clip_dir> --out <dir>
 
 Each input dir holds the published safetensors of that component (the
 ``transformer/``, ``text_encoder_2/``, ``text_encoder/``, ``vae/`` subdirs of
@@ -13,6 +14,12 @@ given.  The conversion runs on ``--device`` (the GPU by default, where the
 bf16 FLUX.1-dev tree fits; ``cpu`` otherwise); each source tensor is read
 from its file and moved there on its own.  The output is the format of
 `loongx_tpu_torch.utils.checkpoint`, not the JAX package's orbax one.
+
+``--eval_clip`` converts a whole HF CLIP checkpoint (text + vision towers
+and their projections) into the evaluation bundle ``eval_clip.pkl`` in the
+JAX package's own format (numpy leaves in its layout, ``kernel`` [in, out],
+the two config dicts) beside the copied tokenizer files: a bundle written by
+either package's converter is read by either package's evaluate CLI.
 """
 
 from __future__ import annotations
@@ -23,15 +30,96 @@ import shutil
 from loongx_tpu_torch.cli.infer import _tree_has_key
 
 
+def convert_eval_clip(hf_dir: str, out_dir: str):
+    """A full HF CLIP checkpoint (text + vision + projections) -> the
+    evaluation bundle ``out_dir/eval_clip.pkl`` (see cli/evaluate
+    --jax_clip_path) and the checkpoint's tokenizer files.  Runs on the
+    CPU: the bundle holds numpy arrays."""
+    import dataclasses
+    import json
+    import os
+    import pickle
+
+    import torch
+
+    from loongx_tpu_torch.models.text.clip import CLIPTextConfig
+    from loongx_tpu_torch.models.text.clip_vision import CLIPVisionConfig
+    from loongx_tpu_torch.utils.bridge import to_numpy_tree
+    from loongx_tpu_torch.utils.convert import (
+        _lin, convert_clip_state, convert_clip_vision_state,
+        load_safetensors_dir,
+    )
+
+    state = load_safetensors_dir(hf_dir)
+    state = {k.removeprefix("text_model_with_projection."): v
+             for k, v in state.items()}
+    # head counts are not derivable from the weights: read config.json when
+    # present (head_dim 64 is only a CLIP-L/B convention)
+    heads = {}
+    eos_id = None
+    cfg_json = os.path.join(hf_dir, "config.json")
+    if os.path.exists(cfg_json):
+        with open(cfg_json) as f:
+            hf_cfg = json.load(f)
+        for part in ("text_config", "vision_config"):
+            heads[part] = hf_cfg.get(part, {}).get("num_attention_heads")
+        eos_id = hf_cfg.get("text_config", {}).get("eos_token_id")
+    # the rest of the geometry from the weights
+    tok = state["text_model.embeddings.token_embedding.weight"]
+    hidden = tok.shape[1]
+    n_text = len({k.split(".")[3] for k in state
+                  if k.startswith("text_model.encoder.layers.")})
+    text_cfg = CLIPTextConfig(
+        vocab_size=tok.shape[0], hidden=hidden, num_layers=n_text,
+        num_heads=heads.get("text_config") or max(1, hidden // 64),
+        d_ff=state["text_model.encoder.layers.0.mlp.fc1.weight"].shape[0],
+        max_positions=state[
+            "text_model.embeddings.position_embedding.weight"].shape[0],
+        **({"eos_token_id": eos_id} if eos_id is not None else {}),
+    )
+    v_hidden = state["vision_model.embeddings.class_embedding"].numel()
+    n_vis = len({k.split(".")[3] for k in state
+                 if k.startswith("vision_model.encoder.layers.")})
+    patch = state["vision_model.embeddings.patch_embedding.weight"].shape[-1]
+    n_pos = state["vision_model.embeddings.position_embedding.weight"].shape[0]
+    vision_cfg = CLIPVisionConfig(
+        image_size=int(((n_pos - 1) ** 0.5) * patch), patch_size=patch,
+        hidden=v_hidden, num_layers=n_vis,
+        num_heads=heads.get("vision_config") or max(1, v_hidden // 64),
+        d_ff=state["vision_model.encoder.layers.0.mlp.fc1.weight"].shape[0],
+        projection_dim=state["visual_projection.weight"].shape[0],
+    )
+    kw = dict(dtype=torch.float32, device="cpu")
+    text_params = convert_clip_state(state, text_cfg, **kw)
+    text_params["text_projection"] = _lin(state, "text_projection",
+                                          bias=False, **kw)
+    vision_params = convert_clip_vision_state(state, vision_cfg, **kw)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "eval_clip.pkl"), "wb") as f:
+        pickle.dump({
+            "text_params": to_numpy_tree(text_params),
+            "text_cfg": dataclasses.asdict(text_cfg),
+            "vision_params": to_numpy_tree(vision_params),
+            "vision_cfg": dataclasses.asdict(vision_cfg),
+        }, f)
+    for name in ("vocab.json", "merges.txt", "tokenizer.json",
+                 "tokenizer_config.json", "special_tokens_map.json"):
+        src = os.path.join(hf_dir, name)
+        if os.path.exists(src):
+            shutil.copy(src, out_dir)
+    print(f"[convert] wrote {out_dir}/eval_clip.pkl")
+
+
 def main(argv=None):
     import sys
 
+    # standalone eval-CLIP mode: --eval_clip <hf_dir> --out <dir>
     argv_list = list(argv) if argv is not None else sys.argv[1:]
     if "--eval_clip" in argv_list:
-        raise SystemExit(
-            "[convert] --eval_clip (the evaluation CLIP bundle) is not ported "
-            "yet: it waits for the evaluation slice (ROADMAP.md Queue 1, "
-            "Evaluation)")
+        hf_dir = argv_list[argv_list.index("--eval_clip") + 1]
+        out = argv_list[argv_list.index("--out") + 1]
+        convert_eval_clip(hf_dir, out)
+        return
     parser = argparse.ArgumentParser(description="Convert HF weights")
     parser.add_argument("--flux", type=str, required=True)
     parser.add_argument("--t5", type=str, required=True)

@@ -106,7 +106,7 @@ def edit_one(pipeline, image_path: str, prompt: str,
 
     img = read_image(image_path, target_size)
     cond = Condition(condition_type=condition_type, raw_img=img,
-                     position_delta=position_delta)
+                     position_delta=position_delta, device=pipeline.device)
     brain = brain or {}
     use_brain = any(brain.get(k) is not None
                     for k in ("EEG", "FNIRS", "PPG", "Motion"))
@@ -286,7 +286,8 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
             with torch.inference_mode():
                 for fname in chunk:
                     img = read_image(os.path.join(args.input_dir, fname), size)
-                    cimg = synthesize_condition_image(args.condition_type, img)
+                    cimg = synthesize_condition_image(args.condition_type,
+                                                      img, device)
                     arr = _to_numpy_image(cimg)[None]
                     toks, h, w = pipeline.encode_image_tokens(
                         torch.as_tensor(arr, device=device), noise=cond_noise)

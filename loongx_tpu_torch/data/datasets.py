@@ -190,6 +190,7 @@ class ImageConditionDataset:
         position_scale: float = 1.0,
         seed: int = 0,
         depth_fn: Optional[Callable] = None,
+        device="cuda",
     ):
         self.base = base_dataset
         self.condition_size = condition_size
@@ -200,18 +201,21 @@ class ImageConditionDataset:
         self.position_scale = position_scale
         self.seed = seed
         self._depth_fn = depth_fn
+        self.device = device
 
     def __len__(self):
         return len(self.base)
 
     @property
     def depth_fn(self):
+        """The depth map of a PIL image: ``depth_fn`` when given, else the
+        Depth-Anything estimator (``models/depth.depth_estimator``) on
+        ``device``, the training device."""
         if self._depth_fn is None:
-            raise NotImplementedError(
-                f"condition type {self.condition_type!r} needs the depth "
-                "estimator (models/depth.py), which is not ported yet "
-                "(ROADMAP Queue 1 item 8): pass depth_fn, a function of a "
-                "PIL image returning its depth map as a PIL image")
+            from loongx_tpu_torch.models.depth import depth_estimator
+
+            est = depth_estimator(device=self.device)
+            self._depth_fn = lambda img: est(img)["depth"]
         return self._depth_fn
 
     def _canny(self, img):
@@ -356,10 +360,11 @@ class CartoonDataset:
         }
 
 
-def build_dataset(train_cfg) -> Any:
+def build_dataset(train_cfg, device="cuda") -> Any:
     """Dataset factory from a TrainConfig: dataset.type seed | subject |
     img | cartoon (the last three load Hugging Face datasets, imported
-    here only)."""
+    here only).  ``device`` is the training device, where the img type's
+    depth estimator runs."""
     ds_cfg = train_cfg.dataset
     typ = ds_cfg.type.lower()
     if typ == "seed":
@@ -412,6 +417,7 @@ def build_dataset(train_cfg) -> Any:
             drop_text_prob=ds_cfg.drop_text_prob,
             drop_image_prob=ds_cfg.drop_image_prob,
             position_scale=ds_cfg.position_scale,
+            device=device,
         )
     if typ == "cartoon":
         base = load_dataset(ds_cfg.path)["train"]

@@ -43,30 +43,36 @@ class CLIPTextConfig:
                               eos_token_id=127)
 
 
+def _init_block(cfg, *, generator=None, dtype=torch.float32,
+                device="cuda") -> Params:
+    """One pre-LN block (q/k/v/o, fc1/fc2, two layer norms) of width
+    ``cfg.hidden``; the CLIP vision tower's blocks share the layout."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    h = cfg.hidden
+    return {
+        "ln1": init_layer_norm(h, dtype=dtype, device=device),
+        "q": init_linear(h, h, **kw),
+        "k": init_linear(h, h, **kw),
+        "v": init_linear(h, h, **kw),
+        "o": init_linear(h, h, **kw),
+        "ln2": init_layer_norm(h, dtype=dtype, device=device),
+        "fc1": init_linear(h, cfg.d_ff, **kw),
+        "fc2": init_linear(cfg.d_ff, h, **kw),
+    }
+
+
 def init_clip_params(cfg: CLIPTextConfig, *, generator=None,
                      dtype=torch.bfloat16, device="cuda") -> Params:
     """Random params in the JAX package's layout and distributions."""
     kw = dict(generator=generator, dtype=dtype, device=device)
     h = cfg.hidden
-
-    def block():
-        return {
-            "ln1": init_layer_norm(h, dtype=dtype, device=device),
-            "q": init_linear(h, h, **kw),
-            "k": init_linear(h, h, **kw),
-            "v": init_linear(h, h, **kw),
-            "o": init_linear(h, h, **kw),
-            "ln2": init_layer_norm(h, dtype=dtype, device=device),
-            "fc1": init_linear(h, cfg.d_ff, **kw),
-            "fc2": init_linear(cfg.d_ff, h, **kw),
-        }
-
     tok = normal((cfg.vocab_size, h), generator=generator, device=device)
     pos = normal((cfg.max_positions, h), generator=generator, device=device)
     return {
         "token_embed": (tok * 0.02).to(dtype),
         "pos_embed": (pos * 0.01).to(dtype),
-        "blocks": stack_trees([block() for _ in range(cfg.num_layers)]),
+        "blocks": stack_trees([_init_block(cfg, **kw)
+                               for _ in range(cfg.num_layers)]),
         "final_ln": init_layer_norm(h, dtype=dtype, device=device),
     }
 

@@ -3,7 +3,8 @@ the SEED biosignal edit (counterpart of ``loongx_tpu/sampling/condition.py``).
 
 A condition type maps to an integer type id; the condition image is
 synthesised on the host (canny, grayscale, blur, resample; PIL and cv2 are
-imported inside `synthesize_condition_image`, as in JAX) and encoded by the
+imported inside `synthesize_condition_image`, as in JAX) or by the
+Depth-Anything estimator on a device, and encoded by the
 pipeline's VAE into latent tokens with RoPE ids shifted by position_delta /
 position_scale.
 """
@@ -50,10 +51,12 @@ def _to_numpy_image(img) -> np.ndarray:
     return img.astype(np.float32)
 
 
-def synthesize_condition_image(condition_type: str, raw_img) -> Any:
-    """The condition image synthesised on the host from a raw PIL image.
-    Depth conditions need the Depth-Anything estimator, which this package
-    does not have yet: they raise NotImplementedError."""
+def synthesize_condition_image(condition_type: str, raw_img,
+                               device="cuda") -> Any:
+    """The condition image synthesised from a raw PIL image: on the host,
+    but for depth / depth_pred, whose Depth-Anything estimator
+    (``models/depth.depth_estimator``: the local checkout at
+    $LOONGX_DEPTH_MODEL, else the HF pipeline) runs on ``device``."""
     from PIL import Image, ImageFilter
 
     if condition_type == "canny":
@@ -71,18 +74,34 @@ def synthesize_condition_image(condition_type: str, raw_img) -> Any:
     if condition_type in ("subject", "fill", "cartoon"):
         return raw_img.convert("RGB")
     if condition_type in ("depth", "depth_pred"):
-        raise NotImplementedError(
-            f"condition type {condition_type!r} needs the depth estimator "
-            "(models/depth.py), which is not ported yet: pass a precomputed "
-            "depth image as `condition`")
+        import os
+
+        from loongx_tpu_torch.models.depth import depth_estimator
+
+        try:
+            est = depth_estimator(device=device)
+        except Exception as exc:  # no weights in zero-egress envs
+            hint = (
+                "failed to load the depth-estimation model from "
+                f"$LOONGX_DEPTH_MODEL={os.environ['LOONGX_DEPTH_MODEL']!r} "
+                "(unsupported variant or malformed checkpoint? see chained "
+                "cause)"
+                if os.environ.get("LOONGX_DEPTH_MODEL")
+                else "depth condition requires a local depth-estimation "
+                "model (point $LOONGX_DEPTH_MODEL at an HF checkout of "
+                "depth-anything)"
+            )
+            raise RuntimeError(hint) from exc
+        return est(raw_img.convert("RGB"))["depth"].convert("RGB")
     return raw_img
 
 
 @dataclasses.dataclass
 class Condition:
     """One condition of a generation call: ``raw_img`` (the condition image
-    is synthesised from it) or ``condition`` (a precomputed condition image
-    or array); biosignals ride along as raw arrays."""
+    is synthesised from it, a depth estimate on ``device``) or
+    ``condition`` (a precomputed condition image or array); biosignals ride
+    along as raw arrays."""
 
     condition_type: str
     raw_img: Any = None
@@ -93,6 +112,7 @@ class Condition:
     fnirs: Optional[np.ndarray] = None
     ppg: Optional[np.ndarray] = None
     motion: Optional[np.ndarray] = None
+    device: Any = "cuda"
 
     def __post_init__(self):
         if self.condition_type not in CONDITION_TYPE_IDS:
@@ -100,8 +120,8 @@ class Condition:
                 f"unknown condition type {self.condition_type!r}; "
                 f"known: {sorted(CONDITION_TYPE_IDS)}")
         if self.condition is None and self.raw_img is not None:
-            self.condition = synthesize_condition_image(self.condition_type,
-                                                        self.raw_img)
+            self.condition = synthesize_condition_image(
+                self.condition_type, self.raw_img, self.device)
 
     @property
     def type_id(self) -> int:

@@ -125,7 +125,7 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
     run_name = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
 
     if dataset is None:
-        dataset = build_dataset(tcfg)
+        dataset = build_dataset(tcfg, device=device)
 
     # staged text: encode every prompt the dataset can emit with only T5 /
     # CLIP resident, free them, then load the DiT (build_text_cache)

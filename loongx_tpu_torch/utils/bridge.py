@@ -7,8 +7,10 @@ as it is: stacked ``[NB, ...]`` block trees, ``kernel`` ``[in, out]`` or
 ``kernel_q`` int8 / ``kernel_scale`` ``[..., 1, out]``, ``bias``, the LoRA
 leaves, the fused ``to_qkv`` / ``add_qkv_proj`` and split ``proj_out`` /
 ``proj_out_mlp`` serving forms, HWIO conv kernels, the S4D parameters and
-the T5 / CLIP text encoders (float or int8 block stacks, embeddings).
-A leaf name it does not know raises instead of being dropped.
+the T5 / CLIP text encoders (float or int8 block stacks, embeddings), the
+CLIP vision and DINO ViT towers and Depth-Anything (its per-block list,
+layer scales and DPT neck).  A leaf name it does not know raises instead of
+being dropped; a leaf that is already a tensor is moved to ``device``.
 """
 
 from __future__ import annotations
@@ -29,10 +31,18 @@ KNOWN_LEAVES = frozenset({
     # text encoders: T5 token embedding and relative-position bias, CLIP
     # token and position embeddings
     "embed", "rel_pos_bias", "token_embed", "pos_embed",
+    # evaluation towers: the CLIP vision class embedding, the DINO ViT's
+    # CLS token
+    "class_embed", "cls_token",
+    # Depth-Anything: the DINOv2 CLS token and position table, the layer
+    # scales of each block
+    "cls", "pos", "ls1", "ls2",
 })
 
 
 def _to_tensor(x: Any, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from a JAX array
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)

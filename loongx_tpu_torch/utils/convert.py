@@ -1,7 +1,8 @@
 """Checkpoint conversion (counterpart of ``loongx_tpu/utils/convert.py``):
 the published Hugging Face / diffusers safetensors -> this package's param
 trees, for the models the port has: the FLUX transformer, reference-trained
-LoRA files, the VAE (AutoencoderKL), T5 and the CLIP text encoder.
+LoRA files, the VAE (AutoencoderKL), T5, the CLIP text encoder, the
+evaluation towers (CLIP vision, the DINO ViT) and Depth-Anything.
 
 Torch linears are [out, in] -> transposed to [in, out]; convs [O, I, kh, kw]
 -> HWIO; per-block tensors are stacked onto a leading block axis.  Every
@@ -10,9 +11,8 @@ with any loader (`load_safetensors_dir`, ``torch.load``, synthetic dicts in
 tests), and builds its tree on ``device``, moving one source tensor at a
 time there before it is transposed or cast.
 
-The converters of the models not ported yet (ViT / DINO, CLIP vision,
-Whisper, Marian, Depth-Anything) wait for the slices that port them
-(ROADMAP Queue 1).
+The converters of the models not ported yet (Whisper, Marian) wait for
+the slice that ports them (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -427,6 +427,169 @@ def convert_clip_state(state: Dict[str, Any], cfg, dtype=torch.bfloat16,
             state["text_model.embeddings.position_embedding.weight"], **kw),
         "blocks": _stack((block(i) for i in range(n)), n),
         "final_ln": _gn(state, "text_model.final_layer_norm", **kw),
+    }
+
+
+def convert_clip_vision_state(state: Dict[str, Any], cfg, dtype=torch.float32,
+                              device="cuda"):
+    """HF CLIPVisionModel (+ visual_projection) state dict -> clip_vision
+    param tree.  The patch conv [out, 3, p, p] becomes a flattened-patch
+    linear with (y, x, c)-major rows (see models/text/clip_vision._patches).
+    """
+    kw = dict(dtype=dtype, device=device)
+
+    def block(i):
+        p = f"vision_model.encoder.layers.{i}"
+        return {
+            "ln1": _gn(state, f"{p}.layer_norm1", **kw),
+            "q": _lin(state, f"{p}.self_attn.q_proj", **kw),
+            "k": _lin(state, f"{p}.self_attn.k_proj", **kw),
+            "v": _lin(state, f"{p}.self_attn.v_proj", **kw),
+            "o": _lin(state, f"{p}.self_attn.out_proj", **kw),
+            "ln2": _gn(state, f"{p}.layer_norm2", **kw),
+            "fc1": _lin(state, f"{p}.mlp.fc1", **kw),
+            "fc2": _lin(state, f"{p}.mlp.fc2", **kw),
+        }
+
+    n = cfg.num_layers
+    return {
+        "patch_embed": {"kernel": _patch_kernel(
+            state["vision_model.embeddings.patch_embedding.weight"], **kw)},
+        "class_embed": _put(state["vision_model.embeddings.class_embedding"],
+                            dtype, device, lambda t: t.reshape(-1)),
+        "pos_embed": _put(
+            state["vision_model.embeddings.position_embedding.weight"], **kw),
+        "pre_ln": _gn(state, "vision_model.pre_layrnorm", **kw),
+        "blocks": _stack((block(i) for i in range(n)), n),
+        "post_ln": _gn(state, "vision_model.post_layernorm", **kw),
+        "projection": _lin(state, "visual_projection", bias=False, **kw),
+    }
+
+
+def _patch_kernel(w, dtype, device):
+    """A patch conv [out, C, p, p] as the linear [p*p*C, out] over
+    (y, x, c)-ordered patches."""
+    return _put(w, dtype, device,
+                lambda t: t.permute(2, 3, 1, 0).reshape(-1, t.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# DINO / generic ViT (HF ViTModel layout, e.g. facebook/dino-vits16)
+# ---------------------------------------------------------------------------
+
+
+def convert_vit_state(state: Dict[str, Any], cfg, dtype=torch.float32,
+                      device="cuda"):
+    """HF ViTModel state dict (keys with or without the "vit." prefix) ->
+    models/vision param tree, the DINO-I feature extractor."""
+    kw = dict(dtype=dtype, device=device)
+    state = {k.removeprefix("vit."): v for k, v in state.items()}
+
+    def block(i):
+        p = f"encoder.layer.{i}"
+        return {
+            "ln1": _gn(state, f"{p}.layernorm_before", **kw),
+            "q": _lin(state, f"{p}.attention.attention.query", **kw),
+            "k": _lin(state, f"{p}.attention.attention.key", **kw),
+            "v": _lin(state, f"{p}.attention.attention.value", **kw),
+            "o": _lin(state, f"{p}.attention.output.dense", **kw),
+            "ln2": _gn(state, f"{p}.layernorm_after", **kw),
+            "fc1": _lin(state, f"{p}.intermediate.dense", **kw),
+            "fc2": _lin(state, f"{p}.output.dense", **kw),
+        }
+
+    patch = "embeddings.patch_embeddings.projection"
+    hidden = _tensor(state[f"{patch}.weight"]).shape[0]
+    n = cfg.num_layers
+    return {
+        "patch_embed": {
+            "kernel": _patch_kernel(state[f"{patch}.weight"], **kw),
+            "bias": _put(state[f"{patch}.bias"], **kw),
+        },
+        "cls_token": _put(state["embeddings.cls_token"], dtype, device,
+                          lambda t: t.reshape(-1)),
+        "pos_embed": _put(state["embeddings.position_embeddings"], dtype,
+                          device, lambda t: t.reshape(-1, hidden)),
+        "blocks": _stack((block(i) for i in range(n)), n),
+        "final_ln": _gn(state, "layernorm", **kw),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Depth Anything (DINOv2 backbone + DPT neck and head)
+# ---------------------------------------------------------------------------
+
+
+def convert_depth_anything_state(state: Dict[str, Any], cfg,
+                                 dtype=torch.float32, device="cuda"):
+    """HF DepthAnythingForDepthEstimation state dict -> models/depth.py tree.
+
+    Key layout per transformers' modeling_depth_anything / modeling_dinov2:
+    ``backbone.embeddings.*``, ``backbone.encoder.layer.{i}.*`` (separate
+    q/k/v linears, layer-scale lambdas), ``backbone.layernorm``,
+    ``neck.reassemble_stage.layers.{i}.{projection,resize}``,
+    ``neck.convs.{i}``, ``neck.fusion_stage.layers.{i}.*``,
+    ``head.conv{1,2,3}``.  Convs go OIHW -> HWIO; the reassemble transposed
+    convs go [in, out, kh, kw] -> [in, kh, kw, out]."""
+    kw = dict(dtype=dtype, device=device)
+
+    def conv(prefix, bias=True):
+        p = {"kernel": _put(state[f"{prefix}.weight"], dtype, device,
+                            lambda t: t.permute(2, 3, 1, 0))}
+        if bias:
+            p["bias"] = _put(state[f"{prefix}.bias"], **kw)
+        return p
+
+    def block(i):
+        p = f"backbone.encoder.layer.{i}"
+        a = f"{p}.attention"
+        return {
+            "ln1": _gn(state, f"{p}.norm1", **kw),
+            "q": _lin(state, f"{a}.attention.query", **kw),
+            "k": _lin(state, f"{a}.attention.key", **kw),
+            "v": _lin(state, f"{a}.attention.value", **kw),
+            "o": _lin(state, f"{a}.output.dense", **kw),
+            "ls1": _put(state[f"{p}.layer_scale1.lambda1"], **kw),
+            "ln2": _gn(state, f"{p}.norm2", **kw),
+            "fc1": _lin(state, f"{p}.mlp.fc1", **kw),
+            "fc2": _lin(state, f"{p}.mlp.fc2", **kw),
+            "ls2": _put(state[f"{p}.layer_scale2.lambda1"], **kw),
+        }
+
+    def res_unit(prefix):
+        return {"conv1": conv(f"{prefix}.convolution1"),
+                "conv2": conv(f"{prefix}.convolution2")}
+
+    reassemble, convs, fusion = [], [], []
+    for i, factor in enumerate(cfg.reassemble_factors):
+        rp = f"neck.reassemble_stage.layers.{i}"
+        layer = {"proj": conv(f"{rp}.projection")}
+        if factor > 1:
+            layer["resize"] = {
+                "kernel": _put(state[f"{rp}.resize.weight"], dtype, device,
+                               lambda t: t.permute(0, 2, 3, 1)),
+                "bias": _put(state[f"{rp}.resize.bias"], **kw),
+            }
+        elif factor < 1:
+            layer["resize"] = conv(f"{rp}.resize")
+        reassemble.append(layer)
+        convs.append(conv(f"neck.convs.{i}", bias=False))
+        fp = f"neck.fusion_stage.layers.{i}"
+        fusion.append({"proj": conv(f"{fp}.projection"),
+                       "res1": res_unit(f"{fp}.residual_layer1"),
+                       "res2": res_unit(f"{fp}.residual_layer2")})
+
+    return {
+        "cls": _put(state["backbone.embeddings.cls_token"], **kw),
+        "pos": _put(state["backbone.embeddings.position_embeddings"], **kw),
+        "patch": conv("backbone.embeddings.patch_embeddings.projection"),
+        "blocks": [block(i) for i in range(cfg.num_layers)],
+        "ln": _gn(state, "backbone.layernorm", **kw),
+        "reassemble": reassemble,
+        "convs": convs,
+        "fusion": fusion,
+        "head": {"conv1": conv("head.conv1"), "conv2": conv("head.conv2"),
+                 "conv3": conv("head.conv3")},
     }
 
 

@@ -243,9 +243,27 @@ def test_image_condition_dataset_equals_jax(ct):
         _assert_samples_equal(got[i], want[i])
 
 
-def test_depth_condition_without_estimator_names_the_roadmap():
-    ds = tdatasets.ImageConditionDataset(_ImgBase(), condition_type="depth")
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_depth_condition_without_estimator_names_the_roadmap(monkeypatch):
+    """No depth_fn and no local Depth-Anything checkout: the estimator's
+    load fails (the Hugging Face pipeline fallback, replaced by one that
+    fails as it does offline) and the row raises its error, as JAX's does.
+    The estimator itself is tests/test_torch_depth.py's."""
+    import socket
+
+    from loongx_tpu_torch.models import depth as tdepth
+
+    def offline(*a, **k):
+        raise OSError("no network")
+
+    monkeypatch.setattr(tdepth, "_hf_depth_pipeline", offline)
+    # nothing here may leave the machine
+    monkeypatch.setattr(socket, "getaddrinfo", offline)
+    monkeypatch.setattr(socket.socket, "connect", offline)
+    monkeypatch.delenv("LOONGX_DEPTH_MODEL", raising=False)
+    tdepth._ESTIMATOR_CACHE.clear()
+    ds = tdatasets.ImageConditionDataset(_ImgBase(), condition_type="depth",
+                                         device="cpu")
+    with pytest.raises(OSError, match="no network"):
         ds[0]
     with pytest.raises(ValueError, match="not implemented"):
         tdatasets.ImageConditionDataset(_ImgBase(), condition_type="warp")[0]

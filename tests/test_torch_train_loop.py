@@ -482,9 +482,9 @@ def test_cli_train_end_to_end(corpus, tiny_tree, tmp_path, monkeypatch):
     raw["train"]["dataset"]["type"] = "img"
     yml.write_text(yaml.safe_dump(raw))
     build = tloop.build_dataset
-    monkeypatch.setattr(tloop, "build_dataset", lambda tcfg: build(
+    monkeypatch.setattr(tloop, "build_dataset", lambda tcfg, **kw: build(
         dataclasses.replace(tcfg, dataset=dataclasses.replace(
-            tcfg.dataset, type="seed"))))
+            tcfg.dataset, type="seed")), **kw))
     summary = tcli.main(argv + ["--max_steps", "2", "--no_resume"])
     assert summary["steps"] == 2 and np.isfinite(summary["final_loss"])
     (run,) = os.listdir(tmp_path / "runs")
