@@ -84,7 +84,29 @@ Phases (each prints one line with the card, its power limit and seconds):
      ``generate()`` serves two text-prompt edits in fuse mode (infer wiring,
      a Condition with the source image and all four signals, a character
      tokenizer): stage times, ms/step, edits/s, stacked-kernel launches per
-     prompt, CLIP ms, then ``free_text_encoders()`` and the bytes it frees;
+     prompt, CLIP ms;
+  speech and demos: on that bundle, random Whisper-large and opus-mt-zh-en
+     written as Hugging Face checkouts to a directory in the checkout
+     (removed at the end; a synthesized byte-level BPE vocabulary with
+     whisper-large's specials at their ids, read by transformers'
+     WhisperTokenizer; Marian through `MarianTokShim`), every tensor of
+     both on the card; Whisper's encoder and cross K/V ms (CUDA events),
+     prefill ms and ms per generated token of the KV-cached decoder (host
+     clock), its logit rows against one teacher-forced pass over its own
+     buffer (DECODER_REL_TOL), the float32 encoder at full width and 2 + 2
+     layers against the CPU's (WHISPER_ENC_REL_TOL), peak memory; then
+     ``cli.speech_demo.main`` with LOONGX_W8A8=1 on a 5 s WAV and a
+     512x512 PNG (28 steps, no ``--prompt``, no brain data), its
+     transcriber ``speech_demo.transcribe`` on the two local checkouts (the
+     ``whisper`` package unimportable): the transcript printed with its
+     transcribe and translate ms and Marian's tokens, the PNG equal bit for
+     bit to ``edit_one`` called directly, every flash forward and GEMM on
+     wgmma, split-K or K 64 and none on mma.sync, T5-XXL's stacked launches
+     a prompt; then the web demo's server in a thread (/health, /, /edit
+     with a 640x480 PNG equal
+     bit for bit to ``process_image_and_text`` called directly at 8 steps,
+     the same launch rules, 400 on a malformed body; elapsed_s and ms/step);
+     then ``free_text_encoders()`` and the bytes it frees;
   infer CLI: the serving bundle is written with ``save_pipeline`` to a
      directory in the checkout (disk checked first; seconds and bytes
      printed, with the host's peak resident memory before and after) and
@@ -160,10 +182,11 @@ Before the last line come the kernel table as JSON ({"kernels": [...]},
 launch counts from phase 4 for the forward kernels -- the S4D, int8
 attention and fused-elementwise kernels from the phase-4 request that
 selects them -- and from phase 5 for the backward ones; each kernel's
-launches in the train CLI's first run and in the depth-conditioned CLI edit
-beside them, as ``launches_train_cli`` and ``launches_depth_edit``) and the
-card's name and power limit.  The last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero with no result
+launches in the train CLI's first run, in the depth-conditioned CLI edit,
+in the speech demo's edit and in the web demo's edit beside them, as
+``launches_train_cli``, ``launches_depth_edit``, ``launches_speech_edit``
+and ``launches_web_demo``) and the card's name and power limit.  The last
+line is {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
 
@@ -1865,7 +1888,7 @@ def device_profile(torch, run):
             - min(e.time_range.start for e in events))
     top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
     return dict(busy_ms=busy / 1e3, span_ms=span / 1e3,
-                idle_share=1.0 - busy / span,
+                idle_share=1.0 - busy / span, kernels=len(events),
                 by_group_ms={k: v / 1e3 for k, v in groups.items()},
                 top_other_ms={k[:80]: v / 1e3 for k, v in top})
 
@@ -2481,7 +2504,8 @@ class CharTokenizer:
 def serve_text(torch, pipe):
     """generate() with text prompts in fuse mode: random int8 T5-XXL and
     CLIP-L join the serving bundle, two requests at 512x512 and 28 steps
-    (W8A8), then the text encoders are freed."""
+    (W8A8).  The encoders stay for phase "speech and demos"; returns their
+    bytes."""
     import numpy as np
     from loongx_tpu_torch.models import pipeline as pipeline_mod
     from loongx_tpu_torch.ops import cuda_build
@@ -2569,6 +2593,12 @@ def serve_text(torch, pipe):
     if stacked != [expected] * 2 or on_wgmma != stacked:
         raise Failure(f"stacked-kernel launches per prompt {stacked} ({on_wgmma} "
                       f"on wgmma), not {expected}")
+    return text_bytes
+
+
+def free_text_encoders(torch, pipe, text_bytes):
+    """``free_text_encoders()`` after the text-prompt phases: the bytes it
+    frees, at least 0.9 of what the encoders took."""
     torch.cuda.synchronize()
     mem1 = torch.cuda.memory_allocated()
     pipe.free_text_encoders()
@@ -2579,6 +2609,701 @@ def serve_text(torch, pipe):
           f"took {text_bytes / 1e9:.3f} GB)", flush=True)
     if "t5" in pipe.params or freed < 0.9 * text_bytes:
         raise Failure(f"free_text_encoders freed {freed} of {text_bytes} bytes")
+
+
+# ---------------------------------------------------------------------------
+# Phase "speech and demos": audio -> Whisper -> Marian -> the edit, and the
+# web demo, on the generate phase's bundle
+# ---------------------------------------------------------------------------
+
+# whisper-large's special tokens at their ids (50259-50357 are the
+# languages, 50364 on the 1501 timestamps <|0.00|> .. <|30.00|>)
+WHISPER_SPECIALS = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258,
+                    "<|en|>": 50259, "<|zh|>": 50260, "<|translate|>": 50358,
+                    "<|transcribe|>": 50359, "<|startoflm|>": 50360,
+                    "<|startofprev|>": 50361, "<|nocaptions|>": 50362,
+                    "<|notimestamps|>": 50363}
+WHISPER_TIMESTAMPS = 50364
+# generation_config.json's lists in the published layout: the task and
+# prompt specials and a few punctuation ids everywhere, " " and eos at the
+# first generated position
+WHISPER_SUPPRESS = [1, 2, 7, 8, 9, 10, 14, 25, 26, 27, 28, 29, 31, 58, 59,
+                    60, 61, 62, 63, 90, 91, 92, 93, 50258, 50358, 50359,
+                    50360, 50361, 50362]
+WHISPER_BEGIN_SUPPRESS = [220, 50257]
+SPEECH_SECONDS, SPEECH_RATE = 5.0, 16000
+# the cached decoder's logit rows against one teacher-forced pass over its
+# own buffer, relative to the largest |logit|: bf16 activations, products
+# of other shapes (one row against the whole buffer) summed in another
+# order, so a bf16 rounding may flip and carry through the 32 layers; a
+# wrong cache position or mask moves them by the logits' own size
+DECODER_REL_TOL = 5e-2
+# the encoder on the card against the CPU, float32 both with TF32 off
+WHISPER_ENC_REL_TOL = 1e-4
+WEB_STEPS = 8  # the web demo's default
+# the two checkouts (3.1 GB + 0.15 GB) and the demo's files, with room
+SPEECH_DISK = 6 << 30
+
+
+def write_whisper_tokenizer(d):
+    """A byte-level BPE vocabulary covering every id below 51865 (the 256
+    bytes, then two-byte pieces up to 50256, then whisper-large's specials
+    and timestamps at their ids) with no merges, as ``vocab.json`` +
+    ``merges.txt``, the ``tokenizers`` package's ``tokenizer.json`` and a
+    ``tokenizer_config.json``: loadable by transformers' WhisperTokenizer
+    (the repository holds no real vocabulary)."""
+    from tokenizers import AddedToken, Tokenizer, decoders, models, pre_tokenizers
+
+    chars = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    n_plain = WHISPER_SPECIALS["<|endoftext|>"]
+    for i in range(len(chars), n_plain):
+        k = i - len(chars)
+        vocab[chars[k // len(chars)] + chars[k % len(chars)]] = i
+    specials = dict(WHISPER_SPECIALS)
+    for i in range(50261, 50358):
+        specials[f"<|lang{i}|>"] = i
+    for k in range(51865 - WHISPER_TIMESTAMPS):
+        specials[f"<|{k * 0.02:.2f}|>"] = WHISPER_TIMESTAMPS + k
+    vocab.update(specials)
+    if sorted(vocab.values()) != list(range(51865)):
+        raise Failure("the synthesized Whisper vocabulary does not cover "
+                      "ids 0-51864 once each")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    tok = Tokenizer(models.BPE(vocab, []))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.add_special_tokens([AddedToken(s, special=True)
+                            for s in sorted(specials, key=specials.get)])
+    tok.save(os.path.join(d, "tokenizer.json"))
+    eos = "<|endoftext|>"
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "WhisperTokenizer", "bos_token": eos,
+                   "eos_token": eos, "unk_token": eos, "pad_token": eos,
+                   "errors": "replace", "model_max_length": 1024}, f)
+
+
+def _hf_attn(state, prefix, a):
+    """q / k / v / o linears as BART-style ``{q,k,v,out}_proj``."""
+    for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                         ("o", "out_proj")):
+        _hf_linear(state, f"{prefix}.{theirs}", a[ours])
+
+
+def write_hf_whisper(torch, d, cfg, gen, device):
+    """A random Whisper (the port's init on ``device``, bf16) as a Hugging
+    Face WhisperForConditionalGeneration checkout: ``model.safetensors``
+    under its names (the inverse of ``convert_whisper_state``: conv kernels
+    HIO -> [out, in, w]), ``config.json``, ``generation_config.json`` with
+    the suppress lists, and the tokenizer of `write_whisper_tokenizer`.
+    Returns the weights' bytes."""
+    from loongx_tpu_torch.models.text import whisper
+
+    p = whisper.init_whisper_params(cfg, generator=gen, dtype=torch.bfloat16,
+                                    device=device)
+    state = {}
+    for name in ("conv1", "conv2"):
+        state[f"model.encoder.{name}.weight"] = p[name]["kernel"].permute(2, 1, 0)
+        state[f"model.encoder.{name}.bias"] = p[name]["bias"]
+    state["model.encoder.embed_positions.weight"] = p["enc_pos"]
+    state["model.decoder.embed_tokens.weight"] = p["embed"]
+    state["model.decoder.embed_positions.weight"] = p["dec_pos"]
+    _hf_norm(state, "model.encoder.layer_norm", p["enc_ln"])
+    _hf_norm(state, "model.decoder.layer_norm", p["dec_ln"])
+
+    for side, n in (("encoder", cfg.encoder_layers),
+                    ("decoder", cfg.decoder_layers)):
+        blocks = p["enc_blocks" if side == "encoder" else "dec_blocks"]
+        for i in range(n):
+            blk = whisper._layer(blocks, i)
+            pre = f"model.{side}.layers.{i}"
+            if side == "encoder":
+                _hf_norm(state, f"{pre}.self_attn_layer_norm", blk["ln_attn"])
+                _hf_attn(state, f"{pre}.self_attn", blk["attn"])
+            else:
+                _hf_norm(state, f"{pre}.self_attn_layer_norm", blk["ln_self"])
+                _hf_attn(state, f"{pre}.self_attn", blk["self_attn"])
+                _hf_norm(state, f"{pre}.encoder_attn_layer_norm",
+                         blk["ln_cross"])
+                _hf_attn(state, f"{pre}.encoder_attn", blk["cross_attn"])
+            _hf_norm(state, f"{pre}.final_layer_norm", blk["ln_ff"])
+            _hf_linear(state, f"{pre}.fc1", blk["fc1"])
+            _hf_linear(state, f"{pre}.fc2", blk["fc2"])
+    eos = WHISPER_SPECIALS["<|endoftext|>"]
+    config = {
+        "model_type": "whisper",
+        "architectures": ["WhisperForConditionalGeneration"],
+        "vocab_size": cfg.vocab_size, "num_mel_bins": cfg.num_mel_bins,
+        "d_model": cfg.d_model, "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": cfg.decoder_layers,
+        "encoder_attention_heads": cfg.num_heads,
+        "decoder_attention_heads": cfg.num_heads,
+        "encoder_ffn_dim": cfg.d_ff, "decoder_ffn_dim": cfg.d_ff,
+        "max_source_positions": cfg.max_source_positions,
+        "max_target_positions": cfg.max_target_positions,
+        "decoder_start_token_id": cfg.decoder_start_token_id,
+        "bos_token_id": eos, "eos_token_id": cfg.eos_token_id,
+        "pad_token_id": eos, "torch_dtype": "bfloat16"}
+    written = _save_hf(d, state, config, generation_config={
+        "decoder_start_token_id": cfg.decoder_start_token_id,
+        "eos_token_id": cfg.eos_token_id, "pad_token_id": eos,
+        "suppress_tokens": WHISPER_SUPPRESS,
+        "begin_suppress_tokens": WHISPER_BEGIN_SUPPRESS})
+    write_whisper_tokenizer(d)
+    return written
+
+
+def write_hf_marian(torch, d, cfg, gen, device):
+    """A random MarianMT (the port's init on ``device``, bf16, a random
+    final-logits bias) as a Hugging Face MarianMTModel checkout
+    (``model.safetensors`` + ``config.json``).  Returns the weights'
+    bytes."""
+    from loongx_tpu_torch.models.text import marian, whisper
+
+    p = marian.init_marian_params(cfg, generator=gen, dtype=torch.bfloat16,
+                                  device=device)
+    state = {"model.shared.weight": p["embed"],
+             "model.encoder.embed_positions.weight": p["pos"],
+             "model.decoder.embed_positions.weight": p["pos"].clone(),
+             "final_logits_bias": torch.randn(
+                 1, cfg.vocab_size, generator=gen, device=device) * 0.1}
+
+    for side, n in (("encoder", cfg.encoder_layers),
+                    ("decoder", cfg.decoder_layers)):
+        blocks = p["enc_blocks" if side == "encoder" else "dec_blocks"]
+        for i in range(n):
+            blk = whisper._layer(blocks, i)
+            pre = f"model.{side}.layers.{i}"
+            if side == "encoder":
+                _hf_attn(state, f"{pre}.self_attn", blk["attn"])
+                _hf_norm(state, f"{pre}.self_attn_layer_norm", blk["ln_attn"])
+            else:
+                _hf_attn(state, f"{pre}.self_attn", blk["self_attn"])
+                _hf_norm(state, f"{pre}.self_attn_layer_norm", blk["ln_self"])
+                _hf_attn(state, f"{pre}.encoder_attn", blk["cross_attn"])
+                _hf_norm(state, f"{pre}.encoder_attn_layer_norm",
+                         blk["ln_cross"])
+            _hf_linear(state, f"{pre}.fc1", blk["fc1"])
+            _hf_linear(state, f"{pre}.fc2", blk["fc2"])
+            _hf_norm(state, f"{pre}.final_layer_norm", blk["ln_ff"])
+    config = {
+        "model_type": "marian", "architectures": ["MarianMTModel"],
+        "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+        "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": cfg.decoder_layers,
+        "encoder_attention_heads": cfg.num_heads,
+        "decoder_attention_heads": cfg.num_heads,
+        "encoder_ffn_dim": cfg.d_ff, "decoder_ffn_dim": cfg.d_ff,
+        "max_position_embeddings": cfg.max_positions,
+        "decoder_start_token_id": cfg.decoder_start_token_id,
+        "pad_token_id": cfg.pad_token_id, "eos_token_id": cfg.eos_token_id,
+        "activation_function": cfg.activation,
+        "scale_embedding": cfg.scale_embedding}
+    return _save_hf(d, state, config)
+
+
+_WORDS = ("make", "the", "sky", "bluer", "turn", "cat", "into", "a", "dog",
+          "remove", "person", "add", "hat", "brighten", "image", "change",
+          "car", "to", "red")
+
+
+class MarianTokShim:
+    """MarianTokenizer's call and decode interface (MarianTokenizer itself
+    needs sentencepiece model files): words hashed onto ids between eos and
+    pad, eos appended, padding to a multiple; ids decoded onto a word
+    list."""
+
+    def __init__(self, cfg):
+        self.pad, self.eos, self.vocab = (cfg.pad_token_id, cfg.eos_token_id,
+                                          cfg.vocab_size)
+
+    def __call__(self, texts, return_tensors="np", padding=True,
+                 pad_to_multiple_of=16):
+        import numpy as np
+        lo, hi = self.eos + 1, min(self.pad, self.vocab)
+
+        def word_id(w):
+            h = 0
+            for ch in w:
+                h = (h * 31 + ord(ch)) % (hi - lo)
+            return lo + h
+
+        rows = [[word_id(w) for w in t.split()] + [self.eos] for t in texts]
+        width = max(len(r) for r in rows)
+        if pad_to_multiple_of:
+            width = -(-width // pad_to_multiple_of) * pad_to_multiple_of
+        ids = np.full((len(rows), width), self.pad, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)], mask[i, : len(r)] = r, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(_WORDS[int(i) % len(_WORDS)] for i in ids
+                        if int(i) not in (self.pad, self.eos))
+
+
+def write_speech_inputs(root):
+    """A 5 s, 16 kHz, 16-bit mono WAV (a tone and noise from seed 1) and a
+    512x512 PNG (seed 31).  Returns (wav, png)."""
+    import wave
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(1)
+    t = np.arange(int(SPEECH_SECONDS * SPEECH_RATE)) / SPEECH_RATE
+    x = 0.1 * np.sin(2 * np.pi * 220.0 * t) + 0.01 * rng.standard_normal(t.size)
+    wav = os.path.join(root, "said.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SPEECH_RATE)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+    png = os.path.join(root, "source.png")
+    Image.fromarray((np.random.default_rng(31).random((512, 512, 3)) * 255)
+                    .astype(np.uint8)).save(png)
+    return wav, png
+
+
+def _tree_devices(tree):
+    from loongx_tpu_torch.ops.nn import tree_leaves
+    return {t.device.type for t in tree_leaves(tree)}
+
+
+def whisper_numbers(torch, asr, audio, device="cuda"):
+    """Whisper-large on the card: the encoder's and the cross K/V's device
+    ms (CUDA events), then one cached greedy decode run step by step through
+    the port's own pieces (prefill ms, ms per generated token, host clock
+    around synchronized work), its buffer against
+    ``whisper_greedy_decode_cached``'s, and its logit rows against one
+    teacher-forced ``whisper_decode_logits`` pass over that buffer (within
+    DECODER_REL_TOL of the largest |logit|).  Returns the numbers."""
+    from loongx_tpu_torch.models.text import whisper
+
+    cfg, params = asr.cfg, asr.params
+    feats = whisper.log_mel_spectrogram(
+        torch.from_numpy(whisper.prepare_audio(audio, cfg)).to(device), cfg,
+        asr.mel_filters)
+    enc_ms = cuda_time_ms(lambda: whisper.whisper_encode(params, cfg, feats))
+    enc = whisper.whisper_encode(params, cfg, feats)
+    kv_ms = cuda_time_ms(lambda: whisper.whisper_cross_kv(params, cfg, enc))
+    cross_k, cross_v = whisper.whisper_cross_kv(params, cfg, enc)
+    prompt = torch.from_numpy(asr._prompt_ids("zh", "transcribe"))
+    sup = whisper._vocab_ids(cfg, asr.suppress_tokens, device)
+    begin = whisper._vocab_ids(cfg, asr.begin_suppress_tokens, device)
+    buf = whisper._prompt_buffer(cfg, prompt, 64, device)
+    p = prompt.shape[1]
+    dh = cfg.d_model // cfg.num_heads
+    self_k = torch.zeros((cfg.decoder_layers, 1, cfg.num_heads, buf.shape[1],
+                          dh), dtype=params["embed"].dtype, device=device)
+    self_v = torch.zeros_like(self_k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _, _ = whisper._cached_decoder_pass(params, cfg, buf[:, :p], 0,
+                                                self_k, self_v, cross_k, cross_v)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    rows = [logits[:, -1]]
+    done = torch.zeros(1, dtype=torch.bool, device=device)
+    t0 = time.perf_counter()
+    for pos in range(p, buf.shape[1]):
+        nxt, done = whisper._pick(cfg, rows[-1], pos == p, done, sup, begin)
+        buf[:, pos] = nxt
+        if pos + 1 == buf.shape[1] or bool(done.all()):
+            break
+        logits, _, _ = whisper._cached_decoder_pass(
+            params, cfg, nxt[:, None], pos, self_k, self_v, cross_k, cross_v)
+        rows.append(logits[:, 0])
+    torch.cuda.synchronize()
+    steps = len(rows) - 1  # decoder passes after the prefill
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    served = whisper.whisper_greedy_decode_cached(
+        params, cfg, feats, prompt, 64, asr.suppress_tokens,
+        asr.begin_suppress_tokens)
+    n = p + len(rows)  # positions the rows predict: p .. n-1
+    # the last one-token pass again (it rewrites the same cache entries)
+    profiles = {"encoder": device_profile(
+        torch, lambda: whisper.whisper_encode(params, cfg, feats)),
+        "decoder pass": device_profile(torch, lambda: whisper._cached_decoder_pass(
+            params, cfg, buf[:, n - 2:n - 1], n - 2, self_k, self_v, cross_k,
+            cross_v))}
+    forced = whisper.whisper_decode_logits(params, cfg, enc, buf[:, : n - 1])
+    got = torch.cat(rows).float()
+    want = forced[0, p - 1:].float()
+    err = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    new_tokens = int((buf[0, p:] != cfg.eos_token_id).sum())
+    print(f"  Whisper-large (bf16): encoder {enc_ms:.2f} ms, cross K/V "
+          f"{kv_ms:.2f} ms (CUDA events); cached decode: prefill of {p} tokens "
+          f"{prefill_ms:.2f} ms, {steps} one-token passes at {step_ms:.2f} "
+          f"ms each, {new_tokens} tokens before eos; its {len(rows)} logit "
+          f"rows vs one teacher-forced pass over its buffer: max rel err "
+          f"{err:.3g} (tol {DECODER_REL_TOL}), argmax agreement {agree:.3f}; "
+          f"buffer equal to whisper_greedy_decode_cached's "
+          f"{bool(torch.equal(served, buf))}", flush=True)
+    for name, prof in profiles.items():
+        print(f"  Whisper {name} device profile: " + (
+            "not measured (no device activity seen)" if prof is None else
+            f"{prof['kernels']} kernels, busy {prof['busy_ms']:.2f} ms of "
+            f"{prof['span_ms']:.2f} (idle {prof['idle_share']:.3f}); largest "
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        list(prof["top_other_ms"].items())[:3])), flush=True)
+    if not torch.equal(served, buf):
+        raise Failure("the step-by-step cached decode's buffer differs from "
+                      "whisper_greedy_decode_cached's")
+    if not err <= DECODER_REL_TOL:
+        raise Failure(f"cached decoder logits vs teacher-forced: rel err {err}")
+    return {"encoder_ms": enc_ms, "cross_kv_ms": kv_ms,
+            "prefill_ms": prefill_ms, "ms_per_token": step_ms,
+            "profiles": profiles,
+            "decoder_rel_err": err, "argmax_agreement": agree,
+            "new_tokens": new_tokens}
+
+
+def whisper_encoder_cpu(torch, cfg, audio, device="cuda"):
+    """The encoder at full width with 2 + 2 layers, float32, on the card
+    against the CPU (the same random params and features): max |diff| over
+    max |CPU|, within WHISPER_ENC_REL_TOL."""
+    from loongx_tpu_torch.models.text import whisper
+    from loongx_tpu_torch.utils.bridge import from_numpy_tree
+
+    cfg2 = dataclasses.replace(cfg, encoder_layers=2, decoder_layers=2)
+    cpu = whisper.init_whisper_params(
+        cfg2, generator=torch.Generator().manual_seed(5), device="cpu")
+    gpu = from_numpy_tree(cpu, device)
+    filters = torch.from_numpy(whisper.mel_filter_bank(
+        cfg.n_fft // 2 + 1, cfg.num_mel_bins, cfg.sampling_rate,
+        cfg.sampling_rate / 2.0))
+    feats = whisper.log_mel_spectrogram(
+        torch.from_numpy(whisper.prepare_audio(audio, cfg)), cfg2, filters)
+    want = whisper.whisper_encode(cpu, cfg2, feats)
+    got = whisper.whisper_encode(gpu, cfg2, feats.to(device)).cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"  Whisper encoder (d {cfg.d_model}, 1500 positions, 2 layers, "
+          f"float32) on the card vs the CPU: max rel err {err:.3g} (tol "
+          f"{WHISPER_ENC_REL_TOL})", flush=True)
+    if got.shape != want.shape or not err <= WHISPER_ENC_REL_TOL:
+        raise Failure(f"the Whisper encoder on the card differs from the "
+                      f"CPU's: {tuple(got.shape)}, rel err {err}")
+    return err
+
+
+
+def _timed(torch, fn, seconds):
+    """``fn`` wrapped to append its seconds (host clock around synchronized
+    work) to ``seconds``."""
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+    return wrapper
+
+
+def speech_and_demos(torch, pipe, device="cuda"):
+    """The speech demo and the web demo on the generate phase's bundle
+    (int8 FLUX.1-dev, int8 T5-XXL, CLIP-L, the character tokenizers), in a
+    directory in the checkout that is removed at the end (`_speech_and_demos`
+    says what runs).  Returns the launches of the speech edit and of the
+    web demo's edit."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    free = shutil.disk_usage(here).free
+    print(f"  disk at {here}: {free / 1e9:.1f} GB free, the speech checkouts "
+          f"need about {SPEECH_DISK / 1e9:.1f} GB", flush=True)
+    if free < SPEECH_DISK:
+        raise Failure(f"{free} bytes free at {here}, {SPEECH_DISK} needed for "
+                      "the speech checkouts")
+    root = tempfile.mkdtemp(prefix=".chip_smoke_speech_", dir=here)
+    try:
+        return _speech_and_demos(torch, pipe, root, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _speech_and_demos(torch, pipe, root, device="cuda"):
+    """Random Whisper-large and opus-mt-zh-en checkouts written to ``root``;
+    ``WhisperASR.from_pretrained`` loads the first (transformers'
+    WhisperTokenizer on the synthesized files), ``load_torch_or_safetensors_dir``
+    + ``convert_marian_state`` the second into a ``MarianTranslator`` with
+    `MarianTokShim`; every tensor of both on the card; `whisper_numbers`,
+    `whisper_encoder_cpu`, peak memory.  Then ``cli.speech_demo.main``
+    with LOONGX_W8A8=1 on a 5 s WAV
+    and a 512x512 PNG (28 steps, no ``--prompt``, no brain data) through a
+    transcriber that calls ``speech_demo.transcribe`` on the two local
+    checkouts (the ``whisper`` package unimportable, the loaders handing
+    over the models loaded here): the transcript a str, the ASR and the
+    translator each called once, the PNG 512x512 and equal bit for bit to
+    ``edit_one`` called directly, every flash forward and GEMM on its Hopper
+    route, T5-XXL's stacked launches a prompt printed, its transcription
+    and translation timed (host clock) and Marian's tokens counted.  Then
+    the web demo:
+    ``build_server`` in a thread around ``process_image_and_text(pipe, img,
+    text, num_steps=8, size=512, w8a8=True)``; /health and / answer 200;
+    /edit with a 640x480 PNG and the transcript gives a 512x512 PNG equal
+    bit for bit to the direct call, with the same launch rules; a malformed
+    body gets 400."""
+    import numpy as np
+    from PIL import Image
+    from loongx_tpu_torch.cli import infer, speech_demo
+    from loongx_tpu_torch.models.text import marian, whisper
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.sampling import generate
+    from loongx_tpu_torch.utils import convert
+    import transformers
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    wcfg, mcfg = whisper.WhisperConfig.large(), marian.MarianConfig.opus_mt()
+    wdir = os.path.join(root, "whisper-large")
+    mdir = os.path.join(root, "opus-mt-zh-en")
+    t0 = time.perf_counter()
+    wbytes = write_hf_whisper(torch, wdir, wcfg, gen, device)
+    mbytes = write_hf_marian(torch, mdir, mcfg, gen, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  random Whisper-large ({wbytes / 1e9:.3f} GB) and opus-mt-zh-en "
+          f"({mbytes / 1e9:.3f} GB) written as Hugging Face checkouts in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wav, png = write_speech_inputs(root)
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    asr = whisper.WhisperASR.from_pretrained(wdir, device=device)
+    torch.cuda.synchronize()
+    t_asr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(os.path.join(mdir, "config.json")) as f:
+        mcfg_read = marian.MarianConfig.from_hf(json.load(f))
+    translator = marian.MarianTranslator(
+        convert.convert_marian_state(convert.load_torch_or_safetensors_dir(mdir),
+                                     mcfg_read, device=device),
+        mcfg_read, MarianTokShim(mcfg_read))
+    torch.cuda.synchronize()
+    t_mt = time.perf_counter() - t0
+    prompt_ids = asr._prompt_ids("zh", "transcribe").tolist()
+    want_prompt = [[WHISPER_SPECIALS[t] for t in (
+        "<|startoftranscript|>", "<|zh|>", "<|transcribe|>", "<|notimestamps|>")]]
+    devices = (_tree_devices(asr.params) | _tree_devices(translator.params)
+               | {asr.mel_filters.device.type})
+    speech_bytes = torch.cuda.memory_allocated() - mem0
+    print(f"  WhisperASR.from_pretrained {t_asr:.2f} s (tokenizer "
+          f"{type(asr.tokenizer).__name__}, transformers "
+          f"{transformers.__version__}; prompt ids {prompt_ids}; "
+          f"{len(asr.suppress_tokens)} suppress ids, begin "
+          f"{asr.begin_suppress_tokens}); Marian loaded in {t_mt:.2f} s "
+          f"(tokenizer {type(translator.tokenizer).__name__}); on the card "
+          f"{speech_bytes / 1e9:.3f} GB; tensors on {sorted(devices)}",
+          flush=True)
+    if (asr.cfg != wcfg or mcfg_read != mcfg or prompt_ids != want_prompt
+            or asr.suppress_tokens != WHISPER_SUPPRESS
+            or asr.begin_suppress_tokens != WHISPER_BEGIN_SUPPRESS):
+        raise Failure(f"the checkouts read back as {asr.cfg}, {mcfg_read}, "
+                      f"prompt ids {prompt_ids}")
+    if devices != {torch.device(device).type}:
+        raise Failure(f"speech model tensors on {sorted(devices)}, not only "
+                      "the card")
+
+    audio = speech_demo._read_audio(wav)
+    numbers = whisper_numbers(torch, asr, audio, device)
+    whisper_encoder_cpu(torch, wcfg, audio, device)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak memory with both speech models loaded and decoding: "
+          f"{peak / 1e9:.3f} GB ({mem0 / 1e9:.3f} GB before they were "
+          "loaded)", flush=True)
+
+    blocks = pipe.flux_cfg.num_double_blocks + pipe.flux_cfg.num_single_blocks
+    calls = {"asr": 0, "mt": 0}
+    took, texts, decoded = {}, {}, []
+    asr_transcribe, mt_translate = asr.transcribe, translator.translate
+    greedy = marian.marian_greedy_decode
+
+    def counted(key, fn):
+        def wrapper(*a, **k):  # host clock around synchronized work
+            calls[key] += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            texts[key] = fn(*a, **k)
+            torch.cuda.synchronize()
+            took[key] = (time.perf_counter() - t) * 1e3
+            return texts[key]
+        return wrapper
+
+    def kept_greedy(*a, **k):
+        decoded.append(greedy(*a, **k))
+        return decoded[-1]
+
+    def transcriber(path):
+        return speech_demo.transcribe(path, wdir, mdir, "zh", device=device)
+
+    denoise_s, stacked = [], []
+    loaders = (whisper.WhisperASR.from_pretrained,
+               marian.MarianTranslator.from_pretrained)
+    denoise, encode_text = generate.denoise, pipe.encode_text
+
+    def counted_encode(*a, **k):
+        before = cuda_build.LAUNCHES["qmm_stacked:wgmma"]
+        out = encode_text(*a, **k)
+        stacked.append(cuda_build.LAUNCHES["qmm_stacked:wgmma"] - before)
+        return out
+
+    out = os.path.join(root, "edited.png")
+    knobs = {"w8a8": True, "int8_attn": False, "fuse_ln": False,
+             "fuse_gate": False}
+    saved_whisper = sys.modules.get("whisper")
+    try:
+        asr.transcribe = counted("asr", asr_transcribe)
+        translator.translate = counted("mt", mt_translate)
+        whisper.WhisperASR.from_pretrained = staticmethod(lambda path, **k: asr)
+        marian.MarianTranslator.from_pretrained = staticmethod(
+            lambda path, **k: translator)
+        sys.modules["whisper"] = None  # the package is unimportable
+        marian.marian_greedy_decode = kept_greedy
+        generate.denoise = _timed(torch, denoise, denoise_s)
+        pipe.encode_text = counted_encode
+        with _env(LOONGX_W8A8="1"):
+            cuda_build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            transcript = speech_demo.main(
+                ["--audio", wav, "--image", png, "--output", out, "--steps",
+                 str(STEPS), "--target_size", "512", "--whisper_path", wdir,
+                 "--translate_path", mdir, "--device", device], pipeline=pipe,
+                transcriber=transcriber)
+            edit_s = time.perf_counter() - t0
+            speech_counts = dict(cuda_build.LAUNCHES)
+        direct = infer.edit_one(pipe, png, transcript, target_size=512,
+                                num_steps=STEPS, knobs=knobs)
+    finally:
+        del asr.transcribe, translator.translate, pipe.encode_text
+        (whisper.WhisperASR.from_pretrained,
+         marian.MarianTranslator.from_pretrained) = loaders
+        generate.denoise = denoise
+        marian.marian_greedy_decode = greedy
+        if saved_whisper is None:
+            sys.modules.pop("whisper", None)
+        else:
+            sys.modules["whisper"] = saved_whisper
+    out_ids = decoded[0][0, 1:].tolist()
+    n_mt = (out_ids.index(mcfg.eos_token_id) + 1
+            if mcfg.eos_token_id in out_ids else len(out_ids))
+    print(f"  transcribe {took['asr']:.1f} ms for {SPEECH_SECONDS:.0f} s of "
+          f"audio ({numbers['new_tokens']} tokens); Marian translate "
+          f"{took['mt']:.1f} ms, {n_mt} tokens ({took['mt'] / max(n_mt, 1):.2f}"
+          f" ms a token, the KV-free decoder), in the speech demo's call; "
+          f"transcript {texts['asr']!r} -> {texts['mt']!r}", flush=True)
+    got = np.asarray(Image.open(out))
+    diff = (np.abs(got.astype(np.int32) - direct.astype(np.int32))
+            if got.shape == direct.shape else None)
+    print(f"  speech edit: cli.speech_demo.main {edit_s:.2f} s end to end "
+          f"(transcription included), {denoise_s[0] / STEPS * 1e3:.1f} ms/step x "
+          f"{STEPS}; instruction {transcript!r}; ASR / translator calls "
+          f"{calls}; T5-XXL stacked launches a prompt {stacked} (all on "
+          f"wgmma); output {got.shape}, vs edit_one called directly: "
+          + (f"{int((diff > 0).sum())} values differ" if diff is not None
+             else "other shape"), flush=True)
+    if (not isinstance(transcript, str) or calls != {"asr": 1, "mt": 1}
+            or transcript != texts["mt"]):
+        raise Failure(f"the speech demo's instruction {transcript!r} did not "
+                      f"come from the port's ASR and translator ({calls})")
+    if got.shape != (512, 512, 3) or diff is None or diff.any():
+        raise Failure(f"the speech edit ({got.shape}) differs from edit_one's")
+    if stacked != [7 * pipe.t5_cfg.num_layers] * 2:
+        raise Failure(f"T5-XXL stacked launches on wgmma a prompt {stacked}, "
+                      f"not {7 * pipe.t5_cfg.num_layers}")
+    _cli_launch_check(speech_counts, blocks, "speech edit")
+
+    web_counts, web = _web_demo(torch, pipe, transcript, blocks, knobs)
+    numbers.update(transcribe_ms=took["asr"], translate_ms=took["mt"],
+                   marian_tokens=n_mt, peak_bytes=peak)
+    return {"speech edit": speech_counts, "web demo": web_counts,
+            "whisper": numbers, "web": web}
+
+
+def _web_demo(torch, pipe, text, blocks, knobs):
+    """The web demo's server in a thread, its requests over HTTP (see
+    `_speech_and_demos`).  Returns its edit's launches and timings."""
+    import base64
+    import io
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+    from loongx_tpu_torch.cli import gradio_app, web_demo
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.sampling import generate
+
+    def editor(image, prompt):
+        return gradio_app.process_image_and_text(
+            pipe, image, prompt, num_steps=WEB_STEPS, size=512, **knobs)
+
+    img = Image.fromarray((np.random.default_rng(32).random((480, 640, 3))
+                           * 255).astype(np.uint8))
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    body = json.dumps({"image_b64": base64.b64encode(buf.getvalue()).decode(),
+                       "text": text}).encode()
+
+    def post(url, data):
+        return urllib.request.Request(
+            url, data=data, headers={"Content-Type": "application/json"})
+
+    denoise, denoise_s = generate.denoise, []
+    server = web_demo.build_server(editor, port=0, num_steps=WEB_STEPS)
+    thread = web_demo.serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        generate.denoise = _timed(torch, denoise, denoise_s)
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = (r.status, json.load(r))
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            page = (r.status, len(r.read()))
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(post(base + "/edit", body),
+                                    timeout=600) as r:
+            status, resp = r.status, json.load(r)
+        request_s = time.perf_counter() - t0
+        counts = dict(cuda_build.LAUNCHES)
+        try:
+            urllib.request.urlopen(post(base + "/edit", b"{}"), timeout=60)
+            bad = 200
+        except urllib.error.HTTPError as exc:
+            bad = exc.code
+        direct = np.asarray(editor(img, text))
+    finally:
+        generate.denoise = denoise
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    got = np.asarray(Image.open(io.BytesIO(base64.b64decode(
+        resp["image_b64"]))))
+    same = got.shape == direct.shape and bool((got == direct).all())
+    ms_step = denoise_s[0] / WEB_STEPS * 1e3
+    print(f"  web demo: GET /health {health}, GET / {page[0]} ({page[1]} "
+          f"bytes); POST /edit (640x480 PNG) {status} in {request_s:.2f} s, "
+          f"elapsed_s {resp['elapsed_s']:.3f}, {ms_step:.1f} ms/step x "
+          f"{WEB_STEPS}; output {got.shape}, equal to process_image_and_text "
+          f"called directly {same}; malformed body {bad}", flush=True)
+    if (health != (200, {"status": "ok"}) or page[0] != 200 or status != 200
+            or bad != 400):
+        raise Failure(f"web demo: health {health}, page {page[0]}, edit "
+                      f"{status}, malformed body {bad}")
+    if got.shape != (512, 512, 3) or not same:
+        raise Failure(f"the web demo's edit ({got.shape}) differs from the "
+                      "direct call's")
+    _cli_launch_check(counts, blocks, "web demo edit", steps=WEB_STEPS)
+    return counts, {"elapsed_s": resp["elapsed_s"], "ms_per_step": ms_step}
 
 
 # ---------------------------------------------------------------------------
@@ -2672,12 +3397,12 @@ def write_cli_inputs(torch, pipe, req, root):
         in_dir, "req1.png"), "pkl": pkl, "root": root, "bytes": written}
 
 
-def _cli_launch_check(counts, blocks, what):
+def _cli_launch_check(counts, blocks, what, steps=STEPS):
     """Every flash forward on wgmma (one a block a step, each after its
     RoPE pre-pass), every GEMM on wgmma, split-K or K 64, none on
     mma.sync, every serving kernel launched."""
     split = gemm_split(counts)
-    flash = STEPS * blocks
+    flash = steps * blocks
     print(f"  {what} launches: { {n: counts.get(n, 0) for n in KERNELS} }; "
           f"GEMM launches (total, wgmma, mma.sync, split-K, K 64) {split}; "
           f"qmm_flat by route {routes(counts, 'qmm_flat')}", flush=True)
@@ -4287,6 +5012,10 @@ def kernel_table(records, launches):
             # the depth-conditioned CLI edit
             "launches_train_cli": count(launches["train CLI"]),
             "launches_depth_edit": count(launches["depth edit"]),
+            # and in phase "speech and demos": the speech demo's edit and
+            # the web demo's
+            "launches_speech_edit": count(launches["speech edit"]),
+            "launches_web_demo": count(launches["web demo"]),
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -4365,7 +5094,12 @@ def main() -> int:
                         "serve int8_attn": options["int8_attn"],
                         "serve fuse_ln+fuse_gate": options["fuse_ln+fuse_gate"]}
         with Phase("generate (text prompts, fuse mode)", card):
-            serve_text(torch, pipe)
+            text_bytes = serve_text(torch, pipe)
+        with Phase("speech and demos", card):
+            speech = speech_and_demos(torch, pipe)
+            launches["speech edit"] = speech["speech edit"]
+            launches["web demo"] = speech["web demo"]
+            free_text_encoders(torch, pipe, text_bytes)
         root = None
         try:
             with Phase("infer CLI", card):

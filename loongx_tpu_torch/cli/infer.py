@@ -55,6 +55,16 @@ def serving_knobs() -> Dict[str, bool]:
             for arg, name in KNOBS.items()}
 
 
+def require_device(parser, device: str) -> None:
+    """Refuse (``parser.error``) a CUDA ``--device`` where no card is
+    available: the entry points serve on the GPU unless asked for the CPU."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        parser.error(f"--device {device}: no CUDA device is available "
+                     "(pass --device cpu to run on the CPU)")
+
+
 def read_image(path: str, size: int):
     """The image file as the JAX package reads it: a PIL RGB image resized
     to ``size`` x ``size``."""
@@ -469,10 +479,7 @@ def main(argv=None):
 
     from loongx_tpu_torch.models.pipeline import LoongXPipeline
 
-    if torch.device(args.device).type == "cuda" and not (
-            torch.cuda.is_available()):
-        parser.error(f"--device {args.device}: no CUDA device is available "
-                     "(pass --device cpu to run on the CPU)")
+    require_device(parser, args.device)
     knobs = serving_knobs()
     components = (
         tuple(c.strip() for c in args.components.split(",") if c.strip())

@@ -8,9 +8,10 @@ as it is: stacked ``[NB, ...]`` block trees, ``kernel`` ``[in, out]`` or
 leaves, the fused ``to_qkv`` / ``add_qkv_proj`` and split ``proj_out`` /
 ``proj_out_mlp`` serving forms, HWIO conv kernels, the S4D parameters and
 the T5 / CLIP text encoders (float or int8 block stacks, embeddings), the
-CLIP vision and DINO ViT towers and Depth-Anything (its per-block list,
-layer scales and DPT neck).  A leaf name it does not know raises instead of
-being dropped; a leaf that is already a tensor is moved to ``device``.
+CLIP vision and DINO ViT towers, Depth-Anything (its per-block list,
+layer scales and DPT neck), Whisper and Marian.  A leaf name it does not
+know raises instead of being dropped; a leaf that is already a tensor is
+moved to ``device``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,9 @@ KNOWN_LEAVES = frozenset({
     # Depth-Anything: the DINOv2 CLS token and position table, the layer
     # scales of each block
     "cls", "pos", "ls1", "ls2",
+    # the speech path: Whisper's encoder and decoder position tables,
+    # Marian's final-logits bias (its positions are "pos")
+    "enc_pos", "dec_pos", "logits_bias",
 })
 
 

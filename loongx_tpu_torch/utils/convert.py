@@ -2,7 +2,8 @@
 the published Hugging Face / diffusers safetensors -> this package's param
 trees, for the models the port has: the FLUX transformer, reference-trained
 LoRA files, the VAE (AutoencoderKL), T5, the CLIP text encoder, the
-evaluation towers (CLIP vision, the DINO ViT) and Depth-Anything.
+evaluation towers (CLIP vision, the DINO ViT), Depth-Anything and the
+speech path's Whisper and Marian.
 
 Torch linears are [out, in] -> transposed to [in, out]; convs [O, I, kh, kw]
 -> HWIO; per-block tensors are stacked onto a leading block axis.  Every
@@ -10,9 +11,6 @@ function takes a flat {key: tensor or numpy array} state dict, so it works
 with any loader (`load_safetensors_dir`, ``torch.load``, synthetic dicts in
 tests), and builds its tree on ``device``, moving one source tensor at a
 time there before it is transposed or cast.
-
-The converters of the models not ported yet (Whisper, Marian) wait for
-the slice that ports them (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -590,6 +588,118 @@ def convert_depth_anything_state(state: Dict[str, Any], cfg,
         "fusion": fusion,
         "head": {"conv1": conv("head.conv1"), "conv2": conv("head.conv2"),
                  "conv3": conv("head.conv3")},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Whisper + Marian (the speech-instruction path)
+# ---------------------------------------------------------------------------
+
+
+def convert_whisper_state(state: Dict[str, Any], cfg, dtype=torch.bfloat16,
+                          device="cuda"):
+    """HF WhisperForConditionalGeneration (or WhisperModel) state dict ->
+    whisper param tree; the Conv1d kernels [out, in, w] become HIO
+    [w, in, out]."""
+    state, _ = _strip_model_prefix(state)
+    kw = dict(dtype=dtype, device=device)
+
+    def attn(p):
+        return {
+            "q": _lin(state, f"{p}.q_proj", **kw),
+            "k": _lin(state, f"{p}.k_proj", bias=False, **kw),
+            "v": _lin(state, f"{p}.v_proj", **kw),
+            "o": _lin(state, f"{p}.out_proj", **kw),
+        }
+
+    def enc_block(i):
+        p = f"encoder.layers.{i}"
+        return {
+            "ln_attn": _gn(state, f"{p}.self_attn_layer_norm", **kw),
+            "attn": attn(f"{p}.self_attn"),
+            "ln_ff": _gn(state, f"{p}.final_layer_norm", **kw),
+            "fc1": _lin(state, f"{p}.fc1", **kw),
+            "fc2": _lin(state, f"{p}.fc2", **kw),
+        }
+
+    def dec_block(i):
+        p = f"decoder.layers.{i}"
+        return {
+            "ln_self": _gn(state, f"{p}.self_attn_layer_norm", **kw),
+            "self_attn": attn(f"{p}.self_attn"),
+            "ln_cross": _gn(state, f"{p}.encoder_attn_layer_norm", **kw),
+            "cross_attn": attn(f"{p}.encoder_attn"),
+            "ln_ff": _gn(state, f"{p}.final_layer_norm", **kw),
+            "fc1": _lin(state, f"{p}.fc1", **kw),
+            "fc2": _lin(state, f"{p}.fc2", **kw),
+        }
+
+    def conv(p):
+        return {"kernel": _put(state[f"{p}.weight"], dtype, device,
+                               lambda t: t.permute(2, 1, 0)),
+                "bias": _put(state[f"{p}.bias"], dtype, device)}
+
+    n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+    return {
+        "conv1": conv("encoder.conv1"),
+        "conv2": conv("encoder.conv2"),
+        "enc_pos": _put(state["encoder.embed_positions.weight"], **kw),
+        "enc_blocks": _stack((enc_block(i) for i in range(n_enc)), n_enc),
+        "enc_ln": _gn(state, "encoder.layer_norm", **kw),
+        "embed": _put(state["decoder.embed_tokens.weight"], **kw),
+        "dec_pos": _put(state["decoder.embed_positions.weight"], **kw),
+        "dec_blocks": _stack((dec_block(i) for i in range(n_dec)), n_dec),
+        "dec_ln": _gn(state, "decoder.layer_norm", **kw),
+    }
+
+
+def convert_marian_state(state: Dict[str, Any], cfg, dtype=torch.bfloat16,
+                         device="cuda"):
+    """HF MarianMTModel (or MarianModel) state dict -> marian param tree.
+    ``final_logits_bias`` sits outside the "model." prefix, so it is read
+    from the full state (zeros where there is none), in float32."""
+    state, full = _strip_model_prefix(state)
+    kw = dict(dtype=dtype, device=device)
+
+    def attn(p):
+        return {n: _lin(state, f"{p}.{src}", **kw) for n, src in
+                (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                 ("o", "out_proj"))}
+
+    def enc_block(i):
+        p = f"encoder.layers.{i}"
+        return {
+            "attn": attn(f"{p}.self_attn"),
+            "ln_attn": _gn(state, f"{p}.self_attn_layer_norm", **kw),
+            "fc1": _lin(state, f"{p}.fc1", **kw),
+            "fc2": _lin(state, f"{p}.fc2", **kw),
+            "ln_ff": _gn(state, f"{p}.final_layer_norm", **kw),
+        }
+
+    def dec_block(i):
+        p = f"decoder.layers.{i}"
+        return {
+            "self_attn": attn(f"{p}.self_attn"),
+            "ln_self": _gn(state, f"{p}.self_attn_layer_norm", **kw),
+            "cross_attn": attn(f"{p}.encoder_attn"),
+            "ln_cross": _gn(state, f"{p}.encoder_attn_layer_norm", **kw),
+            "fc1": _lin(state, f"{p}.fc1", **kw),
+            "fc2": _lin(state, f"{p}.fc2", **kw),
+            "ln_ff": _gn(state, f"{p}.final_layer_norm", **kw),
+        }
+
+    bias = full.get("final_logits_bias")
+    if bias is None:
+        bias = torch.zeros(cfg.vocab_size)
+    n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+    return {
+        "embed": _put(state["shared.weight"], **kw),
+        # enc/dec embed_positions are the same deterministic sinusoids
+        "pos": _put(state["encoder.embed_positions.weight"], **kw),
+        "enc_blocks": _stack((enc_block(i) for i in range(n_enc)), n_enc),
+        "dec_blocks": _stack((dec_block(i) for i in range(n_dec)), n_dec),
+        "logits_bias": _put(bias, torch.float32, device,
+                            lambda t: t.reshape(-1)),
     }
 
 
