@@ -47,7 +47,10 @@ Phases (each prints one line with the card, its power limit and seconds):
      and EEG wide at batch 2, beside the sequential kernel by device time
      and by the whole call's; kernels
      under about 0.05 ms are timed by device time too (`device_ms`,
-     torch.profiler), since their wrapper time is host cost;
+     torch.profiler), since their wrapper time is host cost; and the
+     stacked W8A8 and weight-only GEMMs and the flash forward at the shard
+     shapes a rank of tensor 2 runs (`tp2_cases`, 12 heads), each on its
+     wgmma route;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
@@ -176,7 +179,18 @@ Phases (each prints one line with the card, its power limit and seconds):
      4 more micro-batches), and is refused ("fingerprint") with
      ``lora_config.r: 8``.  The loop is watched from outside: module
      attributes (the pipeline loader, make_train_step, partition, the
-     checkpoint functions, the probe) are wrapped for the phase.
+     checkpoint functions, the probe) are wrapped for the phase;
+  multi-GPU (one card): ``parallel/`` in child processes (spawn), each
+     group within MULTI_TIMEOUTS, any rank's failure failing the run
+     (`multi_gpu`): NCCL at world size 1 and ``cli.infer`` through it
+     (its single edit equal to phase 4's bit for bit); tensor 2 over gloo,
+     two ranks on the one card (a rank's shard of the TP-layout int8
+     FLUX.1-dev, the forward's velocity against the unsharded one, every
+     flash and GEMM launch of each rank on its Hopper route, peak memory a
+     rank, a short TP edit against the single edit); data 2 over gloo
+     (``cli.infer`` over two requests, each rank's image equal to its
+     request's single edit bit for bit).  The checkpoint of phase "infer
+     CLI" stays on disk for it.
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
 launch counts from phase 4 for the forward kernels -- the S4D, int8
@@ -185,7 +199,10 @@ selects them -- and from phase 5 for the backward ones; each kernel's
 launches in the train CLI's first run, in the depth-conditioned CLI edit,
 in the speech demo's edit and in the web demo's edit beside them, as
 ``launches_train_cli``, ``launches_depth_edit``, ``launches_speech_edit``
-and ``launches_web_demo``) and the card's name and power limit.  The last
+and ``launches_web_demo``, and by rank in the multi-GPU phase as
+``launches_nccl_single``, ``launches_tp2_ranks`` and
+``launches_data2_ranks``; ``tp2_shard_shapes`` holds phase 2's times at the
+tensor-2 shard shapes) and the card's name and power limit.  The last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
@@ -203,19 +220,19 @@ import subprocess
 import sys
 import time
 
+try:  # alone, without the repo beside it, main() says so and exits 2
+    from loongx_tpu_torch.utils.device_bench import device_ms
+    from loongx_tpu_torch.utils.device_bench import device_profile as _profile
+    from loongx_tpu_torch.utils.profiling import card_line
+except ImportError:
+    device_ms = _profile = card_line = None
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
-SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"]
 
 
 class Failure(Exception):
     pass
-
-
-def card_line() -> str:
-    out = subprocess.run(SMI_QUERY, capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 class Phase:
@@ -282,31 +299,6 @@ def cuda_time_ms(fn, iters=None, budget_ms=300.0):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, reps=20, match=None):
-    """Mean device milliseconds per ``fn()`` of the kernels it launches
-    (those whose name contains ``match``, if given), from torch.profiler's
-    CUDA activity after a warm-up call: no host time in it, so it reads
-    kernels too short for `cuda_time_ms` (whose calls under about 0.05 ms
-    measure the wrapper).  NaN when three profiler sessions saw no device
-    activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profiler session now and then records no activity
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
-            us = sum(e.time_range.end - e.time_range.start for e in events
-                     if match is None or match in e.name)
-            return us / 1e3 / reps
-    return float("nan")
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
@@ -1714,6 +1706,99 @@ def check_fused_grads(torch, gen):
 # ---------------------------------------------------------------------------
 
 
+def tp2_cases():
+    """(kernel, label, M, K, N, NB, activation): the stacked GEMMs a rank of
+    tensor 2 launches in the served forward (the double blocks' latent
+    stream M 2048, the single blocks' M 2560); the row splits (to_out,
+    ff.out, proj_out over the local [attention | MLP] concat) without bias,
+    their partial products summed after."""
+    return [
+        ("qmm_qkv_stacked", "tp2 single qkv", 2560, 3072, 3 * 1536, 38, None),
+        ("qmm_stacked", "tp2 single mlp gelu", 2560, 3072, 6144, 38,
+         "gelu_tanh"),
+        ("qmm_stacked", "tp2 single proj_out", 2560, 7680, 3072, 38, None),
+        ("qmm_stacked", "tp2 attn to_out", 2048, 1536, 3072, 19, None),
+        ("qmm_stacked", "tp2 ff-out", 2048, 6144, 3072, 19, None),
+    ]
+
+
+def check_tp2_shapes(torch, gen, records):
+    """The W8A8 and weight-only stacked GEMMs and the flash forward at the
+    shard shapes of tensor 2 (12 heads, N and K halved, proj_out's K 7680):
+    each against its plain version (the phase's tolerances), on its wgmma
+    route, timed beside its plain version, one library call and its
+    bound."""
+    import torch.nn.functional as F
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    from loongx_tpu_torch.ops.rope import apply_rope, rope_embed
+
+    for kernel, label, m, k, n, nb, act in tp2_cases():
+        wq = torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        sc = torch.rand(nb, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        bi = (torch.randn(nb, 1, n, generator=gen, device="cuda") * 0.02
+              if act is not None or kernel == "qmm_qkv_stacked" else None)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        blk = nb - 2
+        group, k_pad = qmm.stacked_w8a8_group(k, n)
+        norm_w = torch.rand(3, n // 3, generator=gen, device="cuda") + 0.5
+        for w8a8 in (True, False):
+            if kernel == "qmm_qkv_stacked":
+                run = lambda: qmm.quant_qkv_stacked(x, wq, sc, bi, norm_w, blk,
+                                                    128, w8a8=w8a8)
+                plain = lambda: qmm.quant_qkv_plain(
+                    x, wq[blk], sc[blk], bi[blk], norm_w, 128, w8a8, group,
+                    k_pad)
+            else:
+                run = lambda: qmm.quant_matmul_stacked(
+                    x, wq, sc, blk, bias3=bi, activation=act, w8a8=w8a8)
+                plain = lambda: qmm.qmm_plain(
+                    x, wq[blk], sc[blk], None if bi is None else bi[blk], act,
+                    w8a8, group, k_pad)
+            out, ref = run(), plain()
+            route = qmm.qmm_route(k, n, group, k_pad, w8a8)
+            if route != "wgmma":
+                raise Failure(f"{label}: route {route}, not wgmma")
+            _qmm_record(records, kernel, label, w8a8, out, ref,
+                        cuda_time_ms(run), cuda_time_ms(plain, iters=2),
+                        cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
+                        m, k, n, {"route": route},
+                        exact=w8a8 and act == "gelu_tanh")
+        del wq, sc, bi, x
+        torch.cuda.empty_cache()
+
+    label, b, s, c, h, d = "tp2 S2560 union 12 heads", 1, 2560, 1024, 12, 128
+    q, k, v = _qkv(torch, gen, b, s, h, d, "bshd")
+    ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
+    cos, sin = rope_embed(ids.floor())
+    kw = dict(cond_start=s - c, rope=(cos, sin), layout="bshd")
+    route = fa.flash_fwd_route(d)
+    out = fa.flash_attention(q, k, v, **kw).float()
+    ref = fa.flash_attention_plain(q, k, v, **kw).float()
+    err = (out - ref).abs().max().item()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    tol = 2.0 ** -5 * ref.abs().max().item()
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                            iters=2)
+    qr, kr = (apply_rope(t, cos, sin) for t in fa._head_major("bshd", q, k))
+    vr = fa._head_major("bshd", v)[0].contiguous()
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
+    bms, by = bound_ms(4 * b * s * h * d * 2 + 2 * s * d * 4,
+                       4.0 * b * h * d * s * s, "bf16")
+    records.append(dict(kernel="flash_attention", case=label, err=err, tol=tol,
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bms, bound_by=by, route=route))
+    print(f"  flash {label}: err {err:.3e} (tol {tol:.2e}) rel L2 {rel:.3e} "
+          f"(bound {FLASH_REL_L2:.0e}); {route} {ms:.3f} ms (RoPE pre-pass "
+          f"included), plain {plain_ms:.3f}, sdpa {lib_ms:.3f}, bound "
+          f"{bms:.3f} ({by})", flush=True)
+    if route != "wgmma" or not (err <= tol and rel <= FLASH_REL_L2):
+        raise Failure(f"flash {label}: route {route}, err {err} (tol {tol}), "
+                      f"rel L2 {rel}")
+
+
 def attention_fp32_probs(q, k, v, *, cond_start, mode="union", c_factor=None,
                          rope=None, layout="bhsd", int8_attn=False):
     """The plain attention with float32 probabilities in the PV product (the
@@ -1841,6 +1926,11 @@ PROFILE_GROUPS = ("flash_fwd_wgmma_kernel", "rope_prepass_kernel",
                   *WONLY_GROUPS, *TRANSPOSED_GROUPS, "act_quant_", *LN_GROUPS)
 
 
+def device_profile(run):
+    """`device_bench.device_profile` of one ``run()`` by PROFILE_GROUPS."""
+    return _profile(run, PROFILE_GROUPS)
+
+
 def gemm_split(counts):
     """{entry: (launches, wgmma, mma_sync, splitk, k64)} of the int8 GEMM
     entries; each launch goes to exactly one of the kernels."""
@@ -1859,38 +1949,6 @@ def routes(counts, entry):
     """{route: launches} of one GEMM entry (`GEMM_ROUTES`, those taken)."""
     return {r: counts[f"{entry}:{r}"] for r in GEMM_ROUTES
             if counts.get(f"{entry}:{r}")}
-
-
-def device_profile(torch, run):
-    """Device time of one ``run()`` from torch.profiler's CUDA activity:
-    kernel milliseconds by group, the five largest other kernels, and the
-    device's idle share over the span from the first kernel start to the
-    last kernel end.  None when the profiler saw no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        return None
-    groups, other = {}, {}
-    for e in events:
-        us = e.time_range.end - e.time_range.start
-        group = next((g for g in PROFILE_GROUPS if g in e.name), None)
-        if group is None:
-            group = "other"
-            other[e.name] = other.get(e.name, 0.0) + us
-        groups[group] = groups.get(group, 0.0) + us
-    busy = sum(groups.values())
-    span = (max(e.time_range.end for e in events)
-            - min(e.time_range.start for e in events))
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
-    return dict(busy_ms=busy / 1e3, span_ms=span / 1e3,
-                idle_share=1.0 - busy / span, kernels=len(events),
-                by_group_ms={k: v / 1e3 for k, v in groups.items()},
-                top_other_ms={k[:80]: v / 1e3 for k, v in top})
 
 
 def host_profile(torch, run, top=8):
@@ -1984,7 +2042,7 @@ def full_forward(torch, pipe, gen):
         counts = {name: cuda_build.LAUNCHES[name] for name in KERNELS}
         split = gemm_split(cuda_build.LAUNCHES)
         flat_routes = routes(cuda_build.LAUNCHES, "qmm_flat")
-        prof = device_profile(torch, lambda: flux_forward(
+        prof = device_profile(lambda: flux_forward(
             params, cfg, w8a8=True, **kw))
         host = host_profile(torch, lambda: flux_forward(
             params, cfg, w8a8=True, **kw))
@@ -2060,7 +2118,7 @@ def full_forward(torch, pipe, gen):
         if not finite or not rel <= 5e-2:
             raise Failure(f"forward int8_attn: rel L2 {rel}, finite {finite}")
         cuda_build.LAUNCHES.clear()
-        prof_int8 = device_profile(torch, lambda: flux_forward(
+        prof_int8 = device_profile(lambda: flux_forward(
             params, cfg, w8a8=True, int8_attn=True, **kw))
         int8_counts = {n: cuda_build.LAUNCHES[n] for n in (
             "flash_attention_int8", "flash_attention_int8:wgmma", "flash_kquant")}
@@ -2168,7 +2226,7 @@ def fused_forward(torch, params, cfg, kw, v_unfused, t_unfused):
     torch.cuda.synchronize()
     t_fused = time.perf_counter() - t0
     counts = dict(cuda_build.LAUNCHES)
-    prof = device_profile(torch, lambda: flux_forward(params, cfg, **fkw))
+    prof = device_profile(lambda: flux_forward(params, cfg, **fkw))
     with plain_versions():
         v_p = flux_forward(params, cfg, **fkw)
     with plain_versions(attention_fp32_probs):
@@ -2928,8 +2986,8 @@ def whisper_numbers(torch, asr, audio, device="cuda"):
     n = p + len(rows)  # positions the rows predict: p .. n-1
     # the last one-token pass again (it rewrites the same cache entries)
     profiles = {"encoder": device_profile(
-        torch, lambda: whisper.whisper_encode(params, cfg, feats)),
-        "decoder pass": device_profile(torch, lambda: whisper._cached_decoder_pass(
+        lambda: whisper.whisper_encode(params, cfg, feats)),
+        "decoder pass": device_profile(lambda: whisper._cached_decoder_pass(
             params, cfg, buf[:, n - 2:n - 1], n - 2, self_k, self_v, cross_k,
             cross_v))}
     forced = whisper.whisper_decode_logits(params, cfg, enc, buf[:, : n - 1])
@@ -3417,6 +3475,15 @@ def _cli_launch_check(counts, blocks, what, steps=STEPS):
                       f"{counts.get('flash_rope')} pre-passes; {flash} expected)")
 
 
+def cli_args(paths, size, device="cuda"):
+    """The infer CLI's arguments for phase 4's requests: the checkpoint,
+    the brain data, seed 1, int8, the replace mode's condition, STEPS."""
+    return ["--checkpoint", paths["ckpt"], "--brain_data_path", paths["pkl"],
+            "--seed", "1", "--int8", "--condition_type", "eeg+fnirs",
+            "--position_delta_y", "0", "--steps", str(STEPS),
+            "--target_size", str(size), "--device", device]
+
+
 def infer_cli(torch, paths, img_ref, device="cuda"):
     """``cli.infer.main`` in this process with LOONGX_W8A8=1: one
     ``--single_image`` edit of phase 4's first request (its PNG must equal
@@ -3471,10 +3538,7 @@ def infer_cli(torch, paths, img_ref, device="cuda"):
         return out
 
     size = img_ref.shape[1]
-    common = ["--checkpoint", paths["ckpt"], "--brain_data_path", paths["pkl"],
-              "--seed", "1", "--int8", "--condition_type", "eeg+fnirs",
-              "--position_delta_y", "0", "--steps", str(STEPS),
-              "--target_size", str(size), "--device", device]
+    common = cli_args(paths, size, device)
     single_dir = os.path.join(paths["root"], "out_single")
     batch_dir = os.path.join(paths["root"], "out_batch")
     log = io.StringIO()
@@ -4239,7 +4303,7 @@ def train(torch):
         raise Failure(f"qmm_flat: {launches['qmm_flat']} launches, by route "
                       f"{routes(launches, 'qmm_flat')}")
     # one more step under the profiler, outside the timings and the counts
-    prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
+    prof = device_profile(lambda: step_fn(state, frozen, batch, gen))
     if prof is None:
         print("  step device profile: not measured (no device activity in the "
               "profiler)", flush=True)
@@ -4321,7 +4385,7 @@ def train_fused_ln(torch, cfg, state, frozen, batch, gen, lora_names, lora,
     if still or changed:
         raise Failure(f"fuse_ln steps: LoRA B unmoved {still}, frozen changed "
                       f"{changed[:5]}")
-    prof = device_profile(torch, lambda: step_fn(state, frozen, batch, gen))
+    prof = device_profile(lambda: step_fn(state, frozen, batch, gen))
     if prof is None or prof_unfused is None:
         print("  fuse_ln step device profile: not measured (no device "
               "activity in the profiler)", flush=True)
@@ -4669,7 +4733,7 @@ def _train_cli_run(torch, argv, saved):
                     # next batch being prepared beside it: its idle share
                     # (outside the timings and the launch counts)
                     out = []
-                    rec["profile"] = device_profile(torch, lambda: out.append(
+                    rec["profile"] = device_profile(lambda: out.append(
                         step_fn(state, frozen, batch, draws)))
                     return out[0]
                 before, t0 = dict(cuda_build.LAUNCHES), sync_time()
@@ -4895,6 +4959,363 @@ def _train_cli_runs(torch, yml, runs, root, ckpt, jsonl):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase "multi-GPU (one card)": parallel/ in child processes on the one card
+# ---------------------------------------------------------------------------
+
+# the TP 2 forward's velocity against the unsharded one's (relative L2):
+# phase 3's bounds, 1e-2 after the first double and single block
+# weight-only, 5e-2 through all 57 blocks W8A8 (gross faults only: any
+# change of bf16 rounding moves that velocity by about 3.4e-2, the rounding
+# floor printed beside)
+TP_SHALLOW_REL_L2, TP_FULL_REL_L2 = 1e-2, 5e-2
+TP_EDIT_STEPS = 3
+TP_EDIT_TOL = 2  # uint8: the TP 2 edit against the single edit at its steps
+# the profiler's name for device copies: gloo's all_reduce of a CUDA tensor
+# copies it to the host and back
+TP_COPY_GROUP = "Memcpy"
+# seconds a group of ranks may take before it is stopped and the run fails
+MULTI_TIMEOUTS = {"nccl": 240.0, "tp2": 360.0, "data2": 240.0}
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept: (result, lines)."""
+    import io
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out = fn(*args)
+    return out, log.getvalue().splitlines()
+
+
+def _rank_nccl(rank, job):
+    """(a) World 1 over NCCL, as ``torchrun --nproc-per-node 1`` starts it:
+    `make_mesh` from the environment, an all_reduce on the card, then
+    ``cli.infer.main`` in that process group: phase 4's first request and
+    the second CLI request, each as a single image."""
+    import torch
+    import torch.distributed as dist
+    from loongx_tpu_torch.cli import infer
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    t = torch.full((4,), 3.0, device=mesh.device)
+    dist.all_reduce(t)
+    out = {"backend": dist.get_backend(), "mesh": dict(mesh.shape),
+           "device": str(mesh.device), "all_reduce": t.tolist()}
+    with _env(LOONGX_W8A8="1"):
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        _, out["single_log"] = _quiet(infer.main, job["single"][0])
+        out["single_s"] = time.perf_counter() - t0
+        out["single_counts"] = dict(cuda_build.LAUNCHES)
+        _, out["second_log"] = _quiet(infer.main, job["single"][1])
+    dist.destroy_process_group()
+    return out
+
+
+def _tp_inputs(torch, cfg, device):
+    """Phase 3's forward inputs at S 2560 (512 text, 1024 image and 1024
+    condition tokens), from seed 7."""
+    from loongx_tpu_torch.ops.latents import latent_image_ids
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(bf)
+
+    return dict(img=randn(1, 1024, cfg.in_channels),
+                txt=randn(1, 512, cfg.joint_dim), pooled=randn(1, cfg.pooled_dim),
+                cond=randn(1, 1024, cfg.in_channels),
+                timestep=torch.full((1,), 0.7, device=device),
+                guidance=torch.full((1,), 3.5, device=device),
+                img_ids=latent_image_ids(64, 64, device=device),
+                cond_ids=latent_image_ids(64, 64, device=device),
+                txt_ids=torch.zeros(512, 3, device=device))
+
+
+def _rank_tp2(rank, job):
+    """(b) Tensor 2 over gloo, both ranks on cuda:0.  Each rank makes the
+    full-width TP-layout int8 bundle from phase 3's seed and keeps its
+    shard; rank 0 first takes the unsharded references on the whole tree
+    (the unit-gain velocity after 1 + 1 blocks weight-only and after 57
+    blocks W8A8, each with its rounding floor, and a TP_EDIT_STEPS-step
+    edit of phase 4's first request).  Then the TP forward (its launches,
+    seconds, peak memory), a second TP forward under the profiler (this
+    rank's device time: kernels, and the copies gloo makes of each
+    all_reduce's operand), and the TP edit."""
+    import numpy as np
+    import torch
+    from loongx_tpu_torch.models.flux.model import flux_forward
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.ops.quant import quantized_bytes
+    from loongx_tpu_torch.parallel import make_mesh, shard_params
+    from loongx_tpu_torch.parallel.mesh import mesh_context, tp_context
+    from loongx_tpu_torch.precision import set_precision
+    from loongx_tpu_torch.sampling import generate
+
+    set_precision()
+    mesh = make_mesh(data=1, tensor=2, backend="gloo", device="cuda:0")
+    dev = mesh.device
+    t0 = time.perf_counter()
+    pipe = LoongXPipeline.init_serving(seed=0, device=dev, tp_layout=True)
+    cfg = pipe.flux_cfg
+    shallow = dataclasses.replace(cfg, num_double_blocks=1, num_single_blocks=1)
+    kw = _tp_inputs(torch, cfg, dev)
+    ug = unit_gain(torch, pipe.params["flux"])
+    out = {"mesh": (dict(mesh.shape), mesh.tensor_index),
+           "bundle_bytes": quantized_bytes(pipe.params["flux"])}
+
+    def host(v):
+        return v.float().cpu().numpy()
+
+    with torch.inference_mode():
+        if rank == 0:
+            for name, depth, w8a8 in (("full", cfg, True),
+                                      ("shallow", shallow, False)):
+                out[f"v_{name}"] = host(flux_forward(ug, depth, w8a8=w8a8,
+                                                     **kw))
+                with plain_versions():
+                    v_p = flux_forward(ug, depth, w8a8=w8a8, **kw)
+                with plain_versions(attention_fp32_probs):
+                    v_f = flux_forward(ug, depth, w8a8=w8a8, **kw)
+                out[f"floor_{name}"] = rel_l2(v_f, v_p)
+                del v_p, v_f
+            out["img_single"] = generate.neural_edit(
+                pipe, **job["req"], num_inference_steps=TP_EDIT_STEPS,
+                w8a8=True)
+    ug = shard_params(ug, mesh)
+    pipe.params = shard_params(pipe.params, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["shard_bytes"] = quantized_bytes(pipe.params["flux"])
+    out["build_s"] = time.perf_counter() - t0
+    with torch.inference_mode(), tp_context(mesh):
+        flux_forward(ug, shallow, **kw)  # warm: the group's first exchanges
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        v = flux_forward(ug, cfg, w8a8=True, **kw)
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+        out["forward_counts"] = dict(cuda_build.LAUNCHES)
+        out["forward_peak"] = torch.cuda.max_memory_allocated(dev)
+        out["v_tp_full"] = host(v)
+        out["v_tp_shallow"] = host(flux_forward(ug, shallow, **kw))
+        out["forward_profile"] = _profile(
+            lambda: flux_forward(ug, cfg, w8a8=True, **kw),
+            (*PROFILE_GROUPS, TP_COPY_GROUP))
+    del ug, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with mesh_context(mesh):
+        out["img_tp"] = generate.neural_edit(
+            pipe, **job["req"], num_inference_steps=TP_EDIT_STEPS, w8a8=True)
+    out["edit_s"] = time.perf_counter() - t0
+    out["edit_counts"] = dict(cuda_build.LAUNCHES)
+    out["edit_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["finite"] = bool(np.isfinite(out["img_tp"]).all())
+    return out
+
+
+def _rank_data2(rank, job):
+    """(c) Data 2 over gloo, both ranks on cuda:0: ``cli.infer.main`` over
+    a directory of two requests, one row a rank."""
+    import torch
+    import torch.distributed as dist
+    from loongx_tpu_torch.cli import infer
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(backend="gloo", device="cuda:0")
+    out = {"mesh": (dict(mesh.shape), mesh.data_index)}
+    with _env(LOONGX_W8A8="1"):
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        _, out["log"] = _quiet(infer.main, job["dir"])
+        out["seconds"] = time.perf_counter() - t0
+        out["counts"] = dict(cuda_build.LAUNCHES)
+        out["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    dist.destroy_process_group()
+    return out
+
+
+def _ranks(fn, world, job, what):
+    """`spawn_ranks` with the phase's timeout for ``what``; any rank's
+    failure, a hang past the timeout or a non-zero exit fails the run."""
+    from loongx_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    try:
+        out = spawn_ranks(fn, world, (job,), timeout=MULTI_TIMEOUTS[what])
+    except RuntimeError as exc:
+        raise Failure(f"multi-GPU {what}: {exc}") from exc
+    print(f"  {what}: {world} rank(s) done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def _png(path):
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(path)).astype(np.int32)
+
+
+def _written(log):
+    return [os.path.basename(line.split("] ")[-1]) for line in log
+            if line.startswith("[infer] [")]
+
+
+def multi_gpu(torch, paths, img_ref, req):
+    """Phase "multi-GPU (one card)": ``parallel/`` through child processes
+    started with the spawn method (`parallel.launch.spawn_ranks`), each
+    group within MULTI_TIMEOUTS:
+
+      (a) NCCL at world size 1 (`make_mesh` from torchrun's environment):
+          an all_reduce on the card, a 1 x 1 mesh, and ``cli.infer.main``
+          in that group, whose single edit must equal phase 4's first
+          request bit for bit (and the second request's single edit, the
+          reference of (c));
+      (b) tensor 2 over gloo, two ranks on the one card (NCCL refuses
+          that): each rank's shard of the full-width FLUX.1-dev TP-layout
+          int8 bundle, one W8A8 forward at S 2560 whose velocity (the same
+          on both ranks) must be within TP_FULL_REL_L2 of the unsharded
+          forward (TP_SHALLOW_REL_L2 after 1 + 1 blocks weight-only), every
+          flash and GEMM launch of each rank on its Hopper route, peak
+          memory a rank; then a TP_EDIT_STEPS-step TP edit of phase 4's
+          first request within TP_EDIT_TOL of the single edit;
+      (c) data 2 over gloo on the one card: ``cli.infer.main`` over two
+          requests, one a rank, each image equal bit for bit to that
+          request's single edit from (a).
+
+    Two ranks share one card here: the seconds are not a multi-card
+    speed.  Returns the launches by run and rank."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    root, size = paths["root"], img_ref.shape[1]
+    blocks = 57  # FLUX.1-dev: 19 double + 38 single
+    two = os.path.join(root, "in_two")
+    os.makedirs(two)
+    for name in ("req1.png", "req2.png"):
+        shutil.copy(os.path.join(paths["in_dir"], name), two)
+    single = os.path.join(root, "mg_single")
+    data2 = os.path.join(root, "mg_data2")
+    ref = ((np.clip(img_ref[0], -1, 1) + 1) * 127.5).round().astype(np.int32)
+
+    # (a)
+    common = cli_args(paths, size, "cuda")
+    a = _ranks(_rank_nccl, 1, {"single": [
+        common + ["--single_image", os.path.join(two, name), "--prompt", "",
+                  "--output_dir", single] for name in ("req1.png", "req2.png")]},
+        "nccl")[0]
+    got = _png(os.path.join(single, "req1.png"))
+    diff = np.abs(got - ref)
+    print(f"  (a) NCCL world 1: backend {a['backend']}, mesh {a['mesh']} on "
+          f"{a['device']}, all_reduce {a['all_reduce']}; cli.infer single edit "
+          f"{a['single_s']:.2f} s, against phase 4's first request: "
+          f"{int((diff > 0).sum())} values differ (max {int(diff.max())})",
+          flush=True)
+    if (a["backend"] != "nccl" or a["mesh"] != {"data": 1, "tensor": 1}
+            or a["all_reduce"] != [3.0] * 4):
+        raise Failure(f"NCCL world 1: {a['backend']}, {a['mesh']}, "
+                      f"{a['all_reduce']}")
+    if got.shape != ref.shape or diff.any():
+        raise Failure(f"the single edit through NCCL differs from phase 4's "
+                      f"in {int((diff > 0).sum())} values")
+    _cli_launch_check(a["single_counts"], blocks, "(a) NCCL single edit")
+
+    # (b)
+    b = _ranks(_rank_tp2, 2, {"req": req}, "tp2")
+    r0 = b[0]
+    for r in (1,):
+        if not (np.array_equal(b[r]["v_tp_full"], r0["v_tp_full"])
+                and np.array_equal(b[r]["img_tp"], r0["img_tp"])):
+            raise Failure(f"TP 2: rank {r}'s velocity or image differs from "
+                          "rank 0's")
+    tv = {n: torch.from_numpy(r0[f"v_tp_{n}"]) for n in ("full", "shallow")}
+    rels = {n: rel_l2(tv[n], torch.from_numpy(r0[f"v_{n}"])) for n in tv}
+    finite_v = all(bool(torch.isfinite(t).all()) for t in tv.values())
+    print(f"  (b) TP 2 over gloo on one card (mesh {r0['mesh'][0]}): bundle "
+          f"{r0['bundle_bytes'] / 1e9:.2f} GB, a rank's shard "
+          f"{r0['shard_bytes'] / 1e9:.2f} GB, made and sharded in "
+          f"{r0['build_s']:.1f} s; velocity against the unsharded forward: "
+          f"rel L2 {rels['full']:.3e} through 19+38 blocks W8A8 (bound "
+          f"{TP_FULL_REL_L2:.0e}; rounding floor {r0['floor_full']:.3e}), "
+          f"{rels['shallow']:.3e} after 1+1 blocks weight-only (bound "
+          f"{TP_SHALLOW_REL_L2:.0e}; floor {r0['floor_shallow']:.3e}); finite "
+          f"{finite_v}", flush=True)
+    for r, res in enumerate(b):
+        print(f"  (b) rank {r}: TP forward {res['forward_s'] * 1e3:.1f} ms "
+              f"(two ranks on one card, gloo through the host), peak "
+              f"{res['forward_peak'] / 1e9:.2f} GB; TP edit "
+              f"{res['edit_s']:.2f} s for {TP_EDIT_STEPS} steps, peak "
+              f"{res['edit_peak'] / 1e9:.2f} GB", flush=True)
+        prof = res["forward_profile"]
+        if prof is None:
+            print(f"  (b) rank {r}: the profiled TP forward: no device activity "
+                  "recorded (device time not measured)", flush=True)
+        else:
+            copies = prof["by_group_ms"].get(TP_COPY_GROUP, 0.0)
+            print(f"  (b) rank {r}: profiled TP forward: busy "
+                  f"{prof['busy_ms']:.3f} ms (kernels "
+                  f"{prof['busy_ms'] - copies:.3f}, copies {copies:.3f}) of a "
+                  f"{prof['span_ms']:.3f} ms span, idle share "
+                  f"{prof['idle_share']:.4f}, {prof['kernels']} device events "
+                  "(the other rank's work fills this rank's gaps)", flush=True)
+            print("  (b) rank %d: TP forward by group (ms): %s" % (r, json.dumps(
+                {k: round(v, 4) for k, v in prof["by_group_ms"].items()})),
+                flush=True)
+        _cli_launch_check(res["forward_counts"], blocks,
+                          f"(b) rank {r} TP forward", steps=1)
+        _cli_launch_check(res["edit_counts"], blocks, f"(b) rank {r} TP edit",
+                          steps=TP_EDIT_STEPS)
+    if not (finite_v and rels["full"] <= TP_FULL_REL_L2
+            and rels["shallow"] <= TP_SHALLOW_REL_L2):
+        raise Failure(f"TP 2 velocity: rel L2 {rels}, finite {finite_v}")
+    u8 = [((np.clip(x[0], -1, 1) + 1) * 127.5).round().astype(np.int32)
+          for x in (r0["img_tp"], r0["img_single"])]
+    ediff = np.abs(u8[0] - u8[1])
+    print(f"  (b) TP edit ({TP_EDIT_STEPS} steps, 512x512) against the single "
+          f"edit: max {int(ediff.max())} (limit {TP_EDIT_TOL}), "
+          f"{int((ediff > 0).sum())} values differ; finite {r0['finite']}",
+          flush=True)
+    if not r0["finite"] or r0["img_tp"].shape != (1, 512, 512, 3) or (
+            ediff.max() > TP_EDIT_TOL):
+        raise Failure(f"TP edit: max diff {int(ediff.max())}, finite "
+                      f"{r0['finite']}")
+
+    # (c)
+    c = _ranks(_rank_data2, 2, {
+        "dir": cli_args(paths, size, "cuda:0") + ["--input_dir", two,
+                                                  "--output_dir", data2]},
+        "data2")
+    for r, res in enumerate(c):
+        name = f"req{r + 1}.png"
+        d = np.abs(_png(os.path.join(data2, name))
+                   - _png(os.path.join(single, name)))
+        print(f"  (c) data rank {r} (mesh {res['mesh'][0]}): wrote "
+              f"{_written(res['log'])} in {res['seconds']:.2f} s, peak "
+              f"{res['peak'] / 1e9:.2f} GB; {name} against its single edit: "
+              f"{int((d > 0).sum())} values differ", flush=True)
+        if _written(res["log"]) != [name] or d.any():
+            raise Failure(f"data rank {r}: wrote {_written(res['log'])}, "
+                          f"{int((d > 0).sum())} values differ from the "
+                          "single edit")
+        _cli_launch_check(res["counts"], blocks, f"(c) data rank {r}")
+    print(f"  multi-GPU phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"nccl single": a["single_counts"],
+            **{f"tp2 rank{r}": res["edit_counts"] for r, res in enumerate(b)},
+            **{f"data2 rank{r}": res["counts"] for r, res in enumerate(c)}}
+
+
 def kernel_table(records, launches):
     """One entry per kernel: the worst error over its cases and the times
     at its main shape; launches from the run of its path.  The weight-only
@@ -5016,6 +5437,13 @@ def kernel_table(records, launches):
             # the web demo's
             "launches_speech_edit": count(launches["speech edit"]),
             "launches_web_demo": count(launches["web demo"]),
+            # phase "multi-GPU (one card)": the NCCL world-1 single edit,
+            # the TP 2 edit and the data 2 CLI run, by rank
+            "launches_nccl_single": count(launches["nccl single"]),
+            "launches_tp2_ranks": [count(launches[f"tp2 rank{r}"])
+                                   for r in range(2)],
+            "launches_data2_ranks": [count(launches[f"data2 rank{r}"])
+                                     for r in range(2)],
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -5030,6 +5458,13 @@ def kernel_table(records, launches):
                if key in main},
             **({"kernel": main["route"]} if "route" in main else {}),
             **({"launches_by_route": by_route} if any(by_route.values()) else {}),
+            # phase 2 at the shard shapes a rank of tensor 2 runs
+            **({"tp2_shard_shapes": {
+                r["case"]: {k: r[k] for k in ("m", "k", "n", "ms", "plain_ms",
+                                              "library_ms", "bound_ms",
+                                              "bound_by") if k in r}
+                for r in cases if r["case"].startswith("tp2 ")}}
+               if any(r["case"].startswith("tp2 ") for r in cases) else {}),
         })
     return table
 
@@ -5049,8 +5484,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({exc})",
               file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from loongx_tpu_torch.precision import set_precision
+    set_precision()
 
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} x "
@@ -5081,6 +5516,8 @@ def main() -> int:
             gen_ln = torch.Generator(device="cuda").manual_seed(6)
             check_ln_stats(torch, gen_ln, records)
             check_ln_mod_pass(torch, gen_ln, records)
+            check_tp2_shapes(torch, torch.Generator(device="cuda").manual_seed(8),
+                             records)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
@@ -5112,13 +5549,17 @@ def main() -> int:
             with Phase("evaluate and depth", card):
                 launches["depth edit"] = depth_edit(torch, cli_inputs)
                 eval_parity(torch, cli_inputs)
+            with Phase("5 train", card):
+                launches["train"], launches["train fuse_ln"] = train(torch)
+            with Phase("train CLI", card):
+                launches["train CLI"] = train_cli(torch)
+            with Phase("multi-GPU (one card)", card):
+                gc.collect()
+                torch.cuda.empty_cache()  # the ranks share the card
+                launches.update(multi_gpu(torch, cli_inputs, img0, req0))
         finally:
             if root is not None:
                 shutil.rmtree(root, ignore_errors=True)
-        with Phase("5 train", card):
-            launches["train"], launches["train fuse_ln"] = train(torch)
-        with Phase("train CLI", card):
-            launches["train CLI"] = train_cli(torch)
     except Failure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,13 +1,14 @@
 """loongx_tpu_torch: the PyTorch/CUDA port of loongx_tpu for NVIDIA Hopper
 (H100), a framework for neural-driven image editing.
 
-It holds the JAX package's modules but the multi-chip ones (``parallel/``)
-and the TPU profiling and compile-cache utilities: the FLUX.1
+It holds the JAX package's modules but the XLA compile cache: the FLUX.1
 DiT conditioned on condition-image tokens and on EEG / fNIRS / PPG / motion
 signals (CS3 encoders, DGF fusion), the VAE, T5 and CLIP text encoders,
 `generate()` and the deployed ``neural_edit``, QLoRA training from a YAML
 config, evaluation and the Depth-Anything estimator, the speech path
-(Whisper ASR, Marian zh->en) and the demos, their checkpoints and CLIs.
+(Whisper ASR, Marian zh->en) and the demos, their checkpoints and CLIs,
+multi-GPU serving over a data x tensor layout of processes
+(``parallel/``) and the profiling utilities.
 The hot path runs on a CUDA device through hand-written sm_90a kernels
 (``csrc/``): the flash-attention forward (bf16 and int8 QK^T scores) and
 backward, the int8 quant-matmuls (W8A8 and weight-only, stacked, fused-qkv,

@@ -152,6 +152,9 @@ def main(argv=None):
         "checkpoint, so serving starts with one load.  Not before LoRA "
         "attachment (adapters address q/k/v individually)")
     args = parser.parse_args(argv)
+    from loongx_tpu_torch.precision import set_precision
+
+    set_precision()
 
     import torch
 

@@ -12,9 +12,20 @@ deployed mode is the reference's: ``fuse_flag=False`` (brain embeds
 *replace* the text embeds), ``--fuse`` to fuse them.  Biosignals come from a
 pickle {image file name: {"EEG", "FNIRS", "PPG", "Motion"}}.
 
-Everything runs on one device, the GPU unless ``--device cpu``; a missing
-GPU is an error.  The JAX package's mesh path is one data shard here, and
-tensor parallelism (``--tensor > 1``) is refused: it is not ported.
+One process serves on one device, the GPU unless ``--device cpu``; a
+missing GPU is an error.  Several processes serve over a data x tensor
+layout (`parallel.mesh`), one per rank, as ``torchrun`` starts them:
+
+    torchrun --nproc-per-node 4 -m loongx_tpu_torch.cli.infer --tensor 2 \
+        --checkpoint <dir> --input_dir images/ --int8 ...
+
+``--tensor T`` splits the DiT's heads and MLP columns over T ranks (the
+TP-layout int8 bundle: q/k/v unfused, then fused in the TP layout, proj_out
+whole), each rank holding its shard on cuda:LOCAL_RANK; the remaining
+ranks form the data axis, each data rank editing its rows of every group
+(the tail group padded to divide the data axis).  Tensor index 0 of each
+data rank writes its images; rank 0 writes the single image and prints
+the log.
 
 Serving knobs are the JAX package's environment variables, read once in
 `main` (`serving_knobs`) and passed as the ``w8a8`` / ``int8_attn`` /
@@ -42,11 +53,6 @@ import numpy as np
 
 KNOBS = {"w8a8": "LOONGX_W8A8", "int8_attn": "LOONGX_INT8_ATTN",
          "fuse_ln": "LOONGX_FUSE_LN", "fuse_gate": "LOONGX_FUSE_GATE"}
-
-TENSOR_REFUSAL = (
-    "--tensor > 1: tensor-parallel serving is not ported to this package "
-    "(ROADMAP.md Queue 1, Multi-GPU); it serves on one GPU")
-
 
 def serving_knobs() -> Dict[str, bool]:
     """The JAX package's serving env knobs as `neural_edit` / `generate`
@@ -199,10 +205,15 @@ def staged_text_encode(checkpoint, files, captions, default_prompt,
 
 def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
                latents=None, cond_noise=None,
-               knobs: Optional[Dict[str, bool]] = None):
+               knobs: Optional[Dict[str, bool]] = None, mesh=None):
     """Directory batch mode: the images of ``args.input_dir`` edited in
-    groups of ``args.batch_size`` (one ``generate`` call a group), each
-    written under its own name to ``args.output_dir``.
+    groups of ``args.batch_size`` (default: the data extent; rounded up to
+    a multiple of it), one ``generate`` call a group on each data rank of
+    ``mesh`` (`parallel.mesh.Mesh`; None: this process alone) over its rows
+    of the group, the tail group padded by repeating its last image; each
+    image written under its own name to ``args.output_dir`` by tensor index
+    0 of the data rank that edited it.  The pipeline holds this rank's
+    shard; the model runs under ``mesh_context(mesh)``.
 
     Reference-parity semantics (an image's result does not depend on the
     directory around it or on ``--batch_size``):
@@ -233,12 +244,18 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
         _to_numpy_image, synthesize_condition_image,
     )
 
-    if (getattr(args, "tensor", 1) or 1) > 1:
-        raise SystemExit(f"[infer] {TENSOR_REFUSAL}")
+    from loongx_tpu_torch.parallel.mesh import (
+        make_mesh, mesh_context, shard_batch,
+    )
+
+    if mesh is None:
+        mesh = make_mesh(device=pipeline.device)
+    n_data, lead = mesh.shape["data"], mesh.rank == 0
     os.makedirs(args.output_dir, exist_ok=True)
     files = list_images(args.input_dir)
     device, dtype = pipeline.device, pipeline.dtype
-    group = max(args.batch_size or 1, 1)
+    group = max(args.batch_size or n_data, 1)
+    group = -(-group // n_data) * n_data  # a multiple of the data axis
 
     # ---- per-image brain lookup, bucketed by effective coverage ----
     buckets: Dict[tuple, list] = {}
@@ -268,9 +285,11 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
                 f"{len(bad)}/{len(files)} images lack it: {bad[:5]}"
                 + ("..." if len(bad) > 5 else ""))
     order = sorted(buckets, key=lambda s: (len(s), s))
-    print(f"[infer] {len(files)} images, groups of {group} on {device}"
-          + (f", {len(buckets)} brain-coverage buckets {order}"
-             if len(buckets) > 1 else ""))
+    if lead:
+        print(f"[infer] {len(files)} images, groups of {group} on mesh "
+              f"{dict(mesh.shape)}"
+              + (f", {len(buckets)} brain-coverage buckets {order}"
+                 if len(buckets) > 1 else ""))
     size = args.target_size
     lat_h = lat_w = size // pipeline.vae_cfg.downscale
     n_tok = (lat_h // 2) * (lat_w // 2)
@@ -292,9 +311,14 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
         for start in range(0, len(bucket), group):
             t0 = _time.time()
             chunk = bucket[start:start + group]
+            # pad the tail group to divide the data axis; this data rank's
+            # rows of it (positions in the group)
+            proc = chunk + [chunk[-1]] * ((-len(chunk)) % n_data)
+            rows = shard_batch(torch.arange(len(proc)), mesh).tolist()
+            mine = [proc[i] for i in rows]
             conds, prompts = [], []
             with torch.inference_mode():
-                for fname in chunk:
+                for fname in mine:
                     img = read_image(os.path.join(args.input_dir, fname), size)
                     cimg = synthesize_condition_image(args.condition_type,
                                                       img, device)
@@ -303,7 +327,7 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
                         torch.as_tensor(arr, device=device), noise=cond_noise)
                     conds.append(toks[0])
                     prompts.append(captions.get(fname, args.prompt or ""))
-            b = len(chunk)
+            b = len(mine)
             cond_ids = shift_ids(latent_image_ids(h, w, device=device),
                                  (args.position_delta_x,
                                   args.position_delta_y))
@@ -317,37 +341,40 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
                         canonicalise_signal(torch.as_tensor(
                             np.asarray(eff_of[f][key], np.float32),
                             device=device), name)[0]
-                        for f in chunk])
+                        for f in mine])
             if text_embeds is not None:
                 tkw = {
                     "prompt_embeds": torch.as_tensor(np.stack(
-                        [text_embeds[f][0] for f in chunk])).to(device, dtype),
+                        [text_embeds[f][0] for f in mine])).to(device, dtype),
                     "pooled_prompt_embeds": torch.as_tensor(np.stack(
-                        [text_embeds[f][1] for f in chunk])).to(device, dtype),
+                        [text_embeds[f][1] for f in mine])).to(device, dtype),
                 }
             else:
                 tkw = {"prompt": prompts}
-            out = sampling.generate(
-                pipeline, condition_type=args.condition_type,
-                cond_tokens=torch.stack(conds), cond_ids=cond_ids,
-                height=size, width=size, num_inference_steps=args.steps,
-                guidance_scale=args.guidance, seed=args.seed,
-                latents=latents.expand(b, -1, -1).to(dtype),
-                use_brain_condition=bool(kw), fuse_flag=args.fuse,
-                neural_only=args.neural_only, output_type="uint8",
-                decode_chunk=getattr(args, "decode_chunk", None),
-                **tkw, **kw, **(knobs or {}))
-            for fname, arr in zip(chunk, out):
-                out_path = os.path.join(args.output_dir, fname)
+            with mesh_context(mesh):
+                out = sampling.generate(
+                    pipeline, condition_type=args.condition_type,
+                    cond_tokens=torch.stack(conds), cond_ids=cond_ids,
+                    height=size, width=size, num_inference_steps=args.steps,
+                    guidance_scale=args.guidance, seed=args.seed,
+                    latents=latents.expand(b, -1, -1).to(dtype),
+                    use_brain_condition=bool(kw), fuse_flag=args.fuse,
+                    neural_only=args.neural_only, output_type="uint8",
+                    decode_chunk=getattr(args, "decode_chunk", None),
+                    **tkw, **kw, **(knobs or {}))
+            for i, arr in zip(rows, out):
+                if i >= len(chunk) or mesh.tensor_index:
+                    continue  # a padded row, or another rank writes it
+                out_path = os.path.join(args.output_dir, chunk[i])
                 write_image(out_path, arr)
-                done += 1
-                print(f"[infer] [{done}/{len(files)}] {out_path}")
+                print(f"[infer] [{done + i + 1}/{len(files)}] {out_path}")
+            done += len(chunk)
             dt = _time.time() - t0
             times.extend([dt / len(chunk)] * len(chunk))
-            if getattr(args, "timing", False):
+            if getattr(args, "timing", False) and lead:
                 print(f"[infer] group of {len(chunk)}: {dt:.3f}s "
                       f"({dt / len(chunk):.3f}s/image end-to-end)")
-    if getattr(args, "timing", False) and times:
+    if getattr(args, "timing", False) and times and lead:
         times.sort()
         p50 = times[len(times) // 2]
         print(f"[infer] wall-clock per-image p50 {p50:.3f}s over "
@@ -435,8 +462,9 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=None,
                         help="images per generate call (default 1)")
     parser.add_argument("--tensor", type=int, default=1,
-                        help="tensor-parallel width; only 1 (one GPU) is "
-                        "served by this package")
+                        help="tensor-parallel width: ranks (of a torchrun "
+                        "launch) splitting the DiT; the others form the "
+                        "data axis")
     parser.add_argument("--decode_chunk", type=int, default=None,
                         help="decode at most this many images per decode "
                         "step (default: the whole group)")
@@ -474,12 +502,17 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
+    from loongx_tpu_torch.precision import set_precision
 
-    import torch
+    set_precision()
 
     from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.parallel.mesh import (
+        make_mesh, mesh_context, rank_device, shard_params,
+    )
 
     require_device(parser, args.device)
+    device = rank_device(args.device)  # cuda:LOCAL_RANK under torchrun
     knobs = serving_knobs()
     components = (
         tuple(c.strip() for c in args.components.split(",") if c.strip())
@@ -493,9 +526,9 @@ def main(argv=None):
                          "(--input_dir)")
         text_embeds = staged_text_encode(
             args.checkpoint, list_images(args.input_dir), captions,
-            args.prompt, int8=args.int8, device=args.device)
+            args.prompt, int8=args.int8, device=device)
     pipeline = LoongXPipeline.from_pretrained(
-        args.checkpoint, components=components, device=args.device)
+        args.checkpoint, components=components, device=device)
     if args.staged_text and components is None:
         # prompts are already embedded; keep the encoders off the device
         pipeline.free_text_encoders()
@@ -511,11 +544,18 @@ def main(argv=None):
             "--lora on a checkpoint with baked serving transforms (fused "
             "qkv): LoRA adapters address the unfused q/k/v projections.  "
             "Re-convert without --serving to serve with LoRA.")
-    if args.tensor > 1:
-        parser.error(TENSOR_REFUSAL)
+    try:
+        mesh = make_mesh(data=-1, tensor=args.tensor, device=device)
+    except ValueError as exc:
+        parser.error(f"--tensor {args.tensor}: {exc}.  Tensor-parallel "
+                     "serving runs one process per rank: torchrun "
+                     "--nproc-per-node N -m loongx_tpu_torch.cli.infer "
+                     f"--tensor {args.tensor} ... (README.md, Multi-GPU)")
+    tp = args.tensor > 1
     if args.int8 and _tree_has_key(flux, "kernel_q"):
         # converted with --quantize: re-quantizing would be lossy; apply the
-        # serving transforms (no-ops where the checkpoint baked them)
+        # serving transforms (no-ops where the checkpoint baked them); under
+        # tensor parallelism qkv fused in the TP layout, proj_out whole
         print("[infer] checkpoint already int8; applying serving transforms")
         from loongx_tpu_torch.ops.quant import (
             fuse_qkv_projections, split_single_proj_out,
@@ -523,16 +563,21 @@ def main(argv=None):
 
         if not args.lora:
             pipeline.params["flux"] = fuse_qkv_projections(
-                pipeline.params["flux"])
-        pipeline.params["flux"] = split_single_proj_out(
-            pipeline.params["flux"], pipeline.flux_cfg.hidden)
+                pipeline.params["flux"], tp_layout=tp)
+        if not tp:
+            pipeline.params["flux"] = split_single_proj_out(
+                pipeline.params["flux"], pipeline.flux_cfg.hidden)
     elif args.int8:
         # qkv fusion cannot carry LoRA (adapters address q/k/v
-        # individually); the proj_out split routes its factor rows
-        pipeline.quantize(fuse_qkv=not args.lora)
+        # individually); the proj_out split routes its factor rows.  Under
+        # tensor parallelism the TP serving bundle: qkv fused in the TP
+        # layout (the flat fused axis cannot split), proj_out whole
+        pipeline.quantize(fuse_qkv=not args.lora, tp_layout=tp)
     for spec in args.lora or []:
         name, path = spec.split("=", 1) if "=" in spec else (None, spec)
         _attach_lora(pipeline, path, name)
+    if tp:  # this rank keeps its shard of the DiT
+        pipeline.params = shard_params(pipeline.params, mesh)
     brain_data = load_brain_data(args.brain_data_path)
     if brain_data and not (
             "encoders" in pipeline.params and "dgf" in pipeline.params):
@@ -544,21 +589,24 @@ def main(argv=None):
 
     if args.single_image and args.prompt is not None:
         brain = brain_data.get(os.path.basename(args.single_image), {})
-        img = edit_one(
-            pipeline, args.single_image, args.prompt,
-            condition_type=args.condition_type, target_size=args.target_size,
-            position_delta=(args.position_delta_x, args.position_delta_y),
-            brain=brain, seed=args.seed, fuse_flag=args.fuse,
-            num_steps=args.steps, guidance=args.guidance,
-            neural_only=args.neural_only, knobs=knobs)
-        os.makedirs(args.output_dir, exist_ok=True)
-        out = os.path.join(args.output_dir,
-                           os.path.basename(args.single_image))
-        write_image(out, img)
-        print(f"[infer] saved {out}")
+        with mesh_context(mesh):
+            img = edit_one(
+                pipeline, args.single_image, args.prompt,
+                condition_type=args.condition_type,
+                target_size=args.target_size,
+                position_delta=(args.position_delta_x, args.position_delta_y),
+                brain=brain, seed=args.seed, fuse_flag=args.fuse,
+                num_steps=args.steps, guidance=args.guidance,
+                neural_only=args.neural_only, knobs=knobs)
+        if mesh.rank == 0:
+            os.makedirs(args.output_dir, exist_ok=True)
+            out = os.path.join(args.output_dir,
+                               os.path.basename(args.single_image))
+            write_image(out, img)
+            print(f"[infer] saved {out}")
     elif args.input_dir:
         batch_edit(pipeline, args, brain_data, captions,
-                   text_embeds=text_embeds, knobs=knobs)
+                   text_embeds=text_embeds, knobs=knobs, mesh=mesh)
     else:
         parser.error("provide --single_image + --prompt, or --input_dir")
 

@@ -122,6 +122,9 @@ def main(argv=None):
                         help="'cuda' (default) or 'cpu', for generation and "
                         "scoring")
     args = parser.parse_args(argv)
+    from loongx_tpu_torch.precision import set_precision
+
+    set_precision()
 
     if not (args.jax_clip_path or args.clip_path):
         parser.error("need a CLIP scoring backend: --jax_clip_path "

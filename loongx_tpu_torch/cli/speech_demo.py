@@ -187,6 +187,9 @@ def main(argv=None, *, pipeline=None, transcriber=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
+    from loongx_tpu_torch.precision import set_precision
+
+    set_precision()
 
     from loongx_tpu_torch.cli.infer import (
         load_brain_data, require_device, serving_knobs,

@@ -172,6 +172,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
+    from loongx_tpu_torch.precision import set_precision
+
+    set_precision()
 
     import torch
 

@@ -43,6 +43,17 @@ the linear and the batch is 1; everywhere else the same math is composed
 around the matmul (``add_cond_attn``'s cross-segment add always is).  With
 grad enabled the fused forms go through `quant_ln_mod_linear_stacked` /
 `quant_gate_res_linear_stacked`.
+
+Under a tensor context (``parallel.mesh.mesh_context`` / ``tp_context``,
+tensor extent > 1; serving only) the params are this rank's shard
+(`parallel.mesh.shard_params`) and every call site names its layer's split
+(``tp_kind``), as the JAX package's does: q/k/v, ff.in and proj_mlp
+"col" (the output stays split: the rank's heads and MLP columns), to_out,
+to_add_out, ff.out and the single blocks' proj_out "row" (one
+``all_reduce`` over the tensor group), the rest whole on every rank.  The
+stacked int8 linears run `parallel.tp_quant`'s forms of the kernels, the
+flash attention the rank's heads (no collective); a rank never splits a
+sequence's rows.
 """
 
 from __future__ import annotations
@@ -61,6 +72,12 @@ from loongx_tpu_torch.ops.nn import (
     stack_trees,
 )
 from loongx_tpu_torch.ops.rope import rope_embed
+from loongx_tpu_torch.parallel.mesh import (
+    current_tp, proj_out_rows, tensor_extent,
+)
+from loongx_tpu_torch.parallel.tp_quant import (
+    all_reduce, tp_quant_matmul_stacked, tp_quant_qkv_stacked,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,16 +219,62 @@ def _bias3(p: Params, n: int) -> torch.Tensor:
                        device=p["kernel_q"].device)
 
 
+def _lora_delta(p: Params, x: torch.Tensor, y_width: int, tp, tp_kind):
+    """(xA)B * lora_scale in float32; under a tensor context (``tp`` =
+    (mesh, axis)) the whole A / B leaves meet the rank's shard: a col split
+    takes B's columns of its output slice, a row split sums x_local A[its
+    rows] over the tensor group (its rows by `proj_out_rows` for the single
+    blocks' [attention | MLP] concat, "row_cat")."""
+    a, b = p["lora_a"].float(), p["lora_b"].float()
+    if tp is not None and tp_kind == "col":
+        b = b.narrow(-1, tp[0].index(tp[1]) * y_width, y_width)
+    if tp is not None and tp_kind in ("row", "row_cat"):
+        mesh, axis = tp
+        parts, idx, k_l = mesh.shape[axis], mesh.index(axis), x.shape[-1]
+        if tp_kind == "row_cat":
+            rows = proj_out_rows(a.shape[-2], b.shape[-1], parts, idx)
+            a = a.index_select(-2, rows.to(a.device))
+        else:
+            a = a.narrow(-2, idx * k_l, k_l)
+        xa = all_reduce(torch.matmul(x.float(), a), mesh, axis).to(x.dtype)
+    else:
+        xa = torch.matmul(x.float(), a).to(x.dtype)
+    return torch.matmul(xa.float(), b) * p["lora_scale"]
+
+
 def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
            lora_mask: Optional[torch.Tensor] = None,
-           w8a8: bool = False) -> torch.Tensor:
-    """y = xW + b [+ (xA)B * lora_scale (* lora_mask)] in x's dtype."""
+           w8a8: bool = False, tp_kind: Optional[str] = None) -> torch.Tensor:
+    """y = xW + b [+ (xA)B * lora_scale (* lora_mask)] in x's dtype.
+
+    ``tp_kind`` names the layer's split under a tensor context ("col",
+    "row", "row_cat" for the single blocks' proj_out over the [attention |
+    MLP] concat, None: whole on every rank): a stacked int8 linear without
+    an active LoRA runs `tp_quant_matmul_stacked`; one with an active LoRA
+    a dequantised product, as the JAX package's; a row split sums its
+    partial product over the tensor group before the LoRA delta and the
+    bias."""
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
-    if "kernel_q" in p:
+    tp = current_tp()
+    active_lora = use_lora and "lora_a" in p
+    stacked = "kernel_q" in p and "_blk" in p
+    if tp is not None and stacked and not active_lora:
+        kind = "row" if tp_kind == "row_cat" else tp_kind or "repl"
+        nb = p["kernel_q"].shape[0]
+        y = tp_quant_matmul_stacked(
+            kind, x2, p["kernel_q"], p["kernel_scale"].reshape(nb, 1, -1),
+            p["_blk"], bias2=p.get("bias"), w8a8=w8a8)
+        return y.reshape(*lead, -1).to(x.dtype)
+    if tp is not None and stacked:
+        blk = p["_blk"]
+        w = (p["kernel_q"][blk].float()
+             * p["kernel_scale"][blk].float()).to(x.dtype)
+        y = torch.matmul(x2.float(), w.float())
+    elif "kernel_q" in p:
         n = p["kernel_q"].shape[-1]
         grad = torch.is_grad_enabled()
-        if "_blk" in p:
+        if stacked:
             nb = p["kernel_q"].shape[0]
             mm = qmm.quant_matmul_stacked_vjp if grad else qmm.quant_matmul_stacked
             y = mm(x2, p["kernel_q"], p["kernel_scale"].reshape(nb, 1, n),
@@ -222,10 +285,11 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
         y = y.float()
     else:
         y = torch.matmul(x2.float(), p["kernel"].float())
+    if tp is not None and tp_kind in ("row", "row_cat"):
+        y = all_reduce(y, *tp)
     y = y.reshape(*lead, -1)
-    if use_lora and "lora_a" in p:
-        xa = torch.matmul(x.float(), p["lora_a"].float()).to(x.dtype)
-        delta = torch.matmul(xa.float(), p["lora_b"].float()) * p["lora_scale"]
+    if active_lora:
+        delta = _lora_delta(p, x, y.shape[-1], tp, tp_kind)
         if lora_mask is not None:
             delta = delta * lora_mask
         y = y + delta
@@ -237,12 +301,23 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
 
 def linear_gelu(p: Params, x: torch.Tensor, use_lora: bool = True,
                 lora_mask: Optional[torch.Tensor] = None,
-                w8a8: bool = False) -> torch.Tensor:
+                w8a8: bool = False,
+                tp_kind: Optional[str] = None) -> torch.Tensor:
     """gelu_tanh(linear(p, x)); int8 linears without an active LoRA fuse
-    the bias + gelu into the quant-matmul epilogue."""
+    the bias + gelu into the quant-matmul epilogue (under a tensor context
+    the stacked ones through `tp_quant_matmul_stacked`, x as bf16, as the
+    JAX package's)."""
     if "kernel_q" in p and not (use_lora and "lora_a" in p):
         lead, k = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, k)
+        tp = current_tp()
+        if tp is not None and "_blk" in p:
+            nb = p["kernel_q"].shape[0]
+            y = tp_quant_matmul_stacked(
+                tp_kind or "repl", x2.to(torch.bfloat16), p["kernel_q"],
+                p["kernel_scale"].reshape(nb, 1, -1), p["_blk"],
+                bias2=p.get("bias"), activation="gelu_tanh", w8a8=w8a8)
+            return y.reshape(*lead, -1).to(x.dtype)
         grad = torch.is_grad_enabled()
         n = p["kernel_q"].shape[-1]
         if "_blk" in p:
@@ -266,7 +341,7 @@ def linear_gelu(p: Params, x: torch.Tensor, use_lora: bool = True,
                 y = qmm.quant_matmul(x2, p["kernel_q"], scale, bias=bias,
                                      activation="gelu_tanh", w8a8=w8a8)
         return y.reshape(*lead, n).to(x.dtype)
-    return gelu_tanh(linear(p, x, use_lora, lora_mask, w8a8))
+    return gelu_tanh(linear(p, x, use_lora, lora_mask, w8a8, tp_kind))
 
 
 def _elementwise_fusable(p: Params, x: torch.Tensor, use_lora: bool,
@@ -311,7 +386,12 @@ def ln_mod_linear(p: Params, x: torch.Tensor, ln_mod,
         x2, wq, blk = x.reshape(s, k), p["kernel_q"], p["_blk"]
         sc, bias3 = p["kernel_scale"].reshape(nb, 1, n), _bias3(p, n)
         ab = _mk_ab(a_m, b_m, a_c, b_c, k)
-        if torch.is_grad_enabled():
+        if current_tp() is not None:
+            y = tp_quant_matmul_stacked(
+                "col", x2, wq, sc, blk, bias2=p.get("bias"),
+                activation=activation, ab=ab, seg_boundary=boundary,
+                w8a8=w8a8)
+        elif torch.is_grad_enabled():
             y = qmm.quant_ln_mod_linear_stacked(
                 x2, wq, sc, bias3, ab, blk, seg_boundary=boundary,
                 activation=activation, w8a8=w8a8)
@@ -322,8 +402,8 @@ def ln_mod_linear(p: Params, x: torch.Tensor, ln_mod,
         return y.reshape(b, s, n).to(x.dtype)
     nx = _ln_mod(x, ln_mod)
     if activation == "gelu_tanh":
-        return linear_gelu(p, nx, use_lora, lora_mask, w8a8)
-    return linear(p, nx, use_lora, lora_mask, w8a8)
+        return linear_gelu(p, nx, use_lora, lora_mask, w8a8, "col")
+    return linear(p, nx, use_lora, lora_mask, w8a8, "col")
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +458,12 @@ def _fused_qkv_stacked(p: Params, nq, nk, x: torch.Tensor, num_heads: int,
     """Stacked fused-qkv projection: one kernel does the matmul, the q/k/v
     split into planes and the per-head RMS of q and k; ``ln_mod`` also
     fuses the layer norm + adaLN affine into its x load (x is then the raw
-    stream)."""
+    stream).  The TP layout ([NB, K, 3, H], `tp_quant_qkv_stacked`) holds
+    the rank's ``num_heads`` heads."""
     b, s, kdim = x.shape
-    nb, _, n3 = p["kernel_q"].shape
+    tp4 = p["kernel_q"].ndim == 4
+    nb = p["kernel_q"].shape[0]
+    n3 = p["kernel_q"].shape[-1] * (3 if tp4 else 1)
     h = n3 // 3
     hd = h // num_heads
     norm_w = torch.stack([
@@ -392,10 +475,15 @@ def _fused_qkv_stacked(p: Params, nq, nk, x: torch.Tensor, num_heads: int,
     if ln_mod is not None:
         a_m, b_m, a_c, b_c, boundary = ln_mod
         ab = _mk_ab(a_m, b_m, a_c, b_c, kdim)
-    q, k, v = qmm.quant_qkv_stacked(
-        x.reshape(-1, kdim), p["kernel_q"], p["kernel_scale"].reshape(nb, 1, n3),
-        _bias3(p, n3), norm_w, p["_blk"], hd, w8a8=w8a8, ab=ab,
-        seg_boundary=boundary)
+    if tp4:
+        q, k, v = tp_quant_qkv_stacked(
+            x.reshape(-1, kdim), p["kernel_q"], p["kernel_scale"], p.get("bias"),
+            norm_w, p["_blk"], hd, ab=ab, seg_boundary=boundary, w8a8=w8a8)
+    else:
+        q, k, v = qmm.quant_qkv_stacked(
+            x.reshape(-1, kdim), p["kernel_q"],
+            p["kernel_scale"].reshape(nb, 1, n3), _bias3(p, n3), norm_w,
+            p["_blk"], hd, w8a8=w8a8, ab=ab, seg_boundary=boundary)
     shape = (b, s, num_heads, hd)
     return (q.reshape(shape).to(x.dtype), k.reshape(shape).to(x.dtype),
             v.reshape(shape).to(x.dtype))
@@ -422,10 +510,10 @@ def _qkv(attn: Params, x: torch.Tensor, num_heads: int, prefix: str = "to",
             return _fused_qkv_stacked(fused, nq, nk, x, num_heads, w8a8, ln_mod)
         q, k, v = linear(fused, x, use_lora=False, w8a8=w8a8).chunk(3, dim=-1)
     elif prefix == "to":
-        q, k, v = (linear(attn[f"to_{n}"], x, use_lora, lora_mask, w8a8)
+        q, k, v = (linear(attn[f"to_{n}"], x, use_lora, lora_mask, w8a8, "col")
                    for n in "qkv")
     else:
-        q, k, v = (linear(attn[f"add_{n}_proj"], x, False, None, w8a8)
+        q, k, v = (linear(attn[f"add_{n}_proj"], x, False, None, w8a8, "col")
                    for n in "qkv")
     b, s, _ = q.shape
     q, k, v = (t.reshape(b, s, num_heads, -1) for t in (q, k, v))
@@ -486,9 +574,12 @@ def _ln_mod(x, ln_mod):
 
 def gate_res_linear(p: Params, x, resid, g_main, g_cond, boundary: int,
                     use_lora: bool = True, lora_mask=None, w8a8: bool = False,
-                    fuse_gate: bool = False):
+                    fuse_gate: bool = False, tp_kind: str = "row"):
     """resid + gate_seg(row) * linear(x): the adaLN-zero gated residual,
-    in the kernel's store epilogue under ``fuse_gate`` where fusable."""
+    in the kernel's store epilogue under ``fuse_gate`` where fusable (under
+    a tensor context after the row split's sum, `tp_quant_matmul_stacked`).
+    ``tp_kind``: "row", or "row_cat" over the single blocks' [attention |
+    MLP] concat."""
     if _elementwise_fusable(p, x, use_lora, fuse_gate):
         b, s, k = x.shape
         nb, _, n = p["kernel_q"].shape
@@ -496,7 +587,11 @@ def gate_res_linear(p: Params, x, resid, g_main, g_cond, boundary: int,
         sc, bias3 = p["kernel_scale"].reshape(nb, 1, n), _bias3(p, n)
         r2 = resid.reshape(s, n)
         gate = _rows8([g_main, g_main if g_cond is None else g_cond], n)
-        if torch.is_grad_enabled():
+        if current_tp() is not None:
+            y = tp_quant_matmul_stacked(
+                "row", x2, wq, sc, blk, bias2=p.get("bias"),
+                seg_boundary=boundary, resid=r2, gate=gate, w8a8=w8a8)
+        elif torch.is_grad_enabled():
             y = qmm.quant_gate_res_linear_stacked(
                 x2, wq, sc, bias3, r2, gate, blk, seg_boundary=boundary,
                 w8a8=w8a8)
@@ -505,7 +600,7 @@ def gate_res_linear(p: Params, x, resid, g_main, g_cond, boundary: int,
                 x2, wq, sc, blk, bias3=bias3, w8a8=w8a8, resid=r2, gate=gate,
                 seg_boundary=boundary)
         return y.reshape(b, s, n).to(resid.dtype)
-    h = linear(p, x, use_lora, lora_mask, w8a8)
+    h = linear(p, x, use_lora, lora_mask, w8a8, tp_kind)
     zero = torch.zeros_like(g_main)
     return resid + _seg_affine(h, boundary, g_main, zero, g_cond, zero)
 
@@ -520,6 +615,8 @@ def _attn_mode(flags: Dict[str, Any]) -> str:
 
 def _attention(q, k, v, s_cond: int, flags, c_factor, rope_full,
                int8_attn: bool = False):
+    """Flash attention (bshd) on the heads this rank holds (under a tensor
+    context its shard: heads are independent, nothing is exchanged)."""
     s = q.shape[1]
     out = fa.flash_attention(q, k, v, cond_start=s - s_cond,
                              mode=_attn_mode(flags) if s_cond else "union",
@@ -538,7 +635,7 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
     per-segment modulation, gating and LoRA masks."""
     use_cond = cond is not None
     latent_lora = bool(flags.get("latent_lora", False))
-    nh = cfg.num_heads
+    nh = cfg.num_heads // tensor_extent()  # the heads this rank holds
     s_img, s_txt = img.shape[1], txt.shape[1]
     s_cond = cond.shape[1] if use_cond else 0
 
@@ -561,13 +658,15 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
     v = torch.cat([v_t, v_l], dim=1)
     out = _attention(q, k, v, s_cond, flags, c_factor, rope_full, int8_attn)
 
-    attn_txt = linear(attn["to_add_out"], out[:, :s_txt], False, None, w8a8)
+    attn_txt = linear(attn["to_add_out"], out[:, :s_txt], False, None, w8a8,
+                      "row")
     if use_cond and flags.get("add_cond_attn", False):
         if s_cond != s_img:
             raise ValueError(
                 "add_cond_attn requires equal image and condition token "
                 f"counts (img {s_img}, cond {s_cond})")
-        attn_lat = linear(attn["to_out"], out[:, s_txt:], luse, lmask, w8a8)
+        attn_lat = linear(attn["to_out"], out[:, s_txt:], luse, lmask, w8a8,
+                          "row")
         zero = torch.zeros_like(mi[2])
         gated = _seg_affine(attn_lat, s_img, mi[2], zero, mc[2], zero)
         gated = torch.cat([gated[:, :s_img] + gated[:, s_img:],
@@ -588,8 +687,8 @@ def double_block_forward(block: Params, cfg: FluxConfig, img, txt, cond, temb,
                           fuse_gate)
 
     n2t = layer_norm(txt) * (1.0 + mt[4][:, None, :]) + mt[3][:, None, :]
-    ht = linear_gelu(block["ff_context"]["in"], n2t, False, None, w8a8)
-    ht = linear(block["ff_context"]["out"], ht, False, None, w8a8)
+    ht = linear_gelu(block["ff_context"]["in"], n2t, False, None, w8a8, "col")
+    ht = linear(block["ff_context"]["out"], ht, False, None, w8a8, "row")
     txt = txt + mt[5][:, None, :] * ht
     return txt, lat[:, :s_img], lat[:, s_img:] if use_cond else None
 
@@ -602,6 +701,7 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
     """One single-stream block over [txt + img] (+ cond), stream-fused."""
     use_cond = cond is not None
     latent_lora = bool(flags.get("latent_lora", False))
+    nh = cfg.num_heads // tensor_extent()  # the heads this rank holds
     s_x = x.shape[1]
     s_cond = cond.shape[1] if use_cond else 0
 
@@ -615,13 +715,12 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
         # proj_mlp and the qkv each take the raw stream and its prologue
         mlp_h = ln_mod_linear(block["proj_mlp"], full, lm, "gelu_tanh", luse,
                               lmask, w8a8, fuse_ln)
-        q, k, v = _qkv(block["attn"], full, cfg.num_heads, "to", luse, lmask,
-                       w8a8, lm, fuse_ln)
+        q, k, v = _qkv(block["attn"], full, nh, "to", luse, lmask, w8a8, lm,
+                       fuse_ln)
     else:
         normed = _ln_mod(full, lm)
-        mlp_h = linear_gelu(block["proj_mlp"], normed, luse, lmask, w8a8)
-        q, k, v = _qkv(block["attn"], normed, cfg.num_heads, "to", luse, lmask,
-                       w8a8)
+        mlp_h = linear_gelu(block["proj_mlp"], normed, luse, lmask, w8a8, "col")
+        q, k, v = _qkv(block["attn"], normed, nh, "to", luse, lmask, w8a8)
     out = _attention(q, k, v, s_cond, flags, c_factor, rope_full, int8_attn)
 
     g_cond = mc[2] if use_cond else None
@@ -635,7 +734,7 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
     else:
         full = gate_res_linear(block["proj_out"], torch.cat([out, mlp_h], -1),
                                full, mx[2], g_cond, s_x, luse, lmask, w8a8,
-                               fuse_gate)
+                               fuse_gate, "row_cat")
     return full[:, :s_x], full[:, s_x:] if use_cond else None
 
 

@@ -75,18 +75,23 @@ class LoongXPipeline:
     @staticmethod
     def init_serving(flux_cfg: Optional[FluxConfig] = None,
                      vae_cfg: Optional[VAEConfig] = None, *, seed: int = 0,
-                     device="cuda") -> "LoongXPipeline":
+                     device="cuda", tp_layout: bool = False
+                     ) -> "LoongXPipeline":
         """The serving bundle with random weights made on ``device`` from
         ``seed``: random int8 DiT (every linear quantized, qkv fused, the
-        single-block proj_out split), bf16 VAE, CS3 encoders and DGF."""
+        single-block proj_out split), bf16 VAE, CS3 encoders and DGF.
+        ``tp_layout``: the tensor-parallel serving bundle of the same
+        weights (qkv fused in the TP layout, proj_out whole; see
+        `quantize`)."""
         flux_cfg = flux_cfg or FluxConfig.flux_dev()
         vae_cfg = vae_cfg or VAEConfig.flux()
         gen = torch.Generator(device=device).manual_seed(seed)
         flux = random_quantized_like(
             init_flux_params(flux_cfg, dtype=torch.bfloat16, device="meta"),
             generator=gen, device=device)
-        flux = split_single_proj_out(fuse_qkv_projections(flux),
-                                     flux_cfg.hidden)
+        flux = fuse_qkv_projections(flux, tp_layout=tp_layout)
+        if not tp_layout:
+            flux = split_single_proj_out(flux, flux_cfg.hidden)
         kw = dict(generator=gen, dtype=torch.bfloat16, device=device)
         params = {"flux": flux, "vae": init_vae_params(vae_cfg, **kw),
                   **_brain_params(kw)}
@@ -192,17 +197,20 @@ class LoongXPipeline:
         return self.quantize(dit=False, text=True)
 
     def quantize(self, dit: bool = True, text: bool = True,
-                 fuse_qkv: bool = True,
-                 split_proj_out: bool = True) -> "LoongXPipeline":
+                 fuse_qkv: bool = True, split_proj_out: bool = True,
+                 tp_layout: bool = False) -> "LoongXPipeline":
         """Int8-quantize weights in place (per output channel,
         `ops.quant.quantize_tree`): the DiT (then, unless switched off, its
         qkv fused and the single-block proj_out split, the serving layout)
-        and the text encoders.  Returns self."""
+        and the text encoders.  ``tp_layout`` gives the tensor-parallel
+        serving bundle, as the JAX package's CLI builds it: qkv fused in
+        the TP layout (`fuse_qkv_projections(tp_layout=True)`; none where
+        ``fuse_qkv`` is off) and proj_out whole.  Returns self."""
         if dit and "flux" in self.params:
             flux = quantize_tree(self.params["flux"])
             if fuse_qkv:
-                flux = fuse_qkv_projections(flux)
-            if split_proj_out:
+                flux = fuse_qkv_projections(flux, tp_layout=tp_layout)
+            if split_proj_out and not tp_layout:
                 flux = split_single_proj_out(flux, self.flux_cfg.hidden)
             self.params["flux"] = flux
         if text:

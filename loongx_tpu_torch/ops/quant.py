@@ -93,11 +93,19 @@ def random_quantized_like(shapes: Params, *, generator=None,
     return walk(shapes)
 
 
-def fuse_qkv_projections(flux_params: Params) -> Params:
+def fuse_qkv_projections(flux_params: Params, tp_layout: bool = False
+                         ) -> Params:
     """Concatenate each attention's q/k/v projections along the output axis
     (``to_qkv`` / ``add_qkv_proj``) so one matmul serves all three.  Exact;
     skipped where a LoRA delta sits on q/k/v or the three differ in leaves.
-    Returns a new tree; the sources are dropped from it."""
+    Returns a new tree; the sources are dropped from it.
+
+    ``tp_layout`` stacks q/k/v on a new axis instead: kernel_q [NB, K, 3,
+    H], kernel_scale [NB, 1, 3, H], bias [NB, 3, H], so a tensor split of
+    the head axis (the last) cuts all three alike and each rank holds a
+    whole fused qkv for its heads (`parallel.tp_quant.
+    tp_quant_qkv_stacked`); a column split of the flat [K, 3H] axis would
+    cut across the q/k/v boundaries."""
     def fuse_attn(attn: Params) -> Params:
         out = dict(attn)
         for stem, fused_name in (("to_{}", "to_qkv"),
@@ -110,8 +118,10 @@ def fuse_qkv_projections(flux_params: Params) -> Params:
                 continue
             if not (set(parts[0]) == set(parts[1]) == set(parts[2])):
                 continue
+            join = torch.stack if tp_layout else torch.cat
             out[fused_name] = {
-                name: torch.cat([p[name] for p in parts], dim=-1)
+                name: join([p[name] for p in parts], dim=-2 if tp_layout
+                           else -1)
                 for name in parts[0]
             }
             for n in names:

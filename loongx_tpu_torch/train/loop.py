@@ -5,7 +5,9 @@ states, probe images) -> the final save, with resume from the newest train
 state under ``save_path``.
 
 One GPU (or the CPU, for tests): a config whose mesh asks for more than
-one device is refused (multi-GPU training is ROADMAP Queue 1 item 11).
+one device is refused (training under a mesh -- data-parallel LoRA
+gradients, a tensor axis, rank-0 checkpoints -- is ROADMAP Queue 1 item 11;
+multi-GPU serving is `parallel/` and ``cli.infer --tensor``).
 
 Random draws.  The JAX package's ``jax.random`` stream cannot be
 reproduced in PyTorch.  Each micro-step's (t, x1, dropout masks) come from
@@ -71,8 +73,9 @@ def _refuse_multi_device(config: Config) -> None:
         raise RuntimeError(
             f"config mesh data={data} x tensor={tensor} asks for "
             f"{max(data, 1) * tensor} devices: this package trains on one "
-            "GPU; multi-GPU training is not ported yet (ROADMAP Queue 1 "
-            "item 11). Set mesh to {} or {tensor: 1, data: 1}")
+            "GPU; training under a mesh is not ported yet (ROADMAP Queue 1 "
+            "item 11, training under a mesh). Set mesh to {} or {tensor: 1, "
+            "data: 1}")
 
 
 def _resume(save_path: str, fingerprint: Dict[str, Any], state):

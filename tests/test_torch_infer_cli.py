@@ -367,13 +367,16 @@ def test_main_refusals_match_jax(checkpoints, tmp_path, capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--tensor", "2"], "ROADMAP.md Queue 1, Multi-GPU"),
+    # the id the case had while --tensor > 1 was refused outright
+    pytest.param(["--tensor", "2"], "torchrun --nproc-per-node N",
+                 id="argv0-ROADMAP.md Queue 1, Multi-GPU"),
     (["--device", "cuda"], "no CUDA device is available"),
 ])
 def test_main_port_refusals(checkpoints, tmp_path, capsys, monkeypatch, argv,
                             message):
-    """--tensor > 1 names the multi-GPU item; a missing GPU is an error
-    (``torch.cuda.is_available`` faked off where a card is present)."""
+    """--tensor 2 in a process that is the only rank names the torchrun
+    launch; a missing GPU is an error (``torch.cuda.is_available`` faked
+    off where a card is present)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     in_dir, names = _images(tmp_path, 1)
     base = ["--checkpoint", checkpoints["plain"][1], "--single_image",
