@@ -50,7 +50,10 @@ Phases (each prints one line with the card, its power limit and seconds):
      torch.profiler), since their wrapper time is host cost; and the
      stacked W8A8 and weight-only GEMMs and the flash forward at the shard
      shapes a rank of tensor 2 runs (`tp2_cases`, 12 heads), each on its
-     wgmma route;
+     wgmma route, and its backward (`check_tp2_backward`: the transposed
+     GEMMs at `tp2_t_cases`, the flash dK/dV and dQ pair at 12 heads), each
+     beside its plain version, cuBLAS bf16 on the pre-scaled dy or SDPA's
+     backward, and its bound;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
@@ -190,7 +193,21 @@ Phases (each prints one line with the card, its power limit and seconds):
      rank, a short TP edit against the single edit); data 2 over gloo
      (``cli.infer`` over two requests, each rank's image equal to its
      request's single edit bit for bit).  The checkpoint of phase "infer
-     CLI" stays on disk for it.
+     CLI" stays on disk for it;
+  train under a mesh (one card): ``train/`` under ``mesh_context`` in
+     child processes, both ranks on the one card over gloo (`mesh_train`):
+     the seed_512 QLoRA tree at full width and depth on each rank, rank 0's
+     one-process references (the step at batch 2, at batch 1, and at batch
+     1 through the plain versions: the rounding floor); (a) one data-2
+     micro-step, one row a rank, against the batch-2 step (loss, grad norm,
+     every LoRA gradient within MESH_DATA_REL_L2); (b) one tensor-2
+     micro-step at batch 1, each rank with its shard, against the batch-1
+     step (every LoRA gradient within MESH_TP_REL_L2 beside the floor;
+     seconds and peak memory a rank); (c) every flash forward and
+     backward, stacked and transposed GEMM launch of each rank on wgmma;
+     (d) ``cli.train.main`` with ``mesh: {data: 2}`` at 2 + 4 blocks: a
+     step of 2 micro-batches a rank and a resume, rank 0 alone writing, and
+     ``cli.infer`` serving the rank-0 LoRA file.
 
 Before the last line come the kernel table as JSON ({"kernels": [...]},
 launch counts from phase 4 for the forward kernels -- the S4D, int8
@@ -201,8 +218,10 @@ in the speech demo's edit and in the web demo's edit beside them, as
 ``launches_train_cli``, ``launches_depth_edit``, ``launches_speech_edit``
 and ``launches_web_demo``, and by rank in the multi-GPU phase as
 ``launches_nccl_single``, ``launches_tp2_ranks`` and
-``launches_data2_ranks``; ``tp2_shard_shapes`` holds phase 2's times at the
-tensor-2 shard shapes) and the card's name and power limit.  The last
+``launches_data2_ranks``, and in phase "train under a mesh" as
+``launches_mesh_train_ranks``; ``tp2_shard_shapes`` holds phase 2's times
+at the tensor-2 shard shapes, forward and backward) and the card's name and
+power limit.  The last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
 line.
 """
@@ -1797,6 +1816,115 @@ def check_tp2_shapes(torch, gen, records):
     if route != "wgmma" or not (err <= tol and rel <= FLASH_REL_L2):
         raise Failure(f"flash {label}: route {route}, err {err} (tol {tol}), "
                       f"rel L2 {rel}")
+
+
+def tp2_t_cases():
+    """(label, M, K, N, NB): the transposed GEMMs a rank of tensor 2
+    launches in the train step's backward, dy [M, N] -> dx [M, K] on its
+    shard: the column splits' dx [M, 3072] from their dy slice (q/k/v N
+    1536; ff.in, proj_mlp N 6144), partial, summed over the tensor group
+    after; the row splits' dx [M, K / 2] from the whole dy (to_out K 1536,
+    ff.out K 6144, the single blocks' proj_out K 7680), local."""
+    return [
+        ("tp2 dbl qkv dx", 2048, 3072, 1536, 19),
+        ("tp2 dbl ff-in dx", 2048, 3072, 6144, 19),
+        ("tp2 dbl to_out dx", 2048, 1536, 3072, 19),
+        ("tp2 dbl ff-out dx", 2048, 6144, 3072, 19),
+        ("tp2 sgl proj_mlp dx", 2560, 3072, 6144, 38),
+        ("tp2 sgl proj_out dx", 2560, 7680, 3072, 38),
+    ]
+
+
+def check_tp2_backward(torch, gen, records):
+    """The backward a rank of tensor 2 runs: the transposed GEMMs at
+    `tp2_t_cases` and the flash dK/dV and dQ kernels at 12 heads, S 2560
+    union (bshd, RoPE), each against its plain version (phase 2's
+    tolerances), on its wgmma route, timed beside its plain version, its
+    yardstick (cuBLAS bf16 on the pre-scaled dy; SDPA's backward) and its
+    bound."""
+    import torch.nn.functional as F
+    from loongx_tpu_torch.ops import flash_attention as fa
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    from loongx_tpu_torch.ops.rope import rope_embed
+
+    for label, m, k, n, nb in tp2_t_cases():
+        wq = torch.randint(-128, 128, (nb, k, n), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        sc = torch.rand(nb, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+        blk = nb - 2
+        run = lambda: qmm.quant_matmul_t_stacked(dy, wq, sc, blk)
+        plain = lambda: qmm.qmm_t_plain(dy, wq[blk], sc[blk])
+        out, ref = run(), plain()
+        a = (dy.float() * sc[blk].reshape(-1)).to(torch.bfloat16)
+        wb = wq[blk].to(torch.bfloat16)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
+        bms, by = bound_ms(m * n * 2 + k * n + n * 4 + m * k * 2,
+                           2.0 * m * k * n, "bf16")
+        ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=2)
+        lib_ms = cuda_time_ms(lambda: torch.matmul(a, wb.t()))
+        route = qmm.qmm_t_route(k, n)
+        records.append(dict(kernel="qmm_t_stacked", case=label, m=m, k=k, n=n,
+                            err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                            route=route))
+        print(f"  qmm_t_stacked   {label:20s} dy [{m}, {n}] -> dx [{m}, {k}] err "
+              f"{err:.3e} (tol {tol:.2e}); {route} {ms:.3f} ms, plain "
+              f"{plain_ms:.3f}, cublas {lib_ms:.3f}, bound {bms:.3f} ({by})",
+              flush=True)
+        if route != "wgmma" or not err <= tol:
+            raise Failure(f"qmm_t_stacked {label}: route {route}, err {err} "
+                          f"(tol {tol})")
+        del wq, sc, dy, out, ref, a, wb
+        torch.cuda.empty_cache()
+
+    label, b, s, c, h, d = "tp2 S2560 union 12 heads", 1, 2560, 1024, 12, 128
+    q, k, v, do = _qkv(torch, gen, b, s, h, d, "bshd", n=4)
+    ids = torch.rand(s, 3, generator=gen, device="cuda") * 64
+    rope = rope_embed(ids.floor())
+    kw = dict(cond_start=s - c, mode="union", rope=rope, layout="bshd")
+    o, m2, l = fa._forward(q, k, v, s - c, "union", None, rope, "bshd",
+                           save_residuals=True)
+    args = (q, k, v, do, m2, l, fa._row_dot(o, do, "bshd"))
+    qk_rot = fa.flash_rope(q, k, rope, "bshd")
+    route = fa.flash_bwd_route(d)
+    errs = _bwd_errors(fa.flash_attention_bwd(*args, **kw, qk_rot=qk_rot),
+                       fa.flash_attention_bwd_plain(*args, **kw))
+    t_dkv = cuda_time_ms(lambda: fa.flash_attention_bwd(
+        *args, **kw, need_dq=False, qk_rot=qk_rot))
+    t_dq = cuda_time_ms(lambda: fa.flash_attention_bwd(
+        *args, **kw, need_dkv=False, qk_rot=qk_rot))
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(*args, **kw),
+                            iters=2)
+    qs, ks_, vs = (t.detach().clone().requires_grad_()
+                   for t in fa._head_major("bshd", q, k, v))
+    (dos,) = fa._head_major("bshd", do)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks_, vs).backward(dos)) - cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks_, vs))
+    product = 2.0 * b * h * d * s * s
+    in_bytes = 4 * b * s * h * d * 2 + 3 * b * h * s * 4 + 2 * s * d * 4
+    for kernel, ms, (bms, by), names in (
+            ("flash_bwd_dkv", t_dkv, bound_ms(in_bytes + 2 * b * s * h * d * 2,
+                                              4 * product, "bf16"), ("dk", "dv")),
+            ("flash_bwd_dq", t_dq, bound_ms(in_bytes + b * s * h * d * 2,
+                                            3 * product, "bf16"), ("dq",))):
+        records.append(dict(kernel=kernel, case=label,
+                            err=max(errs[x][0] for x in names),
+                            tol=min(errs[x][1] for x in names), ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                            bound_by=by, route=route))
+        print(f"  {kernel} {label}: {route} {ms:.3f} ms, plain (the whole "
+              f"backward) {plain_ms:.3f}, sdpa backward (the pair) {lib_ms:.3f}, "
+              f"bound {bms:.3f} ({by})", flush=True)
+    print(f"  flash bwd {label}: " + " ".join(
+        f"{x} err {e:.3e} (tol {t:.2e}) rel L2 {r:.3e}"
+        for x, (e, t, r) in errs.items()) + f" (bound {FLASH_REL_L2:.0e})",
+        flush=True)
+    if route != "wgmma" or not all(e <= t and r <= FLASH_REL_L2
+                                   for e, t, r in errs.values()):
+        raise Failure(f"flash backward {label}: route {route}, {errs}")
 
 
 def attention_fp32_probs(q, k, v, *, cond_start, mode="union", c_factor=None,
@@ -5147,14 +5275,14 @@ def _rank_data2(rank, job):
     return out
 
 
-def _ranks(fn, world, job, what):
+def _ranks(fn, world, job, what, timeouts=MULTI_TIMEOUTS):
     """`spawn_ranks` with the phase's timeout for ``what``; any rank's
     failure, a hang past the timeout or a non-zero exit fails the run."""
     from loongx_tpu_torch.parallel.launch import spawn_ranks
 
     t0 = time.perf_counter()
     try:
-        out = spawn_ranks(fn, world, (job,), timeout=MULTI_TIMEOUTS[what])
+        out = spawn_ranks(fn, world, (job,), timeout=timeouts[what])
     except RuntimeError as exc:
         raise Failure(f"multi-GPU {what}: {exc}") from exc
     print(f"  {what}: {world} rank(s) done in {time.perf_counter() - t0:.1f} s",
@@ -5316,6 +5444,405 @@ def multi_gpu(torch, paths, img_ref, req):
             **{f"data2 rank{r}": res["counts"] for r, res in enumerate(c)}}
 
 
+# ---------------------------------------------------------------------------
+# Phase "train under a mesh (one card)": the seed_512 step over data 2 and
+# over tensor 2, and cli.train.main over data 2, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# every LoRA leaf's gradient against the one-process step's (relative L2):
+# data 2 sums the ranks' bf16 gradients in float32 where one process sums
+# its rows inside one product (a few bf16 roundings, well under 1e-2);
+# tensor 2 moves the bf16 rounding of every split's partial sums through
+# 57 blocks, the kernels-vs-plain floor printed beside (5e-2: the limit)
+MESH_DATA_REL_L2, MESH_TP_REL_L2 = 1e-2, 5e-2
+MESH_LOSS_RTOL = 1e-3  # data 2: the mean of two row means against one mean
+MESH_TIMEOUTS = {"step": 600.0, "cli": 420.0}
+MESH_CLI_BLOCKS = (2, 4)  # the CLI run's DiT depth (double, single) at full width
+MESH_CLI_T5_LAYERS = 2  # and T5-XXL's (its width whole)
+MESH_CLI_STEPS = (1, 2)  # optimizer steps of 2 micro-batches: the run, the resume
+MESH_INFER_STEPS = 4
+MESH_LORA_B_STD = 0.01  # the step's B factors, moved off zero
+
+
+def _mesh_train_batch(torch, dev):
+    """Phase 5's seed_512 batch at a global batch of 2 (512 px: S 1024 +
+    1024 condition + 512 text tokens), from seed 7."""
+    from loongx_tpu_torch.ops.latents import latent_image_ids
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    ids = latent_image_ids(64, 64, device=dev)
+    return dict(x0=rand(2, 1024, 64), cond_tokens=rand(2, 1024, 64),
+                prompt_embeds=rand(2, 512, 4096, scale=0.1),
+                pooled=rand(2, 768, scale=0.1), img_ids=ids, cond_ids=ids,
+                txt_ids=torch.zeros(512, 3, device=dev),
+                eeg=rand(2, 4, 4096), ppg=rand(2, 4, 256), fnirs=rand(2, 6, 512),
+                motion=rand(2, 6, 128))
+
+
+def _rank_mesh_step(rank, job):
+    """(a)-(c): both ranks on cuda:0 over gloo, each with the seed_512 QLoRA
+    tree made from seed 0 (full FLUX.1-dev int8, LoRA r 4, CS3 + DGF,
+    Prodigy, clip 0.5, remat, bf16).  Every micro-step starts from the same
+    LoRA leaves (B moved off zero, so that A has gradients too) with a
+    fresh optimizer and the draw generator seeded 11, and records the
+    gradients its optimizer is handed.  Rank 0 first takes
+    the one-process references on the whole tree: the step at batch 2, at
+    batch 1, and at batch 1 through the plain versions (the rounding
+    floor).  Then (a) data 2, one row a rank; (b) tensor 2 at batch 1, the
+    frozen tree sharded, twice (the second timed); (c) each micro-step's
+    launches."""
+    import torch
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.parallel import make_mesh, shard_batch, shard_params
+    from loongx_tpu_torch.parallel.mesh import mesh_context, tree_paths
+    from loongx_tpu_torch.precision import set_precision
+    from loongx_tpu_torch.train.optim import build_optimizer
+    from loongx_tpu_torch.train.step import (
+        make_train_step, partition, trainable_mask,
+    )
+
+    set_precision()
+    data2 = make_mesh(data=2, tensor=1, backend="gloo", device="cuda:0")
+    tensor2 = make_mesh(data=1, tensor=2, backend="gloo", device="cuda:0")
+    dev = data2.device
+    t0 = time.perf_counter()
+    pipe = LoongXPipeline.init_training(seed=0, device=dev)
+    cfg = pipe.flux_cfg
+    trainable, frozen = partition(pipe.params, trainable_mask(pipe.params))
+    pipe = None
+    paths = [p for p, leaf in tree_paths(trainable) if leaf is not None]
+    # B off zero (peft's init), alike on both ranks: A gets gradients too,
+    # and every leaf's tensor sum is held to the one process's
+    gen_b = torch.Generator(device=dev).manual_seed(13)
+    with torch.no_grad():
+        for p, leaf in tree_paths(trainable):
+            if p.endswith("lora_b"):
+                leaf.copy_(torch.randn(leaf.shape, generator=gen_b,
+                                       device=dev) * MESH_LORA_B_STD)
+    leaves0 = [leaf.detach().clone() for p, leaf in tree_paths(trainable)
+               if leaf is not None]
+    batch = _mesh_train_batch(torch, dev)
+    ids = ("img_ids", "txt_ids", "cond_ids")
+    row0 = {k: v if k in ids else v[:1] for k, v in batch.items()}
+    out = {"build_s": time.perf_counter() - t0}
+
+    def step(frozen_, batch_, mesh=None):
+        seen = []
+
+        def optimizer(params):
+            opt = build_optimizer(SEED_512_OPTIMIZER)(params)
+            take = opt.step
+
+            def recorded(*a, **kw):
+                seen.extend(p.grad.detach().float().clone() for p in params)
+                return take(*a, **kw)
+
+            opt.step = recorded
+            return opt
+
+        init_fn, step_fn = make_train_step(
+            cfg, optimizer, flags=SEED_512_FLAGS, use_brain_condition=True,
+            fuse_flag=True, remat=True, grad_clip=0.5, dtype=torch.bfloat16)
+        state = init_fn(trainable)
+        for p, p0 in zip(state.optimizer.param_groups[0]["params"], leaves0):
+            p.data.copy_(p0)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with (mesh_context(mesh) if mesh else contextlib.nullcontext()):
+            _, m = step_fn(state, frozen_, batch_, gen)
+        torch.cuda.synchronize()
+        return {"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "counts": dict(cuda_build.LAUNCHES),
+                "peak": torch.cuda.max_memory_allocated(dev),
+                "grads": dict(zip(paths, seen))}
+
+    def compare(got, want):
+        return {p: rel_l2(got["grads"][p], g) for p, g in want["grads"].items()
+                if bool(g.abs().max() > 0)}
+
+    ref2 = ref1 = None
+    if rank == 0:
+        ref2 = step(frozen, batch)
+        ref1 = step(frozen, row0)
+        with plain_versions():
+            plain1 = step(frozen, row0)
+        out["floor"] = compare(plain1, ref1)
+        out["ref"] = {k: (r["loss"], r["grad_norm"], r["s"])
+                      for k, r in (("batch2", ref2), ("batch1", ref1),
+                                   ("plain batch1", plain1))}
+        del plain1
+    # (a) data 2, one row a rank, both ranks starting together
+    torch.distributed.barrier()
+    d2 = step(frozen, shard_batch({k: v for k, v in batch.items()
+                                   if k not in ids}, data2) | {
+        k: batch[k] for k in ids}, data2)
+    out["data2"] = {k: d2[k] for k in ("s", "loss", "grad_norm", "counts",
+                                       "peak")}
+    if rank == 0:
+        out["data2"]["rel"] = compare(d2, ref2)
+        out["data2"]["ref"] = (ref2["loss"], ref2["grad_norm"])
+    del d2, ref2
+    # (b) tensor 2 at batch 1: the rank keeps its shard of the frozen tree
+    frozen = shard_params(frozen, tensor2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["shard_bytes"] = torch.cuda.memory_allocated(dev)
+    step(frozen, row0, tensor2)  # warm: the group's first exchanges
+    t2 = step(frozen, row0, tensor2)
+    out["tensor2"] = {k: t2[k] for k in ("s", "loss", "grad_norm", "counts",
+                                         "peak")}
+    if rank == 0:
+        out["tensor2"]["rel"] = compare(t2, ref1)
+        out["tensor2"]["ref"] = (ref1["loss"], ref1["grad_norm"])
+    return out
+
+
+def mesh_cli_bundle(torch):
+    """The training bundle of phase "train CLI" at the CLI run's depth
+    (MESH_CLI_BLOCKS, T5-XXL's width at MESH_CLI_T5_LAYERS layers)."""
+    from loongx_tpu_torch.models import pipeline as pipeline_mod
+    from loongx_tpu_torch.models.flux.model import FluxConfig, init_flux_params
+    from loongx_tpu_torch.models.flux.vae import VAEConfig, init_vae_params
+    from loongx_tpu_torch.models.text.t5 import T5Config
+    from loongx_tpu_torch.ops.quant import random_quantized_like
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = dataclasses.replace(FluxConfig.flux_dev(),
+                              num_double_blocks=MESH_CLI_BLOCKS[0],
+                              num_single_blocks=MESH_CLI_BLOCKS[1])
+    vae_cfg = VAEConfig.flux()
+    flux = random_quantized_like(
+        init_flux_params(cfg, dtype=torch.bfloat16, device="meta"),
+        generator=gen, device="cuda")
+    kw = dict(generator=gen, dtype=torch.bfloat16, device="cuda")
+    params = {"flux": flux, "vae": init_vae_params(vae_cfg, **kw),
+              **pipeline_mod._brain_params(kw)}
+    pipe = pipeline_mod.LoongXPipeline(cfg, vae_cfg, params, torch.bfloat16)
+    return pipe.add_text_encoders(
+        T5Config(num_layers=MESH_CLI_T5_LAYERS), seed=3)
+
+
+def _rank_mesh_cli(rank, job):
+    """(d) ``cli.train.main`` in a data-2 group over gloo (both ranks on
+    cuda:0, the group joined first as torchrun's environment describes it):
+    MESH_CLI_STEPS[0] optimizer steps from scratch, then a resume to
+    MESH_CLI_STEPS[1].  The rank's file writes, train-state loads, probes
+    and launches are recorded."""
+    import torch
+    from loongx_tpu_torch.cli import train as cli_train
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.parallel import make_mesh
+    from loongx_tpu_torch.train.sampling_probe import SampleProbe
+    from loongx_tpu_torch.utils import checkpoint
+
+    mesh = make_mesh(backend="gloo", device="cuda:0")
+    out = {"mesh": (dict(mesh.shape), mesh.data_index)}
+    rec = {"saves": [], "lora_saves": [], "loads": [], "probes": []}
+
+    def note(key):
+        def wrap(orig):
+            def call(*a, **kw):
+                res = orig(*a, **kw)
+                rec[key].append(res)
+                return res
+            return call
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, key in (
+                (checkpoint, "save_train_checkpoint", "saves"),
+                (checkpoint, "save_lora_safetensors", "lora_saves"),
+                (checkpoint, "load_train_checkpoint", "loads"),
+                (SampleProbe, "__call__", "probes")):
+            stack.enter_context(_patched(obj, name, note(key)))
+        for i, (steps, extra) in enumerate(zip(MESH_CLI_STEPS,
+                                               (["--no_resume"], []))):
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            cuda_build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            summary, log = _quiet(cli_train.main, job["argv"] + [
+                "--max_steps", str(steps)] + extra)
+            out[f"run{i + 1}"] = {
+                "summary": summary, "s": time.perf_counter() - t0,
+                "counts": dict(cuda_build.LAUNCHES),
+                "peak": torch.cuda.max_memory_allocated(mesh.device),
+                "log": log}
+    out.update(rec)
+    return out
+
+
+def mesh_train(torch, paths):
+    """Phase "train under a mesh (one card)": ``train/`` under
+    `parallel.mesh_context` through child processes started with the spawn
+    method (`parallel.launch.spawn_ranks`), two ranks on the one card over
+    gloo (NCCL refuses two ranks on one card), each group within
+    MESH_TIMEOUTS:
+
+      (a) data 2: one seed_512 micro-step at full FLUX.1-dev width and
+          depth, one row a rank, against the one-process step at batch 2:
+          loss, grad norm, and every LoRA leaf's gradient within
+          MESH_DATA_REL_L2;
+      (b) tensor 2: one micro-step at batch 1, each rank with its shard of
+          the frozen tree, against the one-process batch-1 step: every LoRA
+          leaf's gradient within MESH_TP_REL_L2 beside the kernels-vs-plain
+          floor; seconds a micro-step and peak memory a rank;
+      (c) each rank's launches of both micro-steps: every flash forward and
+          backward, stacked weight-only and transposed GEMM on wgmma, none
+          on mma.sync;
+      (d) ``cli.train.main`` from configs/seed_512.yaml with ``mesh: {data:
+          2}`` at MESH_CLI_BLOCKS' depth: one optimizer step of 2
+          micro-batches a rank, then a resume to step 2 (every rank loading
+          the step-1 train state); only rank 0 writes (LoRA files, train
+          states, the probe image at step 1, rendered by rank 0 alone: data
+          row 0); then ``cli.infer`` serves the rank-0 LoRA file of step 2.
+
+    Two ranks share one card: the seconds are not a multi-card speed.
+    Returns the launches by micro-step and rank."""
+    import tempfile
+    import yaml
+    from PIL import Image
+    from loongx_tpu_torch.cli import infer
+    from loongx_tpu_torch.ops.quant import quantized_bytes
+    from loongx_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    res = _ranks(_rank_mesh_step, 2, {}, "step", MESH_TIMEOUTS)
+    r0 = res[0]
+    ref2, ref1, plain1 = (r0["ref"][k] for k in ("batch2", "batch1",
+                                                  "plain batch1"))
+    print(f"  trees made in {r0['build_s']:.1f} s a rank; one process: batch 2 "
+          f"loss {ref2[0]:.6f} grad norm {ref2[1]:.6e} ({ref2[2]:.3f} s); "
+          f"batch 1 loss {ref1[0]:.6f} grad norm {ref1[1]:.6e} ({ref1[2]:.3f} "
+          f"s); plain versions at batch 1 loss {plain1[0]:.6f} grad norm "
+          f"{plain1[1]:.6e} ({plain1[2]:.3f} s)", flush=True)
+    floor = max(r0["floor"].values())
+    for what, bound in (("data2", MESH_DATA_REL_L2), ("tensor2", MESH_TP_REL_L2)):
+        rels = r0[what]["rel"]
+        worst = max(rels, key=rels.get)
+        print(f"  ({'a' if what == 'data2' else 'b'}) {what}: loss "
+              f"{[r[what]['loss'] for r in res]} (one process "
+              f"{r0[what]['ref'][0]:.6f}), grad norm "
+              f"{[r[what]['grad_norm'] for r in res]} (one process "
+              f"{r0[what]['ref'][1]:.6e}); LoRA gradients rel L2 max "
+              f"{rels[worst]:.3e} ({worst}), median "
+              f"{sorted(rels.values())[len(rels) // 2]:.3e} over {len(rels)} "
+              f"leaves (bound {bound:.0e}; kernels-vs-plain floor at batch 1: "
+              f"max {floor:.3e}, median "
+              f"{sorted(r0['floor'].values())[len(rels) // 2]:.3e})", flush=True)
+        for r, x in enumerate(res):
+            print(f"  ({'a' if what == 'data2' else 'b'}) rank {r}: "
+                  f"{x[what]['s']:.3f} s a micro-step, peak "
+                  f"{x[what]['peak'] / 2 ** 30:.2f} GiB (two ranks on one card, "
+                  "gloo through the host)", flush=True)
+            _micro_check(x[what]["counts"], f"(c) {what} rank {r}")
+        print(f"  (c) {what} launches a rank: "
+              f"{[{n: x[what]['counts'].get(n, 0) for n in TRAIN_KERNELS} for x in res]}",
+              flush=True)
+        same = all(x[what]["loss"] == r0[what]["loss"]
+                   and x[what]["grad_norm"] == r0[what]["grad_norm"] for x in res)
+        lossdiff = abs(r0[what]["loss"] - r0[what]["ref"][0]) / abs(
+            r0[what]["ref"][0])
+        if not (same and rels[worst] <= bound and math.isfinite(r0[what]["loss"])
+                and (what != "data2" or lossdiff <= MESH_LOSS_RTOL)):
+            raise Failure(f"train under a mesh, {what}: ranks agree {same}, "
+                          f"worst rel L2 {rels[worst]} ({worst}; bound {bound}),"
+                          f" loss {r0[what]['loss']} against {r0[what]['ref']}")
+    print(f"  (b) a rank's shard of the tree {r0['shard_bytes'] / 1e9:.2f} GB "
+          "allocated after sharding", flush=True)
+    launches = {f"mesh {what} rank{r}": x[what]["counts"]
+                for what in ("data2", "tensor2") for r, x in enumerate(res)}
+    res = r0 = None
+
+    # (d)
+    t0 = time.perf_counter()
+    pipe = mesh_cli_bundle(torch)
+    here = os.path.dirname(os.path.abspath(__file__))
+    need = quantized_bytes(pipe.params) + CLI_DISK_MARGIN
+    if shutil.disk_usage(here).free < need:
+        raise Failure(f"{shutil.disk_usage(here).free} bytes free at {here}, "
+                      f"{need} needed for the training checkpoint")
+    root = tempfile.mkdtemp(prefix=".chip_smoke_mesh_", dir=here)
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        checkpoint.save_pipeline(pipe, ckpt)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        write_char_tokenizers(ckpt)
+        jsonl = write_train_corpus(os.path.join(root, "data"))
+        runs = os.path.join(root, "runs")
+        with open(write_train_config(root, ckpt, jsonl, runs)) as f:
+            raw = yaml.safe_load(f)
+        raw["mesh"] = {"data": 2}
+        raw["train"].update(accumulate_grad_batches=2, sample_interval=1)
+        yml = os.path.join(root, "train_mesh.yaml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(raw, f)
+        print(f"  (d) bundle ({MESH_CLI_BLOCKS[0]}+{MESH_CLI_BLOCKS[1]} blocks, "
+              f"T5-XXL {MESH_CLI_T5_LAYERS} layers) written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cli = _ranks(_rank_mesh_cli, 2, {"argv": [
+            "--config", yml, "--no_wandb", "--device", "cuda:0"]}, "cli",
+            MESH_TIMEOUTS)
+        for r, x in enumerate(cli):
+            for i, steps in enumerate(MESH_CLI_STEPS):
+                run = x[f"run{i + 1}"]
+                print(f"  (d) rank {r} (mesh {x['mesh'][0]}) run {i + 1}: "
+                      f"{run['summary']}, {run['s']:.1f} s, peak "
+                      f"{run['peak'] / 2 ** 30:.2f} GiB", flush=True)
+                if run["summary"]["steps"] != steps or not math.isfinite(
+                        run["summary"]["final_loss"]):
+                    raise Failure(f"train CLI under data 2, rank {r} run "
+                                  f"{i + 1}: {run['summary']}")
+                _micro_check(run["counts"], f"(d) rank {r} run {i + 1}")
+            loaded = x["loads"]
+            writes = (len(x["saves"]), len(x["lora_saves"]), len(x["probes"]))
+            print(f"  (d) rank {r}: train states {len(x['saves'])}, LoRA files "
+                  f"{len(x['lora_saves'])}, probes {len(x['probes'])} "
+                  f"({x['probes']}), resumed at step {loaded}", flush=True)
+            want = (2, 2, 2) if r == 0 else (0, 0, 0)
+            if writes != want or loaded != [MESH_CLI_STEPS[0]]:
+                raise Failure(f"train CLI under data 2, rank {r}: writes "
+                              f"{writes} (want {want}), resumed at {loaded}")
+            launches[f"mesh cli rank{r}"] = x["run1"]["counts"]
+        lora = [p for p in cli[0]["lora_saves"]
+                if os.path.basename(os.path.dirname(p)) == str(MESH_CLI_STEPS[1])]
+        probe = cli[0]["probes"][0]
+        if not (len(lora) == 1 and Image.open(probe).size == (
+                TRAIN_CLI_SIZE, TRAIN_CLI_SIZE)):
+            raise Failure(f"train CLI under data 2: LoRA files {lora}, probe "
+                          f"{probe}")
+        served = os.path.join(root, "served")
+        t0 = time.perf_counter()
+        _, log = _quiet(infer.main, cli_args(
+            dict(paths, ckpt=ckpt), TRAIN_CLI_SIZE, "cuda") + [
+            "--single_image", paths["image"], "--prompt", "", "--lora", lora[0],
+            "--steps", str(MESH_INFER_STEPS), "--output_dir", served])
+        img = _png(os.path.join(served, os.path.basename(paths["image"])))
+        print(f"  (d) cli.infer served the rank-0 LoRA file of step "
+              f"{MESH_CLI_STEPS[1]} ({MESH_INFER_STEPS} steps, "
+              f"{time.perf_counter() - t0:.1f} s): {img.shape}; "
+              + "; ".join(line for line in log if "LoRA" in line), flush=True)
+        if img.shape != (TRAIN_CLI_SIZE, TRAIN_CLI_SIZE, 3) or not any(
+                "live deltas" in line for line in log):
+            raise Failure(f"cli.infer on the mesh-trained LoRA: {img.shape}, "
+                          f"{log[-3:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  train under a mesh phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def kernel_table(records, launches):
     """One entry per kernel: the worst error over its cases and the times
     at its main shape; launches from the run of its path.  The weight-only
@@ -5444,6 +5971,12 @@ def kernel_table(records, launches):
                                    for r in range(2)],
             "launches_data2_ranks": [count(launches[f"data2 rank{r}"])
                                      for r in range(2)],
+            # phase "train under a mesh (one card)": one micro-step over
+            # data 2 and over tensor 2, the CLI's first run over data 2
+            "launches_mesh_train_ranks": {
+                what: [count(launches[f"mesh {what} rank{r}"])
+                       for r in range(2)]
+                for what in ("data2", "tensor2", "cli")},
             "max_abs_err": max(r["err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -5518,6 +6051,8 @@ def main() -> int:
             check_ln_mod_pass(torch, gen_ln, records)
             check_tp2_shapes(torch, torch.Generator(device="cuda").manual_seed(8),
                              records)
+            check_tp2_backward(torch, torch.Generator(device="cuda").manual_seed(9),
+                               records)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
@@ -5557,6 +6092,10 @@ def main() -> int:
                 gc.collect()
                 torch.cuda.empty_cache()  # the ranks share the card
                 launches.update(multi_gpu(torch, cli_inputs, img0, req0))
+            with Phase("train under a mesh (one card)", card):
+                gc.collect()
+                torch.cuda.empty_cache()
+                launches.update(mesh_train(torch, cli_inputs))
         finally:
             if root is not None:
                 shutil.rmtree(root, ignore_errors=True)

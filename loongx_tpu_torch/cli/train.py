@@ -6,6 +6,14 @@ Reads the YAML config (``--config``, else ``$XFL_CONFIG``) and runs
 Train states go to ``<save_path>/<run>/train_state/step_<n>`` and LoRA
 files to ``<save_path>/<run>/ckpt/<n>/lora.safetensors``; a run resumes
 from the newest train state under ``save_path`` unless ``--no_resume``.
+
+Several GPUs: one process a card under ``torchrun``, which the loop's
+`parallel.make_mesh` joins (NCCL; ``--device cuda`` is cuda:LOCAL_RANK,
+``--device cpu`` takes gloo); the config's ``mesh`` says how many ranks
+split the DiT (``tensor``), the rest split the batch:
+
+    torchrun --standalone --nproc-per-node 4 -m loongx_tpu_torch.cli.train \
+        --config configs/seed_512.yaml
 """
 
 from __future__ import annotations

@@ -125,8 +125,9 @@ class Config:
     dtype: str = "bfloat16"
     model: ModelFlags = field(default_factory=ModelFlags)
     train: TrainConfig = field(default_factory=TrainConfig)
-    # device-mesh axes for data/tensor sharding: this package trains on one
-    # GPU and refuses data x tensor > 1 (train.loop)
+    # device-mesh axes: {tensor: t} splits the DiT over t ranks, the rest of
+    # the processes torchrun starts split the batch; {data: d}, if given,
+    # must equal world / t (train.loop.train_mesh)
     mesh: Dict[str, int] = field(default_factory=dict)
 
 

@@ -45,6 +45,8 @@ def iterate_batches(
     host_id: int = 0,
     num_hosts: int = 1,
     skip_batches: int = 0,
+    data_index: int = 0,
+    data_size: int = 1,
 ) -> Iterator[Dict[str, Any]]:
     """Yield collated host batches; samples are fetched by a thread pool.
 
@@ -55,7 +57,19 @@ def iterate_batches(
 
     ``skip_batches`` fast-forwards past already-consumed batches (resume):
     the permutation stream advances identically but no samples are fetched.
+
+    Data-parallel ranks (one process each, `parallel.mesh`): pass the
+    global batch as ``batch_size`` and the rank's (data index, data extent)
+    as (data_index, data_size): every rank walks the same batches and
+    fetches only its rows [data_index * b, (data_index + 1) * b), b =
+    batch_size / data_size -- the rows `parallel.mesh.shard_batch` gives
+    it; the ranks of one data index fetch the same rows.
     """
+    if data_size < 1 or batch_size % data_size or not (
+            0 <= data_index < data_size):
+        raise ValueError(f"a global batch of {batch_size} rows does not split "
+                         f"over data rank {data_index} of {data_size}")
+    local = batch_size // data_size
     n = len(dataset)
     per_host = len(range(host_id, n, num_hosts))
     if drop_last and per_host < batch_size:
@@ -80,6 +94,7 @@ def iterate_batches(
                 if skipped < skip_batches:
                     skipped += 1
                     continue
+                idx = idx[data_index * local:(data_index + 1) * local]
                 samples = list(pool.map(dataset.__getitem__, idx.tolist()))
                 yield _collate(samples)
             epoch += 1
@@ -116,12 +131,15 @@ def background_iter(gen: Iterator, depth: int = 1) -> Iterator:
         except BaseException as exc:  # re-raised in the consumer
             _put(exc)
         finally:
+            if hasattr(gen, "close"):
+                gen.close()  # its own threads end here, not at exit
             try:
                 q.put_nowait(_DONE)
             except queue.Full:
                 pass
 
-    threading.Thread(target=producer, daemon=True).start()
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -138,6 +156,7 @@ def background_iter(gen: Iterator, depth: int = 1) -> Iterator:
                 q.get_nowait()
         except queue.Empty:
             pass
+        thread.join()  # a thread left running aborts the process at exit
 
 
 def prefetch_to_device(

@@ -11,12 +11,14 @@ SSM math is float32; projections run in the params' dtype.  Each
 projection stack ends its Linear -> LN -> ReLU layers with dropout 0.3,
 active only in training: pass ``dropout`` = a ``torch.Generator`` to draw
 the keep masks, or the keep masks themselves (one boolean tensor per layer,
-e.g. the JAX package's own ``jax.random.bernoulli`` draws); None (the
-default) is inference, dropout off.
+e.g. the JAX package's own ``jax.random.bernoulli`` draws), or a
+`BatchRows` (a data rank's rows of the masks a generator draws for the
+global batch); None (the default) is inference, dropout off.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Union
 
 import torch
@@ -63,7 +65,22 @@ def _mlp_ln_relu(dims, kw) -> Params:
 
 
 DROPOUT_RATE = 0.3
-Dropout = Optional[Union[torch.Generator, Sequence[torch.Tensor]]]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """Dropout for rows [start, stop) of a global batch of ``batch`` rows:
+    each mask is drawn from ``generator`` at the global batch's shape, as
+    one process holding the whole batch draws it, and the rows are kept
+    (a data rank's share of the one-process draws)."""
+    generator: torch.Generator
+    start: int
+    stop: int
+    batch: int
+
+
+Dropout = Optional[Union[torch.Generator, BatchRows,
+                         Sequence[torch.Tensor]]]
 
 
 def _apply_mlp_ln_relu(p: Params, x: torch.Tensor, n: int,
@@ -78,6 +95,11 @@ def _apply_mlp_ln_relu(p: Params, x: torch.Tensor, n: int,
             if isinstance(dropout, torch.Generator):
                 keep = torch.rand(x.shape, generator=dropout,
                                   device=x.device) < 1.0 - DROPOUT_RATE
+            elif isinstance(dropout, BatchRows):
+                keep = torch.rand(
+                    (dropout.batch, *x.shape[1:]), generator=dropout.generator,
+                    device=x.device)[dropout.start:dropout.stop] < (
+                        1.0 - DROPOUT_RATE)
             else:
                 keep = dropout[i].to(x.device)
             x = torch.where(keep, x / x.new_full((), 1.0 - DROPOUT_RATE),

@@ -45,7 +45,7 @@ grad enabled the fused forms go through `quant_ln_mod_linear_stacked` /
 `quant_gate_res_linear_stacked`.
 
 Under a tensor context (``parallel.mesh.mesh_context`` / ``tp_context``,
-tensor extent > 1; serving only) the params are this rank's shard
+tensor extent > 1) the params are this rank's shard
 (`parallel.mesh.shard_params`) and every call site names its layer's split
 (``tp_kind``), as the JAX package's does: q/k/v, ff.in and proj_mlp
 "col" (the output stays split: the rank's heads and MLP columns), to_out,
@@ -53,7 +53,14 @@ to_add_out, ff.out and the single blocks' proj_out "row" (one
 ``all_reduce`` over the tensor group), the rest whole on every rank.  The
 stacked int8 linears run `parallel.tp_quant`'s forms of the kernels, the
 flash attention the rank's heads (no collective); a rank never splits a
-sequence's rows.
+sequence's rows.  With grad enabled (training) every split goes through
+the autograd forms: a column split's input through `copy_to_tensor` (one
+copy shared by the linears that read the same input: its backward sums dx
+over the group once), a row split's sum through `reduce_from_tensor`, the
+stacked int8 linears through the kernel Functions on the shard, as one
+process runs them, LoRA-active ones included; the flash attention runs its
+autograd Function on the rank's heads.  The fused elementwise
+forms and a fused qkv are refused there (they are forward only).
 """
 
 from __future__ import annotations
@@ -76,7 +83,8 @@ from loongx_tpu_torch.parallel.mesh import (
     current_tp, proj_out_rows, tensor_extent,
 )
 from loongx_tpu_torch.parallel.tp_quant import (
-    all_reduce, tp_quant_matmul_stacked, tp_quant_qkv_stacked,
+    copy_to_tensor, reduce_from_tensor, tp_quant_matmul_stacked,
+    tp_quant_qkv_stacked,
 )
 
 
@@ -236,7 +244,8 @@ def _lora_delta(p: Params, x: torch.Tensor, y_width: int, tp, tp_kind):
             a = a.index_select(-2, rows.to(a.device))
         else:
             a = a.narrow(-2, idx * k_l, k_l)
-        xa = all_reduce(torch.matmul(x.float(), a), mesh, axis).to(x.dtype)
+        xa = reduce_from_tensor(torch.matmul(x.float(), a), mesh,
+                                axis).to(x.dtype)
     else:
         xa = torch.matmul(x.float(), a).to(x.dtype)
     return torch.matmul(xa.float(), b) * p["lora_scale"]
@@ -249,24 +258,30 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
 
     ``tp_kind`` names the layer's split under a tensor context ("col",
     "row", "row_cat" for the single blocks' proj_out over the [attention |
-    MLP] concat, None: whole on every rank): a stacked int8 linear without
-    an active LoRA runs `tp_quant_matmul_stacked`; one with an active LoRA
-    a dequantised product, as the JAX package's; a row split sums its
-    partial product over the tensor group before the LoRA delta and the
-    bias."""
+    MLP] concat, None: whole on every rank).  Serving (grad disabled): a
+    stacked int8 linear without an active LoRA runs
+    `tp_quant_matmul_stacked`; one with an active LoRA a dequantised
+    product, as the JAX package's.  Training (grad enabled): a column
+    split's x through `copy_to_tensor`, every int8 linear through the
+    one-process kernel Functions on the shard.  A row split sums its
+    partial product over the tensor group (`reduce_from_tensor`) before the
+    LoRA delta and the bias."""
     lead, k = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, k)
     tp = current_tp()
+    if tp_kind == "col":
+        x = copy_to_tensor(x)  # x itself but in training under a tensor axis
+    x2 = x.reshape(-1, k)
     active_lora = use_lora and "lora_a" in p
     stacked = "kernel_q" in p and "_blk" in p
-    if tp is not None and stacked and not active_lora:
+    serving_tp = tp is not None and not torch.is_grad_enabled()
+    if serving_tp and stacked and not active_lora:
         kind = "row" if tp_kind == "row_cat" else tp_kind or "repl"
         nb = p["kernel_q"].shape[0]
         y = tp_quant_matmul_stacked(
             kind, x2, p["kernel_q"], p["kernel_scale"].reshape(nb, 1, -1),
             p["_blk"], bias2=p.get("bias"), w8a8=w8a8)
         return y.reshape(*lead, -1).to(x.dtype)
-    if tp is not None and stacked:
+    if serving_tp and stacked:
         blk = p["_blk"]
         w = (p["kernel_q"][blk].float()
              * p["kernel_scale"][blk].float()).to(x.dtype)
@@ -286,7 +301,7 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
     else:
         y = torch.matmul(x2.float(), p["kernel"].float())
     if tp is not None and tp_kind in ("row", "row_cat"):
-        y = all_reduce(y, *tp)
+        y = reduce_from_tensor(y, *tp)
     y = y.reshape(*lead, -1)
     if active_lora:
         delta = _lora_delta(p, x, y.shape[-1], tp, tp_kind)
@@ -304,14 +319,17 @@ def linear_gelu(p: Params, x: torch.Tensor, use_lora: bool = True,
                 w8a8: bool = False,
                 tp_kind: Optional[str] = None) -> torch.Tensor:
     """gelu_tanh(linear(p, x)); int8 linears without an active LoRA fuse
-    the bias + gelu into the quant-matmul epilogue (under a tensor context
-    the stacked ones through `tp_quant_matmul_stacked`, x as bf16, as the
-    JAX package's)."""
+    the bias + gelu into the quant-matmul epilogue (served under a tensor
+    context, the stacked ones through `tp_quant_matmul_stacked`, x as bf16,
+    as the JAX package's; in training a column split's x through
+    `copy_to_tensor`, then the fused bias + gelu Function on the shard)."""
     if "kernel_q" in p and not (use_lora and "lora_a" in p):
         lead, k = x.shape[:-1], x.shape[-1]
+        if tp_kind == "col":
+            x = copy_to_tensor(x)
         x2 = x.reshape(-1, k)
         tp = current_tp()
-        if tp is not None and "_blk" in p:
+        if tp is not None and "_blk" in p and not torch.is_grad_enabled():
             nb = p["kernel_q"].shape[0]
             y = tp_quant_matmul_stacked(
                 tp_kind or "repl", x2.to(torch.bfloat16), p["kernel_q"],
@@ -353,6 +371,16 @@ def _elementwise_fusable(p: Params, x: torch.Tensor, use_lora: bool,
             and x.shape[0] == 1)
 
 
+def _refuse_tp_training(what: str) -> None:
+    """Refuse a forward-only form under a tensor axis with grad enabled."""
+    if current_tp() is not None and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{what} under a tensor axis with grad enabled is not ported "
+            "(ROADMAP Queue 1 item 13: the fused forms in training under a "
+            "tensor axis); train under a tensor axis with fuse_ln=False, "
+            "fuse_gate=False and q/k/v unfused (the training layout)")
+
+
 def _mk_ab(a_main, b_main, a_cond, b_cond, k: int) -> torch.Tensor:
     """The kernels' [8, K] float32 ab operand: rows a_main / b_main / a_cond
     / b_cond (batch row 0); the cond rows repeat the main affine when there
@@ -386,6 +414,7 @@ def ln_mod_linear(p: Params, x: torch.Tensor, ln_mod,
         x2, wq, blk = x.reshape(s, k), p["kernel_q"], p["_blk"]
         sc, bias3 = p["kernel_scale"].reshape(nb, 1, n), _bias3(p, n)
         ab = _mk_ab(a_m, b_m, a_c, b_c, k)
+        _refuse_tp_training("fuse_ln")
         if current_tp() is not None:
             y = tp_quant_matmul_stacked(
                 "col", x2, wq, sc, blk, bias2=p.get("bias"),
@@ -460,6 +489,7 @@ def _fused_qkv_stacked(p: Params, nq, nk, x: torch.Tensor, num_heads: int,
     fuses the layer norm + adaLN affine into its x load (x is then the raw
     stream).  The TP layout ([NB, K, 3, H], `tp_quant_qkv_stacked`) holds
     the rank's ``num_heads`` heads."""
+    _refuse_tp_training("a fused qkv projection")
     b, s, kdim = x.shape
     tp4 = p["kernel_q"].ndim == 4
     nb = p["kernel_q"].shape[0]
@@ -510,9 +540,11 @@ def _qkv(attn: Params, x: torch.Tensor, num_heads: int, prefix: str = "to",
             return _fused_qkv_stacked(fused, nq, nk, x, num_heads, w8a8, ln_mod)
         q, k, v = linear(fused, x, use_lora=False, w8a8=w8a8).chunk(3, dim=-1)
     elif prefix == "to":
+        x = copy_to_tensor(x)  # one copy, one dx sum for q, k and v
         q, k, v = (linear(attn[f"to_{n}"], x, use_lora, lora_mask, w8a8, "col")
                    for n in "qkv")
     else:
+        x = copy_to_tensor(x)
         q, k, v = (linear(attn[f"add_{n}_proj"], x, False, None, w8a8, "col")
                    for n in "qkv")
     b, s, _ = q.shape
@@ -587,6 +619,7 @@ def gate_res_linear(p: Params, x, resid, g_main, g_cond, boundary: int,
         sc, bias3 = p["kernel_scale"].reshape(nb, 1, n), _bias3(p, n)
         r2 = resid.reshape(s, n)
         gate = _rows8([g_main, g_main if g_cond is None else g_cond], n)
+        _refuse_tp_training("fuse_gate")
         if current_tp() is not None:
             y = tp_quant_matmul_stacked(
                 "row", x2, wq, sc, blk, bias2=p.get("bias"),
@@ -718,7 +751,8 @@ def single_block_forward(block: Params, cfg: FluxConfig, x, cond, temb,
         q, k, v = _qkv(block["attn"], full, nh, "to", luse, lmask, w8a8, lm,
                        fuse_ln)
     else:
-        normed = _ln_mod(full, lm)
+        # one copy (one dx sum under a tensor axis) for proj_mlp and the qkv
+        normed = copy_to_tensor(_ln_mod(full, lm))
         mlp_h = linear_gelu(block["proj_mlp"], normed, luse, lmask, w8a8, "col")
         q, k, v = _qkv(block["attn"], normed, nh, "to", luse, lmask, w8a8)
     out = _attention(q, k, v, s_cond, flags, c_factor, rope_full, int8_attn)

@@ -1,11 +1,14 @@
 """A data x tensor layout of processes, and the tensor-parallel rules over
-the DiT's parameters (counterpart of ``loongx_tpu/parallel/mesh.py``).
+the DiT's parameters (counterpart of ``loongx_tpu/parallel/mesh.py``), for
+serving and for training.
 
 The JAX package builds a ``jax.sharding.Mesh`` over devices and lets GSPMD
 partition global arrays.  Here each process (rank) holds only its shard,
 as plain local tensors on its own device, and the code says where ranks
 talk: one ``torch.distributed.all_reduce`` over the tensor group after
-each row-split GEMM (``parallel/tp_quant.py``).  Ranks are laid out
+each row-split GEMM (``parallel/tp_quant.py``; in training the autograd
+forms, with the sums of dx and of the LoRA gradients that the splits leave
+partial: `tensor_partial_grad`, ``train/step.py``).  Ranks are laid out
 row-major over ``[data, tensor]``, as the JAX package reshapes its device
 list: rank ``d * tensor + t`` is data index d, tensor index t.
 
@@ -60,8 +63,11 @@ class Mesh:
 
 # ---------------------------------------------------------------------------
 # The active mesh: the model routes its linears and attention through the
-# tensor-parallel wrappers while a tensor axis is active, and batch-sharded
-# serving runs under the data axis.
+# tensor-parallel wrappers while a tensor axis is active; the train step
+# takes its rows of the global batch's draws and averages its gradients
+# over the data axis.  Module state, not thread-local: a remat backward
+# re-runs a block's forward on autograd's device thread, and that re-run
+# must take the same routes.
 # ---------------------------------------------------------------------------
 
 _TP_STATE = {"mesh": None, "axis": "tensor", "data_axis": None}
@@ -83,8 +89,10 @@ def tp_context(mesh: Mesh, axis: str = "tensor"):
 def mesh_context(mesh: Mesh, data_axis: str = "data",
                  tensor_axis: str = "tensor"):
     """Activate both axes: batch rows over ``data_axis`` (each data rank
-    holds its own rows) and heads / MLP columns over ``tensor_axis``.
-    Either may be trivial (extent 1)."""
+    holds its own rows: serving runs them as they are, the train step
+    draws for the global batch and averages its gradients over the axis)
+    and heads / MLP columns over ``tensor_axis``.  Either may be trivial
+    (extent 1)."""
     prev = dict(_TP_STATE)
     _TP_STATE.update(mesh=mesh, axis=tensor_axis, data_axis=data_axis)
     try:
@@ -247,15 +255,16 @@ _TP_RULES: Tuple[Tuple[str, Spec], ...] = (
 _PROJ_OUT = re.compile(r"single_blocks/proj_out/kernel(_q)?$")
 
 
-def _walk(tree, path=""):
-    """(path, leaf) of every tensor leaf, paths "/"-joined as the JAX
-    package's `_path_str` joins them."""
+def tree_paths(tree, path=""):
+    """(path, leaf) of every leaf (None leaves too), in the order of
+    `train.step.leaves`, paths "/"-joined as the JAX package's `_path_str`
+    joins them."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _walk(v, f"{path}/{k}" if path else str(k))
+            yield from tree_paths(v, f"{path}/{k}" if path else str(k))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _walk(v, f"{path}/{i}" if path else str(i))
+            yield from tree_paths(v, f"{path}/{i}" if path else str(i))
     else:
         yield path, tree
 
@@ -277,7 +286,7 @@ def _use_tp(params, mesh: Mesh, tensor_parallel: bool) -> bool:
     use_tp = tensor_parallel and mesh.shape.get("tensor", 1) > 1
     if use_tp:
         flat_fused = [
-            p for p, leaf in _walk(params)
+            p for p, leaf in tree_paths(params)
             if ("to_qkv" in p or "add_qkv_proj" in p)
             and p.split("/")[-1] in ("kernel", "kernel_q")
             and getattr(leaf, "ndim", 0) in (2, 3)
@@ -289,6 +298,27 @@ def _use_tp(params, mesh: Mesh, tensor_parallel: bool) -> bool:
                 "quantize with fuse_qkv=False, or re-fuse with "
                 "fuse_qkv_projections(tp_layout=True)")
     return use_tp
+
+
+_LORA_FACTOR = re.compile(r"^(.*)/lora_(a|b)$")
+
+
+def tensor_partial_grad(path: str) -> bool:
+    """Does a tensor rank hold only a part of this LoRA factor's gradient
+    (to be summed over the tensor group)?  The factors stay whole on every
+    rank and are sliced at use (`models.flux.model._lora_delta`): a column
+    split's A (the rank's output columns contribute to it) and B (its
+    columns only), a row split's A (its rows only).  A row split's B and
+    the factors of a linear every rank holds whole get the whole gradient
+    on every rank.  By the kernel's rule in `param_sharding_rules`."""
+    m = _LORA_FACTOR.match(path)
+    if m is None:
+        return False
+    kernel = m.group(1) + "/kernel"
+    for pattern, spec in _TP_RULES:
+        if re.search(pattern, kernel):
+            return spec[-1] == "tensor" or m.group(2) == "a"
+    return False
 
 
 def _leaf_spec(path: str, leaf, use_tp: bool) -> Spec:
@@ -337,7 +367,7 @@ def shard_params(params, mesh: Mesh, tensor_parallel: bool = True):
     use_tp = _use_tp(params, mesh, tensor_parallel)
     t, ti = mesh.shape["tensor"], mesh.tensor_index
     if use_tp and any("single_blocks/proj_out_mlp/" in p
-                      for p, _ in _walk(params)):
+                      for p, _ in tree_paths(params)):
         raise ValueError(
             "tensor parallelism needs the single blocks' proj_out whole: "
             "quantize with split_proj_out=False (its row split follows the "

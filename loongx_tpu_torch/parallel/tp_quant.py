@@ -18,9 +18,21 @@ weight shard it holds, with the Megatron column / row split of
           bf16.
   repl -- W whole on every rank (modulation, embedders): the whole kernel.
 
-Forward only, as in the JAX package.  A rank never splits one sequence's
-rows: the prologue and the gate epilogue place rows in their img | cond
-segments by the global ``seg_boundary``.
+`tp_quant_matmul_stacked` is forward only, as in the JAX package.  A rank
+never splits one sequence's rows: the prologue and the gate epilogue place
+rows in their img | cond segments by the global ``seg_boundary``.
+
+Training (grad enabled) takes the Megatron pair of collectives as autograd
+Functions: `copy_to_tensor` (identity forward; the backward sums dx over
+the tensor group, since a column split's dx holds only its columns' part)
+on the input of the column splits, and `reduce_from_tensor` (the sum
+forward; identity backward, the summed output's gradient being whole on
+every rank) on the output of the row splits.  Between them the model runs
+the port's kernel Functions (``quant_matmul_stacked_vjp``,
+``quant_linear_gelu_stacked``) on the rank's shard, as one process runs
+them on the whole weight: dx comes from the transposed kernel on the
+shard, summed over the group for a column split, kept local for a row
+split.  Every sum is taken in float32.
 """
 
 from __future__ import annotations
@@ -34,20 +46,62 @@ from loongx_tpu_torch.ops import quant_matmul as qmm
 from loongx_tpu_torch.parallel.mesh import current_tp
 
 
-def maybe_dp_rowshard(fn, n_row: int, n_out: int, *args):
-    """``fn(*args)``: the JAX package shards the first ``n_row`` arguments'
-    rows over its data axis here; in the port a rank is one process per
-    data index and the rows it is given are already its own, so the kernel
-    runs on them as they are (``n_row`` and ``n_out`` kept for the JAX
-    signature)."""
-    return fn(*args)
-
-
 def all_reduce(y: torch.Tensor, mesh, axis: str = "tensor") -> torch.Tensor:
     """Sum ``y`` over the ranks of ``mesh``'s ``axis`` in place; returns
     it."""
     dist.all_reduce(y, group=mesh.group(axis))
     return y
+
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        total = dx.to(torch.float32, copy=True)
+        dist.all_reduce(total, group=ctx.group)
+        return total.to(dx.dtype), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        total = y.clone()  # the graph's y is not summed in place
+        dist.all_reduce(total, group=group)
+        return total
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def copy_to_tensor(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column split under the active tensor context with
+    grad enabled: x itself in the forward, its gradient summed over the
+    tensor group in float32 in the backward.  ``x`` as it is outside
+    training under a tensor axis, and for an ``x`` that is already such a
+    copy (a second copy would sum the summed gradient again), so that
+    several column splits can share one copy and one sum."""
+    tp = current_tp()
+    if (tp is None or not torch.is_grad_enabled()
+            or getattr(x, "_tensor_copy", False)):
+        return x
+    out = _CopyToTensor.apply(x, tp[0].group(tp[1]))
+    out._tensor_copy = True
+    return out
+
+
+def reduce_from_tensor(y: torch.Tensor, mesh, axis: str = "tensor"
+                       ) -> torch.Tensor:
+    """The sum of ``y`` over ``mesh``'s ``axis``: with grad enabled a new
+    tensor whose gradient passes to each rank's ``y`` whole, else `all_reduce`
+    in place (serving)."""
+    if not torch.is_grad_enabled():
+        return all_reduce(y, mesh, axis)
+    return _ReduceFromTensor.apply(y, mesh.group(axis))
 
 
 def tp_quant_matmul_stacked(kind: str, x2: torch.Tensor, w_q3: torch.Tensor,

@@ -1,7 +1,9 @@
 """Training callbacks (counterpart of ``loongx_tpu/train/callbacks.py``):
 an EMA console loss, wandb scalars {loss, gradient_size, t, epoch, steps},
 the LoRA file and the train state every ``save_interval`` optimizer steps,
-a fixed-seed probe image every ``sample_interval`` steps.
+a fixed-seed probe image every ``sample_interval`` steps.  Under a mesh
+only the writer (global rank 0) writes files; the others keep the EMA and
+run the probe where they are given one.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ class TrainingCallback:
         sample_fn: Optional[Callable[[int], Any]] = None,
         frozen: Optional[Dict[str, Any]] = None,
         fingerprint: Optional[Dict[str, Any]] = None,
+        writer: bool = True,
     ):
         self.run_name = run_name
         self.frozen = frozen  # complement of state.trainable (for exports)
         self.fingerprint = fingerprint  # resume-compat facts (see checkpoint)
+        self.writer = writer  # writes the LoRA files and train states
         self.save_root = os.path.join(save_path, run_name)
         self.save_interval = save_interval
         self.sample_interval = sample_interval
@@ -97,8 +101,9 @@ class TrainingCallback:
         """The LoRA file (``ckpt/<step>/lora.safetensors``, with the real
         lora_scale from the frozen tree) and the train state
         (``train_state/step_<step>``); a step already saved is skipped (the
-        final save after the loop can fall on an interval's step)."""
-        if state is None:
+        final save after the loop can fall on an interval's step).  Nothing
+        but on the writer."""
+        if state is None or not self.writer:
             return
         if getattr(self, "_last_saved_step", None) == step:
             return

@@ -4,10 +4,20 @@ and the clip inside it -> callbacks (console, wandb, LoRA files, train
 states, probe images) -> the final save, with resume from the newest train
 state under ``save_path``.
 
-One GPU (or the CPU, for tests): a config whose mesh asks for more than
-one device is refused (training under a mesh -- data-parallel LoRA
-gradients, a tensor axis, rank-0 checkpoints -- is ROADMAP Queue 1 item 11;
-multi-GPU serving is `parallel/` and ``cli.infer --tensor``).
+One process a rank, as ``torchrun`` starts them (or one process alone, on
+a GPU or, for tests, the CPU): the config's ``mesh: {tensor: t}`` splits
+the DiT over t ranks (tensor parallelism) and the rest of the world
+splits each global batch (data parallelism); ``mesh.data``, where given,
+must equal world / t.  Each rank keeps its shard of the frozen tree
+(`parallel.mesh.shard_params`), loads and prepares only its rows of each
+global batch of ``batch_size`` x data rows (the ranks of one data index
+the same rows), and runs the step under `parallel.mesh.mesh_context`:
+the step draws for the global batch and averages the LoRA gradients over
+the mesh, so every rank takes the optimizer step one process takes at
+the global batch.  Only global rank 0 writes LoRA files and train states,
+opens wandb and prints the step lines; the probe runs on the tensor ranks
+of data index 0 (its ``generate()`` needs their collectives) and rank 0
+writes its image; every rank resumes from the same train state.
 
 Random draws.  The JAX package's ``jax.random`` stream cannot be
 reproduced in PyTorch.  Each micro-step's (t, x1, dropout masks) come from
@@ -31,11 +41,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from loongx_tpu_torch.config import Config
 from loongx_tpu_torch.data.datasets import build_dataset
 from loongx_tpu_torch.data.loader import background_iter, iterate_batches
 from loongx_tpu_torch.models.pipeline import LoongXPipeline
+from loongx_tpu_torch.parallel.mesh import (
+    Mesh, make_mesh, mesh_context, shard_params,
+)
 from loongx_tpu_torch.train import lora
 from loongx_tpu_torch.train.callbacks import TRAIN_STATE_DIR, TrainingCallback
 from loongx_tpu_torch.train.optim import MultiSteps, build_optimizer
@@ -66,19 +80,26 @@ def draw_seed(seed: int, start_step: int) -> int:
     return int(np.random.SeedSequence([seed, start_step]).generate_state(1)[0])
 
 
-def _refuse_multi_device(config: Config) -> None:
-    mesh = config.mesh or {}
-    tensor, data = int(mesh.get("tensor", 1)), int(mesh.get("data", 0))
-    if max(data, 1) * tensor > 1:
-        raise RuntimeError(
-            f"config mesh data={data} x tensor={tensor} asks for "
-            f"{max(data, 1) * tensor} devices: this package trains on one "
-            "GPU; training under a mesh is not ported yet (ROADMAP Queue 1 "
-            "item 11, training under a mesh). Set mesh to {} or {tensor: 1, "
-            "data: 1}")
+def train_mesh(config: Config, device) -> Mesh:
+    """The run's mesh: ``tensor`` from ``config.mesh``, data the ranks
+    that remain (`parallel.make_mesh`: the group torchrun describes, the one
+    already initialised, or this process alone).  A ``mesh.data`` that
+    disagrees with that is refused: the JAX package's picks a subset of a
+    host's devices, the port's world is the processes that were started."""
+    spec = config.mesh or {}
+    tensor, data = int(spec.get("tensor", 1)), int(spec.get("data", 0))
+    mesh = make_mesh(data=-1, tensor=tensor, device=device)
+    world = mesh.shape["data"] * tensor
+    if data > 0 and data != mesh.shape["data"]:
+        raise ValueError(
+            f"config mesh data={data} disagrees with the world: "
+            f"{world} process(es) at tensor={tensor} make data "
+            f"{mesh.shape['data']}.  Start data x tensor processes "
+            "(torchrun --nproc-per-node ...) or leave mesh.data unset")
+    return mesh
 
 
-def _resume(save_path: str, fingerprint: Dict[str, Any], state):
+def _resume(save_path: str, fingerprint: Dict[str, Any], state, log=print):
     """Load the newest train state under ``save_path`` (the newest run that
     has one) into ``state``; returns the optimizer step it holds (0: none
     found).  A fingerprint that differs from the current config's, or a
@@ -104,11 +125,11 @@ def _resume(save_path: str, fingerprint: Dict[str, Any], state):
                 "Pass resume=False or use a fresh save_path for the new "
                 "configuration.")
         if prior_fp is None:
-            print(f"[train] warning: {state_dir} has no config fingerprint "
-                  "-- resuming without a compatibility check")
+            log(f"[train] warning: {state_dir} has no config fingerprint "
+                "-- resuming without a compatibility check")
         start_step = ckpt.load_train_checkpoint(ck, state.trainable,
                                                 state.optimizer)
-        print(f"[train] resumed from {ck} @ step {start_step}")
+        log(f"[train] resumed from {ck} @ step {start_step}")
         return start_step
     return 0
 
@@ -121,9 +142,17 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
     by default both come from the config (the pipeline directory at
     ``config.flux_path``, loaded onto ``device``).  ``max_steps`` counts
     optimizer steps: the loop runs max_steps x accumulate_grad_batches
-    micro-batches.  The final weights are left in ``pipeline.params``."""
+    micro-batches.  The final weights are left in ``pipeline.params``
+    (under a tensor axis the frozen leaves are this rank's shard).
+    ``device``: the pipeline's device ("cuda": cuda:LOCAL_RANK); with an
+    injected pipeline its own."""
     tcfg = config.train
-    _refuse_multi_device(config)
+    mesh = train_mesh(config, pipeline.device if pipeline is not None
+                      else device)
+    device = mesh.device
+    data = mesh.shape["data"]
+    is_main = mesh.rank == 0
+    log = print if is_main else (lambda *a, **k: None)
     np.random.seed(tcfg.seed)
     run_name = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
 
@@ -144,8 +173,8 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
             text_pipe.free_text_encoders()
             del text_pipe
             gc.collect()
-            print(f"[train] staged_text: {len(text_cache[0])} prompts "
-                  "cached; text encoders freed")
+            log(f"[train] staged_text: {len(text_cache[0])} prompts "
+                "cached; text encoders freed")
             pipeline = LoongXPipeline.from_pretrained(
                 config.flux_path, components=("flux", "vae", "encoders", "dgf"),
                 device=device)
@@ -197,21 +226,25 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
         "optimizer": tcfg.optimizer.type,
         "condition_type": tcfg.condition_type,
         "accumulate_grad_batches": tcfg.accumulate_grad_batches,
-        "batch_size": tcfg.batch_size,
+        # the global batch: the data stream a resumed run must continue
+        "batch_size": tcfg.batch_size * data,
         "seed": tcfg.seed,
         "train_encoders": tcfg.train_encoders,
         "flux_blocks": [pipeline.flux_cfg.num_double_blocks,
                         pipeline.flux_cfg.num_single_blocks],
     }
-    start_step = _resume(tcfg.save_path, fingerprint, state) if resume else 0
+    start_step = (_resume(tcfg.save_path, fingerprint, state, log) if resume
+                  else 0)
     # the step counts micro-batches; the checkpoint holds optimizer steps
     state = state._replace(step=start_step * accum)
+    # this rank's shard of the frozen tree (whole where no rule splits it)
+    frozen = shard_params(frozen, mesh)
     pipeline.params = combine(trainable, frozen)
 
     # the periodic probe renders the first sample with the live LoRA leaves
     # (the step updates them in place)
     sample_fn = None
-    if tcfg.sample_interval and len(dataset) > 0:
+    if tcfg.sample_interval and len(dataset) > 0 and mesh.data_index == 0:
         try:
             from loongx_tpu_torch.train.sampling_probe import SampleProbe
 
@@ -231,16 +264,19 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
                 biosignals=biosig or None,
                 out_dir=os.path.join(tcfg.save_path, run_name, "samples"),
                 size=tcfg.dataset.target_size,
-                trainable_view=lambda: state.trainable, text_cache=text_cache)
+                trainable_view=lambda: state.trainable, text_cache=text_cache,
+                write=is_main)
         except Exception as exc:
             print(f"[train] sample probe unavailable: {exc}")
 
     callback = TrainingCallback(
         run_name=run_name, save_path=tcfg.save_path,
         save_interval=tcfg.save_interval, sample_interval=tcfg.sample_interval,
-        use_wandb=use_wandb if use_wandb is not None else bool(tcfg.wandb),
+        use_wandb=(use_wandb if use_wandb is not None else bool(tcfg.wandb))
+        and is_main,
         wandb_config=tcfg.wandb, sample_fn=sample_fn, frozen=frozen,
-        fingerprint=fingerprint, print_interval=10)
+        fingerprint=fingerprint, print_interval=10 if is_main else 0,
+        writer=is_main)
 
     total = tcfg.max_steps if max_steps is None else max_steps
     if total is None or total < 0:  # -1: unlimited
@@ -257,18 +293,20 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
     def device_batches():
         # resume: skip the batches the earlier run consumed
         for host_batch in iterate_batches(
-                dataset, tcfg.batch_size, seed=tcfg.seed,
+                dataset, tcfg.batch_size * data, seed=tcfg.seed,
                 num_workers=tcfg.dataloader_workers,
-                skip_batches=start_micro):
+                skip_batches=start_micro, data_index=mesh.data_index,
+                data_size=data):
             yield prepare_batch(pipeline, host_batch,
                                 position_scale=tcfg.dataset.position_scale,
                                 text_cache=text_cache)
 
     if total_micro > start_micro:
         # one-deep lookahead: the next batch's decode and frozen encoders
-        # run while the current step does
-        with contextlib.closing(background_iter(device_batches(),
-                                                depth=1)) as batches:
+        # run while the current step does; the mesh context around the
+        # steps and the probe
+        with contextlib.closing(background_iter(
+                device_batches(), depth=1)) as batches, mesh_context(mesh):
             for batch in batches:
                 if micro >= total_micro:
                     break
@@ -286,10 +324,12 @@ def train(config: Config, pipeline: Optional[LoongXPipeline] = None,
                     callback.on_step_end(micro // accum, agg, state)
     step = micro // accum
     wall = time.time() - t0
-    print(f"[train] {step - start_step} optimizer steps "
-          f"({micro - start_micro} micro-batches) in {wall:.1f}s "
-          f"({(micro - start_micro) / max(wall, 1e-9):.2f} micro-steps/s)")
+    log(f"[train] {step - start_step} optimizer steps "
+        f"({micro - start_micro} micro-batches) in {wall:.1f}s "
+        f"({(micro - start_micro) / max(wall, 1e-9):.2f} micro-steps/s)")
     callback.save_checkpoint(step, state)
+    if data * mesh.shape["tensor"] > 1:
+        dist.barrier()  # rank 0's files are written when any rank returns
     pipeline.params = combine(state.trainable, frozen)
     return {"steps": step, "wall_s": wall,
             "final_loss": float(metrics.get("loss", np.nan)) if metrics

@@ -34,6 +34,7 @@ class SampleProbe:
         size: int = 512,
         trainable_view=None,
         text_cache=None,
+        write: bool = True,
     ):
         self.pipeline = pipeline
         self.condition_type = condition_type
@@ -50,9 +51,12 @@ class SampleProbe:
         # staged text (`train.prepare.build_text_cache`): the prompt's
         # embeds where the text encoders are no longer loaded
         self.text_cache = text_cache
+        # under a tensor axis every rank of the data row renders (generate()
+        # needs their collectives) and one writes the image
+        self.write = write
 
     @torch.no_grad()
-    def __call__(self, step: int) -> str:
+    def __call__(self, step: int) -> Optional[str]:
         from PIL import Image
 
         from loongx_tpu_torch.sampling.condition import Condition
@@ -96,6 +100,8 @@ class SampleProbe:
             fuse_mode="train",
             output_type="uint8",
         )
+        if not self.write:
+            return None
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir, f"step_{step}.jpg")
         Image.fromarray(out[0]).save(path)

@@ -13,6 +13,15 @@ dict of the draws themselves -- ``t`` [B] (after the sigmoid), ``noise``
 (x1, x0's shape) and ``dropout`` {"eeg" | "ppg" | "fnirs" | "motion": [keep
 mask per layer]} -- so a test can hand the port the JAX package's own
 ``jax.random`` draws.
+
+Under a mesh (`parallel.mesh.mesh_context` around the step, each rank
+holding its rows of the global batch and its shard of the frozen tree):
+the draws are the global batch's, of which a data rank keeps its rows, so
+the ranks of one data row draw alike and the step equals the one-process
+step at the global batch; the LoRA gradients are summed in float32, over
+the tensor group where a split leaves them partial
+(`parallel.mesh.tensor_partial_grad`) and then over the data group, whose
+mean they become; loss and t_mean are the data group's means.
 """
 
 from __future__ import annotations
@@ -20,15 +29,19 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from loongx_tpu_torch.models.encoders import (
-    eeg_encode, fnirs_encode, motion_encode, ppg_encode,
+    BatchRows, eeg_encode, fnirs_encode, motion_encode, ppg_encode,
 )
 from loongx_tpu_torch.models.flux.model import FluxConfig, flux_forward
 from loongx_tpu_torch.models.fusion import (
     fuse_eeg_ppg, fuse_fnirs_motion, fuse_text_train,
 )
 from loongx_tpu_torch.ops.schedule import flow_match_xt
+from loongx_tpu_torch.parallel.mesh import (
+    current_dp, current_tp, tensor_partial_grad, tree_paths,
+)
 from loongx_tpu_torch.train.lora import lora_mask
 from loongx_tpu_torch.train.optim import OptimizerFactory
 
@@ -98,16 +111,30 @@ _MODALITIES = ("eeg", "ppg", "fnirs", "motion")
 
 def _draws(draws: Draws, x0: torch.Tensor):
     """(t, x1, {modality: dropout}) from a generator or explicit draws: t =
-    sigmoid(N(0, 1)) [B], x1 = N(0, 1) like x0, float32."""
+    sigmoid(N(0, 1)) [B], x1 = N(0, 1) like x0, float32.  Under a data axis
+    (`current_dp`) both are the global batch's (B x the data extent rows,
+    as one process at the global batch draws them) and this rank keeps its
+    rows [d * B, (d + 1) * B), the dropout masks too (`BatchRows`)."""
+    b = x0.shape[0]
+    dp = current_dp()
+    start, total = (0, b) if dp is None else (
+        dp[0].index(dp[1]) * b, dp[0].shape[dp[1]] * b)
+    rows = slice(start, start + b)
     if isinstance(draws, torch.Generator):
-        b = x0.shape[0]
-        t = torch.sigmoid(torch.randn(b, generator=draws, device=x0.device))
-        x1 = torch.randn(x0.shape, generator=draws, device=x0.device)
-        return t, x1, {m: draws for m in _MODALITIES}
+        t = torch.sigmoid(torch.randn(total, generator=draws,
+                                      device=x0.device))
+        x1 = torch.randn((total, *x0.shape[1:]), generator=draws,
+                         device=x0.device)
+        drop = draws if dp is None else BatchRows(draws, start, start + b,
+                                                  total)
+        return t[rows], x1[rows], {m: drop for m in _MODALITIES}
     dropout = draws.get("dropout") or {}
-    return (draws["t"].to(x0.device, torch.float32),
-            draws["noise"].to(x0.device, torch.float32),
-            {m: dropout.get(m) for m in _MODALITIES})
+    masks = {m: dropout.get(m) for m in _MODALITIES}
+    if dp is not None:
+        masks = {m: None if v is None else [mask[rows] for mask in v]
+                 for m, v in masks.items()}
+    return (draws["t"][rows].to(x0.device, torch.float32),
+            draws["noise"][rows].to(x0.device, torch.float32), masks)
 
 
 def flow_match_loss(params: Dict[str, Any], flux_cfg: FluxConfig,
@@ -116,7 +143,8 @@ def flow_match_loss(params: Dict[str, Any], flux_cfg: FluxConfig,
                     use_brain_condition: bool = False, fuse_flag: bool = True,
                     remat: bool = False, dtype=torch.bfloat16,
                     fuse_ln: bool = False, fuse_gate: bool = False):
-    """One flow-matching MSE step -> (loss, mean t), float32 scalars.
+    """One flow-matching MSE step -> (loss, mean t), float32 scalars, over
+    this rank's rows under a data axis (the draws: `_draws`).
 
     batch: x0 [B, S, C] clean packed latents; img_ids / txt_ids;
     prompt_embeds / pooled; optional cond_tokens / cond_ids; optional
@@ -184,6 +212,49 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def _all_reduce_flat(tensors: List[torch.Tensor], group) -> None:
+    """Sum float32 ``tensors`` over ``group`` in place, as one flat
+    buffer (one collective)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def mesh_grads(grads: List[torch.Tensor], paths: List[str]
+               ) -> List[torch.Tensor]:
+    """The one-process gradients from this rank's, under the active mesh:
+    in float32, the leaves a tensor split leaves partial
+    (`tensor_partial_grad`) summed over the tensor group, then every leaf
+    summed over the data group and divided by its extent (the mean over
+    the global batch); cast back to each leaf's dtype."""
+    tp, dp = current_tp(), current_dp()
+    if tp is None and dp is None:
+        return grads
+    g32 = [g.to(torch.float32, copy=True) for g in grads]
+    if tp is not None:
+        partial = [g for g, path in zip(g32, paths)
+                   if tensor_partial_grad(path)]
+        if partial:
+            _all_reduce_flat(partial, tp[0].group(tp[1]))
+    if dp is not None:
+        _all_reduce_flat(g32, dp[0].group(dp[1]))
+        for g in g32:
+            g.div_(dp[0].shape[dp[1]])
+    return [g.to(orig.dtype) for g, orig in zip(g32, grads)]
+
+
+def data_mean(values: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Float32 scalars averaged over the active data group (as they are
+    outside one)."""
+    dp = current_dp()
+    if dp is None:
+        return values
+    both = torch.stack([v.detach().float() for v in values])
+    dist.all_reduce(both, group=dp[0].group(dp[1]))
+    return list(both / dp[0].shape[dp[1]])
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                         norm: torch.Tensor) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: g if norm < max_norm else (g / norm) *
@@ -208,7 +279,16 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
     tensors on the params' device).  The trainable leaves are updated in
     place; the returned state counts one more step.  ``grad_clip`` None or
     0 leaves clipping to the caller.  ``fuse_ln`` / ``fuse_gate`` as in
-    `flow_match_loss`."""
+    `flow_match_loss`.
+
+    Under `parallel.mesh.mesh_context` (which must be active around the
+    call: the remat backward re-runs the forward's collectives) the frozen
+    tree is the rank's shard (`shard_params`), the batch its rows
+    (`shard_batch`), the trainable leaves whole and equal on every rank;
+    the draws are the global batch's (see `flow_match_loss`), the
+    gradients `mesh_grads`, the loss and t_mean the data means, so every
+    rank takes the same optimizer step, the one-process step at the global
+    batch."""
     flags = dict(flags or {})
 
     def init_fn(trainable) -> TrainState:
@@ -224,6 +304,13 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
             fuse_flag, remat, dtype, fuse_ln, fuse_gate)
         group = state.optimizer.param_groups[0]["params"]
         grads = list(torch.autograd.grad(loss, group))
+        paths = [path for path, p in tree_paths(state.trainable)
+                 if p is not None]
+        if len(paths) != len(group):
+            raise RuntimeError(f"the optimizer holds {len(group)} leaves, the "
+                               f"trainable tree {len(paths)}")
+        grads = mesh_grads(grads, paths)
+        loss, t_mean = data_mean([loss, t_mean])
         norm = global_norm(grads)
         if grad_clip:
             grads = clip_by_global_norm(grads, grad_clip, norm)

@@ -83,7 +83,7 @@ from loongx_tpu_torch.parallel import (
 )
 from loongx_tpu_torch.parallel import mesh as tmesh
 from loongx_tpu_torch.parallel.launch import spawn_ranks
-from loongx_tpu_torch.parallel.tp_quant import maybe_dp_rowshard
+from loongx_tpu_torch.parallel.tp_quant import copy_to_tensor
 from loongx_tpu_torch.sampling import generate as tgen
 from loongx_tpu_torch.ops.quant import random_quantized_like
 from loongx_tpu_torch.train.lora import add_lora
@@ -316,8 +316,12 @@ def test_contexts_and_the_local_row_call():
             assert tmesh.current_tp() is None and tmesh.current_dp() is None
         assert tmesh.current_dp() == (mesh, "data")
     assert tmesh.current_tp() is None and tmesh.tensor_extent() == 1
-    x = torch.arange(6.0).reshape(3, 2)
-    assert maybe_dp_rowshard(lambda a, b: a * b, 1, 1, x, 2.0).equal(2 * x)
+    # a rank's call runs on its own rows as they are: serving (grad off)
+    # and outside a tensor context the column split's copy is x itself
+    x = torch.arange(6.0, requires_grad=True).reshape(3, 2)
+    with torch.no_grad(), tmesh.mesh_context(mesh):
+        assert copy_to_tensor(x) is x
+    assert copy_to_tensor(x) is x
 
 
 # ---------------------------------------------------------------------------

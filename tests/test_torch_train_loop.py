@@ -16,8 +16,8 @@ the JAX package's, on the CPU at the tiny pipeline.
     clip_by_global_norm, tx))`` on fixed gradients (float32 on both sides,
     only the order of sums differs: rtol 1e-5);
   * an exact train-state round trip, the refusal of the JAX package's
-    orbax train state and of a multi-device mesh, and ``cli.train.main``
-    end to end on a YAML file.
+    orbax train state, and ``cli.train.main`` end to end on a YAML file
+    (training under a mesh: tests/test_torch_parallel_train.py).
 """
 
 import dataclasses
@@ -439,15 +439,6 @@ def test_orbax_train_state_refused(corpus, tiny_tree, tmp_path):
                                     torch.optim.SGD([p], lr=0.1))
     with pytest.raises(ValueError, match="orbax"):
         _run(tmp_path, tiny_tree, corpus, resume=True)
-
-
-@pytest.mark.parametrize("mesh", [{"tensor": 2}, {"data": 2},
-                                  {"data": 2, "tensor": 2}])
-def test_multi_device_mesh_refused(tmp_path, mesh):
-    cfg = _cfg(tmp_path)
-    cfg.mesh = mesh
-    with pytest.raises(RuntimeError, match="item 11"):
-        tloop.train(cfg, resume=False, use_wandb=False, device="cpu")
 
 
 def test_cli_train_end_to_end(corpus, tiny_tree, tmp_path, monkeypatch):
