@@ -233,7 +233,7 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
     ``text_embeds``: optional {fname: (prompt_embed, pooled)} from
     `staged_text_encode`.  ``latents`` [1, S, C] / ``cond_noise`` replace
     the draws; ``knobs`` are `serving_knobs`."""
-    import time as _time
+    import contextlib
 
     import torch
 
@@ -247,9 +247,12 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
     from loongx_tpu_torch.parallel.mesh import (
         make_mesh, mesh_context, shard_batch,
     )
+    from loongx_tpu_torch.utils import profiling
+    from loongx_tpu_torch.utils.profiling import span
 
     if mesh is None:
         mesh = make_mesh(device=pipeline.device)
+    timing = bool(getattr(args, "timing", False))
     n_data, lead = mesh.shape["data"], mesh.rank == 0
     os.makedirs(args.output_dir, exist_ok=True)
     files = list_images(args.input_dir)
@@ -305,81 +308,120 @@ def batch_edit(pipeline, args, brain_data, captions, text_embeds=None, *,
                                  generator=gen, device=device)
     latents = torch.as_tensor(latents).to(device)
     cond_noise = torch.as_tensor(cond_noise).to(device)
+
+    def edit_group(sig, chunk, done):
+        """Edit one group; this rank writes its images of it."""
+        # pad the tail group to divide the data axis; this data rank's
+        # rows of it (positions in the group)
+        proc = chunk + [chunk[-1]] * ((-len(chunk)) % n_data)
+        rows = shard_batch(torch.arange(len(proc)), mesh).tolist()
+        mine = [proc[i] for i in rows]
+        conds, prompts = [], []
+        with torch.inference_mode():
+            for fname in mine:
+                img = read_image(os.path.join(args.input_dir, fname), size)
+                cimg = synthesize_condition_image(args.condition_type,
+                                                  img, device)
+                arr = _to_numpy_image(cimg)[None]
+                toks, h, w = pipeline.encode_image_tokens(
+                    torch.as_tensor(arr, device=device), noise=cond_noise)
+                conds.append(toks[0])
+                prompts.append(captions.get(fname, args.prompt or ""))
+        b = len(mine)
+        cond_ids = shift_ids(latent_image_ids(h, w, device=device),
+                             (args.position_delta_x,
+                              args.position_delta_y))
+        # biosignals: the bucket guarantees every image carries exactly
+        # the signals in ``sig``
+        kw = {}
+        for key, name in (("EEG", "eeg"), ("FNIRS", "fnirs"),
+                          ("PPG", "ppg"), ("Motion", "motion")):
+            if key in sig:
+                kw[name] = torch.stack([
+                    canonicalise_signal(torch.as_tensor(
+                        np.asarray(eff_of[f][key], np.float32),
+                        device=device), name)[0]
+                    for f in mine])
+        if text_embeds is not None:
+            tkw = {
+                "prompt_embeds": torch.as_tensor(np.stack(
+                    [text_embeds[f][0] for f in mine])).to(device, dtype),
+                "pooled_prompt_embeds": torch.as_tensor(np.stack(
+                    [text_embeds[f][1] for f in mine])).to(device, dtype),
+            }
+        else:
+            tkw = {"prompt": prompts}
+        with mesh_context(mesh):
+            out = sampling.generate(
+                pipeline, condition_type=args.condition_type,
+                cond_tokens=torch.stack(conds), cond_ids=cond_ids,
+                height=size, width=size, num_inference_steps=args.steps,
+                guidance_scale=args.guidance, seed=args.seed,
+                latents=latents.expand(b, -1, -1).to(dtype),
+                use_brain_condition=bool(kw), fuse_flag=args.fuse,
+                neural_only=args.neural_only, output_type="uint8",
+                decode_chunk=getattr(args, "decode_chunk", None),
+                **tkw, **kw, **(knobs or {}))
+        for i, arr in zip(rows, out):
+            if i >= len(chunk) or mesh.tensor_index:
+                continue  # a padded row, or another rank writes it
+            out_path = os.path.join(args.output_dir, chunk[i])
+            write_image(out_path, arr)
+            print(f"[infer] [{done + i + 1}/{len(files)}] {out_path}")
+
     done, times = 0, []
-    for sig in order:
-        bucket = buckets[sig]
-        for start in range(0, len(bucket), group):
-            t0 = _time.time()
-            chunk = bucket[start:start + group]
-            # pad the tail group to divide the data axis; this data rank's
-            # rows of it (positions in the group)
-            proc = chunk + [chunk[-1]] * ((-len(chunk)) % n_data)
-            rows = shard_batch(torch.arange(len(proc)), mesh).tolist()
-            mine = [proc[i] for i in rows]
-            conds, prompts = [], []
-            with torch.inference_mode():
-                for fname in mine:
-                    img = read_image(os.path.join(args.input_dir, fname), size)
-                    cimg = synthesize_condition_image(args.condition_type,
-                                                      img, device)
-                    arr = _to_numpy_image(cimg)[None]
-                    toks, h, w = pipeline.encode_image_tokens(
-                        torch.as_tensor(arr, device=device), noise=cond_noise)
-                    conds.append(toks[0])
-                    prompts.append(captions.get(fname, args.prompt or ""))
-            b = len(mine)
-            cond_ids = shift_ids(latent_image_ids(h, w, device=device),
-                                 (args.position_delta_x,
-                                  args.position_delta_y))
-            # biosignals: the bucket guarantees every image carries exactly
-            # the signals in ``sig``
-            kw = {}
-            for key, name in (("EEG", "eeg"), ("FNIRS", "fnirs"),
-                              ("PPG", "ppg"), ("Motion", "motion")):
-                if key in sig:
-                    kw[name] = torch.stack([
-                        canonicalise_signal(torch.as_tensor(
-                            np.asarray(eff_of[f][key], np.float32),
-                            device=device), name)[0]
-                        for f in mine])
-            if text_embeds is not None:
-                tkw = {
-                    "prompt_embeds": torch.as_tensor(np.stack(
-                        [text_embeds[f][0] for f in mine])).to(device, dtype),
-                    "pooled_prompt_embeds": torch.as_tensor(np.stack(
-                        [text_embeds[f][1] for f in mine])).to(device, dtype),
-                }
-            else:
-                tkw = {"prompt": prompts}
-            with mesh_context(mesh):
-                out = sampling.generate(
-                    pipeline, condition_type=args.condition_type,
-                    cond_tokens=torch.stack(conds), cond_ids=cond_ids,
-                    height=size, width=size, num_inference_steps=args.steps,
-                    guidance_scale=args.guidance, seed=args.seed,
-                    latents=latents.expand(b, -1, -1).to(dtype),
-                    use_brain_condition=bool(kw), fuse_flag=args.fuse,
-                    neural_only=args.neural_only, output_type="uint8",
-                    decode_chunk=getattr(args, "decode_chunk", None),
-                    **tkw, **kw, **(knobs or {}))
-            for i, arr in zip(rows, out):
-                if i >= len(chunk) or mesh.tensor_index:
-                    continue  # a padded row, or another rank writes it
-                out_path = os.path.join(args.output_dir, chunk[i])
-                write_image(out_path, arr)
-                print(f"[infer] [{done + i + 1}/{len(files)}] {out_path}")
-            done += len(chunk)
-            dt = _time.time() - t0
-            times.extend([dt / len(chunk)] * len(chunk))
-            if getattr(args, "timing", False) and lead:
-                print(f"[infer] group of {len(chunk)}: {dt:.3f}s "
-                      f"({dt / len(chunk):.3f}s/image end-to-end)")
-    if getattr(args, "timing", False) and times and lead:
+    with (profiling.spans_on() if timing else contextlib.nullcontext()):
+        for sig in order:
+            bucket = buckets[sig]
+            for start in range(0, len(bucket), group):
+                chunk = bucket[start:start + group]
+                with span("infer.group"):
+                    edit_group(sig, chunk, done)
+                done += len(chunk)
+                if not timing:
+                    continue
+                records = profiling.spans()
+                profiling.clear_spans()
+                dt = next(r for r in reversed(records)
+                          if r.name == "infer.group").host_ms / 1e3
+                times.extend([dt / len(chunk)] * len(chunk))
+                if lead:
+                    print(f"[infer] group of {len(chunk)}: {dt:.3f}s "
+                          f"({dt / len(chunk):.3f}s/image end-to-end); "
+                          + stage_report(records))
+    if timing and times and lead:
         times.sort()
         p50 = times[len(times) // 2]
         print(f"[infer] wall-clock per-image p50 {p50:.3f}s over "
               f"{len(times)} images (host decode + condition synthesis + "
               f"denoise + PNG write)")
+
+
+def stage_report(records) -> str:
+    """One group's device ms per stage from its spans (`utils.profiling`):
+    each stage that ran, the denoise per step, and the median over the
+    steps of the queue wait (a step's device start less its host start:
+    how long its first kernel waited behind queued work)."""
+    def total(name):
+        return sum(r.device_ms for r in records if r.name == name)
+
+    names = {r.name for r in records}
+    steps = [r for r in records if r.name == "edit.denoise.step"]
+    parts = [f"{label} {total(name):.1f}" for label, name in (
+        ("brain encode", "edit.brain_encode"),
+        ("VAE encode", "edit.vae_encode")) if name in names]
+    if steps:
+        parts.append(f"denoise {total('edit.denoise.step') / len(steps):.1f}"
+                     f"/step x {len(steps)}")
+    if "edit.vae_decode" in names:
+        parts.append(f"VAE decode {total('edit.vae_decode'):.1f}")
+    line = "device ms: " + ", ".join(parts)
+    if steps:
+        waits = sorted((r.device_start_ns - r.host_start_ns) / 1e6
+                       for r in steps)
+        line += (f"; queue wait {waits[len(waits) // 2]:.1f} ms (median of "
+                 f"{len(steps)} steps)")
+    return line
 
 
 def _tree_has_key(tree, key: str) -> bool:
@@ -469,9 +511,11 @@ def main(argv=None):
                         help="decode at most this many images per decode "
                         "step (default: the whole group)")
     parser.add_argument("--timing", action="store_true",
-                        help="report end-to-end wall-clock per image "
-                        "(host decode + condition synthesis + denoise + "
-                        "PNG write) and the p50 across the run")
+                        help="record the program's spans: report each "
+                        "group's end-to-end wall-clock per image (host "
+                        "decode + condition synthesis + denoise + PNG "
+                        "write), its device ms per stage and queue wait, "
+                        "and the p50 per image across the run")
     parser.add_argument("--fuse", action="store_true",
                         help="DUAN-fuse brain+text instead of replacing")
     parser.add_argument("--staged_text", action="store_true",

@@ -25,7 +25,8 @@ counterparts (``quant_matmul_vjp``, ``quant_matmul_stacked_vjp``,
 the transposed kernels; ``flash_attention`` is differentiable by itself.
 ``flux_forward(remat=True)`` checkpoints each block (non-reentrant
 ``torch.utils.checkpoint``), as the JAX package wraps each scan body in
-``jax.checkpoint``: the backward re-runs a block's forward kernels.
+``jax.checkpoint``: the backward re-runs a block's forward kernels, each
+re-run the span ``train.recompute`` (`utils.profiling`).
 
 ``w8a8`` selects the MAC mode of every int8 linear (the serving knob the
 JAX package reads from LOONGX_W8A8); ``int8_attn`` the int8 QK^T mode of
@@ -86,6 +87,7 @@ from loongx_tpu_torch.parallel.tp_quant import (
     copy_to_tensor, reduce_from_tensor, tp_quant_matmul_stacked,
     tp_quant_qkv_stacked,
 )
+from loongx_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -787,6 +789,15 @@ def _cn_residuals(samples: Optional[torch.Tensor], n_blocks: int, dtype):
     return lambda i: samples[i // every]
 
 
+def _rerun_spanned(block_fn, *args):
+    """A checkpointed block: its re-run in the backward (a graph task runs
+    on this thread) is the span ``train.recompute``."""
+    if torch._C._current_graph_task_id() == -1:
+        return block_fn(*args)
+    with span("train.recompute"):
+        return block_fn(*args)
+
+
 def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
                  txt: torch.Tensor, pooled: torch.Tensor,
                  timestep: torch.Tensor, img_ids: torch.Tensor,
@@ -846,7 +857,8 @@ def flux_forward(params: Params, cfg: FluxConfig, *, img: torch.Tensor,
 
     def run(block_fn, *args):
         if remat:
-            return checkpoint(block_fn, *args, use_reentrant=False)
+            return checkpoint(_rerun_spanned, block_fn, *args,
+                              use_reentrant=False)
         return block_fn(*args)
 
     def double(i, img_h, txt_h, cond_h):

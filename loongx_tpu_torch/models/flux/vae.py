@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from loongx_tpu_torch.ops.nn import Params, init_layer_norm, silu, uniform
+from loongx_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,24 +169,26 @@ def _nhwc(x):
 
 def vae_encode(params: Params, cfg: VAEConfig, images: torch.Tensor):
     """images [B, H, W, 3] in [-1, 1] -> (mean, logvar), each
-    [B, H/ds, W/ds, latent_channels]."""
-    p = params["encoder"]
-    g = cfg.norm_groups
-    x = _conv(p["conv_in"], _nchw(images))
-    for i in range(len(cfg.block_channels)):
-        block = p[f"down_{i}"]
-        for j in range(cfg.layers_per_block):
-            x = _resnet(block[f"resnet_{j}"], x, g)
-        if "downsample" in block:
-            x = F.pad(x, (0, 1, 0, 1))  # diffusers pads (0,1,0,1), VALID conv
-            x = _conv(block["downsample"], x, stride=2, padding=0)
-    x = _resnet(p["mid"]["resnet_0"], x, g)
-    x = _spatial_attn(p["mid"]["attn"], x, g)
-    x = _resnet(p["mid"]["resnet_1"], x, g)
-    x = silu(_group_norm(p["norm_out"], x, g))
-    moments = _nhwc(_conv(p["conv_out"], x))
-    mean, logvar = moments.chunk(2, dim=-1)
-    return mean, torch.clamp(logvar, -30.0, 20.0)
+    [B, H/ds, W/ds, latent_channels].  Span: ``edit.vae_encode``."""
+    with span("edit.vae_encode"):
+        p = params["encoder"]
+        g = cfg.norm_groups
+        x = _conv(p["conv_in"], _nchw(images))
+        for i in range(len(cfg.block_channels)):
+            block = p[f"down_{i}"]
+            for j in range(cfg.layers_per_block):
+                x = _resnet(block[f"resnet_{j}"], x, g)
+            if "downsample" in block:
+                # diffusers pads (0,1,0,1), VALID conv
+                x = F.pad(x, (0, 1, 0, 1))
+                x = _conv(block["downsample"], x, stride=2, padding=0)
+        x = _resnet(p["mid"]["resnet_0"], x, g)
+        x = _spatial_attn(p["mid"]["attn"], x, g)
+        x = _resnet(p["mid"]["resnet_1"], x, g)
+        x = silu(_group_norm(p["norm_out"], x, g))
+        moments = _nhwc(_conv(p["conv_out"], x))
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
 
 def vae_sample(mean: torch.Tensor, logvar: torch.Tensor,
@@ -200,10 +203,17 @@ def vae_decode(params: Params, cfg: VAEConfig,
                latents: torch.Tensor) -> torch.Tensor:
     """latents [B, h, w, C] (VAE space) -> images [B, H, W, 3], one image a
     pass: on the GPU a batched pass's convolutions do not round as one
-    image's do, and an image must decode the same whatever batch it is in."""
-    if latents.shape[0] > 1:
-        return torch.cat([vae_decode(params, cfg, latents[i:i + 1])
+    image's do, and an image must decode the same whatever batch it is in.
+    Span: ``edit.vae_decode``."""
+    with span("edit.vae_decode"):
+        if latents.shape[0] == 1:
+            return _decode_one(params, cfg, latents)
+        return torch.cat([_decode_one(params, cfg, latents[i:i + 1])
                           for i in range(latents.shape[0])])
+
+
+def _decode_one(params: Params, cfg: VAEConfig,
+                latents: torch.Tensor) -> torch.Tensor:
     p = params["decoder"]
     g = cfg.norm_groups
     x = _conv(p["conv_in"], _nchw(latents))

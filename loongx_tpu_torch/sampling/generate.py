@@ -35,6 +35,7 @@ from loongx_tpu_torch.ops.latents import (
 )
 from loongx_tpu_torch.ops.schedule import euler_step, flux_sigmas
 from loongx_tpu_torch.sampling.condition import Condition, _to_numpy_image
+from loongx_tpu_torch.utils.profiling import span
 
 
 def denoise(flux_params, flux_cfg: FluxConfig, flags: Dict[str, Any],
@@ -46,18 +47,22 @@ def denoise(flux_params, flux_cfg: FluxConfig, flags: Dict[str, Any],
             int8_attn: bool = False, fuse_ln: bool = False,
             fuse_gate: bool = False) -> torch.Tensor:
     """The denoise loop; sigmas [steps + 1] float32 (host), the DiT's
-    timestep is sigma itself."""
+    timestep is sigma itself.  Spans: ``edit.denoise``, and
+    ``edit.denoise.step`` a step."""
     lat = latents
-    for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
-        t = torch.full((lat.shape[0],), float(sigma), dtype=torch.float32,
-                       device=lat.device)
-        v = flux_forward(
-            flux_params, flux_cfg, img=lat.to(txt.dtype), txt=txt,
-            pooled=pooled, timestep=t, guidance=guidance, img_ids=img_ids,
-            txt_ids=txt_ids, cond=cond, cond_ids=cond_ids, flags=flags,
-            c_factor=c_factor, w8a8=w8a8, int8_attn=int8_attn,
-            fuse_ln=fuse_ln, fuse_gate=fuse_gate)
-        lat = euler_step(lat, v, sigma, sigma_next)
+    with span("edit.denoise"):
+        for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
+            with span("edit.denoise.step"):
+                t = torch.full((lat.shape[0],), float(sigma),
+                               dtype=torch.float32, device=lat.device)
+                v = flux_forward(
+                    flux_params, flux_cfg, img=lat.to(txt.dtype), txt=txt,
+                    pooled=pooled, timestep=t, guidance=guidance,
+                    img_ids=img_ids, txt_ids=txt_ids, cond=cond,
+                    cond_ids=cond_ids, flags=flags, c_factor=c_factor,
+                    w8a8=w8a8, int8_attn=int8_attn, fuse_ln=fuse_ln,
+                    fuse_gate=fuse_gate)
+                lat = euler_step(lat, v, sigma, sigma_next)
     return lat
 
 
@@ -65,24 +70,26 @@ def brain_encode(enc, dgf, eeg, ppg, fnirs, motion, s4_mode: str = "conv"
                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Biosignals -> (brain prompt [B, 512, 4096] | None, brain pooled
     [B, 768] | None): eeg(+ppg) fill the prompt slot, fnirs(+motion) the
-    pooled slot."""
-    brain_prompt = None
-    if eeg is not None:
-        eeg_feat = eeg_encode(enc["eeg"], eeg, s4_mode)
-        if ppg is not None:
-            brain_prompt = fuse_eeg_ppg(dgf, eeg_feat,
-                                        ppg_encode(enc["ppg"], ppg, s4_mode))
-        else:
-            brain_prompt = eeg_feat
-    brain_pooled = None
-    if fnirs is not None:
-        fnirs_feat = fnirs_encode(enc["fnirs"], fnirs, s4_mode)
-        if motion is not None:
-            brain_pooled = fuse_fnirs_motion(
-                dgf, fnirs_feat, motion_encode(enc["motion"], motion, s4_mode))
-        else:
-            brain_pooled = fnirs_feat
-    return brain_prompt, brain_pooled
+    pooled slot.  Span: ``edit.brain_encode``."""
+    with span("edit.brain_encode"):
+        brain_prompt = None
+        if eeg is not None:
+            eeg_feat = eeg_encode(enc["eeg"], eeg, s4_mode)
+            if ppg is not None:
+                brain_prompt = fuse_eeg_ppg(
+                    dgf, eeg_feat, ppg_encode(enc["ppg"], ppg, s4_mode))
+            else:
+                brain_prompt = eeg_feat
+        brain_pooled = None
+        if fnirs is not None:
+            fnirs_feat = fnirs_encode(enc["fnirs"], fnirs, s4_mode)
+            if motion is not None:
+                brain_pooled = fuse_fnirs_motion(
+                    dgf, fnirs_feat,
+                    motion_encode(enc["motion"], motion, s4_mode))
+            else:
+                brain_pooled = fnirs_feat
+        return brain_prompt, brain_pooled
 
 
 def fused_edit_program(flux_params, vae_params, enc, dgf,
@@ -205,7 +212,8 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
     residual epilogue inside the int8 kernels (batch 1), ``s4_mode`` the
     S4D core of the encoders ("conv", "scan" or "pallas", the recurrence
     kernel).  Returns float32 numpy [B, H, W, 3]
-    ("np") or uint8 ("uint8")."""
+    ("np") or uint8 ("uint8").  Span: ``edit.request``, the root of the
+    stage spans."""
     if eeg is None or fnirs is None:
         raise ValueError(
             "neural_edit requires both eeg (prompt slot) and fnirs (pooled "
@@ -232,52 +240,55 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
         raise RuntimeError(
             "pipeline.params has no 'dgf' fusion module but the given "
             "signal pairs require pairwise DGF fusion (partial checkpoint?)")
-    _apply_adapter_policy(pipeline, condition_type)
+    with span("edit.request"):
+        _apply_adapter_policy(pipeline, condition_type)
 
-    device = pipeline.device
-    img = _to_numpy_image(cond_image)
-    if img.ndim == 3:
-        img = img[None]
+        device = pipeline.device
+        img = _to_numpy_image(cond_image)
+        if img.ndim == 3:
+            img = img[None]
 
-    eeg, ppg, fnirs, motion = (_signal_tensor(pipeline, x)
-                               for x in (eeg, ppg, fnirs, motion))
-    b = max(eeg.shape[0], fnirs.shape[0])
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(
-            0 if seed is None else seed)
-    lat_h, lat_w = height // vae_scale, width // vae_scale
-    s_img, c_in = (lat_h // 2) * (lat_w // 2), pipeline.flux_cfg.in_channels
-    if latents is None:
-        latents = torch.randn(b, s_img, c_in, generator=generator,
-                              device=device)
-    latents = latents.to(device=device, dtype=pipeline.dtype)
-    c_lat_h, c_lat_w = img.shape[1] // vae_scale, img.shape[2] // vae_scale
-    if cond_noise is None:
-        cond_noise = torch.randn(img.shape[0], c_lat_h, c_lat_w,
-                                 pipeline.vae_cfg.latent_channels,
-                                 generator=generator, device=device)
-    img_ids = latent_image_ids(lat_h, lat_w, device=device)
-    cond_ids = shift_ids(latent_image_ids(c_lat_h, c_lat_w, device=device),
-                         position_delta or (0, 0), position_scale)
-    sigmas = flux_sigmas(num_inference_steps, s_img)
-    guidance = (torch.full((b,), guidance_scale, dtype=torch.float32,
-                           device=device)
-                if pipeline.flux_cfg.guidance_embeds else None)
-    c_factor = float(condition_scale) if condition_scale != 1.0 else None
+        eeg, ppg, fnirs, motion = (_signal_tensor(pipeline, x)
+                                   for x in (eeg, ppg, fnirs, motion))
+        b = max(eeg.shape[0], fnirs.shape[0])
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(
+                0 if seed is None else seed)
+        lat_h, lat_w = height // vae_scale, width // vae_scale
+        s_img = (lat_h // 2) * (lat_w // 2)
+        c_in = pipeline.flux_cfg.in_channels
+        if latents is None:
+            latents = torch.randn(b, s_img, c_in, generator=generator,
+                                  device=device)
+        latents = latents.to(device=device, dtype=pipeline.dtype)
+        c_lat_h, c_lat_w = img.shape[1] // vae_scale, img.shape[2] // vae_scale
+        if cond_noise is None:
+            cond_noise = torch.randn(img.shape[0], c_lat_h, c_lat_w,
+                                     pipeline.vae_cfg.latent_channels,
+                                     generator=generator, device=device)
+        img_ids = latent_image_ids(lat_h, lat_w, device=device)
+        cond_ids = shift_ids(latent_image_ids(c_lat_h, c_lat_w, device=device),
+                             position_delta or (0, 0), position_scale)
+        sigmas = flux_sigmas(num_inference_steps, s_img)
+        guidance = (torch.full((b,), guidance_scale, dtype=torch.float32,
+                               device=device)
+                    if pipeline.flux_cfg.guidance_embeds else None)
+        c_factor = float(condition_scale) if condition_scale != 1.0 else None
 
-    with torch.inference_mode():
-        images = fused_edit_program(
-            pipeline.params["flux"], pipeline.params["vae"], enc, dgf,
-            torch.as_tensor(img, device=device), eeg, ppg, fnirs, motion,
-            latents, img_ids, cond_ids, sigmas, guidance, c_factor,
-            cond_noise.to(device), flux_cfg=pipeline.flux_cfg,
-            vae_cfg=pipeline.vae_cfg, flags=dict(model_config or {}),
-            s4_mode=s4_mode, lat_h=lat_h, lat_w=lat_w, w8a8=w8a8,
-            int8_attn=int8_attn, fuse_ln=fuse_ln, fuse_gate=fuse_gate)
-    images = images.float().cpu().numpy()
-    if output_type == "uint8":
-        images = ((np.clip(images, -1, 1) + 1) * 127.5).round().astype(np.uint8)
-    return images
+        with torch.inference_mode():
+            images = fused_edit_program(
+                pipeline.params["flux"], pipeline.params["vae"], enc, dgf,
+                torch.as_tensor(img, device=device), eeg, ppg, fnirs, motion,
+                latents, img_ids, cond_ids, sigmas, guidance, c_factor,
+                cond_noise.to(device), flux_cfg=pipeline.flux_cfg,
+                vae_cfg=pipeline.vae_cfg, flags=dict(model_config or {}),
+                s4_mode=s4_mode, lat_h=lat_h, lat_w=lat_w, w8a8=w8a8,
+                int8_attn=int8_attn, fuse_ln=fuse_ln, fuse_gate=fuse_gate)
+        images = images.float().cpu().numpy()
+        if output_type == "uint8":
+            images = ((np.clip(images, -1, 1) + 1) * 127.5).round().astype(
+                np.uint8)
+        return images
 
 
 def _as_device_tensor(x, device, dtype=None) -> torch.Tensor:
@@ -323,7 +334,8 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
     VAE sample's standard normals, [1, H/8, W/8, latent C]) default to
     normals from ``generator`` (seeded with ``seed``, default 0), latents
     first.  Returns float32 numpy [B, H, W, 3] in [-1, 1] ("np"), uint8
-    ("uint8") or the packed latents as a tensor ("latent")."""
+    ("uint8") or the packed latents as a tensor ("latent").  Span:
+    ``edit.request``, around the stages' spans."""
     if fuse_mode not in ("infer", "train"):
         raise ValueError(
             f"fuse_mode={fuse_mode!r} — must be 'infer' or 'train' (the two "
@@ -353,7 +365,7 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
         generator = torch.Generator(device=device).manual_seed(
             0 if seed is None else seed)
 
-    with torch.inference_mode():
+    with span("edit.request"), torch.inference_mode():
         # ---- brain conditions (first: in replacement mode they can cover
         # both text slots, and the text encode is skipped) ----
         brain_prompt = brain_pooled = None
@@ -497,7 +509,8 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
 
         # ---- latents ----
         lat_h, lat_w = height // vae_scale, width // vae_scale
-        s_img, c_in = (lat_h // 2) * (lat_w // 2), pipeline.flux_cfg.in_channels
+        s_img = (lat_h // 2) * (lat_w // 2)
+        c_in = pipeline.flux_cfg.in_channels
         if latents is not None:
             if (latents.ndim != 3 or tuple(latents.shape[1:]) != (s_img, c_in)
                     or latents.shape[0] != batch):

@@ -44,6 +44,7 @@ from loongx_tpu_torch.parallel.mesh import (
 )
 from loongx_tpu_torch.train.lora import lora_mask
 from loongx_tpu_torch.train.optim import OptimizerFactory
+from loongx_tpu_torch.utils.profiling import span
 
 Draws = Union[torch.Generator, Dict[str, Any]]
 
@@ -288,7 +289,11 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
     the draws are the global batch's (see `flow_match_loss`), the
     gradients `mesh_grads`, the loss and t_mean the data means, so every
     rank takes the same optimizer step, the one-process step at the global
-    batch."""
+    batch.
+
+    Spans (`utils.profiling`): ``train.step`` around ``train.forward``,
+    ``train.backward`` (remat's re-runs inside it, ``train.recompute``),
+    ``train.grad_sync``, ``train.clip`` and ``train.optimizer``."""
     flags = dict(flags or {})
 
     def init_fn(trainable) -> TrainState:
@@ -298,28 +303,36 @@ def make_train_step(flux_cfg: FluxConfig, optimizer: OptimizerFactory,
         return TrainState(trainable, optimizer(params), 0)
 
     def step_fn(state: TrainState, frozen, batch, draws: Draws):
-        params = combine(state.trainable, frozen)
-        loss, t_mean = flow_match_loss(
-            params, flux_cfg, batch, draws, flags, use_brain_condition,
-            fuse_flag, remat, dtype, fuse_ln, fuse_gate)
-        group = state.optimizer.param_groups[0]["params"]
-        grads = list(torch.autograd.grad(loss, group))
-        paths = [path for path, p in tree_paths(state.trainable)
-                 if p is not None]
-        if len(paths) != len(group):
-            raise RuntimeError(f"the optimizer holds {len(group)} leaves, the "
-                               f"trainable tree {len(paths)}")
-        grads = mesh_grads(grads, paths)
-        loss, t_mean = data_mean([loss, t_mean])
-        norm = global_norm(grads)
-        if grad_clip:
-            grads = clip_by_global_norm(grads, grad_clip, norm)
-        for p, g in zip(group, grads):
-            p.grad = g
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        metrics = {"loss": loss.detach(), "grad_norm": norm.detach(),
-                   "t_mean": t_mean.detach()}
+        with span("train.step"):
+            params = combine(state.trainable, frozen)
+            with span("train.forward"):
+                loss, t_mean = flow_match_loss(
+                    params, flux_cfg, batch, draws, flags,
+                    use_brain_condition, fuse_flag, remat, dtype, fuse_ln,
+                    fuse_gate)
+            group = state.optimizer.param_groups[0]["params"]
+            with span("train.backward"):
+                grads = list(torch.autograd.grad(loss, group))
+            paths = [path for path, p in tree_paths(state.trainable)
+                     if p is not None]
+            if len(paths) != len(group):
+                raise RuntimeError(f"the optimizer holds {len(group)} "
+                                   f"leaves, the trainable tree "
+                                   f"{len(paths)}")
+            with span("train.grad_sync"):
+                grads = mesh_grads(grads, paths)
+                loss, t_mean = data_mean([loss, t_mean])
+            with span("train.clip"):
+                norm = global_norm(grads)
+                if grad_clip:
+                    grads = clip_by_global_norm(grads, grad_clip, norm)
+            for p, g in zip(group, grads):
+                p.grad = g
+            with span("train.optimizer"):
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
+            metrics = {"loss": loss.detach(), "grad_norm": norm.detach(),
+                       "t_mean": t_mean.detach()}
         return state._replace(step=state.step + 1), metrics
 
     return init_fn, step_fn

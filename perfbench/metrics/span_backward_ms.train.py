@@ -1,0 +1,23 @@
+"""Device ms per profiled QLoRA step of the ``train.backward`` spans
+(``train/step.py``'s ``torch.autograd.grad`` over the LoRA leaves, remat's
+re-run of every block inside it), each timed by the program's pair of CUDA
+events, over the ``train.step`` spans.  None where the program records no
+such span."""
+
+PHASES = ("train.backward",)
+
+
+def read(ctx):
+    try:
+        from loongx_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    if not hasattr(profiling, "spans"):
+        return None
+    records = profiling.spans()
+    steps = sum(1 for s in records if s.name == "train.step")
+    phases = [s for s in records if s.name in PHASES]
+    if not steps or not phases:
+        return None
+    return sum(s.device_end_ns - s.device_start_ns for s in phases) \
+        / steps / 1e6

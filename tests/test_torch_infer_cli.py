@@ -564,7 +564,7 @@ def test_vae_decode_is_batch_invariant(pipes):
 # ---------------------------------------------------------------------------
 
 
-def test_convert_then_infer(tmp_path, monkeypatch):
+def test_convert_then_infer(tmp_path, monkeypatch, capsys):
     """cli.convert.main on tiny synthetic diffusers / HF safetensors dirs
     (--quantize --serving --init-encoders), then cli.infer.main --int8 on
     its output: the baked layout is kept and the edit writes its PNGs."""
@@ -621,6 +621,16 @@ def test_convert_then_infer(tmp_path, monkeypatch):
                  "--brain_data_path", str(pkl), "--steps", "1",
                  "--target_size", str(SIZE), "--batch_size", "2", "--timing",
                  "--device", "cpu"])
+    # --timing: the group's stages from the program's spans (the brain
+    # encode is faked above, so it has none), then the run's p50
+    printed = capsys.readouterr().out
+    groups = [ln for ln in printed.splitlines()
+              if ln.startswith("[infer] group of 2: ")]
+    assert len(groups) == 1, printed
+    assert "device ms: VAE encode " in groups[0]
+    assert "denoise " in groups[0] and "/step x 1, VAE decode " in groups[0]
+    assert "queue wait " in groups[0] and "brain encode" not in groups[0]
+    assert "[infer] wall-clock per-image p50 " in printed
     for n in names:
         img = _read(tmp_path / "edited" / n)
         assert img.shape == (SIZE, SIZE, 3)

@@ -1,9 +1,8 @@
 """The port's profiling utilities (``loongx_tpu_torch/utils/profiling.py``,
-``utils/device_bench.py``) against the JAX package's, on the CPU: the
-step timer's summary and report on the same injected times, the barrier,
-the trace file, and the device-time readers on a CPU function when the
-caller asks for the CPU (the card's kernels are read by ``chip_smoke.py``
-on the machine with the card)."""
+``utils/device_bench.py``) on the CPU: the barrier, the trace file, and
+the device-time readers on a CPU function when the caller asks for the CPU
+(the card's kernels are read by ``chip_smoke.py`` on the machine with the
+card).  The spans are `test_torch_tracing.py`'s."""
 
 import json
 import os
@@ -13,32 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from loongx_tpu.utils.profiling import StepTimer as JStepTimer
 from loongx_tpu_torch.utils import device_bench, profiling
-
-TIMES = [0.0123, 0.0456, 0.0111, 0.2, 0.0333, 0.0222, 0.0999, 0.0121]
-
-
-@pytest.mark.parametrize("times", [TIMES, TIMES[:1], []])
-def test_step_timer_summary_and_report_match_jax(times):
-    ours, theirs = profiling.StepTimer("denoise"), JStepTimer("denoise")
-    ours.times, theirs.times = list(times), list(times)
-    assert ours.summary() == theirs.summary()
-    assert ours.report() == theirs.report()
-    if times:
-        assert set(ours.summary()) == {"count", "mean_s", "p50_s", "p90_s",
-                                       "p99_s", "total_s"}
-
-
-def test_step_timer_ticks_and_blocks():
-    timer = profiling.StepTimer(sync_every=2)
-    x = torch.ones(4)
-    for _ in range(3):
-        timer.tick({"out": [x * 2]})
-    assert len(timer.times) == 2 and all(t >= 0 for t in timer.times)
-    with timer:
-        torch.ones(8).sum()
-    assert len(timer.times) == 3
 
 
 def _work():
