@@ -1988,11 +1988,23 @@ def plain_versions(attention=None):
     def t_stacked(dy, w_q3, scale3, blk):
         return qmm.qmm_t_plain(dy, w_q3[blk], scale3[blk])
 
-    def flat_vjp(x, w_q, scale, *, w8a8=False):
-        return flat(x, w_q, scale, w8a8=w8a8)
+    def lora_plain(y, x, lora):
+        """The rank-r update (A, B, ms) of the LoRA linear's Function as a
+        float32 composition: bf16(x A), times ms, rounded, times B."""
+        if lora is None:
+            return y
+        a, b, ms = lora
+        xa = (x.float() @ a.float()).to(x.dtype)
+        xa = (xa.float() * ms).to(x.dtype)
+        return (y.float() + xa.float() @ b.float()).to(x.dtype)
 
-    def stacked_vjp(x, w_q3, scale3, blk, *, w8a8=False):
-        return stacked(x, w_q3, scale3, blk, w8a8=w8a8)
+    def flat_vjp(x, w_q, scale, *, bias=None, lora=None, w8a8=False):
+        return lora_plain(flat(x, w_q, scale, bias=bias, w8a8=w8a8), x, lora)
+
+    def stacked_vjp(x, w_q3, scale3, blk, *, bias3=None, lora=None,
+                    w8a8=False):
+        return lora_plain(stacked(x, w_q3, scale3, blk, bias3=bias3,
+                                  w8a8=w8a8), x, lora)
 
     def gelu_stacked(x, w_q3, scale3, bias3, blk, *, w8a8=False):
         return stacked(x, w_q3, scale3, blk, bias3=bias3,

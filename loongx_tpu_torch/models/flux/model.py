@@ -16,6 +16,9 @@ index (``_blk``), every other leaf is indexed per block.  Routing:
     the MLP-in projections) and the fused qkv -> ``quant_qkv_stacked``;
   * int8 flat linears (embedders, norm_out, proj_out) -> ``quant_matmul``
     (fused bias + gelu where `linear_gelu` has no active LoRA);
+  * every int8 linear keeps the kernel's bf16 output: the bias rides in
+    its epilogue, an active LoRA adds ((x A) * scale * mask) B to it as one
+    rank-r update (`_int8_linear`);
   * float linears -> a float32 ``torch.matmul``;
   * attention -> ``flash_attention`` (bshd, RoPE in the kernel).
 
@@ -73,6 +76,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from loongx_tpu_torch.ops import cuda_build
 from loongx_tpu_torch.ops import flash_attention as fa
 from loongx_tpu_torch.ops import quant_matmul as qmm
 from loongx_tpu_torch.ops.nn import (
@@ -230,11 +234,12 @@ def _bias3(p: Params, n: int) -> torch.Tensor:
 
 
 def _lora_delta(p: Params, x: torch.Tensor, y_width: int, tp, tp_kind):
-    """(xA)B * lora_scale in float32; under a tensor context (``tp`` =
-    (mesh, axis)) the whole A / B leaves meet the rank's shard: a col split
-    takes B's columns of its output slice, a row split sums x_local A[its
-    rows] over the tensor group (its rows by `proj_out_rows` for the single
-    blocks' [attention | MLP] concat, "row_cat")."""
+    """(xA)B * lora_scale in float32 (the widened routes of `linear`);
+    under a tensor context (``tp`` = (mesh, axis)) the whole A / B leaves
+    meet the rank's shard: a col split takes B's columns of its output
+    slice, a row split sums x_local A[its rows] over the tensor group (its
+    rows by `proj_out_rows` for the single blocks' [attention | MLP]
+    concat, "row_cat")."""
     a, b = p["lora_a"].float(), p["lora_b"].float()
     if tp is not None and tp_kind == "col":
         b = b.narrow(-1, tp[0].index(tp[1]) * y_width, y_width)
@@ -253,6 +258,71 @@ def _lora_delta(p: Params, x: torch.Tensor, y_width: int, tp, tp_kind):
     return torch.matmul(xa.float(), b) * p["lora_scale"]
 
 
+def _count(route: str) -> None:
+    """One int8 call of `linear` / `linear_gelu` by route (keys with ":",
+    which the launch counts of `utils.profiling` leave out): ``bf16_out``
+    returns the kernel's output with no float32 [M, N] tensor,
+    ``fp32_out`` widens it (float32 activations, a row split's sum, the
+    dequantised serving product), ``lora_update`` is a rank-r update."""
+    cuda_build.LAUNCHES[f"int8_linear:{route}"] += 1
+
+
+def _int8_linear(p: Params, x2: torch.Tensor, lead, active_lora: bool,
+                 lora_mask: Optional[torch.Tensor], w8a8: bool, tp,
+                 tp_kind: Optional[str]) -> torch.Tensor:
+    """An int8 linear whose output stays the kernel's: with bf16
+    activations (the kernels write bf16, so their rounding is the result's)
+    the bias rides in the kernel's float32 epilogue and an active LoRA is
+    one rank-r update of that output (``qmm.lora_factor`` /
+    ``qmm.lora_update``; in training both inside the kernel's autograd
+    Function).  Wider activations widen the kernel's output and add the
+    bias in float32 after the update, as the JAX package does.  lora_scale
+    and the 0/1 row mask fold into the [M, r] factor; a column split takes
+    B's columns of its output slice."""
+    n = p["kernel_q"].shape[-1]
+    blk = p.get("_blk")
+    fold = "bias" in p and x2.dtype == torch.bfloat16
+    if blk is not None:
+        scale = p["kernel_scale"].reshape(p["kernel_q"].shape[0], 1, n)
+        bias = _bias3(p, n) if fold else None
+    else:
+        scale = p["kernel_scale"].reshape(1, n)
+        bias = p["bias"].float().reshape(1, n) if fold else None
+    lora = None
+    if active_lora:
+        b = p["lora_b"]
+        if tp is not None and tp_kind == "col":
+            b = b.narrow(-1, tp[0].index(tp[1]) * n, n)
+        ms = p["lora_scale"].float()
+        if lora_mask is not None:
+            ms = torch.broadcast_to(lora_mask.float() * ms,
+                                    (*lead, 1)).reshape(-1, 1)
+        lora = (p["lora_a"], b, ms)
+        _count("lora_update")
+    _count("bf16_out" if x2.dtype == torch.bfloat16 else "fp32_out")
+    if torch.is_grad_enabled():
+        if blk is None:
+            y = qmm.quant_matmul_vjp(x2, p["kernel_q"], scale, bias=bias,
+                                     lora=lora, w8a8=w8a8)
+        else:
+            y = qmm.quant_matmul_stacked_vjp(x2, p["kernel_q"], scale, blk,
+                                             bias3=bias, lora=lora, w8a8=w8a8)
+    else:
+        if blk is None:
+            y = qmm.quant_matmul(x2, p["kernel_q"], scale, bias=bias,
+                                 w8a8=w8a8)
+        else:
+            y = qmm.quant_matmul_stacked(x2, p["kernel_q"], scale, blk,
+                                         bias3=bias, w8a8=w8a8)
+        if lora is not None:
+            y = qmm.lora_update(y.to(x2.dtype),
+                                qmm.lora_factor(x2, lora[0], lora[2]), lora[1])
+    if "bias" in p and not fold:
+        b = p["bias"] if blk is None else p["bias"][blk]
+        y = y.to(x2.dtype) + b.float()
+    return y
+
+
 def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
            lora_mask: Optional[torch.Tensor] = None,
            w8a8: bool = False, tp_kind: Optional[str] = None) -> torch.Tensor:
@@ -260,14 +330,20 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
 
     ``tp_kind`` names the layer's split under a tensor context ("col",
     "row", "row_cat" for the single blocks' proj_out over the [attention |
-    MLP] concat, None: whole on every rank).  Serving (grad disabled): a
-    stacked int8 linear without an active LoRA runs
+    MLP] concat, None: whole on every rank).  An int8 linear returns its
+    kernel's output (`_int8_linear`: with bf16 activations the bias in the
+    epilogue, an active LoRA one rank-r update, no float32 [M, N] tensor),
+    counted as ``int8_linear:bf16_out`` (and ``int8_linear:lora_update``)
+    in `cuda_build.LAUNCHES`.  Serving (grad disabled) under a tensor context:
+    a stacked int8 linear without an active LoRA runs
     `tp_quant_matmul_stacked`; one with an active LoRA a dequantised
     product, as the JAX package's.  Training (grad enabled): a column
     split's x through `copy_to_tensor`, every int8 linear through the
     one-process kernel Functions on the shard.  A row split sums its
-    partial product over the tensor group (`reduce_from_tensor`) before the
-    LoRA delta and the bias."""
+    partial product over the tensor group (`reduce_from_tensor`) in float32
+    before the LoRA delta and the bias.  The routes that widen the product
+    to float32 (those two, wider activations and the float ``kernel``)
+    count an int8 call as ``int8_linear:fp32_out``."""
     lead, k = x.shape[:-1], x.shape[-1]
     tp = current_tp()
     if tp_kind == "col":
@@ -276,19 +352,25 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
     active_lora = use_lora and "lora_a" in p
     stacked = "kernel_q" in p and "_blk" in p
     serving_tp = tp is not None and not torch.is_grad_enabled()
+    row_split = tp is not None and tp_kind in ("row", "row_cat")
     if serving_tp and stacked and not active_lora:
         kind = "row" if tp_kind == "row_cat" else tp_kind or "repl"
         nb = p["kernel_q"].shape[0]
         y = tp_quant_matmul_stacked(
             kind, x2, p["kernel_q"], p["kernel_scale"].reshape(nb, 1, -1),
             p["_blk"], bias2=p.get("bias"), w8a8=w8a8)
+        _count("fp32_out" if kind == "row" else "bf16_out")
+        return y.reshape(*lead, -1).to(x.dtype)
+    if "kernel_q" in p and not (serving_tp and stacked) and not row_split:
+        y = _int8_linear(p, x2, lead, active_lora, lora_mask, w8a8, tp,
+                         tp_kind)
         return y.reshape(*lead, -1).to(x.dtype)
     if serving_tp and stacked:
         blk = p["_blk"]
         w = (p["kernel_q"][blk].float()
              * p["kernel_scale"][blk].float()).to(x.dtype)
         y = torch.matmul(x2.float(), w.float())
-    elif "kernel_q" in p:
+    elif "kernel_q" in p:  # a row split: its partial products summed in fp32
         n = p["kernel_q"].shape[-1]
         grad = torch.is_grad_enabled()
         if stacked:
@@ -302,7 +384,9 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
         y = y.float()
     else:
         y = torch.matmul(x2.float(), p["kernel"].float())
-    if tp is not None and tp_kind in ("row", "row_cat"):
+    if "kernel_q" in p:
+        _count("fp32_out")
+    if row_split:
         y = reduce_from_tensor(y, *tp)
     y = y.reshape(*lead, -1)
     if active_lora:
@@ -324,13 +408,16 @@ def linear_gelu(p: Params, x: torch.Tensor, use_lora: bool = True,
     the bias + gelu into the quant-matmul epilogue (served under a tensor
     context, the stacked ones through `tp_quant_matmul_stacked`, x as bf16,
     as the JAX package's; in training a column split's x through
-    `copy_to_tensor`, then the fused bias + gelu Function on the shard)."""
+    `copy_to_tensor`, then the fused bias + gelu Function on the shard).
+    With an active LoRA the gelu is one pass over `linear`'s output (the
+    kernel's, with the rank-r update added)."""
     if "kernel_q" in p and not (use_lora and "lora_a" in p):
         lead, k = x.shape[:-1], x.shape[-1]
         if tp_kind == "col":
             x = copy_to_tensor(x)
         x2 = x.reshape(-1, k)
         tp = current_tp()
+        _count("bf16_out" if x.dtype == torch.bfloat16 else "fp32_out")
         if tp is not None and "_blk" in p and not torch.is_grad_enabled():
             nb = p["kernel_q"].shape[0]
             y = tp_quant_matmul_stacked(

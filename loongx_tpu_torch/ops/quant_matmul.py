@@ -93,7 +93,11 @@ Autograd (the JAX custom VJPs): `quant_matmul_vjp`,
 `quant_linear_gelu` are differentiable in x only.  The frozen int8 weight,
 scale and bias get no gradient, and no dx is computed when x needs none
 (``ctx.needs_input_grad``).  The gelu variants recompute the pre-activation
-in their backward, as the JAX package does.
+in their backward, as the JAX package does.  With ``lora`` = (A, B, ms)
+the first two add the QLoRA delta to the kernel's output as one rank-r
+update (`lora_factor`, `lora_update`) and are differentiable in A and B
+too: no [M, N] or [M, K] tensor is widened to float32 in either
+direction (the small products sum in float32, `_mm`).
 `quant_ln_mod_linear_stacked` and `quant_gate_res_linear_stacked` are the
 fused forms' autograd Functions: dx through the transposed kernel, the LN,
 affine and gate backward in PyTorch, real gradients for ``ab``, ``resid``
@@ -990,33 +994,99 @@ def _gelu_grad(dy: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 class _QuantMatmulFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w_q, scale, w8a8):
+    def forward(ctx, x, w_q, scale, bias, w8a8):
         ctx.save_for_backward(w_q, scale)
         ctx.x_dtype = x.dtype
-        return quant_matmul(x, w_q, scale, w8a8=w8a8)
-
-    @staticmethod
-    def backward(ctx, dy):
-        if not ctx.needs_input_grad[0]:
-            return None, None, None, None
-        w_q, scale = ctx.saved_tensors
-        return quant_matmul_t(dy, w_q, scale).to(ctx.x_dtype), None, None, None
-
-
-class _QuantMatmulStackedFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w_q3, scale3, blk, w8a8):
-        ctx.save_for_backward(w_q3, scale3)
-        ctx.blk, ctx.x_dtype = blk, x.dtype
-        return quant_matmul_stacked(x, w_q3, scale3, blk, w8a8=w8a8)
+        return quant_matmul(x, w_q, scale, bias=bias, w8a8=w8a8)
 
     @staticmethod
     def backward(ctx, dy):
         if not ctx.needs_input_grad[0]:
             return None, None, None, None, None
+        w_q, scale = ctx.saved_tensors
+        dx = quant_matmul_t(dy, w_q, scale)
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+class _QuantMatmulStackedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q3, scale3, bias3, blk, w8a8):
+        ctx.save_for_backward(w_q3, scale3)
+        ctx.blk, ctx.x_dtype = blk, x.dtype
+        return quant_matmul_stacked(x, w_q3, scale3, blk, bias3=bias3,
+                                    w8a8=w8a8)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
         w_q3, scale3 = ctx.saved_tensors
         dx = quant_matmul_t_stacked(dy, w_q3, scale3, ctx.blk)
-        return dx.to(ctx.x_dtype), None, None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None, None
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with float32 sums, rounded once to a's dtype.  bf16 operands on
+    CUDA take cuBLAS's float32 output, so that no split-K partial sum of a
+    long contraction (x A over K, the LoRA gradients over M) is rounded to
+    bf16 on the way; on the CPU a bf16 product already sums in float32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32).to(a.dtype)
+    return torch.mm(a, b)
+
+
+def lora_factor(x: torch.Tensor, a: torch.Tensor, ms) -> torch.Tensor:
+    """The [M, r] factor of the rank-r update: bf16(x A) (float32 sums, the
+    JAX package's rounding), times ``ms`` (a float32 tensor: lora_scale, or
+    lora_scale times the per-row 0/1 mask as [M, 1]) with one more
+    rounding."""
+    xa = _mm(x, a.to(x.dtype))
+    return (xa * ms).to(x.dtype)
+
+
+def lora_update(y: torch.Tensor, xa_ms: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """y += xa_ms @ b in place (one GEMM that reads y, sums in float32 and
+    rounds once): the QLoRA delta added to the int8 kernel's output."""
+    return y.addmm_(xa_ms, b.to(y.dtype))
+
+
+class _QuantLoraLinearFn(torch.autograd.Function):
+    """y = x Wq scale + bias (the int8 kernel, bias in its epilogue) +
+    ((x A) * ms) B (the rank-r update), differentiable in x, A and B.
+    Backward: dx = qmm_t(dy) + g A^T (one addmm into the transposed
+    kernel's output), dB = (x A ms)^T dy, dA = x^T g, with g = (dy B^T) * ms
+    the [M, r] factor; no [M, N] or [M, K] tensor is widened."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, ms, w_q, scale, bias, blk, w8a8):
+        if blk is None:
+            y = quant_matmul(x, w_q, scale, bias=bias, w8a8=w8a8)
+        else:
+            y = quant_matmul_stacked(x, w_q, scale, blk, bias3=bias, w8a8=w8a8)
+        xa_ms = lora_factor(x, a, ms)
+        y = lora_update(y.to(x.dtype), xa_ms, b)
+        ctx.save_for_backward(x, a, b, ms, xa_ms, w_q, scale)
+        ctx.blk = blk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, b, ms, xa_ms, w_q, scale = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        g = (_mm(dy, b.to(x.dtype).t()) * ms).to(x.dtype)
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            if ctx.blk is None:
+                dx = quant_matmul_t(dy, w_q, scale)
+            else:
+                dx = quant_matmul_t_stacked(dy, w_q, scale, ctx.blk)
+            dx = dx.to(x.dtype).addmm_(g, a.to(x.dtype).t())
+        if ctx.needs_input_grad[1]:
+            da = _mm(x.t(), g).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            db = _mm(xa_ms.t(), dy).to(b.dtype)
+        return dx, da, db, None, None, None, None, None, None
 
 
 class _QuantLinearGeluStackedFn(torch.autograd.Function):
@@ -1167,15 +1237,25 @@ def quant_gate_res_linear_stacked(x, w_q3, scale3, bias3, resid, gate,
                                               gate, blk, seg_boundary, w8a8)
 
 
-def quant_matmul_vjp(x, w_q, scale, *, w8a8: bool = False):
-    """`quant_matmul`, differentiable in x (backward: `quant_matmul_t`)."""
-    return _QuantMatmulFn.apply(x, w_q, scale, w8a8)
+def quant_matmul_vjp(x, w_q, scale, *, bias=None, lora=None,
+                     w8a8: bool = False):
+    """`quant_matmul` (bias [1, N] float32 in the epilogue), differentiable
+    in x (backward: `quant_matmul_t`); ``lora`` = (A, B, ms) adds the
+    rank-r update ((x A) * ms) B, differentiable in A and B too."""
+    if lora is not None:
+        return _QuantLoraLinearFn.apply(x, *lora, w_q, scale, bias, None, w8a8)
+    return _QuantMatmulFn.apply(x, w_q, scale, bias, w8a8)
 
 
-def quant_matmul_stacked_vjp(x, w_q3, scale3, blk: int, *, w8a8: bool = False):
-    """`quant_matmul_stacked`, differentiable in x (backward:
-    `quant_matmul_t_stacked`)."""
-    return _QuantMatmulStackedFn.apply(x, w_q3, scale3, blk, w8a8)
+def quant_matmul_stacked_vjp(x, w_q3, scale3, blk: int, *, bias3=None,
+                             lora=None, w8a8: bool = False):
+    """`quant_matmul_stacked` (bias3 [NB, 1, N] float32 in the epilogue),
+    differentiable in x (backward: `quant_matmul_t_stacked`); ``lora`` as
+    in `quant_matmul_vjp`."""
+    if lora is not None:
+        return _QuantLoraLinearFn.apply(x, *lora, w_q3, scale3, bias3, blk,
+                                        w8a8)
+    return _QuantMatmulStackedFn.apply(x, w_q3, scale3, bias3, blk, w8a8)
 
 
 def quant_linear_gelu_stacked(x, w_q3, scale3, bias3, blk: int, *,
