@@ -53,7 +53,21 @@ Phases (each prints one line with the card, its power limit and seconds):
      wgmma route, and its backward (`check_tp2_backward`: the transposed
      GEMMs at `tp2_t_cases`, the flash dK/dV and dQ pair at 12 heads), each
      beside its plain version, cuBLAS bf16 on the pre-scaled dy or SDPA's
-     backward, and its bound;
+     backward, and its bound; and HiDream-I1's expert path (`check_moe`,
+     ops/moe.py's kernels at hidream_edit_b4_512's shapes: a single block's
+     M 11264 routed over four experts with uneven loads and one empty, cap
+     23040, the shared expert's F 3584 and a text stream's one-group F 6912
+     SwiGLU): the router's top-2 and weights, the plan and every int8 code
+     and scale bit for bit, both grouped GEMM epilogues' live rows within
+     MOE_GEMM_REL_L2 of float32 products of the same codes, the combine,
+     each timed beside its plain version and its bound;
+  HiDream step: one full-width HiDream-I1 denoise step at batch 4, 512x512
+     (random int8 weights built on the card, then freed): launches counted
+     from zero (one route, plan and combine a MoE layer, one grouped GEMM
+     launch a SwiGLU projection, routed, shared and the text stream's), no
+     host synchronization (``torch.cuda.set_sync_debug_mode("error")``),
+     equal to its warm-up bit for bit, its ms and device profile, and the
+     full-width q/k RMS norm's device ms a step beside its byte bound;
   3. one full-width FLUX.1-dev forward (the serving int8 stacks at unit
      gain, see `unit_gain`; W8A8, S 2560) through the kernels and through
      the plain versions: relative L2 of the velocities after the first
@@ -219,7 +233,8 @@ in the speech demo's edit and in the web demo's edit beside them, as
 and ``launches_web_demo``, and by rank in the multi-GPU phase as
 ``launches_nccl_single``, ``launches_tp2_ranks`` and
 ``launches_data2_ranks``, and in phase "train under a mesh" as
-``launches_mesh_train_ranks``; ``tp2_shard_shapes`` holds phase 2's times
+``launches_mesh_train_ranks``; the expert path's kernels count the launches
+of phase "HiDream step"; ``tp2_shard_shapes`` holds phase 2's times
 at the tensor-2 shard shapes, forward and backward) and the card's name and
 power limit.  The last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero with no result
@@ -1925,6 +1940,359 @@ def check_tp2_backward(torch, gen, records):
     if route != "wgmma" or not all(e <= t and r <= FLASH_REL_L2
                                    for e, t, r in errs.values()):
         raise Failure(f"flash backward {label}: route {route}, {errs}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 (expert path) and phase "HiDream step": HiDream-I1's kernels
+# (ops/moe.py, csrc/moe_gemm.cu) at hidream_edit_b4_512's shapes
+# ---------------------------------------------------------------------------
+
+# relative L2 of a grouped GEMM's live rows against its plain version (the
+# same codes' products in float32): a few bf16 roundings of the output; a
+# wrong group, gate/up pairing or row weight is off by order 1
+MOE_GEMM_REL_L2 = 4e-3
+# the combine against its plain version (the same sums in the same order,
+# one bf16 rounding)
+MOE_COMBINE_REL_L2 = 1e-3
+# the router's top-2 against float32 logits summed in another order: the
+# same experts but on near-ties, and the same weights where the experts agree
+MOE_ROUTE_AGREE = 0.995
+MOE_ROUTE_WEIGHT_TOL = 2e-6
+MOE_NAMES = ("moe_route", "moe_plan", "moe_quant", "moe_gemm", "moe_combine")
+
+
+def hidream_rows(batch=4, size=512, text_tokens=512, llama_tokens=128):
+    """Rows of each expert-path product in one HiDream-I1 step at
+    hidream_edit_b4_512's traffic (4 x 512x512, a 512-token T5 slot, 128
+    Llama tokens a block): (single block [L_i ; T5 ; L_47 ; img ; cond],
+    double block image stream [img ; cond], double block text stream
+    [T5 ; L_47 ; L_i]), each summed over the batch."""
+    img = (size // 16) ** 2  # VAE / 8, then 2 x 2 patches
+    txt = text_tokens + llama_tokens
+    return (batch * (llama_tokens + txt + 2 * img), batch * 2 * img,
+            batch * (txt + llama_tokens))
+
+
+def hidream_moe_cases():
+    """(label, M, D, F, shared F, experts, top_k, cond rows a batch row): the
+    routed layer of a single block (M 11264: uneven loads, one expert empty)
+    with the shared expert beside it, and a double block's text-stream
+    SwiGLU (one group, no cond segment), at batch 4."""
+    single, _, text = hidream_rows()
+    return [("single block", single, 2560, 6912, 3584, 4, 2, 1024),
+            ("text stream", text, 2560, 6912, None, 1, 0, 0)]
+
+
+def _uneven_routing(torch, m, gen):
+    """Slot 0 on experts 0 / 1 (70 / 30 %), slot 1 on 1 / 2, expert 3
+    empty; weights below 0.5, as a softmax over four gives them."""
+    u = torch.rand(m, generator=gen)
+    first = torch.where(u < 0.7, 0, 1)
+    second = torch.where(first == 0, 1, 2)
+    second = torch.where(torch.rand(m, generator=gen) < 0.5, second, 2)
+    second = torch.where(second == first, 2, second)
+    idx = torch.stack([first, second], 1).to(torch.int32)
+    return idx, torch.rand(m, 2, generator=gen) * 0.5
+
+
+def _moe_stack(torch, g, k, n, gen, device):
+    """A random int8 [g, k, n] weight stack and its scales (products of
+    order 1 from unit inputs)."""
+    w = torch.randint(-127, 128, (g, k, n), dtype=torch.int8, device=device,
+                      generator=gen)
+    s = (1.0 + 0.25 * torch.rand(g, 1, n, device=device, generator=gen)) / (
+        k ** 0.5 * 73.6)
+    return w, s
+
+
+def _moe_record(records, kernel, label, err, tol, run, plain, nbytes, ops,
+                kind, **extra):
+    """Time one expert-path kernel (the wrapper's call by CUDA events, its
+    kernel by device time, its plain version on the card), record it
+    beside its bound and fail past ``tol``."""
+    ms, dev = cuda_time_ms(run), device_ms(run)
+    plain_ms = cuda_time_ms(plain, iters=2)
+    bms, by = bound_ms(nbytes, ops, kind)
+    records.append(dict(kernel=kernel, case=label, err=err, tol=tol, ms=ms,
+                        device_ms=dev, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bms, bound_by=by, **extra))
+    print(f"  {kernel:16s} {label:28s} err {err:.3e} (tol {tol:.1e}) wrapper "
+          f"{ms:.4f} ms device {dev:.4f} plain {plain_ms:.3f} bound {bms:.4f} "
+          f"({by})" + "".join(f" {k} {v}" for k, v in extra.items()),
+          flush=True)
+    if not err <= tol:
+        raise Failure(f"{kernel} {label}: err {err} > {tol}")
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def check_moe(torch, gen, records, cases=None, device="cuda"):
+    """The expert path's kernels against their plain versions
+    (`hidream_moe_cases`): the router (the same top-2 but on near-ties,
+    MOE_ROUTE_AGREE), the plan and every int8 code and scale bit for bit,
+    the grouped GEMMs' live rows within MOE_GEMM_REL_L2 (both epilogues,
+    the routed stack of four with an empty expert, the shared expert and
+    the text stream's SwiGLU as one group), the combine within
+    MOE_COMBINE_REL_L2; each timed beside its plain version and its bound.
+    The exact references run on the CPU, the GEMMs' on the card (float32,
+    TF32 off).  (On CPU tensors the wrappers run the plain versions: the
+    tests drive this at tiny ``cases``.)"""
+    from loongx_tpu_torch.ops import moe
+
+    cpu_gen = torch.Generator().manual_seed(11)
+    for label, m, d, f, f_shared, e, top_k, cond_rows in (
+            cases or hidream_moe_cases()):
+        x = torch.randn(m, d, device=device, generator=gen).to(torch.bfloat16)
+        x_cpu = x.cpu()
+        group = moe.expert_group(d)
+        if e > 1:
+            gate_w = torch.randn(e, d, device=device, generator=gen) / d ** 0.5
+            idx_r, wts_r = moe.route(x, gate_w, top_k)
+            idx_p, wts_p = moe.route_plain(x_cpu, gate_w.cpu(), top_k)
+            agree = (idx_r.cpu() == idx_p).all(-1)
+            share = float(agree.float().mean())
+            w_err = float((wts_r.cpu()[agree] - wts_p[agree]).abs().max())
+            if share < MOE_ROUTE_AGREE:
+                raise Failure(f"moe_route {label}: top-{top_k} agrees on "
+                              f"{share:.4f} of rows < {MOE_ROUTE_AGREE}")
+            _moe_record(records, "moe_route", f"{label} M{m}", w_err,
+                        MOE_ROUTE_WEIGHT_TOL,
+                        lambda: moe.route(x, gate_w, top_k),
+                        lambda: moe.route_plain(x, gate_w, top_k),
+                        m * d * 2 + e * d * 4 + m * top_k * 8,
+                        2.0 * m * d * e, "fp32", agree=round(share, 6))
+
+            idx, wts = _uneven_routing(torch, m, cpu_gen)
+            cap = moe.capacity(idx.numel(), e)
+            idx_c, wts_c = idx.to(device), wts.to(device)
+            got = moe.plan(idx_c, wts_c, e, cap)
+            want = moe.plan_plain(idx, wts, e, cap)
+            n_diff = sum(int((a.cpu() != b).sum()) for a, b in zip(got, want))
+            counts, offsets, dest, src, row_w = want
+            if int(counts.min()) != 0 or int(counts.sum()) != top_k * m:
+                raise Failure(f"moe {label}: routing counts {counts.tolist()}")
+            _moe_record(records, "moe_plan", f"{label} M{m} cap {cap}",
+                        float(n_diff), 0.0,
+                        lambda: moe.plan(idx_c, wts_c, e, cap),
+                        lambda: moe.plan_plain(idx_c, wts_c, e, cap),
+                        m * top_k * 12 + cap * 8 + (2 * e + 1) * 4,
+                        float(m * top_k * e), "fp32",
+                        counts=counts.tolist())
+            counts_c, offsets_c, dest_c, src_c, row_w_c = got
+            live = src >= 0
+            rows = int(offsets[e])  # rows of the groups' tiles
+            limit = offsets_c[e:]
+        else:
+            cap, rows, counts_c = m, m, None
+            offsets_c = dest_c = src_c = row_w_c = limit = None
+            live = torch.ones(m, dtype=torch.bool)
+        ng = d // group
+
+        # the codes of x: gathered into the groups (routed) or in order
+        def quant_x():
+            return moe.quant_rows(x, group, src=src_c)
+
+        xq = quant_x()
+        xq_p = moe.quant_rows_plain(x_cpu, group,
+                                    None if src_c is None else src_c.cpu())
+        n_diff = (int((xq[0].cpu() != xq_p[0]).sum())
+                  + int((xq[1].cpu() != xq_p[1]).sum()))
+        what = "gathered" if src_c is not None else "in order"
+        _moe_record(records, "moe_quant", f"{label} x {what} K{d}",
+                    float(n_diff), 0.0, quant_x,
+                    lambda: moe.quant_rows_plain(x, group, src_c),
+                    int(live.sum()) * d * 2 + cap * d + cap * ng * 4,
+                    4.0 * cap * d, "fp32")
+
+        stacks = [("routed" if e > 1 else "text", e, f, counts_c, offsets_c,
+                   row_w_c, limit, xq)]
+        if e > 1:  # the shared expert: one group of every token
+            x_in = moe.quant_rows(x, group)
+            stacks.append(("shared", 1, f_shared, None, None, None, None, x_in))
+        for name, g, width, cnt, off, rw, lim, (codes, scales) in stacks:
+            w13, s13 = _moe_stack(torch, g, d, 2 * width, gen, device)
+            w2, s2 = _moe_stack(torch, g, width, d, gen, device)
+            r = codes.shape[0]
+            keep = live if name != "shared" else torch.ones(r, dtype=torch.bool)
+            n_rows = int(keep.sum())
+            a_rows = rows if name != "shared" else r
+            groups_used = g if cnt is None else int((cnt > 0).sum())
+
+            def up():
+                return moe.grouped_gemm(codes, scales, w13, s13,
+                                        moe.EPI_SWIGLU, off, cnt)
+
+            h = up()
+            h_p = moe.grouped_gemm_plain(codes, scales, w13, s13,
+                                         moe.EPI_SWIGLU, off, cnt)
+            _moe_record(
+                records, "moe_gemm_swiglu", f"{name} gate-up M{n_rows} K{d} "
+                f"N{2 * width}", _rel_l2(h.cpu()[keep], h_p.cpu()[keep]),
+                MOE_GEMM_REL_L2, up,
+                lambda: moe.grouped_gemm_plain(codes, scales, w13, s13,
+                                               moe.EPI_SWIGLU, off, cnt),
+                a_rows * d + groups_used * d * 2 * width + a_rows * ng * 4
+                + g * 2 * width * 4 + a_rows * width * 2,
+                2.0 * n_rows * d * 2 * width, "int8", groups=g)
+            hgroup = moe.expert_group(width)
+
+            def quant_h():
+                return moe.quant_rows(h, hgroup, limit=lim)
+
+            hq = quant_h()
+            hq_p = moe.quant_rows_plain(h.cpu(), hgroup)
+            n_diff = (int((hq[0].cpu()[keep] != hq_p[0][keep]).sum())
+                      + int((hq[1].cpu()[keep] != hq_p[1][keep]).sum()))
+            _moe_record(records, "moe_quant", f"{name} h K{width}",
+                        float(n_diff), 0.0, quant_h,
+                        lambda: moe.quant_rows_plain(h, hgroup),
+                        a_rows * width * 3 + a_rows * (width // hgroup) * 4,
+                        4.0 * a_rows * width, "fp32")
+
+            def down():
+                return moe.grouped_gemm(hq[0], hq[1], w2, s2, moe.EPI_ROWS,
+                                        off, cnt, rw)
+
+            y = down()
+            y_p = moe.grouped_gemm_plain(hq[0], hq[1], w2, s2, moe.EPI_ROWS,
+                                         off, cnt, rw)
+            _moe_record(
+                records, "moe_gemm_rows", f"{name} down M{n_rows} K{width} "
+                f"N{d}", _rel_l2(y.cpu()[keep], y_p.cpu()[keep]),
+                MOE_GEMM_REL_L2, down,
+                lambda: moe.grouped_gemm_plain(hq[0], hq[1], w2, s2,
+                                               moe.EPI_ROWS, off, cnt, rw),
+                a_rows * width + groups_used * width * d
+                + a_rows * (width // hgroup) * 4 + g * d * 4 + a_rows * d * 2,
+                2.0 * n_rows * width * d, "int8", groups=g)
+            if name == "shared":
+                y_shared = y
+            else:
+                y_main = y
+
+        # the combine: resid + gate_seg * (routed rows + shared row)
+        rows_per_batch = m // 4
+        boundary = rows_per_batch - cond_rows  # the cond segment: the last
+        gate = torch.randn(4, 2, d, device=device, generator=gen)
+        resid = torch.randn(m, d, device=device, generator=gen).to(torch.bfloat16)
+        if e > 1:
+            args = (y_main, dest_c, y_shared)
+        else:
+            args = (None, None, y_main)
+
+        def comb():
+            return moe.combine(resid, gate, args[0], args[1], args[2],
+                               rows_per_batch, boundary)
+
+        out = comb()
+        out_p = moe.combine_plain(
+            resid.cpu(), gate.cpu(), *(None if a is None else a.cpu()
+                                       for a in args),
+            rows_per_batch, boundary)
+        flips = int((out.cpu() != out_p).sum())
+        k = top_k if e > 1 else 0
+        _moe_record(records, "moe_combine", f"{label} M{m} top {k}",
+                    _rel_l2(out.cpu(), out_p), MOE_COMBINE_REL_L2, comb,
+                    lambda: moe.combine_plain(resid, gate, *args,
+                                              rows_per_batch, boundary),
+                    m * d * 2 * (k + 3) + 8 * d * 4 + m * k * 4,
+                    (k + 2.0) * m * d, "fp32", differing=flips)
+
+
+def hidream_step(torch):
+    """One full-width HiDream-I1 denoise step at hidream_edit_b4_512's shapes
+    (random int8 weights on the card, seeded draws): warmed once, then run
+    again with `cuda_build.LAUNCHES` zeroed just before it and every
+    synchronizing CUDA call an error (no host synchronization inside a
+    step), equal to the first run bit for bit, its launches by kernel (one
+    route, plan and combine a MoE layer, one grouped GEMM launch a SwiGLU
+    projection: routed, shared and the text stream's), its ms and device
+    profile, and the full-width q/k RMS norm's device ms a step beside its
+    byte bound.  The bundle is freed after it."""
+    import numpy as np
+    from loongx_tpu_torch.models.flux.vae import VAEConfig
+    from loongx_tpu_torch.models.hidream.model import HiDreamConfig
+    from loongx_tpu_torch.models.pipeline import LoongXPipeline
+    from loongx_tpu_torch.ops import cuda_build
+    from loongx_tpu_torch.ops.latents import latent_image_ids
+    from loongx_tpu_torch.ops.nn import rms_norm
+    from loongx_tpu_torch.sampling import generate
+
+    cfg = HiDreamConfig.hidream_i1()
+    t0 = time.perf_counter()
+    pipe = LoongXPipeline.init_serving(cfg, VAEConfig.flux(), seed=1)
+    torch.cuda.synchronize()
+    print(f"  HiDream-I1 bundle (int8, serving layout) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} "
+          "GiB allocated", flush=True)
+    b, dev, dt = 4, torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lat = torch.randn(b, 1024, 64, device=dev, generator=gen).to(dt)
+    cond = torch.randn(b, 1024, 64, device=dev, generator=gen).to(dt)
+    txt = torch.randn(b, 512, 4096, device=dev, generator=gen).to(dt)
+    llama = torch.randn(b, 48, 128, 4096, device=dev, generator=gen).to(dt)
+    pooled = torch.randn(b, 2048, device=dev, generator=gen).to(dt)
+    ids = latent_image_ids(64, 64, device=dev)
+    txt_ids = torch.zeros(512, 3, device=dev)
+    sig = np.array([1.0, 0.9643], np.float32)
+
+    def step():
+        with torch.inference_mode():
+            return generate.denoise(pipe.params["flux"], cfg, {}, lat, txt,
+                                    pooled, ids, txt_ids, cond, ids, sig,
+                                    None, None, w8a8=True, text_streams=llama)
+
+    first = step()
+    torch.cuda.synchronize()
+    cuda_build.LAUNCHES.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.LAUNCHES)
+    layers, text_ffn = cfg.llama_streams, cfg.num_double_blocks
+    want = {"moe_route": layers, "moe_plan": layers,
+            "moe_quant": 4 * layers + 2 * text_ffn,
+            "moe_gemm": 4 * layers + 2 * text_ffn,
+            "moe_combine": layers + text_ffn}
+    got = {k: counts.get(k, 0) for k in want}
+    print(f"  launches in one step (with the caption projections): "
+          f"{json.dumps(counts, sort_keys=True)}", flush=True)
+    if got != want:
+        raise Failure(f"HiDream step launches {got} != {want}")
+    if not (torch.isfinite(second.float()).all() and torch.equal(first, second)):
+        raise Failure("HiDream step: not finite, or not equal to the warm-up "
+                      "step bit for bit")
+    ms = cuda_time_ms(step, iters=3)
+    prof = _profile(step, (*MOE_NAMES, "flash_fwd_wgmma_kernel",
+                           "rope_prepass_kernel", "qmm_wgmma_kernel",
+                           "act_quant_"))
+    print(f"  one step {ms:.1f} ms (CUDA events, the 49 caption projections "
+          f"included); device profile {json.dumps(prof)}", flush=True)
+
+    # the q/k RMS norm over all 2560 columns (PyTorch ops, float32): device ms
+    # a step against the bytes an ideal pass moves (read and write bf16 q, k)
+    single, img_stream, text_stream = hidream_rows()
+    d = cfg.hidden
+    norm_ms = bound = 0.0
+    w = torch.ones(d, device=dev, dtype=dt)
+    for m, blocks in ((single, cfg.num_single_blocks),
+                      (img_stream, text_ffn), (text_stream, text_ffn)):
+        qkv = torch.randn(m, 3 * d, device=dev, generator=gen).to(dt)
+        q = qkv.chunk(3, dim=-1)[0]
+        norm_ms += 2 * blocks * device_ms(lambda: rms_norm(q, w, cfg.qk_eps))
+        bound += 2 * blocks * bound_ms(2 * m * d * 2, 0.0, "fp32")[0]
+    print(f"  q/k RMS norm (ops.nn.rms_norm over D {d}): {norm_ms:.2f} device ms "
+          f"a step, byte bound {bound:.2f} ms", flush=True)
+    del pipe, first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=ms, norm_ms=norm_ms, norm_bound_ms=bound)
 
 
 def attention_fp32_probs(q, k, v, *, cond_start, mode="union", c_factor=None,
@@ -5932,6 +6300,13 @@ def kernel_table(records, launches):
         # :1086) as a pass ahead of the weight-only GEMM on wgmma
         "qmm_ln_mod_pass": ("quant_matmul.cu", f"{qmm_py}:392", "M2560 K3072",
                             "train fuse_ln"),
+        # HiDream-I1's expert path (no TPU kernel: the JAX package runs no
+        # HiDream), its launches those of one step in phase "HiDream step";
+        # both grouped GEMM epilogues count under moe_gemm; the main case is
+        # each kernel's first (the single block's routed layer)
+        **{name: ("moe_gemm.cu", None, None, "hidream step")
+           for name in ("moe_route", "moe_plan", "moe_quant", "moe_gemm_swiglu",
+                        "moe_gemm_rows", "moe_combine")},
     }
     table = []
     for name, (src, replaces, main_case, path) in meta.items():
@@ -5946,13 +6321,16 @@ def kernel_table(records, launches):
             counter = "qmm_flat"
             cases = [r for r in records if r["kernel"] == "qmm_flat"
                      and r.get("route") == name[4:]]
+        elif name.startswith("moe_gemm_"):
+            counter = "moe_gemm"
+            cases = [r for r in records if r["kernel"] == name]
         elif name == "s4d_chunk_scan":
             counter = "s4d_scan"
             cases = [r for r in records if r["kernel"] == name]
         else:
             counter = name
             cases = [r for r in records if r["kernel"] == name]
-        main = next(r for r in cases if r["case"] == main_case)
+        main = next(r for r in cases if main_case in (None, r["case"]))
         by_route = {r: launches[path].get(f"{counter}:{r}", 0)
                     for r in (*GEMM_ROUTES, "warp", "block", "chunked",
                               "sequential")
@@ -6065,6 +6443,9 @@ def main() -> int:
                              records)
             check_tp2_backward(torch, torch.Generator(device="cuda").manual_seed(9),
                                records)
+            check_moe(torch, torch.Generator(device="cuda").manual_seed(10), records)
+        with Phase("HiDream step", card):
+            hidream_counts, _ = hidream_step(torch)
         from loongx_tpu_torch.models.pipeline import LoongXPipeline
         with Phase("weights", card):
             pipe = LoongXPipeline.init_serving(seed=0)
@@ -6076,7 +6457,8 @@ def main() -> int:
             launches = {"serve": counts,
                         "serve s4_mode=pallas": options["s4_mode=pallas"],
                         "serve int8_attn": options["int8_attn"],
-                        "serve fuse_ln+fuse_gate": options["fuse_ln+fuse_gate"]}
+                        "serve fuse_ln+fuse_gate": options["fuse_ln+fuse_gate"],
+                        "hidream step": hidream_counts}
         with Phase("generate (text prompts, fuse mode)", card):
             text_bytes = serve_text(torch, pipe)
         with Phase("speech and demos", card):

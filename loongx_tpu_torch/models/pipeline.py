@@ -11,7 +11,7 @@ return_tensors="np").input_ids`` -> int array [B, n]."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -21,6 +21,9 @@ from loongx_tpu_torch.models.encoders import (
 from loongx_tpu_torch.models.flux.model import FluxConfig, init_flux_params
 from loongx_tpu_torch.models.flux.vae import (
     VAEConfig, init_vae_params, scale_latents, vae_encode, vae_sample,
+)
+from loongx_tpu_torch.models.hidream.model import (
+    HiDreamConfig, init_hidream_params, serving_layout,
 )
 from loongx_tpu_torch.models.fusion import init_dgf
 from loongx_tpu_torch.models.text.clip import (
@@ -37,7 +40,9 @@ from loongx_tpu_torch.train.lora import add_lora
 
 @dataclasses.dataclass
 class LoongXPipeline:
-    flux_cfg: FluxConfig
+    # the DiT's config: FLUX.1 (every mode) or HiDream-I1 (served by
+    # `sampling.generate.neural_edit`, W8A8); its tree is params["flux"]
+    flux_cfg: Union[FluxConfig, HiDreamConfig]
     vae_cfg: Optional[VAEConfig]
     params: Dict[str, Any]
     dtype: torch.dtype = torch.bfloat16
@@ -82,10 +87,27 @@ class LoongXPipeline:
         single-block proj_out split), bf16 VAE, CS3 encoders and DGF.
         ``tp_layout``: the tensor-parallel serving bundle of the same
         weights (qkv fused in the TP layout, proj_out whole; see
-        `quantize`)."""
+        `quantize`).  A `HiDreamConfig` gives the HiDream-I1 bundle in its
+        serving layout (`models.hidream.model.serving_layout`; its router
+        drawn N(0, 1) / sqrt(D)); it has no tensor-parallel layout."""
         flux_cfg = flux_cfg or FluxConfig.flux_dev()
         vae_cfg = vae_cfg or VAEConfig.flux()
         gen = torch.Generator(device=device).manual_seed(seed)
+        if isinstance(flux_cfg, HiDreamConfig):
+            if tp_layout:
+                raise NotImplementedError("no tensor-parallel HiDream layout")
+            shapes = init_hidream_params(flux_cfg, dtype=torch.bfloat16,
+                                         device="meta")
+            dit = random_quantized_like(shapes, generator=gen, device=device)
+            for name in ("double_blocks", "single_blocks"):
+                gate = dit[name]["moe"]["gate"]
+                gate["weight"] = torch.randn(
+                    gate["weight"].shape, generator=gen, device=device
+                ) / flux_cfg.hidden ** 0.5
+            kw = dict(generator=gen, dtype=torch.bfloat16, device=device)
+            params = {"flux": serving_layout(dit),
+                      "vae": init_vae_params(vae_cfg, **kw), **_brain_params(kw)}
+            return LoongXPipeline(flux_cfg, vae_cfg, params, torch.bfloat16)
         flux = random_quantized_like(
             init_flux_params(flux_cfg, dtype=torch.bfloat16, device="meta"),
             generator=gen, device=device)

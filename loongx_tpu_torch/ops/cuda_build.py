@@ -40,7 +40,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention", "quant_matmul", "quant_matmul_t", "s4d_scan")
+SOURCES = ("flash_attention", "moe_gemm", "quant_matmul", "quant_matmul_t",
+           "s4d_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -1,6 +1,6 @@
 """Flow-match Euler schedule (counterpart of ``loongx_tpu/ops/schedule.py``):
-FLUX.1-dev constants, dynamic exponential time shift, trailing sigma 0, and
-the training interpolant."""
+FLUX.1-dev constants, dynamic exponential time shift, trailing sigma 0, the
+static shift of HiDream-I1-Dev, and the training interpolant."""
 
 from __future__ import annotations
 
@@ -33,6 +33,14 @@ def flux_sigmas(num_steps: int, image_seq_len: int, base_seq_len: int = 256,
                              base_shift, max_shift)
         sigmas = time_shift(mu, 1.0, sigmas)
     return np.append(sigmas, 0.0).astype(np.float32)
+
+
+def static_shift_sigmas(num_steps: int, shift: float = 6.0) -> np.ndarray:
+    """float32 numpy [num_steps + 1]: shift s / (1 + (shift - 1) s) over s
+    = linspace(1, 0, num_steps + 1) (HiDream-I1-Dev's static shift 6 on a
+    plain grid; its last sigma is 0)."""
+    s = np.linspace(1.0, 0.0, num_steps + 1)
+    return (shift * s / (1.0 + (shift - 1.0) * s)).astype(np.float32)
 
 
 def euler_step(latents: torch.Tensor, model_output: torch.Tensor,

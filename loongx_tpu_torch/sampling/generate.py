@@ -30,38 +30,62 @@ from loongx_tpu_torch.models.flux.vae import (
 from loongx_tpu_torch.models.fusion import (
     fuse_eeg_ppg, fuse_fnirs_motion, fuse_text_infer, fuse_text_train,
 )
+from loongx_tpu_torch.models.hidream.model import (
+    HiDreamConfig, hidream_forward, pack_patches, project_text, unpack_patches,
+)
 from loongx_tpu_torch.ops.latents import (
     latent_image_ids, pack_latents, shift_ids, unpack_latents,
 )
-from loongx_tpu_torch.ops.schedule import euler_step, flux_sigmas
+from loongx_tpu_torch.ops.schedule import (
+    euler_step, flux_sigmas, static_shift_sigmas,
+)
 from loongx_tpu_torch.sampling.condition import Condition, _to_numpy_image
 from loongx_tpu_torch.utils.profiling import span
 
 
-def denoise(flux_params, flux_cfg: FluxConfig, flags: Dict[str, Any],
+def denoise(flux_params, flux_cfg: Union[FluxConfig, HiDreamConfig],
+            flags: Dict[str, Any],
             latents: torch.Tensor, txt: torch.Tensor, pooled: torch.Tensor,
             img_ids: torch.Tensor, txt_ids: torch.Tensor,
             cond: Optional[torch.Tensor], cond_ids: Optional[torch.Tensor],
             sigmas: np.ndarray, guidance: Optional[torch.Tensor],
             c_factor: Optional[float], w8a8: bool = False,
             int8_attn: bool = False, fuse_ln: bool = False,
-            fuse_gate: bool = False) -> torch.Tensor:
+            fuse_gate: bool = False,
+            text_streams: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The denoise loop; sigmas [steps + 1] float32 (host), the DiT's
-    timestep is sigma itself.  Spans: ``edit.denoise``, and
+    timestep is sigma itself.  The DiT is the one ``flux_cfg`` names: for a
+    `HiDreamConfig`, `hidream_forward` with its caption projections of the
+    T5 slot and the Llama streams (``text_streams`` [B, 48, S, 4096]) made
+    once, ahead of the steps, and the Euler step taking -out (the
+    published pipeline's velocity).  Spans: ``edit.denoise``, and
     ``edit.denoise.step`` a step."""
     lat = latents
     with span("edit.denoise"):
+        if isinstance(flux_cfg, HiDreamConfig):
+            if fuse_ln or fuse_gate:
+                raise ValueError("the HiDream DiT has no fused elementwise "
+                                 "forms (fuse_ln / fuse_gate)")
+            projected = project_text(flux_params, flux_cfg, txt, text_streams,
+                                     w8a8)
         for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
             with span("edit.denoise.step"):
                 t = torch.full((lat.shape[0],), float(sigma),
                                dtype=torch.float32, device=lat.device)
-                v = flux_forward(
-                    flux_params, flux_cfg, img=lat.to(txt.dtype), txt=txt,
-                    pooled=pooled, timestep=t, guidance=guidance,
-                    img_ids=img_ids, txt_ids=txt_ids, cond=cond,
-                    cond_ids=cond_ids, flags=flags, c_factor=c_factor,
-                    w8a8=w8a8, int8_attn=int8_attn, fuse_ln=fuse_ln,
-                    fuse_gate=fuse_gate)
+                if isinstance(flux_cfg, HiDreamConfig):
+                    v = -hidream_forward(
+                        flux_params, flux_cfg, img=lat.to(txt.dtype), txt=txt,
+                        pooled=pooled, timestep=t, img_ids=img_ids, cond=cond,
+                        cond_ids=cond_ids, flags=flags, c_factor=c_factor,
+                        w8a8=w8a8, int8_attn=int8_attn, projected=projected)
+                else:
+                    v = flux_forward(
+                        flux_params, flux_cfg, img=lat.to(txt.dtype), txt=txt,
+                        pooled=pooled, timestep=t, guidance=guidance,
+                        img_ids=img_ids, txt_ids=txt_ids, cond=cond,
+                        cond_ids=cond_ids, flags=flags, c_factor=c_factor,
+                        w8a8=w8a8, int8_attn=int8_attn, fuse_ln=fuse_ln,
+                        fuse_gate=fuse_gate)
                 lat = euler_step(lat, v, sigma, sigma_next)
     return lat
 
@@ -99,15 +123,23 @@ def fused_edit_program(flux_params, vae_params, enc, dgf,
                        guidance: Optional[torch.Tensor],
                        c_factor: Optional[float],
                        cond_noise: Optional[torch.Tensor], *,
-                       flux_cfg: FluxConfig, vae_cfg, flags: Dict[str, Any],
+                       flux_cfg: Union[FluxConfig, HiDreamConfig], vae_cfg,
+                       flags: Dict[str, Any],
                        s4_mode: str, lat_h: int, lat_w: int,
                        w8a8: bool = False, int8_attn: bool = False,
                        fuse_ln: bool = False,
-                       fuse_gate: bool = False) -> torch.Tensor:
+                       fuse_gate: bool = False,
+                       text_streams: Optional[torch.Tensor] = None,
+                       pooled_extra: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Brain encode (replace mode) + condition VAE encode + denoise + VAE
     decode -> images [B, H, W, 3].  ``cond_img`` [B, H, W, 3] in [-1, 1];
     ``cond_noise``: standard-normal draw of the latent's shape for the VAE
-    sample, or None for the deterministic mean."""
+    sample, or None for the deterministic mean.  A HiDream DiT takes the
+    brain prompt in its T5 slot, the brain pooled vector as the CLIP-L
+    part of its pooled input, then ``pooled_extra`` [B, 1280] (the CLIP-G
+    part), the 48 Llama streams ``text_streams``, and its own patch order
+    (`pack_patches`); both are None for FLUX."""
     dtype = latents.dtype
     brain_prompt, brain_pooled = brain_encode(enc, dgf, eeg, ppg, fnirs,
                                               motion, s4_mode)
@@ -120,16 +152,23 @@ def fused_edit_program(flux_params, vae_params, enc, dgf,
     txt_ids = torch.zeros(prompt_embeds.shape[1], 3, dtype=torch.float32,
                           device=latents.device)
 
+    hidream = isinstance(flux_cfg, HiDreamConfig)
+    if hidream:
+        pooled = torch.cat([pooled, pooled_extra.to(dtype)], dim=-1)
+    pack, unpack = ((pack_patches, unpack_patches) if hidream
+                    else (pack_latents, unpack_latents))
+
     mean, logvar = vae_encode(vae_params, vae_cfg, cond_img.to(dtype))
     lat = vae_sample(mean, logvar, cond_noise) if cond_noise is not None else mean
-    cond_tokens = pack_latents(scale_latents(vae_cfg, lat)).to(dtype)
+    cond_tokens = pack(scale_latents(vae_cfg, lat)).to(dtype)
     if cond_tokens.shape[0] == 1 and b > 1:
         cond_tokens = cond_tokens.expand(b, *cond_tokens.shape[1:])
 
     out = denoise(flux_params, flux_cfg, flags, latents, prompt_embeds, pooled,
                   img_ids, txt_ids, cond_tokens, cond_ids, sigmas, guidance,
-                  c_factor, w8a8, int8_attn, fuse_ln, fuse_gate)
-    lat = unscale_latents(vae_cfg, unpack_latents(out, lat_h, lat_w)).to(dtype)
+                  c_factor, w8a8, int8_attn, fuse_ln, fuse_gate,
+                  text_streams=text_streams)
+    lat = unscale_latents(vae_cfg, unpack(out, lat_h, lat_w)).to(dtype)
     return vae_decode(vae_params, vae_cfg, lat)
 
 
@@ -199,7 +238,8 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
                 model_config: Optional[Dict[str, Any]] = None,
                 s4_mode: str = "conv", output_type: str = "np",
                 w8a8: bool = False, int8_attn: bool = False,
-                fuse_ln: bool = False, fuse_gate: bool = False):
+                fuse_ln: bool = False, fuse_gate: bool = False,
+                text_streams=None, pooled_extra=None):
     """The deployed neural edit (replace mode) on ``pipeline``'s device.
 
     ``cond_image``: PIL image or array [H, W, 3] / [B, H, W, 3] in [-1, 1]
@@ -211,7 +251,12 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
     scores, ``fuse_ln`` / ``fuse_gate`` the LN + adaLN prologue / gate +
     residual epilogue inside the int8 kernels (batch 1), ``s4_mode`` the
     S4D core of the encoders ("conv", "scan" or "pallas", the recurrence
-    kernel).  Returns float32 numpy [B, H, W, 3]
+    kernel).  A pipeline holding a `HiDreamConfig` also needs the text
+    encoders' outputs that the brain signals do not replace:
+    ``text_streams`` [B, 48, S, 4096] (the Llama-3.1 layers' states) and
+    ``pooled_extra`` [B, 1280] (CLIP-G pooled); it samples HiDream-I1-Dev's
+    static-shift sigmas (`static_shift_sigmas`) without guidance.  Returns
+    float32 numpy [B, H, W, 3]
     ("np") or uint8 ("uint8").  Span: ``edit.request``, the root of the
     stage spans."""
     if eeg is None or fnirs is None:
@@ -231,6 +276,12 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
         raise ValueError(
             f"height/width must be multiples of {2 * vae_scale}, got "
             f"{height}x{width}")
+    hidream = isinstance(pipeline.flux_cfg, HiDreamConfig)
+    if hidream and (text_streams is None or pooled_extra is None):
+        raise ValueError(
+            "a HiDream DiT needs text_streams (the Llama layers' states) and "
+            "pooled_extra (CLIP-G pooled): the brain signals fill only its "
+            "T5 slot and the CLIP-L part of its pooled input")
     enc = pipeline.params.get("encoders")
     if enc is None:
         raise RuntimeError("pipeline has no biosignal encoders")
@@ -269,11 +320,19 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
         img_ids = latent_image_ids(lat_h, lat_w, device=device)
         cond_ids = shift_ids(latent_image_ids(c_lat_h, c_lat_w, device=device),
                              position_delta or (0, 0), position_scale)
-        sigmas = flux_sigmas(num_inference_steps, s_img)
+        sigmas = (static_shift_sigmas(num_inference_steps) if hidream
+                  else flux_sigmas(num_inference_steps, s_img))
         guidance = (torch.full((b,), guidance_scale, dtype=torch.float32,
                                device=device)
                     if pipeline.flux_cfg.guidance_embeds else None)
         c_factor = float(condition_scale) if condition_scale != 1.0 else None
+        hidream_inputs = {}
+        if hidream:
+            hidream_inputs = {
+                "text_streams": _as_device_tensor(text_streams, device,
+                                                  pipeline.dtype),
+                "pooled_extra": _as_device_tensor(pooled_extra, device,
+                                                  pipeline.dtype)}
 
         with torch.inference_mode():
             images = fused_edit_program(
@@ -283,7 +342,8 @@ def neural_edit(pipeline, cond_image, *, eeg=None, ppg=None, fnirs=None,
                 cond_noise.to(device), flux_cfg=pipeline.flux_cfg,
                 vae_cfg=pipeline.vae_cfg, flags=dict(model_config or {}),
                 s4_mode=s4_mode, lat_h=lat_h, lat_w=lat_w, w8a8=w8a8,
-                int8_attn=int8_attn, fuse_ln=fuse_ln, fuse_gate=fuse_gate)
+                int8_attn=int8_attn, fuse_ln=fuse_ln, fuse_gate=fuse_gate,
+                **hidream_inputs)
         images = images.float().cpu().numpy()
         if output_type == "uint8":
             images = ((np.clip(images, -1, 1) + 1) * 127.5).round().astype(
@@ -336,6 +396,10 @@ def generate(pipeline, prompt: Union[str, Sequence[str], None] = None,
     first.  Returns float32 numpy [B, H, W, 3] in [-1, 1] ("np"), uint8
     ("uint8") or the packed latents as a tensor ("latent").  Span:
     ``edit.request``, around the stages' spans."""
+    if isinstance(pipeline.flux_cfg, HiDreamConfig):
+        raise NotImplementedError(
+            "generate() runs the FLUX DiT; serve a HiDream DiT through "
+            "neural_edit (its Llama and CLIP-G encoders are not ported)")
     if fuse_mode not in ("infer", "train"):
         raise ValueError(
             f"fuse_mode={fuse_mode!r} — must be 'infer' or 'train' (the two "

@@ -102,7 +102,10 @@ def device_profile(run: Callable, groups: Iterable[str] = ()
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels and copies only: a record_function range (the program's spans
+    # while a profiler records) shows on the device's timeline too
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not events:
         return None
     by_group: Dict[str, float] = {}

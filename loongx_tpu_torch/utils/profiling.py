@@ -21,6 +21,12 @@ no allocation.  A finished record (`Span`) holds
   * the port's own kernel launches over it (`cuda_build.LAUNCHES`, the keys
     without ``:``: every launch adds both ``name`` and ``name:route``).
 
+Counters.  ``count_into(name, index, rows, values)`` adds a device tensor
+of counts into row ``index`` of the counter ``name`` (int64 [rows, N], made
+at its first use), only while spans record; nothing is read to the host
+until `counters` is called.  The expert layer (`ops.moe`) counts each
+routed expert's rows in ``moe.expert_rows`` this way.
+
 Nothing synchronizes inside a span: device intervals are resolved when
 `spans` is read, which synchronizes once.  Each thread keeps its own stack
 of open spans; a span opened on a thread with none open (the autograd
@@ -101,6 +107,7 @@ REFERENCE_MAX_AGE_NS = 60 * 10**9
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _records: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_counters: Dict[str, torch.Tensor] = {}
 _stacks: Dict[int, List["Span"]] = {}
 _ids = itertools.count(1)
 _pool: List[torch.cuda.Event] = []
@@ -217,14 +224,32 @@ def spans() -> List[Span]:
 
 
 def clear_spans() -> None:
-    """Forget every finished record."""
+    """Forget every finished record and every counter."""
     global _ref
     _ref = None
+    _counters.clear()
     for r in list(_records):
         if r._events is not None:
             _pool.extend(r._events)
             r._events = r._ref = None
     _records.clear()
+
+
+def count_into(name: str, index: int, rows: int,
+               values: torch.Tensor) -> None:
+    """counter[name][index] += values (a device-side add, no host read);
+    the counter is int64 [rows, len(values)] on values' device."""
+    buf = _counters.get(name)
+    if buf is None:
+        buf = torch.zeros(rows, values.numel(), dtype=torch.int64,
+                          device=values.device)
+        _counters[name] = buf
+    buf[index] += values.reshape(-1).to(torch.int64)
+
+
+def counters() -> Dict[str, torch.Tensor]:
+    """Every counter, as host int64 tensors (one synchronize)."""
+    return {name: buf.cpu() for name, buf in _counters.items()}
 
 
 def _self_times(recs: List[Span]) -> None:
