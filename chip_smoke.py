@@ -16,8 +16,9 @@ Phases (each prints one line with the card, its power limit and seconds):
      batch 1 and 2 in both layouts, the
      flash residuals, the backward pair's two bounds (the five products an
      ideal pass needs, the seven the two passes do), cuBLAS bf16 on the
-     dequantised weight, the share of the GEMM's time its B-tile transpose
-     takes (`transpose_share`), and the count of GEMM outputs that differ
+     dequantised weight, the W8A8 GEMM's stage probe (`stage_probe`: the
+     clock64 cycles of a stage's barrier wait and wgmma, a fold and an
+     epilogue, from a build with -DW8A8_PROBE), and the count of GEMM outputs that differ
      from the plain version's (none in the W8A8 gelu cases); the fused
      forms of the int8 kernels (the LN + adaLN prologue, W8A8 and
      weight-only, stacked and fused-qkv; the gate + residual epilogue)
@@ -682,30 +683,104 @@ def _route_extra(torch, qmm, run, x, wq, k, n, group, k_pad, w8a8, ref=None):
     return extra
 
 
-def transpose_share(torch, qmm, x, wq, sc, bi, blk, act, group, k_pad):
-    """(GEMM ms, GEMM ms without the B-tile transpose, share) of the wgmma
-    GEMM alone on one call's activation codes: the transposing warpgroup
-    skips its work (the product is then wrong and is not read)."""
+# the W8A8 pipeline's stage probe (csrc/w8a8_pipeline.cuh, built with -DW8A8_PROBE): its sums
+# in order, clock64 cycles of the consumer warpgroups' phases and the producer's waits, then
+# the stages, activation-group folds and tiles a consumer warpgroup ran
+W8A8_PROBE_FIELDS = ("full_wait", "mma", "fold", "epilogue", "consumer_loop", "empty_wait",
+                     "stages", "folds", "tiles")
+
+
+def probe_path(source, define):
+    """Where ``source`` built with ``-D<define>`` goes: beside the package's
+    build, keyed by its hash."""
+    from loongx_tpu_torch.ops import cuda_build
+    return cuda_build.BUILD_DIR / (cuda_build._lib_path(source).stem
+                                  + f"-{define.replace('=', '')}-probe.so")
+
+
+def probe_entries(source, name, signature, defines):
+    """The C entry ``name`` of ``source`` built once for each of ``defines``
+    (``-D<define>``: a probe build of its own), the missing builds'
+    ``nvcc`` started together; a dict define -> the entry with its
+    signature set."""
     import ctypes
     from loongx_tpu_torch.ops import cuda_build
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for define in defines:
+        out = probe_path(source, define)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{define}", "-o", str(tmp),
+               str(cuda_build.CSRC_DIR / f"{source}.cu")]
+        procs[define] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True), tmp, out)
+    for define, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise Failure(f"nvcc {source}.cu -D{define} failed:\n{log}")
+        os.replace(tmp, out)
+    entries = {}
+    for define in defines:
+        fn = getattr(ctypes.CDLL(str(probe_path(source, define))), name)
+        fn.argtypes, fn.restype = list(signature), ctypes.c_int
+        entries[define] = fn
+    return entries
+
+
+def read_stage_probe(source, launch, iters=5):
+    """The W8A8 pipeline's stage probe of ``source``'s -DW8A8_PROBE build
+    over ``iters`` calls of ``launch()``, a call of that build (after one
+    that is not counted): cycles a 128-deep stage
+    of one consumer warpgroup (``probe_full_wait``, ``probe_mma``: its
+    wgmma issued up to the previous stage's retirement;
+    ``probe_loop``: its whole loop over its stages), a fold of one
+    activation group (``probe_fold``, the last wgmma's wait included), an
+    epilogue a tile (``probe_epilogue``) and the producer's empty-barrier
+    wait a stage (``probe_empty_wait``)."""
+    import ctypes
+    from loongx_tpu_torch.ops import cuda_build
+    read = ctypes.CDLL(str(probe_path(source, "W8A8_PROBE"))).w8a8_probe_read
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    sums = (ctypes.c_ulonglong * len(W8A8_PROBE_FIELDS))()
+    launch()
+    cuda_build.check(read(ctypes.addressof(sums), 1), "w8a8_probe_read")
+    for _ in range(iters):
+        launch()
+    cuda_build.check(read(ctypes.addressof(sums), 1), "w8a8_probe_read")
+    got = dict(zip(W8A8_PROBE_FIELDS, sums))
+    stages, folds, tiles = (max(got[k], 1) for k in ("stages", "folds", "tiles"))
+    return {"probe_full_wait": got["full_wait"] / stages, "probe_mma": got["mma"] / stages,
+            "probe_loop": got["consumer_loop"] / stages, "probe_fold": got["fold"] / folds,
+            "probe_epilogue": got["epilogue"] / tiles,
+            # one producer thread a block against two consumer warpgroups
+            "probe_empty_wait": 2.0 * got["empty_wait"] / stages}
+
+
+def stage_probe(torch, qmm, x, wq, sc, bi, blk, act, group, k_pad):
+    """The stage probe (`read_stage_probe`) of the wgmma GEMM alone on one
+    call's activation codes, block ``blk`` of the K-major stack ``wq``."""
+    from loongx_tpu_torch.ops import w8a8_layout
     m, k = x.shape
     n = wq.shape[-1]
+    if not w8a8_layout.to_kmajor(wq, 1):
+        raise Failure(f"stage probe: the stack {tuple(wq.shape)} cannot become K-major")
     a, xs = qmm.act_quant(x, group, k_pad)
     out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-    fn = cuda_build.library("quant_matmul").qmm_gemm_wgmma
-    fn.argtypes, fn.restype = qmm._WGMMA_SIGNATURE, ctypes.c_int
+    fn = probe_entries("quant_matmul", "qmm_gemm_wgmma", qmm._WGMMA_SIGNATURE,
+                       ["W8A8_PROBE"])["W8A8_PROBE"]
     stream = torch.cuda.current_stream().cuda_stream
 
-    def gemm(transpose):
-        code = fn(qmm.EPI_GELU if act else qmm.EPI_BIAS, a.data_ptr(),
-                  xs.data_ptr(), qmm._stack_ptr(wq, blk), qmm._stack_ptr(sc, blk),
-                  qmm._stack_ptr(bi, blk), None, None, None, out.data_ptr(), m, k,
-                  k_pad, n, group, k_pad // group, 0, 0, 0, transpose, stream)
-        cuda_build.check(code, "qmm_gemm_wgmma")
+    def gemm():
+        from loongx_tpu_torch.ops import cuda_build
+        code = fn(qmm.EPI_GELU if act else qmm.EPI_BIAS, a.data_ptr(), xs.data_ptr(),
+                  qmm._stack_ptr(wq, blk), qmm._stack_ptr(sc, blk), qmm._stack_ptr(bi, blk),
+                  None, None, None, out.data_ptr(), m, k, k_pad, n, group, k_pad // group,
+                  0, 0, 0, stream)
+        cuda_build.check(code, "qmm_gemm_wgmma (stage probe)")
 
-    with_t = cuda_time_ms(lambda: gemm(1))
-    without = cuda_time_ms(lambda: gemm(0))
-    return with_t, without, 1.0 - without / with_t
+    return read_stage_probe("quant_matmul", gemm)
 
 
 def check_qmm(torch, gen, records):
@@ -738,10 +813,8 @@ def check_qmm(torch, gen, records):
             extra = _route_extra(torch, qmm, run, x, wq[blk], k, n, group,
                                  k_pad, w8a8, ref)
             if w8a8 and extra["route"] == "wgmma":
-                t, t0, share = transpose_share(torch, qmm, x, wq, sc, bi, blk,
-                                               act, group, k_pad)
-                extra.update(gemm_ms=t, no_transpose_ms=t0,
-                             transpose_share=share)
+                extra.update(stage_probe(torch, qmm, x, wq, sc, bi, blk, act,
+                                         group, k_pad))
             _qmm_record(records, "qmm_stacked", label, w8a8, out, ref,
                         cuda_time_ms(run), cuda_time_ms(plain, iters=2),
                         cuda_time_ms(_library_call(torch, x, wq[blk], w8a8)),
@@ -2245,8 +2318,12 @@ def hidream_step(torch):
                                     pooled, ids, txt_ids, cond, ids, sig,
                                     None, None, w8a8=True, text_streams=llama)
 
+    cuda_build.LAUNCHES.clear()
     first = step()
     torch.cuda.synchronize()
+    # the first step makes every W8A8 wgmma weight K-major (each expert stack
+    # and dense wgmma leaf once), the second none
+    converted = cuda_build.LAUNCHES["w8a8_layout:kmajor"]
     cuda_build.LAUNCHES.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2265,6 +2342,11 @@ def hidream_step(torch):
           f"{json.dumps(counts, sort_keys=True)}", flush=True)
     if got != want:
         raise Failure(f"HiDream step launches {got} != {want}")
+    print(f"  weights made K-major: {converted} leaves in the first step, "
+          f"{counts.get('w8a8_layout:kmajor', 0)} in the second", flush=True)
+    if not converted or counts.get("w8a8_layout:kmajor") or counts.get("w8a8_layout:kn"):
+        raise Failure("HiDream step: the first step must make the W8A8 weights K-major "
+                      "and the second convert none")
     if not (torch.isfinite(second.float()).all() and torch.equal(first, second)):
         raise Failure("HiDream step: not finite, or not equal to the warm-up "
                       "step bit for bit")
@@ -6375,7 +6457,8 @@ def kernel_table(records, launches):
                                           "mma_sync_ms", "mma_sync_device_ms",
                                           "mma_sync_flips", "block_device_ms",
                                           "library_device_ms", "cublas_bf16_ms",
-                                          "cublas_bf16_device_ms", "transpose_share",
+                                          "cublas_bf16_device_ms", "probe_mma",
+                                          "probe_loop", "probe_epilogue",
                                           "prescale_ms", "sequential_ms",
                                           "sequential_device_ms", "chain_bound_ms")
                if key in main},

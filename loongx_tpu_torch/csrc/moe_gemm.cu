@@ -17,10 +17,11 @@
 //     past an optional device-side count are left alone.
 //   * moe_gemm_kernel: the grouped W8A8 GEMM, the persistent pipeline of w8a8_pipeline.cuh
 //     (qmm_wgmma_kernel's) over a buffer of row groups: group g holds rows [start_g, start_g +
-//     count_g), read from device memory when the kernel starts, its weight the g-th [K, N]
-//     slice of a [G, K, N] stack and its scales the g-th row of [G, N].  The TMA maps cover the
-//     whole buffer (its size, a bound the host knows), so a launch serves every group.  Epilogues
-//     (fp32, then one cast to bf16): EPI_SWIGLU over a gate/up weight whose columns are
+//     count_g), read from device memory when the kernel starts, its weight the g-th slice of a
+//     stack stored K-major ([G, N, K] in memory: the [G, K, N] stack's slices transposed) and
+//     its scales the g-th row of [G, N].  The TMA maps cover the whole buffer (its size, a
+//     bound the host knows), so a launch serves every group.  Epilogues (fp32, then one cast
+//     to bf16): EPI_SWIGLU over a gate/up weight whose columns are
 //     interleaved per 128-wide tile (64 gate columns, then the 64 up columns that pair with
 //     them), h = silu(z_gate) * z_up written as a [M, N / 2] tile of 64 columns; EPI_ROWS,
 //     z = acc * scale, times the row's routing weight where one is given.
@@ -260,8 +261,7 @@ struct Args {
   const int* counts;   // [G]
   __nv_bfloat16* out;  // [M, N] (EPI_ROWS) or [M, N / 2] (EPI_SWIGLU)
   int M, K, N, G, group, n_groups;
-  int Kp;      // = K: the pipeline's A row (whole stages)
-  int prep_b;  // = 1: the pipeline transposes every B tile
+  int Kp;  // = K: the pipeline's A row (whole stages)
 };
 
 __device__ __forceinline__ float silu(float z) { return __fdiv_rn(z, __fadd_rn(1.f, expf(-z))); }
@@ -451,7 +451,8 @@ extern "C" int moe_quant(const void* x, const int* src, const int* limit, int R,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The grouped GEMM: a int8 [M, K] codes, xs fp32 [M, K / group], w int8 [G, K, N], scale fp32
+// The grouped GEMM: a int8 [M, K] codes, xs fp32 [M, K / group], w int8 K-major [G, N, K] (each
+// [K, N] slice transposed in memory, 16-byte aligned), scale fp32
 // [G, N], groups from offsets [G + 1] / counts [G] on the device (null: one group of M rows);
 // epilogue 0 (swiglu: out bf16 [M, N / 2]) or 1 (rows: out bf16 [M, N], times row_w [M] where
 // given).  K, N and the group whole 128 tiles, G at most 8.
@@ -467,14 +468,12 @@ extern "C" int moe_gemm(int epilogue, const void* a, const float* xs, const void
   CUtensorMap ma, mb;
   const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
   const uint64_t a_strides[1] = {static_cast<uint64_t>(K)};
-  const uint64_t b_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(G) * K};
-  const uint64_t b_strides[1] = {static_cast<uint64_t>(N)};
   const uint32_t box[2] = {128, 128};
   if (!hopper::make_tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a, a_dims, a_strides, box) ||
-      !hopper::make_tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, b_dims, b_strides, box))
+      !w8a8_pipe::weight_map(&mb, w, K, static_cast<uint64_t>(G) * N))
     return static_cast<int>(cudaErrorInvalidValue);
   Args p{xs, scale, row_w, offsets, counts, static_cast<__nv_bfloat16*>(out), M, K, N, G, group,
-         K / group, K, 1};
+         K / group, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
     case EPI_SWIGLU: return static_cast<int>(launch_one<EPI_SWIGLU>(ma, mb, p, st));

@@ -73,7 +73,7 @@ enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_QKV = 2, EPI_GATE = 3, EPI_GELU_
 struct QmmArgs {
   const uint8_t* a;     // W8A8: int8 [M, Kp]; weight-only: bf16 [M, K]
   const float* xs;      // W8A8: fp32 [M, n_groups]
-  const uint8_t* w;     // int8 [K, N] (block already offset)
+  const uint8_t* w;     // int8 [K, N]; qmm_wgmma_kernel: K-major [N, K] (block already offset)
   const float* scale;   // fp32 [N]
   const float* bias;    // fp32 [N] or null
   const float* norm_w;  // fp32 [3, H] (EPI_QKV)
@@ -83,8 +83,8 @@ struct QmmArgs {
   const float* gate;    // fp32 [8, N] (EPI_GATE, EPI_GELU_GATE)
   __nv_bfloat16* out;   // [M, N] or [3, M, H]
   int M, K, Kp, N, group, n_groups, head_dim, plane_h, boundary;
-  // wgmma kernels: 0 skips preparing the weight operand, the W8A8 kernel's B transpose or the
-  // weight-only kernel's widening (a timing probe of its share; wrong results)
+  // the weight-only wgmma kernel: 0 skips widening the weight operand (a timing probe of its
+  // share; wrong results)
   int prep_b;
 };
 
@@ -824,19 +824,23 @@ cudaError_t launch_act_quant_warp(const __nv_bfloat16* x, int M, int K, int grou
 // ---------------------------------------------------------------------------------------
 // The W8A8 GEMM on wgmma (kernels 2, 3 and 4 at every shape the tiling takes; the Python
 // wrapper's `qmm_route` names the rule): the persistent pipeline of w8a8_pipeline.cuh (a TMA
-// producer, a warpgroup transposing each raw weight tile K-major, two consumer warpgroups on
-// wgmma m64n128k32 s8 x s8 -> s32 folding each activation group into fp32 by the row's scale)
-// over one group of every row.  Epilogues as qmm_kernel's on the wgmma fragment (mma.sync's C
-// fragment repeated over the 16 n-tiles of 8 columns), gelu by the exact gelu_tanh (tanhf); the
-// bf16 tile is staged in shared memory and written as whole rows.
-// What bounds it: with the transpose, each 128-deep stage moves 112 KB through shared memory
-// (TMA 32, transpose 32, wgmma 48) against 491 cycles of int8 tensor work at the data sheet's
-// rate, and 32 KB from L2; the epilogue (gelu) runs unoverlapped on the consumers.
+// producer landing the activation codes and the K-major weight, [N, K], as wgmma reads them; two
+// consumer warpgroups on wgmma m64n128k32 s8 x s8 -> s32 folding each activation group into fp32
+// by the row's scale) over one group of every row.  Epilogues as qmm_kernel's on the wgmma
+// fragment (mma.sync's C fragment repeated over the 16 n-tiles of 8 columns), gelu by the exact
+// gelu_tanh (tanhf); the bf16 tile is staged in shared memory and written as whole rows.
+// What bounds it: each 128-deep stage moves 80 KB through shared memory (TMA 32, wgmma 48)
+// against 491 cycles of int8 tensor work at the data sheet's rate, about 625 cycles at 128 bytes
+// a cycle, and 32 KB from L2 (112 KB before the weight was stored K-major, when a fourth
+// warpgroup rewrote every [K, N] weight tile).  The stage probe (w8a8_pipeline.cuh) reads 457
+// cycles a stage of barrier wait and wgmma at M 2560 K 3072 N 12288, and the gelu epilogue,
+// run by the consumers while the producer loads the next tile's first stages, 13822 cycles a
+// tile, more than the tile's 24 stages take.
 
 namespace wg {
 
-// the pipeline's tiles and warpgroups, its B-tile transpose (the split-K and K 64 kernels below
-// take transpose4x4) and the card's SM count
+// the pipeline's tiles and warpgroups, transpose4x4 (the split-K and K 64 kernels below
+// transpose their [K, N] weight panels with it) and the card's SM count
 using w8a8_pipe::BK;
 using w8a8_pipe::BM;
 using w8a8_pipe::BN;
@@ -975,13 +979,10 @@ cudaError_t launch(int epilogue, const QmmArgs& p, cudaStream_t st) {
   CUtensorMap ma, mb;
   const uint64_t a_dims[2] = {static_cast<uint64_t>(p.Kp), static_cast<uint64_t>(p.M)};
   const uint64_t a_strides[1] = {static_cast<uint64_t>(p.Kp)};
-  const uint64_t b_dims[2] = {static_cast<uint64_t>(p.N), static_cast<uint64_t>(p.K)};
-  const uint64_t b_strides[1] = {static_cast<uint64_t>(p.N)};
   const uint32_t box[2] = {128, 128};
   if (!hopper::make_tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.a, a_dims, a_strides,
                                box) ||
-      !hopper::make_tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w, b_dims, b_strides,
-                               box))
+      !w8a8_pipe::weight_map(&mb, p.w, p.K, p.N))
     return cudaErrorInvalidValue;
   switch (epilogue) {
     case EPI_BIAS: return launch_one<EPI_BIAS>(ma, mb, p, st);
@@ -2136,18 +2137,17 @@ extern "C" int qmm_gemm(int w8a8, int epilogue, const void* a, const float* xs, 
 }
 
 // The W8A8 GEMM on wgmma: the arguments of qmm_gemm in W8A8 mode (a int8 [M, Kp], 16-byte
-// aligned rows and base; w int8 [K, N]).  Takes Kp and group multiples of 128, K >= 128 and
-// N >= 128 (a multiple of 16); anything else returns cudaErrorInvalidValue.  transpose_b = 0
-// leaves the B tiles untransposed (wrong results): it measures what the transpose costs.
+// aligned rows and base), the weight K-major: w int8 [N, K] (the [K, N] weight's transpose in
+// memory, 16-byte aligned).  Takes Kp and group multiples of 128, K >= 128 a multiple of 16 and
+// N >= 128 (a multiple of 16); anything else returns cudaErrorInvalidValue.
 extern "C" int qmm_gemm_wgmma(int epilogue, const void* a, const float* xs, const void* w,
                               const float* scale, const float* bias, const float* norm_w,
                               const void* resid, const float* gate, void* out, int M, int K,
                               int Kp, int N, int group, int n_groups, int head_dim, int plane_h,
-                              int boundary, int transpose_b, void* stream) {
+                              int boundary, void* stream) {
   if (!gated_ok(epilogue, resid, gate)) return static_cast<int>(cudaErrorInvalidValue);
-  QmmArgs p = make_args(a, xs, w, scale, bias, norm_w, nullptr, nullptr, resid, gate, out, M, K,
-                        Kp, N, group, n_groups, head_dim, plane_h, boundary);
-  p.prep_b = transpose_b;
+  const QmmArgs p = make_args(a, xs, w, scale, bias, norm_w, nullptr, nullptr, resid, gate, out,
+                              M, K, Kp, N, group, n_groups, head_dim, plane_h, boundary);
   return static_cast<int>(wg::launch(epilogue, p, static_cast<cudaStream_t>(stream)));
 }
 

@@ -16,6 +16,10 @@ index (``_blk``), every other leaf is indexed per block.  Routing:
     the MLP-in projections) and the fused qkv -> ``quant_qkv_stacked``;
   * int8 flat linears (embedders, norm_out, proj_out) -> ``quant_matmul``
     (fused bias + gelu where `linear_gelu` has no active LoRA);
+  * the W8A8 GEMM on wgmma reads its weight K-major: its first launch
+    makes the leaf K-major in place, a launch of any other kernel (or the
+    dequantised product under a tensor context) makes it [K, N] again
+    (``ops.w8a8_layout``: the same logical tensor, the strides the marker);
   * every int8 linear keeps the kernel's bf16 output: the bias rides in
     its epilogue, an active LoRA adds ((x A) * scale * mask) B to it as one
     rank-r update (`_int8_linear`);
@@ -76,7 +80,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from loongx_tpu_torch.ops import cuda_build
+from loongx_tpu_torch.ops import cuda_build, w8a8_layout
 from loongx_tpu_torch.ops import flash_attention as fa
 from loongx_tpu_torch.ops import quant_matmul as qmm
 from loongx_tpu_torch.ops.nn import (
@@ -367,6 +371,7 @@ def linear(p: Params, x: torch.Tensor, use_lora: bool = True,
         return y.reshape(*lead, -1).to(x.dtype)
     if serving_tp and stacked:
         blk = p["_blk"]
+        w8a8_layout.to_kn(p["kernel_q"], 1)  # the [K, N] product, as stored
         w = (p["kernel_q"][blk].float()
              * p["kernel_scale"][blk].float()).to(x.dtype)
         y = torch.matmul(x2.float(), w.float())

@@ -450,6 +450,8 @@ def hidream_forward(params: Params, cfg: HiDreamConfig, *, img: torch.Tensor,
     `flux_forward`."""
     del txt_ids, guidance
     flags = flags or {}
+    if w8a8:
+        moe.kmajor_stacks(params)  # the grouped GEMM reads them K-major
     use_cond = cond is not None
     wdt = img.dtype
     pooled = pooled.to(wdt)

@@ -27,6 +27,11 @@ One layer (`expert_layer`), W8A8 on a CUDA tensor:
      a gather, no atomics.
 
 A dense SwiGLU (`swiglu_layer`) runs the same kernels as one group.  The
+grouped GEMM reads its weight stacks K-major (`ops.w8a8_layout`: each
+[K, N] slice stored transposed, the strides the marker): a launch makes a
+whole stack K-major in place, and `kmajor_stacks` makes every stack of a
+serving tree K-major before its blocks index them (a block's view of a
+[NB, E, K, N] stack cannot move by itself).  The
 activation group of a W8A8 product is `expert_group(K)`: the largest
 multiple of 128 up to 2560 that divides K (2560 at K 2560, 2304 at 6912,
 1792 at 3584), K itself where none does (the tiny test widths).
@@ -49,7 +54,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from loongx_tpu_torch.ops import cuda_build
+from loongx_tpu_torch.ops import cuda_build, w8a8_layout
 from loongx_tpu_torch.utils import profiling
 from loongx_tpu_torch.utils.profiling import span
 
@@ -81,6 +86,27 @@ def capacity(pairs: int, experts: int) -> int:
     rows of padding an expert, whole 128-row tiles."""
     rows = pairs + (ROW_TILE - 1) * experts
     return -(-rows // ROW_TILE) * ROW_TILE
+
+
+def gemm_ok(k: int, n: int) -> bool:
+    """Does the grouped GEMM take a [K, N] weight: K and N whole 128
+    tiles?"""
+    return k % ROW_TILE == 0 and n % ROW_TILE == 0 and k > 0 and n > 0
+
+
+def kmajor_stacks(tree) -> None:
+    """Make every expert stack of ``tree`` (its ``w13_q`` / ``w2_q``
+    leaves, [E, K, N] or a block stack [NB, E, K, N]) K-major in place
+    where the grouped GEMM takes its shape; a stack already K-major costs a
+    look at its strides."""
+    if not isinstance(tree, dict):
+        return
+    for key, v in tree.items():
+        if key in ("w13_q", "w2_q") and isinstance(v, torch.Tensor):
+            if gemm_ok(v.shape[-2], v.shape[-1]):
+                w8a8_layout.to_kmajor(v, v.ndim - 2)
+        else:
+            kmajor_stacks(v)
 
 
 def interleave_swiglu(w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
@@ -318,17 +344,24 @@ def grouped_gemm(codes: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
     [G, K, N] (scale [G, 1, N]), group g over rows [offsets[g], offsets[g] +
     counts[g]) (None: one group of every row) -> bf16 [M, N / 2] (SwiGLU)
     or [M, N] (rows, times ``row_w`` where given); one launch
-    (`grouped_gemm_plain` on CPU)."""
+    (`grouped_gemm_plain` on CPU).  The kernel reads ``w`` K-major: a
+    stack of its own (or a view of the whole of one) is made K-major in
+    place first."""
+    g, k, n = w.shape
+    kmajor = gemm_ok(k, n) and w8a8_layout.to_kmajor(w, 1)
     if codes.device.type == "cpu":
         return grouped_gemm_plain(codes, xs, w, scale, epilogue, offsets,
                                   counts, row_w)
-    g, k, n = w.shape
     m, dev = codes.shape[0], codes.device
     _operand(codes, torch.int8, (m, k), "codes", dev)
     _check(xs.ndim == 2 and xs.shape[1] > 0 and k % xs.shape[1] == 0,
            f"scales {tuple(xs.shape)} do not split K {k} into groups")
     _operand(xs, torch.float32, (m, xs.shape[1]), "scales", dev)
-    _operand(w, torch.int8, (g, k, n), "weight stack", dev)
+    _check(w.dtype == torch.int8 and w.device == dev and kmajor,
+           f"weight stack must be int8 [G, K, N] on {dev}, K and N whole 128 "
+           f"tiles, K-major or able to become so in place (a stack of its "
+           f"own); got {w.dtype} {tuple(w.shape)} strides {w.stride()} on "
+           f"{w.device}")
     _operand(scale, torch.float32, (g, 1, n), "weight scales", dev)
     if offsets is not None:
         _operand(offsets, torch.int32, (g + 1,), "offsets", dev)
@@ -383,7 +416,8 @@ def combine(resid: torch.Tensor, gate: torch.Tensor,
 
 
 def _dequant(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return w.float() * scale.float()
+    """Row-major float32 (the same products from either int8 layout)."""
+    return (w.float() * scale.float()).contiguous()
 
 
 def _float_swiglu(x: torch.Tensor, p: Dict[str, torch.Tensor], g: int

@@ -26,8 +26,8 @@ In W8A8 mode the GEMM is preceded by `act_quant`, a small kernel of the
 same source that quantizes the activations (one warp per (row, group)
 where `act_quant_route` says so: every FLUX shape), except on the K 64
 route, whose kernel computes the same codes itself.  Hand-written forward
-GEMMs share the contracts: the W8A8 GEMM on wgmma (TMA ring, a transposing
-warpgroup, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
+GEMMs share the contracts: the W8A8 GEMM on wgmma (TMA ring, the weight
+read K-major, ``qmm_wgmma_kernel``) and the weight-only GEMM on bf16 wgmma
 (TMA ring, the int8 weight widened in registers as the operand of y^T =
 W^T x^T, ``qmm_bf16_wgmma_kernel``) take every shape their 128 x 128 tiles
 cover, the split-K kernel (``qmm_splitk_kernel``: K split over a
@@ -35,7 +35,12 @@ thread-block cluster, `splitk_plan`) both modes at N below one tile (the
 final proj_out, N 64), the K 64 kernel (``qmm_k64_kernel``: one 64-wide
 k panel, W8A8 quantizing x in the kernel, no activation pass) both modes
 at x_embedder, the ``mma.sync`` kernel (``qmm_kernel``) the rest;
-`qmm_route` is the rule, a dispatch by shape.  The transposed products
+`qmm_route` is the rule, a dispatch by shape.  The W8A8 GEMM on wgmma reads
+its weight K-major: the first launch that routes a weight there makes it
+K-major in place (`ops.w8a8_layout`: the same logical tensor, its strides
+the marker), and a launch of any other kernel makes it ``[K, N]`` again,
+once.  CPU tensors keep their layout: the plain versions read either.  The
+transposed products
 likewise: ``qmm_t_wgmma_kernel`` (bf16 wgmma with the weight widened in
 registers, after a pre-scale pass over dy) and ``qmm_t_narrow_kernel``
 (a contraction of at most 64, the pre-scale and the widening in the kernel:
@@ -114,7 +119,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from loongx_tpu_torch.ops import cuda_build
+from loongx_tpu_torch.ops import cuda_build, w8a8_layout
 
 EPI_BIAS, EPI_GELU, EPI_QKV, EPI_GATE, EPI_GELU_GATE = 0, 1, 2, 3, 4
 _LN_EPS = 1e-6  # the FLUX layer norm's epsilon, as the JAX package's _LN_EPS
@@ -126,7 +131,7 @@ _T_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
 _STATS_SIGNATURE = [_P, _I, _I, _I, _P, _I, _P]
 _PASS_SIGNATURE = [_P, _I, _I, _P, _I, _P, _I, _P, _P]
 _WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _P]
+                    _I, _I, _I, _I, _I, _P]
 _BF16_WGMMA_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P]
 _T_WGMMA_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -348,6 +353,30 @@ def active_route(rule: str) -> str:
     return cuda_build.FORCED_ROUTE or rule
 
 
+def launch_route(k: int, n: int, group: int, k_pad: int, w8a8: bool,
+                 prologue: bool = False) -> str:
+    """The forward GEMM a launch takes now: `active_route` of `qmm_route`,
+    except that a W8A8 weight whose K is not a multiple of 16 (none in
+    FLUX or HiDream) leaves ``"wgmma"`` for ``"mma_sync"``: the K-major
+    weight's rows lie K bytes apart, and TMA takes strides of whole 16
+    bytes."""
+    route = active_route(qmm_route(k, n, group, k_pad, w8a8, prologue))
+    if w8a8 and route == "wgmma" and k % 16:
+        return "mma_sync"
+    return route
+
+
+def weight_layout(w: torch.Tensor, kdim: int, route: str, w8a8: bool) -> bool:
+    """Put int8 weight ``w`` (contraction axis ``kdim``) in the layout the
+    forward ``route`` reads, in place (`ops.w8a8_layout`): K-major for the
+    W8A8 GEMM on wgmma, ``[K, N]`` for every other kernel; True where it
+    is in that layout afterwards (a view of part of a stack cannot
+    move)."""
+    if w8a8 and route == "wgmma":
+        return w8a8_layout.to_kmajor(w, kdim)
+    return w8a8_layout.to_kn(w, kdim)
+
+
 def qkv_supported(k: int, n3: int, head_dim: int) -> bool:
     """Can the fused-qkv kernel take this shape (quant_qkv_stacked)?"""
     h = n3 // 3
@@ -462,7 +491,8 @@ def _plain_acc(x, w_q, scale, bias, w8a8: bool, group: int, k_pad: int,
             acc = acc + torch.matmul(xq[:, part], wf[part]) * xs[:, gi:gi + 1]
         out_dtype = torch.bfloat16
     else:
-        acc = torch.matmul(x.float(), w_q.float())
+        # row-major float32 weight: the same sums from either int8 layout
+        acc = torch.matmul(x.float(), w_q.float().contiguous())
         out_dtype = x.dtype
     z = acc * scale.reshape(-1).float()
     if bias is not None:
@@ -522,7 +552,7 @@ def qmm_t_plain(dy: torch.Tensor, w_q: torch.Tensor,
     a stack is fine): dy [M, N], scale broadcastable to [N] -> dx [M, K] in
     dy's dtype."""
     a = (dy.float() * scale.reshape(-1).float()).to(dy.dtype).float()
-    return torch.matmul(a, w_q.float().t()).to(dy.dtype)
+    return torch.matmul(a, w_q.float().contiguous().t()).to(dy.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +718,7 @@ def _launch(name: str, x, route: str, w_ptr: int, k: int, n: int,
         code = fn(epilogue, a.data_ptr(), _ptr(xs), w_ptr, scale_ptr, bias_ptr,
                   norm_w_ptr, _ptr(resid), _ptr(gate), out.data_ptr(), m, k,
                   k_pad, n, group, n_groups, head_dim, plane_h, seg_boundary,
-                  1, stream)
+                  stream)
     elif route == "k64":
         _check(ab is None, "the K 64 kernel takes no W8A8 prologue")
         fn = cuda_build.entry("quant_matmul", "qmm_gemm_k64", _K64_SIGNATURE)
@@ -735,10 +765,16 @@ def _cuda_vec(t: Optional[torch.Tensor], shape, what: str, device):
     return t
 
 
-def _cuda_weight(w: torch.Tensor, device):
-    _check(w.dtype == torch.int8 and w.is_contiguous() and w.device == device,
-           f"weight must be contiguous int8 on {device}, got {w.dtype} on "
-           f"{w.device}")
+def _cuda_weight(w: torch.Tensor, device, in_layout: bool = True):
+    """Check the weight a kernel reads; ``in_layout``: `weight_layout`'s
+    answer (the route's layout, which a view of part of a stack cannot
+    take)."""
+    _check(w.dtype == torch.int8 and w.device == device,
+           f"weight must be int8 on {device}, got {w.dtype} on {w.device}")
+    _check(in_layout, f"weight {tuple(w.shape)} (strides {w.stride()}) is "
+           "not in the layout its kernel reads (contiguous [K, N], or K-major "
+           "for the W8A8 GEMM on wgmma) and cannot change in place: pass the "
+           "whole stack or a tensor of its own")
     _check(w.shape[-1] % 16 == 0, f"N {w.shape[-1]} not a multiple of 16")
 
 
@@ -777,14 +813,15 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     """x [M, K] @ w_q [K, N] int8 * scale [1, N] (+ bias [1, N]) (+ gelu)."""
     k, n = w_q.shape
     group, k_pad = flat_w8a8_group(k, n)
+    route = launch_route(k, n, group, k_pad, w8a8)
+    in_layout = weight_layout(w_q, 0, route, w8a8)
     if x.device.type == "cpu":
         return qmm_plain(x, w_q, scale, bias, activation, w8a8, group, k_pad)
     x = _cuda_x(x, k)
-    _cuda_weight(w_q, x.device)
+    _cuda_weight(w_q, x.device, in_layout)
     _cuda_vec(scale, (1, n), "scale", x.device)
     _cuda_vec(bias, (1, n), "bias", x.device)
     out = torch.empty(x.shape[0], n, dtype=torch.bfloat16, device=x.device)
-    route = active_route(qmm_route(k, n, group, k_pad, w8a8))
     _launch("qmm_flat", x, route, w_q.data_ptr(), k, n, scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             EPI_GELU if activation == "gelu_tanh" else EPI_BIAS, w8a8, group,
@@ -825,6 +862,8 @@ def quant_matmul_stacked(x: torch.Tensor, w_q3: torch.Tensor,
             y = gate_res_plain(y.float(), resid, gate,
                                seg_boundary).to(torch.bfloat16)
         return y
+    route = launch_route(k, n, group, k_pad, w8a8, ab is not None)
+    in_layout = weight_layout(w_q3, 1, route, w8a8)
     if x.device.type == "cpu":
         return qmm_plain(x, w_q3[blk], scale3[blk],
                          None if bias3 is None else bias3[blk], activation,
@@ -832,10 +871,9 @@ def quant_matmul_stacked(x: torch.Tensor, w_q3: torch.Tensor,
     m = x.shape[0]
     name = ("qmm_stacked" + ("_ln" if ab is not None else "")
             + ("_gate" if resid is not None else ""))
-    route = active_route(qmm_route(k, n, group, k_pad, w8a8, ab is not None))
     x, ab, stats = _prologue(x, ab, seg_boundary, route, w8a8)
     x = _cuda_x(x, k)
-    _cuda_weight(w_q3, x.device)
+    _cuda_weight(w_q3, x.device, in_layout)
     _cuda_vec(scale3, (nb, 1, n), "scale", x.device)
     _cuda_vec(bias3, (nb, 1, n), "bias", x.device)
     _cuda_vec(ab, (8, k), "ab", x.device)
@@ -881,14 +919,15 @@ def quant_qkv_stacked(x: torch.Tensor, w_q3: torch.Tensor,
                 rms_heads_plain(kk, head_dim, norm_w[1]).to(torch.bfloat16),
                 v.to(torch.bfloat16))
     group, k_pad = stacked_w8a8_group(k, n3)
+    route = launch_route(k, n3, group, k_pad, w8a8, ab is not None)
+    in_layout = weight_layout(w_q3, 1, route, w8a8)
     if x.device.type == "cpu":
         return quant_qkv_plain(x, w_q3[blk], scale3[blk], bias3[blk], norm_w,
                                head_dim, w8a8, group, k_pad, ab, seg_boundary)
     name = "qmm_qkv_stacked" + ("_ln" if ab is not None else "")
-    route = active_route(qmm_route(k, n3, group, k_pad, w8a8, ab is not None))
     x, ab, stats = _prologue(x, ab, seg_boundary, route, w8a8)
     x = _cuda_x(x, k)
-    _cuda_weight(w_q3, x.device)
+    _cuda_weight(w_q3, x.device, in_layout)
     _cuda_vec(scale3, (nb, 1, n3), "scale", x.device)
     _cuda_vec(bias3, (nb, 1, n3), "bias", x.device)
     _cuda_vec(norm_w, (3, h), "norm_w", x.device)
@@ -957,10 +996,11 @@ def quant_matmul_t(dy: torch.Tensor, w_q: torch.Tensor,
     [1, N] -> [M, K] (bf16 from the kernel, dy's dtype from the plain
     version)."""
     k, n = w_q.shape
+    in_layout = w8a8_layout.to_kn(w_q, 0)
     if dy.device.type == "cpu":
         return qmm_t_plain(dy, w_q, scale)
     _cuda_dy(dy, n)
-    _cuda_weight(w_q, dy.device)
+    _cuda_weight(w_q, dy.device, in_layout)
     _cuda_vec(scale, (1, n), "scale", dy.device)
     return _launch_t("qmm_t", dy, w_q.data_ptr(), k, n, scale.data_ptr())
 
@@ -972,10 +1012,11 @@ def quant_matmul_t_stacked(dy: torch.Tensor, w_q3: torch.Tensor,
     nb, k, n = w_q3.shape
     if not 0 <= blk < nb:
         raise IndexError(f"block {blk} out of range for a stack of {nb}")
+    in_layout = w8a8_layout.to_kn(w_q3, 1)
     if dy.device.type == "cpu":
         return qmm_t_plain(dy, w_q3[blk], scale3[blk])
     _cuda_dy(dy, n)
-    _cuda_weight(w_q3, dy.device)
+    _cuda_weight(w_q3, dy.device, in_layout)
     _cuda_vec(scale3, (nb, 1, n), "scale", dy.device)
     return _launch_t("qmm_t_stacked", dy, _stack_ptr(w_q3, blk), k, n,
                      _stack_ptr(scale3, blk))

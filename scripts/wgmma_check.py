@@ -7,6 +7,8 @@ nvcc.
 
     python3 scripts/wgmma_check.py build [source ...]  # nvcc -Xptxas -v: registers, spills
     python3 scripts/wgmma_check.py qmm     # the W8A8 GEMM
+    python3 scripts/wgmma_check.py probe   # the W8A8 pipeline's stage probe and ring depths
+    python3 scripts/wgmma_check.py image DIR  # a served edit's image equal to checkout DIR's
     python3 scripts/wgmma_check.py wo      # the weight-only GEMM on bf16 wgmma
     python3 scripts/wgmma_check.py qmm_t   # the transposed GEMM on bf16 wgmma
     python3 scripts/wgmma_check.py flash   # the flash forward (+ RoPE pre-pass)
@@ -20,7 +22,10 @@ nvcc.
 
 k64 and s4d also time probes: the kernel built apart with a -D flag that cuts
 it short (``K64_PROBE_PREP``, ``S4D_PROBE_STOP``; wrong results), so that the
-time of the part cut away shows.
+time of the part cut away shows.  probe builds the W8A8 pipeline with
+``-DW8A8_PROBE`` (clock64 cycles of each phase, the results unchanged) and
+with shallower rings (``-DW8A8_STAGES=``), for the dense and the grouped
+GEMM.
 """
 
 import ctypes
@@ -34,7 +39,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     act_quant_cases, check_act_quant, check_fused, check_ln_mod_pass, check_ln_stats,
-    cuda_time_ms, device_ms, prescale_ms,
+    cuda_time_ms, device_ms, prescale_ms, probe_entries, read_stage_probe, stage_probe,
 )
 from loongx_tpu_torch.ops import cuda_build  # noqa: E402
 
@@ -59,29 +64,6 @@ def build(names=cuda_build.SOURCES):
                 print("\n".join("     " + x for x in lines[i + 1:i + 4]))
 
 
-def probe_entries(source, name, signature, defines):
-    """The C entry ``name`` of ``source`` built once for each of ``defines``
-    (``-D<define>``: a timing probe), all ``nvcc`` started together; a dict
-    define -> the entry with its signature set."""
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for define in defines:
-        out = cuda_build.BUILD_DIR / f"{source}-{define.replace('=', '')}-probe.so"
-        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{define}", "-o", str(out),
-               str(cuda_build.CSRC_DIR / f"{source}.cu")]
-        procs[define] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True), out)
-    entries = {}
-    for define, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {source}.cu -D{define} failed:\n{log}")
-        fn = getattr(ctypes.CDLL(str(out)), name)
-        fn.argtypes, fn.restype = list(signature), ctypes.c_int
-        entries[define] = fn
-    return entries
-
-
 def check_qmm(gen):
     from loongx_tpu_torch.ops import quant_matmul as qmm
     for m, k, n, act in [(256, 512, 256, None), (300, 3072, 384, "gelu_tanh"),
@@ -101,6 +83,8 @@ def check_qmm(gen):
         out = run()
         err = (out.float() - ref.float()).abs().max().item()
         tol = 2.0 ** -7 * ref.float().abs().max().item()
+        if not err <= tol or (act and not torch.equal(out, ref)):
+            FAILED.append(f"qmm M{m} K{k} N{n} {act}")
         print(f"qmm M{m} K{k} N{n} {act}: route "
               f"{qmm.qmm_route(k, n, group, k_pad, True)}, err {err:.3e} (tol {tol:.3e}), "
               f"outputs differing {int((out != ref).sum().item())}", flush=True)
@@ -680,16 +664,147 @@ def check_s4d(gen):
                   f"{'' if ok else '  FAILED'}", flush=True)
 
 
+# builds the probe mode times beside the package's (six stages): shallower rings
+PIPELINE_VARIANTS = ("W8A8_STAGES=4", "W8A8_STAGES=5")
+
+
+def _print_probe(label, probe):
+    print(f"   {label} stage probe, cycles: a stage (one consumer warpgroup) full-barrier "
+          f"wait {probe['probe_full_wait']:.0f}, wgmma {probe['probe_mma']:.0f}, loop "
+          f"{probe['probe_loop']:.0f}; a fold {probe['probe_fold']:.0f}; an epilogue "
+          f"{probe['probe_epilogue']:.0f}; the producer's empty wait a stage "
+          f"{probe['probe_empty_wait']:.0f}", flush=True)
+
+
+def check_probe(gen):
+    """The W8A8 pipeline at the serving shapes: each output against its plain
+    version (every one equal in the dense gelu cases), the stage probe, and the
+    GEMM alone built at each ring depth (its outputs equal to the package
+    build's), dense and grouped."""
+    from loongx_tpu_torch.ops import moe, w8a8_layout
+    from loongx_tpu_torch.ops import quant_matmul as qmm
+    defines = list(PIPELINE_VARIANTS)
+    dense = probe_entries("quant_matmul", "qmm_gemm_wgmma", qmm._WGMMA_SIGNATURE, defines)
+    grouped = probe_entries("moe_gemm", "moe_gemm", moe._GEMM_SIGNATURE, defines)
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, m, k, n, act in [("ff-in gelu", 2560, 3072, 12288, "gelu_tanh"),
+                                ("attn-out", 2560, 3072, 3072, None),
+                                ("ff-out K12288", 2560, 12288, 3072, None)]:
+        wq = torch.randint(-128, 128, (2, k, n), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        sc = torch.rand(2, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        bi = torch.randn(2, 1, n, generator=gen, device="cuda") * 0.02
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        group, k_pad = qmm.stacked_w8a8_group(k, n)
+        out = qmm.quant_matmul_stacked(x, wq, sc, 1, bias3=bi, activation=act, w8a8=True)
+        ref = qmm.qmm_plain(x, wq[1], sc[1], bi[1], act, True, group, k_pad)
+        flips = int((out != ref).sum().item())
+        if not w8a8_layout.is_kmajor(wq, 1) or (act and flips):
+            FAILED.append(f"probe {label}")
+        a, xs = qmm.act_quant(x, group, k_pad)
+        y = torch.empty_like(out)
+        epi = qmm.EPI_GELU if act else qmm.EPI_BIAS
+
+        def at(fn):
+            return lambda: cuda_build.check(fn(
+                epi, a.data_ptr(), xs.data_ptr(), qmm._stack_ptr(wq, 1),
+                qmm._stack_ptr(sc, 1), qmm._stack_ptr(bi, 1), None, None, None, y.data_ptr(),
+                m, k, k_pad, n, group, k_pad // group, 0, 0, 0, stream), "qmm_gemm_wgmma")
+        package = cuda_build.entry("quant_matmul", "qmm_gemm_wgmma", qmm._WGMMA_SIGNATURE)
+        times = {"package": round(cuda_time_ms(at(package)), 4)}
+        for d in defines:
+            run = at(dense[d])
+            run()
+            if not torch.equal(y, out):
+                FAILED.append(f"probe {label} {d}: output differs")
+            times[d] = round(cuda_time_ms(run), 4)
+        print(f"qmm M{m} K{k} N{n} {act} (K-major weight): outputs differing from the plain "
+              f"version {flips}; GEMM ms by build {times}", flush=True)
+        _print_probe(label, stage_probe(torch, qmm, x, wq, sc, bi, 1, act, group, k_pad))
+
+    # HiDream's routed experts: four groups of 2816 rows, gate-up then down
+    g_count, rows = 4, 2816
+    m = g_count * rows
+    offsets = torch.arange(0, m + 1, rows, dtype=torch.int32, device="cuda")
+    counts = torch.full((g_count,), rows, dtype=torch.int32, device="cuda")
+    for label, k, n, epi in [("gate-up swiglu", 2560, 13824, moe.EPI_SWIGLU),
+                             ("down rows", 6912, 2560, moe.EPI_ROWS)]:
+        group = moe.expert_group(k)
+        codes = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                              generator=gen)
+        xs = torch.rand(m, k // group, generator=gen, device="cuda") * 1e-2 + 1e-3
+        w = torch.randint(-128, 128, (g_count, k, n), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        sc = torch.rand(g_count, 1, n, generator=gen, device="cuda") * 2e-5 + 1e-5
+        out = moe.grouped_gemm(codes, xs, w, sc, epi, offsets, counts)
+        ref = moe.grouped_gemm_plain(codes, xs, w, sc, epi, offsets, counts)
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        y = torch.empty_like(out)
+
+        def at(fn):
+            return lambda: cuda_build.check(fn(
+                epi, codes.data_ptr(), xs.data_ptr(), w.data_ptr(), sc.data_ptr(), None,
+                offsets.data_ptr(), counts.data_ptr(), y.data_ptr(), m, k, n, g_count, group,
+                stream), "moe_gemm")
+        package = cuda_build.entry("moe_gemm", "moe_gemm", moe._GEMM_SIGNATURE)
+        times = {"package": round(cuda_time_ms(at(package)), 4)}
+        for d in defines:
+            run = at(grouped[d])
+            run()
+            if not torch.equal(y, out):
+                FAILED.append(f"probe {label} {d}: output differs")
+            times[d] = round(cuda_time_ms(run), 4)
+        if not rel < 1e-2:
+            FAILED.append(f"probe grouped {label}: rel L2 {rel}")
+        print(f"moe_gemm {label} G{g_count} M{m} K{k} N{n}: rel L2 to the plain version "
+              f"{rel:.2e}; ms by build {times}", flush=True)
+        fn = probe_entries("moe_gemm", "moe_gemm", moe._GEMM_SIGNATURE,
+                           ["W8A8_PROBE"])["W8A8_PROBE"]
+        _print_probe(label, read_stage_probe("moe_gemm", at(fn)))
+
+
+def check_image(other):
+    """One served W8A8 edit (FLUX.1-dev, then HiDream-I1; scripts/serve_image.py)
+    from this checkout and from checkout ``other`` (say, the parent commit's
+    `git archive`), each in a process of its own: the images equal bit for
+    bit."""
+    import numpy as np
+    out = cuda_build.BUILD_DIR / "serve_image"  # beside the builds, ignored by git
+    out.mkdir(parents=True, exist_ok=True)
+    script = str(Path(__file__).resolve().parent / "serve_image.py")
+    for model in ("flux", "hidream"):
+        paths = {}
+        for label, package in (("other", other), ("this", None)):
+            paths[label] = out / f"serve_image_{model}_{label}.npy"
+            cmd = [sys.executable, script, str(paths[label])]
+            cmd += ["--hidream"] if model == "hidream" else []
+            cmd += ["--package", package] if package else []
+            if subprocess.run(cmd).returncode != 0:
+                FAILED.append(f"image {model} {label}")
+        if all(p.exists() for p in paths.values()):
+            a, b = np.load(paths["this"]), np.load(paths["other"])
+            same = a.shape == b.shape and np.array_equal(a, b)
+            print(f"image {model}: this checkout's equal to {other}'s bit for bit: {same}; "
+                  f"max |diff| {float(np.abs(a - b).max()) if a.shape == b.shape else None}",
+                  flush=True)
+            if not same:
+                FAILED.append(f"image {model}: differs from {other}'s")
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "build":
         build(sys.argv[2:] or cuda_build.SOURCES)
-    elif what in ("qmm", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln", "narrow", "k64",
-                  "s4d"):
+    elif what == "image" and len(sys.argv) == 3:
+        check_image(sys.argv[2])
+        if FAILED:
+            sys.exit(f"wgmma_check: {FAILED}")
+    elif what in ("qmm", "probe", "wo", "qmm_t", "flash", "bwd", "int8", "actq", "ln", "narrow",
+                  "k64", "s4d"):
         if not torch.cuda.is_available():
             sys.exit("wgmma_check: no CUDA device")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        {"qmm": check_qmm, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
+        {"qmm": check_qmm, "probe": check_probe, "wo": check_wo, "qmm_t": check_qmm_t, "flash": check_flash,
          "bwd": check_bwd, "int8": check_int8, "actq": check_actq, "ln": check_ln,
          "narrow": check_narrow, "k64": check_k64, "s4d": check_s4d}[what](gen)
         if FAILED:
